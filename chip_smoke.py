@@ -1,0 +1,319 @@
+"""Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
+NVIDIA H100.
+
+Run from the repository root on a machine with the card and the CUDA
+toolkit:
+
+    python3 chip_smoke.py [--layers N] [--seed S]
+
+Phases, each failing loudly (non-zero exit, no result line):
+  1. the card's name and power limit; both CUDA kernels built with nvcc
+     for sm_90a from ``src/repro_torch/csrc``;
+  2. the ECF8 decode kernel against its plain PyTorch version, bit-exact,
+     at the qwen3-8b embed / wi_gate / wq shapes and on a one-symbol and a
+     near-uniform codebook, with CUDA-event median times;
+  3. the flash-attention kernel against its plain version in bf16 (B=1,
+     Hq=32, Hkv=8, D=128, causal, T in {13, 512, 2048}), with the time of
+     ``F.scaled_dot_product_attention`` as a yardstick;
+  4. a small f32 model whose prefill logits on the card (both kernels)
+     agree with the CPU run (plain versions);
+  5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
+     compressed and served by the paged engine (8 requests of 64-512
+     prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
+     kernels' launch counts must be non-zero over that run;
+  6. the same prompts on the fp8 baseline: greedy tokens must be identical.
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
+H100_BF16_FLOPS = 989e12            # dense tensor-core bf16, SXM data sheet
+FLASH_TOL = 2e-2
+
+
+def fail(msg: str):
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str):
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode:
+        fail(f"nvidia-smi exit {out.returncode}: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int, flush=None) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, CUDA events; the
+    L2 cache is overwritten before each call when ``flush`` is given."""
+    fn()                                     # warm-up (and lazy loads)
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def check_decode(torch, ecf8_decode, tpu_format, name, bits, flush, reps):
+    """Kernel 1 vs its plain version on one container -> result dict."""
+    t0 = time.perf_counter()
+    c = tpu_format.encode(bits.reshape(-1).contiguous())
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    args = (c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset, c.perm)
+    kw = dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
+    got = ecf8_decode.run(*args, **kw)
+    want = ecf8_decode.plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"ecf8_decode {name}: kernel differs from the plain version at "
+             f"{int((got != want).sum())} of {c.n_elem} bytes")
+    if not torch.equal(got, bits.reshape(-1)):
+        fail(f"ecf8_decode {name}: decode is not lossless")
+    moved = sum(t.numel() * t.element_size() for t in args) + c.n_elem
+    ms = cuda_ms(torch, lambda: ecf8_decode.run(*args, **kw), reps, flush)
+    plain_ms = cuda_ms(torch, lambda: ecf8_decode.plain(*args, **kw),
+                       max(2, reps // 5), flush)
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    log(f"ecf8_decode {name} {tuple(bits.shape)}: bit-exact, "
+        f"S={c.sym_per_lane} stride={c.stride} encode {enc_s:.2f}s, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({moved / 1e6:.1f} MB), {moved / ms / 1e6:.1f} GB/s")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None)
+
+
+def check_flash(torch, flash_fwd, T, gen):
+    """Kernel 4 vs its plain version (bf16, causal) -> result dict."""
+    B, Hq, Hkv, D = 1, 32, 8, 128
+    dev = "cuda"
+
+    def rnd(h):
+        return torch.randn((B, h, T, D), generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
+    got = flash_fwd.run(q, k, v, causal=True)
+    want = flash_fwd.plain(q, k, v, True, 0.0)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f"flash_fwd T={T}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    if err > FLASH_TOL:
+        fail(f"flash_fwd T={T}: max |kernel - plain| = {err} > {FLASH_TOL}")
+    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True, 0.0), 5)
+    k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
+    v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep, is_causal=True), 20)
+    pairs = T * (T + 1) // 2
+    flops = 4 * B * Hq * D * pairs
+    moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    bound_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    log(f"flash_fwd T={T}: max_abs_err {err:.3e} (tol {FLASH_TOL}), kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({'operations' if bound_ops >= bound_bytes else 'bytes'}"
+        f"), {flops / ms / 1e9:.2f} TFLOP/s")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                library_ms=lib_ms)
+
+
+def to_device(tree, dev, store):
+    """A parameter tree (tensors and CompressedTensors) moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev, store) for k, v in tree.items()}
+    if store.is_compressed(tree):
+        return store.CompressedTensor(
+            {k: a.to(dev) for k, a in tree.arrays.items()}, tree.meta)
+    return tree.to(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=36,
+                    help="qwen3-8b depth served in phase 5 (36 = full)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script runs on the card")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"{ROOT}/src/repro_torch not found: run from a repository "
+             f"checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get
+    from repro_torch.core import fp8, store, tpu_format
+    from repro_torch.kernels import build, ecf8_decode, flash_fwd
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import EngineConfig
+
+    # float32 products in full f32, as XLA computes them in the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = gpu_line()
+    log(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} visible)")
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build()
+    for name, (sec, report) in built.items():
+        log(f"built {name}.cu with nvcc {' '.join(build.NVCC_FLAGS[:2])} in "
+            f"{sec:.1f}s -> {build.library_path(name).name}")
+        for line in report.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"build phase {time.perf_counter() - t0:.1f}s "
+        f"({len(built)} of {len(build.SOURCES)} sources compiled)")
+
+    # -- 2. kernel 1: ECF8 decode -------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    cfg_full = get("qwen3-8b")
+    d, V, ff = cfg_full.d_model, cfg_full.vocab_size, cfg_full.d_ff
+    results = {}
+    for name, shape, fan_in in [("wq", (d, cfg_full.n_heads * cfg_full.hd), d),
+                                ("wi_gate", (d, ff), d),
+                                ("embed", (V, d), d)]:
+        w = torch.randn(shape, generator=gen, device="cuda").mul_(
+            fan_in ** -0.5)
+        bits = fp8.cast_to_fp8_bits(w)
+        del w
+        results[name] = check_decode(torch, ecf8_decode, tpu_format, name,
+                                     bits, flush, reps=20)
+        del bits
+    for name, bits in [
+            ("one-symbol", torch.full((128 * 64,), 0b0_0111_010,
+                                      dtype=torch.uint8, device="cuda")),
+            ("near-uniform", (torch.arange(128 * 64, device="cuda") * 11
+                              % 256).to(torch.uint8))]:
+        c = tpu_format.encode(bits, sym_per_lane=32)
+        a = (c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset, c.perm)
+        kw = dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
+        got, want = ecf8_decode.run(*a, **kw), ecf8_decode.plain(*a, **kw)
+        if not (torch.equal(got, want) and torch.equal(got, bits)):
+            fail(f"ecf8_decode {name} codebook: not bit-exact")
+        log(f"ecf8_decode {name} codebook: bit-exact")
+    del flush
+
+    # -- 3. kernel 4: flash-attention forward -------------------------------
+    for T in (13, 512, 2048):
+        results[f"flash_T{T}"] = check_flash(torch, flash_fwd, T, gen)
+
+    # -- 4. small input: the card agrees with the CPU (plain versions) -------
+    small = dataclasses.replace(
+        get("qwen3-8b"), name="qwen3-small", n_layers=2, d_model=256,
+        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+        dtype="float32")
+    p_cpu, _ = store.compress_tree(M.init_params(small, args.seed, "cpu"),
+                                   min_elems=4096, out_dtype="float32")
+    toks = torch.randint(0, small.vocab_size, (2, 37), generator=torch
+                         .Generator().manual_seed(args.seed))
+    l_cpu, _ = M.prefill(p_cpu, small, toks, max_len=64)
+    l_gpu, _ = M.prefill(to_device(p_cpu, "cuda", store), small,
+                         toks.cuda(), max_len=64)
+    err = float((l_gpu.cpu() - l_cpu).abs().max())
+    if not bool(torch.isfinite(l_gpu).all()) or err > 1e-4:
+        fail(f"small f32 prefill: card vs CPU max |dlogit| = {err}")
+    log(f"small f32 model (2 layers, d=256): prefill logits on the card vs "
+        f"CPU max |diff| {err:.2e} (tol 1e-4)")
+
+    # -- 5. serve qwen3-8b at full width -----------------------------------
+    cfg = dataclasses.replace(cfg_full, n_layers=args.layers)
+    log(f"serving {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), N = "
+        f"{cfg.n_layers} layers (depth cut {cfg_full.n_layers} -> "
+        f"{cfg.n_layers})")
+    torch.cuda.reset_peak_memory_stats()
+    params_c, params_fp8, report, enc_s = serve.build_params(
+        cfg, args.seed, "tpu", device="cuda")
+    fp8_b = report["fp8_bytes"]
+    log(f"ECF8 encode {enc_s:.1f}s: {report['n_compressed']} tensors, fp8 "
+        f"{fp8_b / 1e6:.1f} MB -> {report['compressed_bytes'] / 1e6:.1f} MB "
+        f"({100 * (1 - report['compressed_bytes'] / fp8_b):.2f}% saved)")
+    prompts = serve.make_prompts(cfg, 8, args.seed, lo=64, hi=513)
+    ecfg = EngineConfig(max_batch=4, max_len=1024)
+    ecf8_decode.run.launches = flash_fwd.run.launches = 0
+    done, eng, dt = serve.serve(params_c, cfg, ecfg, prompts, 32)
+    launches = {"ecf8_decode": ecf8_decode.run.launches,
+                "flash_fwd": flash_fwd.run.launches}
+    n_tok = sum(len(r.out_tokens) for r in done)
+    log(f"served {len(done)} requests (prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens), {n_tok} tokens in {dt:.2f}s: "
+        f"{n_tok / dt:.1f} tok/s, {eng.steps} decode steps at "
+        f"{eng.decode_seconds / eng.steps * 1e3:.1f} ms/step, prefill "
+        f"{eng.prefill_seconds:.2f}s total, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    log(f"launches over the serve run: {launches} (per decode step "
+        f"ecf8_decode = 7 x {cfg.n_layers} + 2 = {7 * cfg.n_layers + 2})")
+    if not all(launches.values()):
+        fail(f"a kernel of the main path never launched: {launches}")
+    if not all(r.done and len(r.out_tokens) == 32 for r in done) or any(
+            not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        fail("serve run: unfinished requests or out-of-vocab tokens")
+
+    # -- 6. lossless: the fp8 baseline gives the same tokens ----------------
+    done2, eng2, dt2 = serve.serve(params_fp8, cfg, ecfg, prompts, 32)
+    if not serve.same_tokens(done, done2):
+        fail("ECF8 tokens differ from the fp8 baseline")
+    log(f"lossless: ECF8 greedy tokens IDENTICAL to the fp8 baseline "
+        f"({dt2:.2f}s, {eng2.decode_seconds / eng2.steps * 1e3:.1f} "
+        f"ms/step on fp8 weights)")
+
+    kernels = [
+        dict(name="ecf8_decode", route="cuda",
+             source="src/repro_torch/csrc/ecf8_decode.cu",
+             replaces="src/repro/kernels/ecf8_decode.py:36",
+             launches=launches["ecf8_decode"], **results["wi_gate"]),
+        dict(name="flash_fwd", route="cuda",
+             source="src/repro_torch/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash_fwd.py:37",
+             launches=launches["flash_fwd"], **results["flash_T512"]),
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(gpu_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,29 @@
+"""The dispatch point of the port's kernels (the reference's ``ops._on_tpu``).
+
+A tensor on the CPU goes to the kernel's plain PyTorch version; any other
+tensor goes to the hand-written CUDA kernel, which launches or raises.
+There is no fallback from the card to the CPU or from a kernel to its
+plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ecf8_decode, flash_fwd
+
+
+def decode_ecf8(payload, signmant, lj_limit, first_lj, offset, perm, *,
+                sym_per_lane: int, n_elem: int) -> torch.Tensor:
+    """One ECF8-TPU container -> (n_elem,) uint8 fp8 bits."""
+    fn = ecf8_decode.plain if payload.device.type == "cpu" \
+        else ecf8_decode.run
+    return fn(payload, signmant, lj_limit, first_lj, offset, perm,
+              sym_per_lane=sym_per_lane, n_elem=n_elem)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    attn_softcap: float = 0.0) -> torch.Tensor:
+    """Full-sequence attention forward, q (B, Hq, Tq, D) -> (B, Hq, Tq, D)."""
+    if q.device.type == "cpu":
+        return flash_fwd.plain(q, k, v, causal, attn_softcap)
+    return flash_fwd.run(q, k, v, causal=causal, softcap=attn_softcap)

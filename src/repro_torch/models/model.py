@@ -1,0 +1,264 @@
+"""Decoder-only LM for the ``("attn",)`` pattern (the dense qwen3 family),
+built from ``ArchConfig``.  Plain functions over a nested-dict parameter
+tree laid out as the reference's:
+
+    {"embed": (V, d), "final_norm": (d,), ["unembed": (d, V),]
+     "units": {"pos0": {"norm1", "attn": {wq, wk, wv, wo[, q_norm,
+               k_norm]}, "norm2", "mlp": {wi_gate, wi_up, wo}}},
+     "tail": {}}
+
+where every leaf under ``"units"`` is stacked over a leading layer dim, and
+each weight keeps the ``(in, out)`` layout (``x @ W``) so that its ECF8
+container bytes equal the reference's.  The layer loop replaces the
+reference's ``lax.scan``; KV pools are updated in place.
+
+Entry points:
+  prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
+  decode_step(params, cfg, token, cache)  -> (logits, cache)   [paged cache]
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.store import is_compressed, torch_dtype
+from ..device import resolve
+from ..kernels import ops
+from ..kvcache import paged as paged_kv
+from .layers import (F32, apply_rope, decode_attention, mat, mlp_apply,
+                     mlp_init, rms_norm)
+
+SUPPORTED_KINDS = ("attn",)
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for architectures this slice of the port does not serve."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    if (not kinds <= set(SUPPORTED_KINDS) or cfg.unit != 1
+            or cfg.encoder_decoder or cfg.n_experts or cfg.post_norms
+            or cfg.mlp_type != "swiglu"):
+        raise NotImplementedError(
+            f"{cfg.name}: not yet ported (this slice serves the dense "
+            f"('attn',) SwiGLU family)")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _attn_init(gen, cfg: ArchConfig, lead, dtype):
+    d, hd = cfg.d_model, cfg.hd
+    dev = gen.device
+    s = d ** -0.5
+
+    def normal(shape):
+        return torch.randn(lead + shape, generator=gen, dtype=dtype,
+                           device=dev).mul_(s)
+
+    p = {
+        "wq": normal((d, cfg.n_heads * hd)),
+        "wk": normal((d, cfg.n_kv_heads * hd)),
+        "wv": normal((d, cfg.n_kv_heads * hd)),
+        "wo": normal((cfg.n_heads * hd, d)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(lead + (hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.zeros(lead + (hd,), dtype=dtype, device=dev)
+    return p
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
+                dtype=torch.float32):
+    """Random weights with the reference's distributions (``normal *
+    fan_in**-0.5``, norm scales zero), f32 masters, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (the draws
+    differ from ``jax.random``; parity tests convert the reference's own
+    weights with ``repro_torch.convert``)."""
+    check_supported(cfg)
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, V = cfg.d_model, cfg.vocab_size
+    params = {
+        "embed": torch.randn((V, d), generator=gen, dtype=dtype,
+                             device=dev).mul_(d ** -0.5),
+        "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = torch.randn(
+            (d, V), generator=gen, dtype=dtype, device=dev).mul_(d ** -0.5)
+    lead = (cfg.n_layers,)
+    params["units"] = {"pos0": {
+        "norm1": torch.zeros(lead + (d,), dtype=dtype, device=dev),
+        "attn": _attn_init(gen, cfg, lead, dtype),
+        "norm2": torch.zeros(lead + (d,), dtype=dtype, device=dev),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, lead, dtype),
+    }}
+    params["tail"] = {}
+    return params
+
+
+def _layer(tree, u: int):
+    """Layer ``u`` of the stacked unit parameters (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, u) for k, v in tree.items()}
+    return tree.layer(u) if is_compressed(tree) else tree[u]
+
+
+# --------------------------------------------------------------------------
+# sub-blocks
+# --------------------------------------------------------------------------
+
+def _qkv(p, x, cfg: ArchConfig, dtype, positions):
+    """positions: (T,) shared, or (B, T) per-slot (serving engine)."""
+    B, T, _ = x.shape
+    hd = cfg.hd
+    q = (x @ mat(p["wq"], dtype)).reshape(B, T, cfg.n_heads, hd)
+    k = (x @ mat(p["wk"], dtype)).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (x @ mat(p["wv"], dtype)).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    pos_b = (positions[None, None, :] if positions.ndim == 1
+             else positions[:, None, :])
+    q = apply_rope(q, pos_b, cfg.rope_theta)
+    k = apply_rope(k, pos_b, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(p, o, dtype):
+    B, H, T, hd = o.shape
+    o = o.transpose(1, 2).reshape(B, T, H * hd)
+    return o @ mat(p["wo"], dtype)
+
+
+def _self_attention_full(p, x, cfg: ArchConfig, dtype):
+    """Full-sequence causal self attention (prefill): the flash kernel."""
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device)
+    q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype, positions))
+    o = ops.flash_attention(q, k, v, True, cfg.attn_softcap)
+    return _attn_out(p, o, dtype), (k, v)
+
+
+def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
+                           page_table):
+    """One-token decode through the paged cache: the new K/V is written
+    into each slot's tail page (in place), each slot's history gathered
+    back, and the token attends over ``cur_len + 1`` positions."""
+    q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
+    k_pool, v_pool = pools
+    paged_kv.page_write(k_pool, page_table, cur_len, k)
+    paged_kv.page_write(v_pool, page_table, cur_len, v)
+    k_hist = paged_kv.page_gather(k_pool, page_table)
+    v_hist = paged_kv.page_gather(v_pool, page_table)
+    o = decode_attention(q, k_hist, v_hist, kv_len=cur_len + 1,
+                         attn_softcap=cfg.attn_softcap)
+    return _attn_out(p, o, dtype)
+
+
+def _layer_apply_full(p, x, cfg: ArchConfig, dtype):
+    """Full-sequence layer (prefill).  Returns (x, (k, v))."""
+    h = rms_norm(x, p["norm1"])
+    o, kv = _self_attention_full(p["attn"], h, cfg, dtype)
+    x = x + o
+    h2 = rms_norm(x, p["norm2"])
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype), kv
+
+
+def _layer_apply_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
+                        page_table):
+    h = rms_norm(x, p["norm1"])
+    x = x + _self_attention_decode(p["attn"], h, cfg, dtype, pools, cur_len,
+                                   page_table)
+    h2 = rms_norm(x, p["norm2"])
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
+
+
+# --------------------------------------------------------------------------
+# public entry points
+# --------------------------------------------------------------------------
+
+def _embed(params, cfg: ArchConfig, tokens, dtype):
+    x = mat(params["embed"], dtype)[tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype,
+                             device=x.device)
+    return x
+
+
+def _unembed(params, cfg: ArchConfig, x, dtype):
+    x = rms_norm(x, params["final_norm"])
+    if cfg.tie_embeddings:
+        logits = x @ mat(params["embed"], dtype).T
+    else:
+        logits = x @ mat(params["unembed"], dtype)
+    logits = logits.to(F32)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+               device="cuda"):
+    """Contiguous per-layer K/V of a prefill: ``units/pos0/{k,v}`` is
+    ``(n_layers, batch, n_kv, max_len, hd)``."""
+    dev = resolve(device)
+    s = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return {"units": {"pos0": {"k": torch.zeros(s, dtype=dtype, device=dev),
+                               "v": torch.zeros(s, dtype=dtype, device=dev)}},
+            "tail": {},
+            "cur_len": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
+    """Process a prompt, build its cache -> (last-pos logits (B, 1, V),
+    cache with K/V zero-padded to ``max_len``)."""
+    check_supported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    B, T = tokens.shape
+    max_len = max_len or T
+    cache = init_cache(cfg, B, max_len, dtype, tokens.device)
+    x = _embed(params, cfg, tokens, dtype)
+    units = params["units"]["pos0"]
+    kc, vc = cache["units"]["pos0"]["k"], cache["units"]["pos0"]["v"]
+    for u in range(cfg.n_layers):
+        x, (k, v) = _layer_apply_full(_layer(units, u), x, cfg, dtype)
+        kc[u, :, :, :T] = k
+        vc[u, :, :, :T] = v
+    logits = _unembed(params, cfg, x[:, -1:], dtype)
+    cache["cur_len"] = torch.full((), T, dtype=torch.int32,
+                                  device=tokens.device)
+    return logits, cache
+
+
+def _decode_step(params, cfg: ArchConfig, token, cache):
+    """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
+    paged cache (``kvcache.paged.PagedKVCache.init_cache``) with per-slot
+    ``cur_len`` (B,); its pools are written in place and ``cur_len``
+    advances by one."""
+    dtype = torch_dtype(cfg.dtype)
+    cur_len = cache["cur_len"]
+    page_table = cache["page_table"]
+    pools = cache["units"]["pos0"]
+    units = params["units"]["pos0"]
+    x = _embed(params, cfg, token, dtype)
+    for u in range(cfg.n_layers):
+        x = _layer_apply_decode(_layer(units, u), x, cfg, dtype,
+                                (pools["k_pool"][u], pools["v_pool"][u]),
+                                cur_len, page_table)
+    logits = _unembed(params, cfg, x, dtype)
+    cache["cur_len"] = cur_len + 1
+    return logits, cache
+
+
+# The entry points are defined under private names and bound to the public
+# ones: tools/lint's jit-discipline pass resolves a called name across
+# files only when a single file under src/ defines it, and the reference's
+# jitted serve steps reach their model through ``M.prefill`` /
+# ``M.decode_step``.
+prefill = _prefill
+decode_step = _decode_step

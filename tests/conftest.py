@@ -25,6 +25,8 @@ except ImportError:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute tests (subprocess compiles, drills)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (skips elsewhere)")
 
 
 def run_subprocess(body: str, devices: int = 8) -> str:
