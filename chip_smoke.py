@@ -7,21 +7,33 @@ toolkit:
     python3 chip_smoke.py [--layers N] [--seed S]
 
 Phases, each failing loudly (non-zero exit, no result line):
-  1. the card's name and power limit; both CUDA kernels built with nvcc
-     for sm_90a from ``src/repro_torch/csrc``;
+  1. the card's name and power limit; the three CUDA kernels built with
+     nvcc for sm_90a from ``src/repro_torch/csrc``, all started together;
   2. the ECF8 decode kernel against its plain PyTorch version, bit-exact,
      at the qwen3-8b embed / wi_gate / wq shapes and on a one-symbol and a
-     near-uniform codebook, with CUDA-event median times;
+     near-uniform codebook, timed on the card (CUDA events);
   3. the flash-attention kernel against its plain version in bf16 (B=1,
      Hq=32, Hkv=8, D=128, causal, T in {13, 512, 2048}), with the time of
      ``F.scaled_dot_product_attention`` as a yardstick;
+  3b. the KV page-decode kernel against its plain version, bit-exact:
+     252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
+     cold pool of the serve shape), f32 and fp8 pages, and a batch of
+     edge pages (one symbol, all 256 exponents, mixed strides zero-padded
+     to one, never-written slots), timed on the card;
   4. a small f32 model whose prefill logits on the card (both kernels)
-     agree with the CPU run (plain versions);
+     agree with the CPU run (plain versions), and whose paged-compressed
+     decode-step logits, with cold pages, agree too;
   5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
      compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
      kernels' launch counts must be non-zero over that run;
-  6. the same prompts on the fp8 baseline: greedy tokens must be identical.
+  6. the same prompts on the fp8 baseline: greedy tokens must be identical;
+  7. the same prompts served again with ``--cache paged-compressed``, an
+     undersized raw pool and cold pool (``--n-pages``, ``--n-cold-slots``)
+     and an unbounded host swap store: the run must preempt and resume,
+     drain its swap store, give tokens identical to phase 5's, and launch
+     the page-decode kernel from both the decode step's cold-page gather
+     and the swap tier's fault.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -40,6 +52,9 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16, SXM data sheet
 FLASH_TOL = 2e-2
+# phase 7's undersized pools: raw pages (id 0 is the garbage page) and cold
+# slots, against a worst case of 1 + 4 * 1024 / 16 = 257 pages
+SWAP_N_PAGES, SWAP_N_COLD_SLOTS = 40, 48
 
 
 def fail(msg: str):
@@ -62,20 +77,35 @@ def gpu_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int, flush=None) -> float:
-    """Median device time of ``fn`` over ``reps`` calls, CUDA events; the
-    L2 cache is overwritten before each call when ``flush`` is given."""
+    """Device time of one call of ``fn``, CUDA events: a window of ``reps``
+    calls issued back to back, less the same window of L2 flushes alone
+    when ``flush`` is given (the cache is overwritten before each call);
+    the median of three windows.  A flush takes the card longer than the
+    host takes to issue a call, so the host runs ahead and the window holds
+    no idle gap; events around a single call would count the host's issue
+    time whenever the call is shorter than it."""
     fn()                                     # warm-up (and lazy loads)
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
+
+    def window(body):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            body()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        return a.elapsed_time(b)
+
+    def flushed():
+        flush.zero_()
+        fn()
+
+    times = []
+    for _ in range(3):
+        if flush is None:
+            times.append(window(fn) / reps)
+        else:
+            times.append((window(flushed) - window(flush.zero_)) / reps)
     return statistics.median(times)
 
 
@@ -97,8 +127,8 @@ def check_decode(torch, ecf8_decode, tpu_format, name, bits, flush, reps):
         fail(f"ecf8_decode {name}: decode is not lossless")
     moved = sum(t.numel() * t.element_size() for t in args) + c.n_elem
     ms = cuda_ms(torch, lambda: ecf8_decode.run(*args, **kw), reps, flush)
-    plain_ms = cuda_ms(torch, lambda: ecf8_decode.plain(*args, **kw),
-                       max(2, reps // 5), flush)
+    plain_ms = cuda_ms(torch, lambda: ecf8_decode.plain(*args, **kw), 2,
+                       flush)
     bound_ms = moved / H100_BYTES_PER_S * 1e3
     log(f"ecf8_decode {name} {tuple(bits.shape)}: bit-exact, "
         f"S={c.sym_per_lane} stride={c.stride} encode {enc_s:.2f}s, kernel "
@@ -147,6 +177,86 @@ def check_flash(torch, flash_fwd, T, gen):
                 library_ms=lib_ms)
 
 
+def check_kv_pages(torch, ops, kv, codec, name, pages, stride, flush, reps,
+                   n_empty=0):
+    """The page-decode kernel vs its plain version on host-coded pages
+    (payloads zero-padded to ``stride``, ``n_empty`` never-written slots
+    appended) -> result dict."""
+    import numpy as np
+    dt_name = codec.dtype_name(pages[0].dtype)
+    bits_t = codec.TORCH_BITS[dt_name]
+    n = pages[0].numel()
+    t0 = time.perf_counter()
+    cps = [codec.encode_page(p) for p in pages]
+    enc_s = time.perf_counter() - t0
+    stride = max([stride] + [c.stride for c in cps])
+    N = len(cps) + n_empty
+    pay = np.zeros((N, stride, codec.LANES), np.uint8)
+    sm = np.zeros((N, cps[0].signmant.size), np.uint8)
+    tab = np.zeros((N,) + cps[0].tables().shape, np.int32)
+    perm = np.zeros((N, cps[0].perm.size), np.int32)
+    for i, c in enumerate(cps):
+        pay[i, : c.stride], sm[i], tab[i], perm[i] = (
+            c.payload, c.signmant, c.tables(), c.perm)
+    args = [torch.from_numpy(a).cuda() for a in (pay, sm, tab, perm)]
+    kw = dict(n_elem=n, dtype_name=dt_name)
+    got = ops.decode_pages(*args, **kw)
+    want = kv.plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(bits_t), want.view(bits_t)):
+        bad = int((got.view(bits_t) != want.view(bits_t)).sum())
+        fail(f"kv_page_decode {name}: kernel differs from the plain version "
+             f"at {bad} of {got.numel()} elements")
+    for i, p in enumerate(pages):
+        if not torch.equal(got[i].view(bits_t), p.reshape(-1).view(bits_t)):
+            fail(f"kv_page_decode {name}: page {i} is not lossless")
+    moved = sum(t.numel() * t.element_size() for t in args + [got])
+    ms = cuda_ms(torch, lambda: kv.run(*args, **kw), reps, flush)
+    plain_ms = cuda_ms(torch, lambda: kv.plain(*args, **kw), 2, flush)
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    ratio = sum(c.ratio() for c in cps) / len(cps)
+    log(f"kv_page_decode {name}: {N} pages x {n} {dt_name} (stride {stride},"
+        f" {n_empty} empty), bit-exact, coded/raw {ratio:.3f}, host encode "
+        f"{enc_s:.2f}s, kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{bound_ms:.4f} ms ({moved / 1e6:.2f} MB), "
+        f"{moved / ms / 1e6:.1f} GB/s")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None)
+
+
+def check_small_paged(torch, M, paged, small, p_cpu, p_gpu, seed):
+    """Paged-compressed decode steps of the small model on the card vs the
+    CPU, with cold pages decoded in the step -> max |dlogit|."""
+    gen = torch.Generator().manual_seed(seed)
+    runs = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        pc = paged.PagedKVCache(small, 2, 64, dtype=torch.float32,
+                                device=dev, page_size=4, compress_cold=True)
+        cache = pc.init_cache()
+        lens = [23, 9]
+        for slot, T in enumerate(lens):
+            toks = torch.arange(1, T + 1)[None] * (slot + 3) % 500
+            _, frag = M.prefill(params, small, toks.to(dev), max_len=64)
+            cache = pc.admit(cache, slot, frag, T)
+            cache = pc.compress_cold_pages(cache, slot, T)
+        out = []
+        tok = torch.tensor([[5], [7]], device=dev)
+        for _ in range(6):
+            for slot in range(2):
+                cache = pc.ensure(cache, slot, lens[slot])
+            logits, cache = M.decode_step(params, small, tok, cache)
+            out.append(logits.cpu())
+            for slot in range(2):
+                lens[slot] += 1
+                cache = pc.compress_cold_pages(cache, slot, lens[slot])
+            tok = (tok * 13 + 1) % small.vocab_size
+        runs[dev] = (out, pc)
+    if not runs["cuda"][1].n_compressed or not runs["cpu"][1].has_cold:
+        fail("small paged-compressed run: no page went cold")
+    return max(float((a - b).abs().max())
+               for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
+
+
 def to_device(tree, dev, store):
     """A parameter tree (tensors and CompressedTensors) moved to ``dev``."""
     if isinstance(tree, dict):
@@ -176,7 +286,9 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get
     from repro_torch.core import fp8, store, tpu_format
-    from repro_torch.kernels import build, ecf8_decode, flash_fwd
+    from repro_torch.kernels import build, ecf8_decode, flash_fwd, ops
+    from repro_torch.kvcache import codec, paged
+    from repro_torch.kvcache import kernels as kv_page
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.serving import EngineConfig
@@ -230,11 +342,38 @@ def main(argv=None):
         if not (torch.equal(got, want) and torch.equal(got, bits)):
             fail(f"ecf8_decode {name} codebook: not bit-exact")
         log(f"ecf8_decode {name} codebook: bit-exact")
-    del flush
 
     # -- 3. kernel 4: flash-attention forward -------------------------------
     for T in (13, 512, 2048):
         results[f"flash_T{T}"] = check_flash(torch, flash_fwd, T, gen)
+
+    # -- 3b. kernel 3: KV page decode ----------------------------------------
+    n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
+    scales = torch.logspace(-2, 1, 252)
+
+    def kv_like(n_pages, dtype, n=n_elem):
+        return [(torch.randn(n, generator=gen, device="cuda")
+                 * float(scales[i % 252])).to(dtype) for i in range(n_pages)]
+
+    for name, pages, n_empty in [
+            ("bf16", kv_like(252, torch.bfloat16), 0),
+            ("f32", kv_like(16, torch.float32), 0),
+            ("fp8", kv_like(16, torch.float8_e4m3fn), 0)]:
+        # a cold slot's stride budget: the raw exponent plane
+        exp_bits = codec.plane_spec(codec.dtype_name(pages[0].dtype))[0]
+        results[f"kv_{name}"] = check_kv_pages(
+            torch, ops, kv_page, codec, name, pages,
+            -(-codec.sym_per_lane(n_elem) * exp_bits // 8), flush, 20,
+            n_empty)
+    edge = kv_like(6, torch.bfloat16)
+    edge.append(torch.full((n_elem,), 0.75, device="cuda",
+                           dtype=torch.bfloat16))            # one symbol
+    edge.append(torch.randint(-(1 << 15), 1 << 15, (n_elem,), generator=gen,
+                              device="cuda").to(torch.int16)
+                .view(torch.bfloat16))                       # 256 exponents
+    check_kv_pages(torch, ops, kv_page, codec, "edge", edge, 4, flush, 5,
+                   n_empty=3)
+    del flush
 
     # -- 4. small input: the card agrees with the CPU (plain versions) -------
     small = dataclasses.replace(
@@ -253,6 +392,14 @@ def main(argv=None):
         fail(f"small f32 prefill: card vs CPU max |dlogit| = {err}")
     log(f"small f32 model (2 layers, d=256): prefill logits on the card vs "
         f"CPU max |diff| {err:.2e} (tol 1e-4)")
+    err = check_small_paged(torch, M, paged, small, p_cpu,
+                            to_device(p_cpu, "cuda", store), args.seed)
+    if err > 1e-4:
+        fail(f"small f32 paged-compressed decode: card vs CPU max |dlogit| "
+             f"= {err}")
+    log(f"small f32 model: paged-compressed decode-step logits (cold pages "
+        f"decoded in the step) on the card vs CPU max |diff| {err:.2e} "
+        f"(tol 1e-4)")
 
     # -- 5. serve qwen3-8b at full width -----------------------------------
     cfg = dataclasses.replace(cfg_full, n_layers=args.layers)
@@ -297,6 +444,56 @@ def main(argv=None):
         f"({dt2:.2f}s, {eng2.decode_seconds / eng2.steps * 1e3:.1f} "
         f"ms/step on fp8 weights)")
 
+    # -- 7. paged-compressed cache + swap tier, preempting -----------------
+    ecfg_c = EngineConfig(max_batch=4, max_len=1024, compress_cold=True,
+                          n_pages=SWAP_N_PAGES,
+                          n_cold_slots=SWAP_N_COLD_SLOTS, swap_bytes=-1)
+    log(f"serving again with the compressed cold pool and the swap tier: "
+        f"n_pages {SWAP_N_PAGES}, n_cold_slots {SWAP_N_COLD_SLOTS} (the "
+        f"worst case is {1 + 4 * 1024 // 16} pages), swap unbounded, "
+        f"{cfg.n_layers} layers")
+    torch.cuda.reset_peak_memory_stats()
+    ecf8_decode.run.launches = flash_fwd.run.launches = 0
+    kv_page.run.launches = 0
+    kv_page.run.launches_by_path.clear()
+    done3, eng3, dt3 = serve.serve(params_c, cfg, ecfg_c, prompts, 32)
+    launches3 = {"ecf8_decode": ecf8_decode.run.launches,
+                 "flash_fwd": flash_fwd.run.launches,
+                 "kv_page_decode": kv_page.run.launches}
+    pc, sched = eng3.paged, eng3.scheduler
+    gather_l = kv_page.run.launches_by_path["gather"]
+    fault_l = kv_page.run.launches_by_path["fault"]
+    st = pc.swap.stats()
+    log(f"served {len(done3)} requests in {dt3:.2f}s, {eng3.steps} decode "
+        f"steps at {eng3.decode_seconds / eng3.steps * 1e3:.1f} ms/step "
+        f"(phase 5: {eng.decode_seconds / eng.steps * 1e3:.1f}), peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    for line in serve.cache_report(eng3):
+        log(line)
+    log(f"launches over the swap run: {launches3}; kv_page_decode from the "
+        f"decode step's cold gather {gather_l} (2 x {cfg.n_layers} a step "
+        f"with a cold page), from fault {fault_l}")
+    if not all(launches3.values()) or gather_l <= 0 or fault_l <= 0:
+        fail(f"a kernel of the swap path never launched: {launches3}, "
+             f"gather {gather_l}, fault {fault_l}")
+    if not (sched.n_preempted > 0 and sched.n_resumed > 0):
+        fail(f"swap run did not preempt and resume: {sched.counters()}")
+    if (st["swap_in_bytes_total"] != st["swap_out_bytes_total"]
+            or len(pc.swap) or pc._slot_pages
+            or pc.free_pages != pc.n_pages - 1 or pc._cold_bytes):
+        fail(f"swap run did not drain: {pc.stats()}")
+    if not all(r.done and len(r.out_tokens) == 32 for r in done3):
+        fail("swap run: unfinished requests")
+    if not serve.same_tokens(done, done3):
+        bad = [(i, next(j for j, (a, b) in enumerate(
+                    zip(x.out_tokens, y.out_tokens)) if a != b))
+               for i, (x, y) in enumerate(zip(done, done3))
+               if x.out_tokens != y.out_tokens]
+        fail(f"swap run tokens differ from phase 5 (request, first token "
+             f"index): {bad}")
+    log("lossless: paged-compressed + swap greedy tokens IDENTICAL to "
+        "phase 5's paged run")
+
     kernels = [
         dict(name="ecf8_decode", route="cuda",
              source="src/repro_torch/csrc/ecf8_decode.cu",
@@ -306,6 +503,10 @@ def main(argv=None):
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
              launches=launches["flash_fwd"], **results["flash_T512"]),
+        dict(name="kv_page_decode", route="cuda",
+             source="src/repro_torch/csrc/kv_page_decode.cu",
+             replaces="src/repro/kvcache/kernels.py:34",
+             launches=launches3["kv_page_decode"], **results["kv_bf16"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(gpu_line(), flush=True)

@@ -128,3 +128,11 @@ class Codebook:
                 )
                 return int(self.sorted_syms[sym_idx]), l
         raise ValueError(f"invalid peek {peek:0{L}b}")
+
+
+def _concat_aranges(lens: np.ndarray) -> np.ndarray:
+    """[arange(l) for l in lens], concatenated (vectorized)."""
+    total = int(lens.sum())
+    ids = np.arange(total)
+    starts = np.repeat(np.cumsum(lens) - lens, lens)
+    return ids - starts

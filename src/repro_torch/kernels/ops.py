@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kvcache import kernels as kv_page_decode
 from . import ecf8_decode, flash_fwd
 
 
@@ -27,3 +28,14 @@ def flash_attention(q, k, v, causal: bool = True,
     if q.device.type == "cpu":
         return flash_fwd.plain(q, k, v, causal, attn_softcap)
     return flash_fwd.run(q, k, v, causal=causal, softcap=attn_softcap)
+
+
+def decode_pages(payload, signmant, tables, perm, *, n_elem: int,
+                 dtype_name: str, path: str = "other") -> torch.Tensor:
+    """N entropy-coded KV pages -> (N, n_elem) values of ``dtype_name``;
+    ``path`` tags the kernel's launch count with the caller."""
+    if payload.device.type == "cpu":
+        return kv_page_decode.plain(payload, signmant, tables, perm,
+                                    n_elem=n_elem, dtype_name=dtype_name)
+    return kv_page_decode.run(payload, signmant, tables, perm, n_elem=n_elem,
+                              dtype_name=dtype_name, path=path)

@@ -1,0 +1,89 @@
+"""KV-cache page decode on Hopper: the CUDA kernel ``csrc/kv_page_decode.cu``.
+
+Replaces the Pallas TPU kernel ``src/repro/kvcache/kernels.py``
+(``_decode_page_kernel`` / ``decode_page_indices_pallas``) and the XLA tail
+that the reference applies after it (``codec.finish_pages_jnp``): one CTA
+per page, one thread per lane stream, the page's payload, tables and perm
+staged in shared memory, and the perm lookup and sign/mantissa fuse done in
+the kernel, so no int32 index array goes through device memory.  What
+bounds it on the H100 is bytes: the coded page read once, the values
+written once (3.35 TB/s).
+
+:func:`run` launches the kernel for tensors on the card; :data:`plain`
+(``codec.decode_pages_plain``) is the plain PyTorch version of the same
+arithmetic, the only path on the CPU and the comparison on the card.  The
+dispatch between the two lives in ``kernels/ops.py``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from ..kernels import build
+from .codec import LANES, MIN_STRIDE, TORCH_BITS, TORCH_DTYPES, \
+    decode_pages_plain, plane_spec, sm_bytes, sym_per_lane
+
+plain = decode_pages_plain
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_KIND = {"float8_e4m3fn": 0, "bfloat16": 1, "float32": 2}
+# dynamic shared memory the kernel may take for one page's payload: the
+# H100's 227 KB a block, less the static tables and perm
+_MAX_SMEM = 227 * 1024 - 2048
+
+
+def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
+        path: str = "other") -> torch.Tensor:
+    """Decode N coded pages on the card -> (N, n_elem) values of
+    ``dtype_name`` (the argument order of ``codec.decode_pages_plain``).
+
+    ``path`` names the caller for the launch counts: ``run.launches`` is the
+    total, ``run.launches_by_path[path]`` the caller's share ('gather': the
+    decode step's cold pool, 'fault': the swap tier)."""
+    tensors = (payload, signmant, tables, perm)
+    if not all(t.is_cuda and t.is_contiguous() for t in tensors):
+        raise ValueError("kv_page_decode: every input must be a contiguous "
+                         "CUDA tensor")
+    if payload.dtype != torch.uint8 or signmant.dtype != torch.uint8:
+        raise TypeError("kv_page_decode: payload and signmant must be uint8")
+    if tables.dtype != torch.int32 or perm.dtype != torch.int32:
+        raise TypeError("kv_page_decode: tables and perm must be int32")
+    exp_bits, max_len, _ = plane_spec(dtype_name)
+    N, stride, lanes = payload.shape
+    sm = sm_bytes(dtype_name, n_elem)
+    if (lanes != LANES or stride < MIN_STRIDE
+            or signmant.shape != (N, sm)
+            or tables.shape != (N, 3, max_len)
+            or perm.shape != (N, 1 << exp_bits)):
+        raise ValueError(
+            f"kv_page_decode: shapes payload {tuple(payload.shape)}, "
+            f"signmant {tuple(signmant.shape)}, tables "
+            f"{tuple(tables.shape)}, perm {tuple(perm.shape)} do not make "
+            f"{N} {dtype_name} pages of {n_elem} elements")
+    if stride * LANES > _MAX_SMEM:
+        raise ValueError(f"kv_page_decode: stride {stride} needs "
+                         f"{stride * LANES} bytes of shared memory, above "
+                         f"{_MAX_SMEM}")
+    if payload.data_ptr() % 16:
+        raise ValueError("kv_page_decode: payload must be 16-byte aligned")
+    out = torch.empty((N, n_elem), dtype=TORCH_BITS[dtype_name],
+                      device=payload.device)
+    if N:
+        lib = build.load("kv_page_decode", _ARGTYPES)
+        err = lib.kv_page_decode(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), N, stride, sm,
+            max_len, 1 << exp_bits, sym_per_lane(n_elem), n_elem,
+            _KIND[dtype_name],
+            torch.cuda.current_stream(payload.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"kv_page_decode launch failed: CUDA error "
+                               f"{err}")
+        run.launches += 1
+        run.launches_by_path[path] += 1
+    return out.view(TORCH_DTYPES[dtype_name])
+
+
+run.launches = 0
+run.launches_by_path = collections.Counter()

@@ -5,7 +5,9 @@ qwen3-8b cut to ``--layers`` layers (full width), warms up, then traces one
 more prefill and ``--steps`` batched decode steps with ``torch.profiler``
 and prints, for each window: wall time, device busy time (the sum of kernel
 times; one stream, so kernels do not overlap), the idle share, and device
-time by kernel.
+time by kernel.  With ``--cache paged-compressed`` the prompts' full pages
+are entropy-coded into the cold pool (host work, outside the traced
+windows) and every traced decode step decodes the cold pool.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 36
 """
@@ -55,6 +57,8 @@ def main(argv=None):
     ap.add_argument("--prompt", type=int, default=256)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--compress", default="tpu", choices=["none", "tpu"])
+    ap.add_argument("--cache", default="paged",
+                    choices=["paged", "paged-compressed"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -63,13 +67,14 @@ def main(argv=None):
     served, baseline, _, _ = build_params(cfg, args.seed, args.compress)
     del baseline
     eng = GenerationEngine(served, cfg, EngineConfig(
-        max_batch=args.batch, max_len=1024))
+        max_batch=args.batch, max_len=1024,
+        compress_cold=args.cache == "paged-compressed"))
     rng = np.random.default_rng(args.seed)
 
     def request():
         return Request(prompt=rng.integers(0, cfg.vocab_size,
                                            args.prompt).tolist(),
-                       max_new_tokens=args.steps + 4)
+                       max_new_tokens=args.steps + 5)
 
     for _ in range(args.batch - 1):
         eng.submit(request())
@@ -85,6 +90,8 @@ def main(argv=None):
         wall = time.perf_counter() - t0
     _report(f"prefill of {args.prompt} tokens ({cfg.n_layers} layers, "
             f"{args.compress})", prof, wall)
+    eng.step()                          # the new request's pages go cold
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -92,7 +99,8 @@ def main(argv=None):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"{args.steps} decode steps at batch {args.batch}", prof, wall)
+    _report(f"{args.steps} decode steps at batch {args.batch} ({args.cache}"
+            f", {len(eng.paged._cold_bytes)} cold pages)", prof, wall)
 
 
 if __name__ == "__main__":

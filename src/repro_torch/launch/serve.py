@@ -9,6 +9,10 @@ exits 1 unless every greedy token is identical.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --compress tpu --cache paged --check-lossless
+  # full KV pages entropy-coded in place, an undersized raw pool and a host
+  # swap tier that preempts whole requests when the pool runs dry
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+      --cache paged-compressed --n-pages 40 --swap-bytes -1
   # on a machine without a card, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -76,6 +80,40 @@ def serve(params, cfg, ecfg: EngineConfig, prompts, max_new: int,
     return reqs, eng, time.perf_counter() - t0
 
 
+def cache_report(eng) -> list:
+    """Lines on the coded tiers of a finished run: pages compressed, their
+    ragged coded bytes and the bytes they take in cold slots against the
+    same pages raw, the cold pool's device memory, host seconds in the page
+    encoder, preemptions and swap traffic."""
+    pc = eng.paged
+    lines = []
+    if pc.compress:
+        n, coded = pc.n_compressed, pc.compressed_bytes
+        page_b, slot_b = pc.stats()["page_bytes"], pc.cold_slot_bytes
+        raw = n * page_b
+
+        def vs_raw(b, r):
+            return f"{100 * (b / max(r, 1) - 1):+.1f}% vs raw"
+
+        lines.append(
+            f"cold pool: {n} pages compressed, {raw / 1e6:.2f} MB raw -> "
+            f"{coded / 1e6:.2f} MB coded ({vs_raw(coded, raw)}), "
+            f"{n * slot_b / 1e6:.2f} MB in cold slots at the stride budget "
+            f"({vs_raw(n * slot_b, raw)}); {pc.n_cold} cold slots allocate "
+            f"{pc.n_cold * slot_b / 1e6:.2f} MB on the device "
+            f"({vs_raw(slot_b, page_b)} a page); encode_page "
+            f"{pc.encode_seconds:.2f}s on the host")
+    if pc.swap is not None:
+        st = pc.swap.stats()
+        lines.append(
+            f"swap tier: {eng.scheduler.n_preempted} preemptions, "
+            f"{eng.scheduler.n_resumed} resumes, {st['n_swap_out']} pages "
+            f"out ({st['swap_out_bytes_total'] / 1e6:.2f} MB), "
+            f"{st['n_swap_in']} in ({st['swap_in_bytes_total'] / 1e6:.2f} "
+            f"MB), {pc.n_fault_decodes} fault decodes")
+    return lines
+
+
 def same_tokens(a, b) -> bool:
     return all(x.out_tokens == y.out_tokens for x, y in zip(a, b))
 
@@ -92,12 +130,27 @@ def main(argv=None, cfg=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--check-lossless", action="store_true",
                     help="compare tokens vs the uncompressed fp8 baseline")
-    ap.add_argument("--cache", default="paged", choices=["paged"],
-                    help="KV-cache layout (the paged cache; the other "
-                         "layouts are not yet ported)")
+    ap.add_argument("--cache", default="paged",
+                    choices=["paged", "paged-compressed"],
+                    help="KV-cache layout (paged-compressed entropy-codes "
+                         "full pages in place and decodes them where the "
+                         "decode step uses them; the monolithic layout is "
+                         "not yet ported)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=None,
-                    help="raw page-pool size (default: worst case)")
+                    help="raw page-pool size (default: worst case).  Set "
+                         "it below the worst case to oversubscribe the "
+                         "pool; with --swap-bytes the engine then swaps/"
+                         "preempts instead of failing with OutOfPages.")
+    ap.add_argument("--swap-bytes", type=int, default=0,
+                    help="host swap-tier capacity in bytes for entropy-"
+                         "coded evicted pages (-1 = unbounded, 0 = "
+                         "disabled)")
+    ap.add_argument("--preemption", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="allow whole-request preemption (swap out a "
+                         "victim, requeue, resume later); needs "
+                         "--swap-bytes")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
@@ -130,6 +183,8 @@ def main(argv=None, cfg=None):
           f"({n_tok / max(dt, 1e-9):.1f} tok/s host wall-clock, "
           f"{eng.steps} decode steps, batch occupancy "
           f"{n_tok / max(eng.steps, 1):.2f})")
+    for line in cache_report(eng):
+        print(f"[serve] {line}")
     if args.check_lossless and args.compress != "none":
         done2, _, _ = serve(params_fp8, cfg, ecfg, prompts, args.max_new,
                             device=args.device)

@@ -148,13 +148,20 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
                            page_table):
     """One-token decode through the paged cache: the new K/V is written
     into each slot's tail page (in place), each slot's history gathered
-    back, and the token attends over ``cur_len + 1`` positions."""
+    back, and the token attends over ``cur_len + 1`` positions.
+
+    ``pools`` is (k_pool, v_pool, k_cold, v_cold), the cold entries being
+    :func:`kvcache.paged.cold_leaves` tuples or None: cold pages are
+    decoded by the page-decode kernel, once for K and once for V.  A swap
+    sentinel (negative id) can only sit in a vacated slot's row, whose
+    outputs are never read: ``page_write`` drops its write and
+    ``page_gather`` clamps it to the garbage page."""
     q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
-    k_pool, v_pool = pools
+    k_pool, v_pool, k_cold, v_cold = pools
     paged_kv.page_write(k_pool, page_table, cur_len, k)
     paged_kv.page_write(v_pool, page_table, cur_len, v)
-    k_hist = paged_kv.page_gather(k_pool, page_table)
-    v_hist = paged_kv.page_gather(v_pool, page_table)
+    k_hist = paged_kv.page_gather(k_pool, page_table, k_cold)
+    v_hist = paged_kv.page_gather(v_pool, page_table, v_cold)
     o = decode_attention(q, k_hist, v_hist, kv_len=cur_len + 1,
                          attn_softcap=cfg.attn_softcap)
     return _attn_out(p, o, dtype)
@@ -239,7 +246,9 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
     paged cache (``kvcache.paged.PagedKVCache.init_cache``) with per-slot
     ``cur_len`` (B,); its pools are written in place and ``cur_len``
-    advances by one."""
+    advances by one.  Cold-pool leaves, where the cache carries them, are
+    decoded in every layer (the engine leaves them out while no page is
+    cold)."""
     dtype = torch_dtype(cfg.dtype)
     cur_len = cache["cur_len"]
     page_table = cache["page_table"]
@@ -248,7 +257,9 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     x = _embed(params, cfg, token, dtype)
     for u in range(cfg.n_layers):
         x = _layer_apply_decode(_layer(units, u), x, cfg, dtype,
-                                (pools["k_pool"][u], pools["v_pool"][u]),
+                                (pools["k_pool"][u], pools["v_pool"][u],
+                                 paged_kv.cold_leaves(pools, "k", u),
+                                 paged_kv.cold_leaves(pools, "v", u)),
                                 cur_len, page_table)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1

@@ -1,10 +1,13 @@
 """Typed engine configuration: the reference's ``EngineConfig`` fields.
 
-This slice serves whole-prompt prefill through the paged cache on one
+The port serves whole-prompt prefill through the paged cache on one
 device.  It honours ``max_batch``, ``max_len``, ``rng_seed``,
-``page_size`` and ``n_pages``; every other field of the reference keeps
-its name and default here, and setting it to anything else raises
-``EngineConfigError`` ("not yet ported") — nothing falls back silently.
+``page_size``, ``n_pages``, ``compress_cold`` and ``n_cold_slots`` (the
+compressed cold pool), and ``swap_bytes`` and ``preemption`` (the host swap
+tier: ``swap_bytes`` is its capacity, -1 unbounded, 0 or None off); every
+other field of the reference keeps its name and default here, and setting
+it to anything else raises ``EngineConfigError`` ("not yet ported") —
+nothing falls back silently.
 """
 from __future__ import annotations
 
@@ -17,9 +20,8 @@ CACHE_MODES = ("paged", "monolithic")
 
 # field -> the only value this slice serves
 _NOT_YET_PORTED = {
-    "mesh": None, "cache_mode": "paged", "compress_cold": False,
-    "n_cold_slots": None, "swap_bytes": None, "preemption": True,
-    "prefill_chunk": 0, "prefill_budget": None, "prefix_sharing": False,
+    "mesh": None, "cache_mode": "paged", "prefill_chunk": 0,
+    "prefill_budget": None, "prefix_sharing": False,
     "draft_params": None, "draft_cfg": None, "spec_k": 4,
     "telemetry": None, "kv_monitor": None,
 }
@@ -94,6 +96,8 @@ class EngineConfig:
         """Build a config from ``launch/serve.py``'s argparse namespace and
         check it against the served architecture."""
         return cls(max_batch=args.max_batch, max_len=args.max_len,
-                   rng_seed=args.seed, cache_mode=args.cache,
-                   page_size=args.page_size,
-                   n_pages=args.n_pages).validate(cfg)
+                   rng_seed=args.seed, page_size=args.page_size,
+                   n_pages=args.n_pages,
+                   compress_cold=args.cache == "paged-compressed",
+                   swap_bytes=args.swap_bytes,
+                   preemption=args.preemption).validate(cfg)

@@ -11,7 +11,12 @@ with requests continuously:
     (``models.model.prefill``: the flash kernel) and its K/V is copied
     into freshly allocated pages (``PagedKVCache.admit``);
   * decode steps always run the full batch; inactive slots read and write
-    the garbage page and their rows are never used.
+    the garbage page and their rows are never used;
+  * with ``compress_cold``, every slot's full pages are entropy-coded into
+    the cold pool after each step and decoded where the step uses them;
+  * with a swap store (``swap_bytes``), page pressure preempts whole
+    requests: the victim's pages go to the host losslessly, it is requeued
+    at the front of its priority class and resumes bit-identically.
 
 Weights may be an ECF8-compressed tree (``core.store.compress_tree``):
 every weight is decoded where it is used (the ECF8 decode kernel).
@@ -29,12 +34,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.store import torch_dtype
 from ..device import resolve
-from ..kvcache import OutOfPages, PagedKVCache
+from ..kvcache import OutOfPages, PagedKVCache, SwapExhausted, SwapStore
 from ..models import model as M
 from .config import EngineConfig
 from .sampler import greedy, key_generator, request_key, root_key, \
     sample_logits
-from .scheduler import Scheduler
+from .scheduler import Preempted, Scheduler
 
 _ids = itertools.count()
 
@@ -66,9 +71,14 @@ class GenerationEngine:
         self.paged = PagedKVCache(
             cfg, max_batch, config.max_len, dtype=torch_dtype(cfg.dtype),
             device=self.device, page_size=config.page_size,
-            n_pages=config.n_pages)
+            n_pages=config.n_pages, compress_cold=config.compress_cold,
+            n_cold_slots=config.n_cold_slots)
+        if config.swap_bytes:
+            self.paged.attach_swap(SwapStore(
+                None if config.swap_bytes < 0 else config.swap_bytes))
         self.cache = self.paged.init_cache()
-        self.scheduler = Scheduler(paged=self.paged)
+        self.scheduler = Scheduler(paged=self.paged,
+                                   preemption=config.preemption)
         self._host_len = [0] * max_batch        # next write position per slot
         self._last_tok = [0] * max_batch        # decode input per slot
         self.rng0 = root_key(config.rng_seed)
@@ -99,22 +109,87 @@ class GenerationEngine:
         self.slots[slot] = req
         self.prefill_seconds += time.perf_counter() - t0
 
+    def _resume(self, slot: int, st: Preempted):
+        """Re-splice a preempted request: reinstall its page list, fault
+        every page back (lossless restore) and rebuild the slot timeline —
+        the continuation is bit-identical to an unpreempted run."""
+        self.cache = self.paged.attach_slot(self.cache, slot, st.pages,
+                                            st.skip)
+        self.cache = self.paged.fault(self.cache, slot)
+        self.cache["cur_len"][slot] = st.host_len
+        self._host_len[slot] = st.host_len
+        self._last_tok[slot] = st.last_tok
+        self.slots[slot] = st.req
+        self.scheduler.n_resumed += 1
+
+    def _preempt(self, slot: int) -> bool:
+        """Swap out a whole active request and requeue it (front of its
+        priority class).  Returns False — with the engine state intact —
+        when the swap store cannot take the pages."""
+        store = self.paged.swap
+        traffic = (store.swap_out_bytes, store.swap_in_bytes,
+                   store.n_swap_out, store.n_swap_in)
+        try:
+            self.cache = self.paged.evict(self.cache, slot)
+        except SwapExhausted:
+            # roll back any partially evicted pages (their device space
+            # was just freed, so the fault cannot itself run dry), and
+            # un-count the aborted attempt so the counters only report
+            # swapping that actually happened
+            self.cache = self.paged.fault(self.cache, slot)
+            (store.swap_out_bytes, store.swap_in_bytes,
+             store.n_swap_out, store.n_swap_in) = traffic
+            return False
+        state = self.paged.snapshot_slot_state(self.cache, slot)
+        pages, skip = self.paged.detach_slot(slot)
+        self.scheduler.requeue(Preempted(
+            req=self.slots[slot], pages=pages, skip=skip,
+            host_len=self._host_len[slot], last_tok=self._last_tok[slot],
+            state=state))
+        self.slots[slot] = None
+        self.scheduler.n_preempted += 1
+        return True
+
     def _admit(self):
-        """Fill free slots from the scheduler."""
-        for slot in range(self.max_batch):
-            if self.slots[slot] is not None:
+        """Fill free slots from the scheduler; preempt strictly-lower-
+        priority work when the head of the queue is blocked on pages."""
+        sched = self.scheduler
+        while True:
+            progress = False
+            for slot in range(self.max_batch):
+                if self.slots[slot] is not None:
+                    continue
+                item = sched.pick(slot)
+                if item is None:
+                    continue
+                if isinstance(item, Preempted):
+                    self._resume(slot, item)
+                else:
+                    self._start(slot, item)
+                progress = True
+            if progress:
                 continue
-            req = self.scheduler.pick()
-            if req is not None:
-                self._start(slot, req)
-        if self.scheduler.waiting and not any(
-                s is not None for s in self.slots):
+            head = sched.head()
+            if head is None:
+                break
+            victim = sched.admission_victim(self.slots, head)
+            if victim is None or not self._preempt(victim):
+                break
+        if sched.waiting and not any(s is not None for s in self.slots):
             # every slot is free yet nothing could be admitted: no release
-            # will ever refill the free list
-            bad = self.scheduler.impossible()
+            # will ever refill the free list.  Raised only once the batch
+            # has drained, so in-flight work always completes first.
+            bad = sched.impossible()
+            if bad is not None:
+                raise OutOfPages(
+                    f"request {bad.id} needs "
+                    f"{self.paged.pages_worst_case(len(bad.prompt), bad.max_new_tokens)}"
+                    f" resident pages; the pool holds "
+                    f"{self.paged.shard_capacity()} (swap cannot hold a "
+                    f"single slot's working set)")
             raise OutOfPages(
-                f"request {bad.id if bad else '?'} cannot be admitted: the "
-                f"pool holds {self.paged.capacity()} pages")
+                f"queued work cannot be admitted with an empty batch "
+                f"({self.paged.free_pages} pages free)")
 
     def _sample_one(self, logits, req: Request) -> int:
         """The next token of ``req`` from its logits (1, 1, V)."""
@@ -132,6 +207,28 @@ class GenerationEngine:
         self.slots[s] = None
         self.cache = self.paged.release(self.cache, s)
 
+    def _ensure_with_pressure(self, slot: int):
+        """Grow ``slot``'s page list to cover this step's decode write; on
+        page pressure, preempt victims until it fits."""
+        while True:
+            try:
+                self.cache = self.paged.ensure(self.cache, slot,
+                                               self._host_len[slot])
+                return
+            except OutOfPages:
+                victim = self.scheduler.victim(self.slots, exclude=(slot,))
+                if victim is None or not self._preempt(victim):
+                    raise
+
+    def _decode_cache(self) -> dict:
+        """The cache the decode step reads: without the cold-pool leaves
+        while no page is cold (decoding an empty pool would be waste)."""
+        if not self.paged.compress or self.paged.has_cold:
+            return self.cache
+        pools = self.cache["units"]["pos0"]
+        return {**self.cache, "units": {"pos0": {
+            kn: pools[kn] for kn in ("k_pool", "v_pool")}}}
+
     def step(self) -> bool:
         """Admit what fits, then one batched decode step for the active
         slots.  Returns False when idle."""
@@ -141,12 +238,22 @@ class GenerationEngine:
         if not active:
             return self.scheduler.waiting > 0
         for s in active:   # grow page lists to cover this step's write
-            self.cache = self.paged.ensure(self.cache, s, self._host_len[s])
+            if self.slots[s] is not None:
+                self._ensure_with_pressure(s)
+        active = [s for s in range(self.max_batch)
+                  if self.slots[s] is not None]
+        # fault-before-gather: the decode step must never see a swapped
+        # page of an active slot (normally a no-op: resume already faults,
+        # and whole-request preemption only swaps vacated slots)
+        for s in active:
+            if self.paged.has_swapped(s):
+                self.cache = self.paged.fault(self.cache, s)
         t0 = time.perf_counter()
         last = torch.tensor(self._last_tok, dtype=torch.int64,
                             device=self.device)[:, None]
-        logits, self.cache = M.decode_step(self.params, self.cfg, last,
-                                           self.cache)
+        logits, out = M.decode_step(self.params, self.cfg, last,
+                                    self._decode_cache())
+        self.cache["cur_len"] = out["cur_len"]
         self.steps += 1
         toks = greedy(logits)[:, 0].tolist()
         self.decode_seconds += time.perf_counter() - t0
@@ -160,10 +267,16 @@ class GenerationEngine:
             if len(req.out_tokens) >= req.max_new_tokens or (
                     len(req.prompt) + len(req.out_tokens) >= self.max_len):
                 self._finish(s, req)
+        if self.paged.compress:
+            for s in range(self.max_batch):
+                if self.slots[s] is not None:
+                    self.cache = self.paged.compress_cold_pages(
+                        self.cache, s, self._host_len[s])
         return True
 
     def run(self, max_steps: int = 10_000) -> list:
-        """Drain the queue; returns every submitted request that finished."""
+        """Drain the queue; returns every submitted request that finished
+        (queued, admitted or preempted when ``run`` was called)."""
         for _ in range(max_steps):
             busy = self.step()
             if not busy and not any(s is not None for s in self.slots):

@@ -9,6 +9,7 @@ They import no JAX: the CPU parity tests (tests/test_torch_*.py) hold the
 plain versions against the JAX package, and these hold the kernels against
 the plain versions.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -75,3 +76,70 @@ def test_flash_kernel_matches_plain(card, dtype, tol, Hq, Hkv, Tq, Tk, D,
     want = flash_fwd.plain(q, k, v, causal, cap)
     assert got.dtype == dtype and got.shape == q.shape
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+# --------------------------------------------------------------------------
+# the KV page decode (csrc/kv_page_decode.cu)
+# --------------------------------------------------------------------------
+
+def _coded_pages(pages, stride=None):
+    """Host-coded pages -> the four decode inputs on the card, payloads
+    zero-padded to one stride."""
+    from repro_torch.kvcache import codec
+    cps = [codec.encode_page(p) for p in pages]
+    stride = stride or max(c.stride for c in cps)
+    pay = torch.zeros((len(cps), stride, codec.LANES), dtype=torch.uint8)
+    for i, c in enumerate(cps):
+        pay[i, : c.stride] = torch.from_numpy(c.payload)
+    rest = [torch.from_numpy(np.stack(a)) for a in (
+        [c.signmant for c in cps], [c.tables() for c in cps],
+        [c.perm for c in cps])]
+    return [t.cuda() for t in [pay] + rest]
+
+
+@pytest.mark.parametrize("dtype,n", [
+    (torch.bfloat16, 8 * 16 * 128), (torch.float32, 1000),
+    (torch.float8_e4m3fn, 4096), (torch.bfloat16, 129)])
+def test_kv_page_decode_bit_exact(card, dtype, n):
+    from repro_torch.kvcache import codec, kernels as kv
+    name = codec.dtype_name(dtype)
+    bits_t = codec.TORCH_BITS[name]
+    pages = [(torch.randn(n, generator=card, device="cuda") * s).to(dtype)
+             for s in (0.05, 1.0, 300.0)]
+    pages.append(torch.full((n,), 0.75, device="cuda").to(dtype))  # 1 symbol
+    raw = torch.randint(-(1 << 15), 1 << 15, (n,), generator=card,
+                        device="cuda")                          # all codes
+    pages.append(raw.to(bits_t).view(dtype) if name != "float32" else
+                 torch.randint(-(1 << 31), (1 << 31) - 1, (n,),
+                               generator=card, device="cuda",
+                               dtype=torch.int32).view(torch.float32))
+    args = _coded_pages(pages)
+    # a never-written cold slot (all-zero leaves): decoded in bounds
+    args = [torch.cat([a, torch.zeros_like(a[:1])]) for a in args]
+    before = kv.run.launches, kv.run.launches_by_path["fault"]
+    got = ops.decode_pages(*args, n_elem=n, dtype_name=name, path="fault")
+    assert (kv.run.launches, kv.run.launches_by_path["fault"]) == (
+        before[0] + 1, before[1] + 1)
+    want = kv.plain(*args, n_elem=n, dtype_name=name)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (len(pages) + 1, n)
+    assert torch.equal(got.view(bits_t), want.view(bits_t))
+    for i, p in enumerate(pages):
+        assert torch.equal(got[i].view(bits_t), p.reshape(-1).view(bits_t))
+
+
+def test_kv_page_decode_wide_stride_and_refusals(card):
+    from repro_torch.kvcache import codec, kernels as kv
+    n = 8 * 16 * 128
+    raw = torch.randint(-(1 << 15), 1 << 15, (n,), generator=card,
+                        device="cuda").to(torch.int16).view(torch.bfloat16)
+    args = _coded_pages([raw], stride=256)       # > 48 KB of shared memory
+    got = kv.run(*args, n_elem=n, dtype_name="bfloat16")
+    assert torch.equal(got[0].view(torch.int16), raw.view(torch.int16))
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.run(*_coded_pages([raw], stride=4096), n_elem=n,
+               dtype_name="bfloat16")
+    with pytest.raises(ValueError, match="CUDA"):
+        kv.run(*[a.cpu() for a in args], n_elem=n, dtype_name="bfloat16")
+    with pytest.raises(ValueError, match="shapes"):
+        kv.run(*args, n_elem=n, dtype_name="float32")

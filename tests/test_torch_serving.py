@@ -1,8 +1,10 @@
 """The port's serving engine, allocator and sampler against the JAX
 package: greedy tokens identical to the reference engine on the same
 (converted) ECF8 weights, ECF8 tokens identical to the fp8 baseline,
-allocator state identical after the same operation sequence, and a sampled
-stream independent of the batch size."""
+allocator state identical after the same operation sequence, a sampled
+stream independent of the batch size, and — under the reference's
+oversubscribed configuration (cold pool + swap tier) — tokens, preemption
+counts and swap traffic equal to the reference engine's."""
 import warnings
 
 import numpy as np
@@ -12,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
 
 from repro.configs import get as ref_get, smoke_variant as ref_smoke  # noqa: E402
 from repro.core import store as ref_store  # noqa: E402
@@ -146,14 +149,25 @@ def test_allocator_state_matches_reference():
                                device="cpu", page_size=4, n_pages=3)
     with pytest.raises(paged.OutOfPages):
         small.admit(small.init_cache(), 0, frag, 20)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        paged.PagedKVCache(cfg, 2, 32, dtype=torch.float32, device="cpu",
-                           compress_cold=True)
+    # the cold pool: the reference's default size and stride budget, its
+    # leaves in the cache, and a full page moved into it
+    cold = paged.PagedKVCache(cfg, 2, 32, dtype=torch.float32, device="cpu",
+                              page_size=4, compress_cold=True)
+    ref_cold = ref_paged.PagedKVCache(ref_cfg, 2, 32, dtype=jnp.float32,
+                                      page_size=4, compress_cold=True)
+    assert (cold.n_cold, cold.stride_budget) == (ref_cold.n_cold,
+                                                 ref_cold.stride_budget)
+    c = cold.admit(cold.init_cache(), 0, frag, 9)
+    assert c["units"]["pos0"]["k_cpl"].shape == (
+        cfg.n_layers, cold.n_cold, cold.stride_budget, 128)
+    c = cold.compress_cold_pages(c, 0, 9)
+    assert cold.has_cold and cold._slot_pages[0][:2] == [
+        cold.n_pages + 0, cold.n_pages + 1]
 
 
 @pytest.mark.parametrize("field,value", [
     ("cache_mode", "monolithic"), ("prefill_chunk", 8),
-    ("swap_bytes", -1), ("prefix_sharing", True), ("compress_cold", True),
+    ("prefill_budget", 64), ("prefix_sharing", True), ("telemetry", object()),
     ("spec_k", 2)])
 def test_unported_engine_options_raise(field, value):
     with pytest.raises(EngineConfigError, match="not yet ported"):
@@ -175,3 +189,155 @@ def test_sampler_keys_and_filters():
     x = torch.tensor([[3.0, 2.0, 1.0, 0.0]])
     kept = sampler.filter_logits(x, top_p=0.7)
     assert torch.isfinite(kept).tolist() == [[True, True, False, False]]
+
+
+# --------------------------------------------------------------------------
+# oversubscription: cold pool + swap tier + preemption
+# --------------------------------------------------------------------------
+
+# tests/test_serving.py:175's configuration and :181's workload
+_OVERSUB = dict(cache_mode="paged", page_size=8, n_pages=5,
+                compress_cold=True, n_cold_slots=1, swap_bytes=1 << 28)
+_OVERSUB_WL = ([[i + 1] * (7 + 3 * (i % 3)) for i in range(6)],
+               [14, 10, 16, 9, 12, 11], [0, 1, 0, 2, 1, 0])
+
+
+@pytest.fixture
+def pallas_store(monkeypatch):
+    """The reference engine's fault decodes through its Pallas page kernel,
+    which writes with ``pl.store`` (dropped by newer JAX releases);
+    assigning through the ref is the same write."""
+    if not hasattr(pl, "store"):
+        def store(ref, idx, val):
+            ref[idx] = val
+        monkeypatch.setattr(pl, "store", store, raising=False)
+
+
+def _oversubscribed(eng, Req):
+    prompts, news, prios = _OVERSUB_WL
+    reqs = [Req(prompt=p, max_new_tokens=n, priority=pr, id=5_000 + i)
+            for i, (p, n, pr) in enumerate(zip(prompts, news, prios))]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return reqs
+
+
+def _differential_fixed(eng, Req):
+    """tests/test_serving.py:367's preempting workload."""
+    wl = [(20, 12, 1), (16, 10, 2), (9, 12, 0), (14, 8, 0)]
+    rng = np.random.default_rng(123)
+    prompts = [rng.integers(1, 512, size=p).tolist() for p, _, _ in wl]
+    reqs = [Req(prompt=prompts[i], max_new_tokens=n, priority=pr,
+                id=8_000 + i) for i, (_, n, pr) in enumerate(wl)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return reqs
+
+
+def _priority(eng, Req):
+    """tests/test_serving.py:228: a late high-priority request preempts
+    running priority-0 work."""
+    lo = [Req(prompt=[i + 1] * 9, max_new_tokens=14, id=6_000 + i)
+          for i in range(2)]
+    hi = Req(prompt=[40] * 9, max_new_tokens=8, priority=5, id=6_100)
+    for r in lo:
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    eng.submit(hi)
+    eng.step()
+    assert eng.scheduler.n_preempted >= 1 and hi in eng.slots
+    eng.run()
+    return lo + [hi]
+
+
+def _page_boundary(k):
+    """tests/test_serving.py:307: a prompt of exactly k pages survives a
+    forced compress -> swap -> restore round trip."""
+    def scenario(eng, Req):
+        req = Req(prompt=list(range(1, 8 * k + 1)), max_new_tokens=10,
+                  id=7_000 + k)
+        eng.submit(req)
+        for _ in range(3):
+            eng.step()
+        assert eng._preempt(eng.slots.index(req))
+        assert req not in eng.slots
+        eng.run()
+        return [req]
+    return scenario
+
+
+_SCENARIOS = {"oversubscribed": _oversubscribed,
+              "differential-fixed": _differential_fixed,
+              "priority": _priority,
+              "page-boundary-1": _page_boundary(1),
+              "page-boundary-2": _page_boundary(2)}
+_TRAFFIC = ("swap_out_bytes_total", "swap_in_bytes_total", "n_swap_out",
+            "n_swap_in")
+
+
+@pytest.fixture(scope="module")
+def raw_weights():
+    """The reference's f32 smoke weights and their conversion (the ECF8
+    trees of ``weights`` decode every weight in every step, which on the
+    CPU costs ~20x the step itself; ECF8 serving parity is held above)."""
+    cfg = smoke_variant(get("qwen3-8b"))
+    ref_cfg = ref_smoke(ref_get("qwen3-8b"))
+    ref_params = RM.init_params(jax.random.PRNGKey(0), ref_cfg)
+    params = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+    return cfg, ref_cfg, ref_params, params
+
+
+@pytest.mark.parametrize("scenario", list(_SCENARIOS))
+def test_oversubscribed_serving_matches_reference_engine(raw_weights,
+                                                         scenario,
+                                                         pallas_store):
+    cfg, ref_cfg, ref_params, params = raw_weights
+    run = _SCENARIOS[scenario]
+    ref_eng = RefEngine(ref_params, ref_cfg, config=RefEngineConfig(
+        max_batch=2, max_len=48, **_OVERSUB))
+    ref_reqs = run(ref_eng, RefRequest)
+    eng = GenerationEngine(params, cfg, config=EngineConfig(
+        max_batch=2, max_len=48, **_OVERSUB), device="cpu")
+    reqs = run(eng, Request)
+    assert all(r.done for r in reqs)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+    assert (eng.scheduler.n_preempted, eng.scheduler.n_resumed) == (
+        ref_eng.scheduler.n_preempted, ref_eng.scheduler.n_resumed)
+    assert eng.scheduler.n_resumed > 0
+    got, want = eng.paged.swap.stats(), ref_eng.paged.swap.stats()
+    assert {k: got[k] for k in _TRAFFIC} == {k: want[k] for k in _TRAFFIC}
+    assert got["swap_in_bytes_total"] == got["swap_out_bytes_total"] > 0
+    # everything drained: no host-resident swap, full free lists
+    assert len(eng.paged.swap) == 0 and eng.paged.swap.bytes_used == 0
+    assert eng.paged.free_pages == eng.paged.n_pages - 1
+    assert not eng.paged._cold_bytes and not eng.paged._slot_pages
+
+
+def test_sampled_stream_is_unchanged_by_forced_preemption(raw_weights):
+    cfg, _, _, params = raw_weights
+    work = [([7, 8, 9, 10, 11, 12, 13, 14, 15], 9), ([3, 1], 6)]
+
+    def serve(preempt_at):
+        eng = GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=2, max_len=48, rng_seed=5, **_OVERSUB), device="cpu")
+        reqs = [Request(prompt=p, max_new_tokens=n, temperature=0.9,
+                        id=9_000 + i) for i, (p, n) in enumerate(work)]
+        for r in reqs:
+            eng.submit(r)
+        for i in range(50):
+            if i == preempt_at:
+                assert eng._preempt(eng.slots.index(reqs[0]))
+            if not eng.step() and not any(eng.slots):
+                break
+        assert all(r.done for r in reqs)
+        return [r.out_tokens for r in reqs], eng
+
+    plain, _ = serve(None)
+    swapped, eng = serve(3)
+    assert eng.scheduler.n_preempted == 1 and eng.scheduler.n_resumed == 1
+    assert eng.paged.swap.n_swap_out > 0
+    assert swapped == plain
