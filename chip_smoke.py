@@ -7,7 +7,7 @@ toolkit:
     python3 chip_smoke.py [--layers N] [--seed S]
 
 Phases, each failing loudly (non-zero exit, no result line):
-  1. the card's name and power limit; the three CUDA kernels built with
+  1. the card's name and power limit; the four CUDA kernels built with
      nvcc for sm_90a from ``src/repro_torch/csrc``, all started together;
   2. the ECF8 decode kernel against its plain PyTorch version, bit-exact,
      at the qwen3-8b embed / wi_gate / wq shapes and on a one-symbol and a
@@ -20,20 +20,36 @@ Phases, each failing loudly (non-zero exit, no result line):
      cold pool of the serve shape), f32 and fp8 pages, and a batch of
      edge pages (one symbol, all 256 exponents, mixed strides zero-padded
      to one, never-written slots), timed on the card;
+  3c. the fused decode + matrix product kernel through its op
+     (``ops.fused_decode_matmul``; no serve path calls it) at qwen3-8b's
+     wq / wi_gate / wo_mlp shapes in the tiled ECF8 layout, M = 4 and 512:
+     within 1e-4 of its plain version relative to the output's magnitude,
+     two launches bit-equal, and bit-exact on the weight (one-hot rows);
+     timed beside the serve path's decode + cast + torch.matmul and
+     torch.matmul alone;
   4. a small f32 model whose prefill logits on the card (both kernels)
-     agree with the CPU run (plain versions), and whose paged-compressed
-     decode-step logits, with cold pages, agree too;
+     agree with the CPU run (plain versions), whose paged-compressed
+     decode-step logits, with cold pages, agree too, and whose chunked-
+     prefill logits agree with the CPU and with its own whole-prompt
+     prefill;
   5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
      compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
      kernels' launch counts must be non-zero over that run;
   6. the same prompts on the fp8 baseline: greedy tokens must be identical;
   7. the same prompts served again with ``--cache paged-compressed``, an
-     undersized raw pool and cold pool (``--n-pages``, ``--n-cold-slots``)
-     and an unbounded host swap store: the run must preempt and resume,
-     drain its swap store, give tokens identical to phase 5's, and launch
-     the page-decode kernel from both the decode step's cold-page gather
-     and the swap tier's fault.
+     undersized raw pool and cold pool (``SWAP_N_PAGES``,
+     ``SWAP_N_COLD_SLOTS``) and an unbounded host swap store: the run must
+     preempt and resume, drain its swap store, give tokens identical to
+     phase 5's, and launch the page-decode kernel from both the decode
+     step's cold-page gather and the swap tier's fault;
+  8. the same prompts with chunked, decode-interleaved prefill (chunk and
+     budget ``CHUNK``): 8a on the plain paged cache (steps must interleave
+     prefill with decode; its tokens are compared with phase 5's, which
+     attend through another kernel, and printed, not gated), 8b with phase
+     7's pools and swap store (tokens IDENTICAL to 8a's, preemption and
+     resume, a drained store, the page-decode kernel launched from gather
+     and fault).  No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -52,9 +68,11 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16, SXM data sheet
 FLASH_TOL = 2e-2
+FUSED_TOL = 1e-4        # relative to max |plain|: f32 sums in another order
 # phase 7's undersized pools: raw pages (id 0 is the garbage page) and cold
 # slots, against a worst case of 1 + 4 * 1024 / 16 = 257 pages
 SWAP_N_PAGES, SWAP_N_COLD_SLOTS = 40, 48
+CHUNK = 128             # phase 8's prefill chunk and per-step token budget
 
 
 def fail(msg: str):
@@ -224,6 +242,92 @@ def check_kv_pages(torch, ops, kv, codec, name, pages, stride, flush, reps,
                 bound_by="bytes", library_ms=None)
 
 
+def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
+                M, flush, gen):
+    """Kernel 2 vs its plain version at one weight and M -> result dict,
+    with the two library yardsticks: what the serve path pays for the same
+    product today (ecf8_decode, the cast to bf16, torch.matmul) and
+    torch.matmul alone on the materialised bf16 weight."""
+    K, N = tiled.k, tiled.n
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    got = fused.run(x, tiled)
+    want = fused.plain(x, tiled)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"fused_decode_matmul {name} M={M}: non-finite output")
+    err = float((got - want).abs().max() / want.abs().max())
+    if err > FUSED_TOL:
+        fail(f"fused_decode_matmul {name} M={M}: max |kernel - plain| / max "
+             f"|plain| = {err} > {FUSED_TOL}")
+    if not torch.equal(fused.run(x, tiled), got):
+        fail(f"fused_decode_matmul {name} M={M}: two launches differ")
+    c = container
+    args = (c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset, c.perm)
+    kw = dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
+    w_bf16 = bits.view(fp8.FP8_DTYPE).to(torch.bfloat16)
+
+    def serve_path():
+        w = ecf8_decode.run(*args, **kw).view(fp8.FP8_DTYPE).reshape(K, N)
+        return x @ w.to(torch.bfloat16)
+
+    ms = cuda_ms(torch, lambda: fused.run(x, tiled), 10, flush)
+    plain_ms = cuda_ms(torch, lambda: fused.plain(x, tiled), 1, flush)
+    serve_ms = cuda_ms(torch, serve_path, 10, flush)
+    lib_ms = cuda_ms(torch, lambda: x @ w_bf16, 10, flush)
+    moved = (tiled.nbytes + x.numel() * x.element_size() + M * N * 4)
+    flops = 2 * M * K * N
+    bound_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
+    by = "operations" if bound_ops >= bound_bytes else "bytes"
+    log(f"fused_decode_matmul {name} ({K}x{N}) M={M}: max |kernel - plain| / "
+        f"max |plain| {err:.2e} (tol {FUSED_TOL:g}), two launches equal, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} "
+        f"ms ({by}; {moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), serve "
+        f"path ecf8_decode+cast+matmul {serve_ms:.4f} ms, torch.matmul on "
+        f"bf16 W {lib_ms:.4f} ms; {moved / ms / 1e6:.1f} GB/s, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s")
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def check_small_chunked(torch, M, paged, small, p_cpu, p_gpu, toks, whole):
+    """Chunked prefill of one prompt of the small f32 model, pages going
+    cold between chunks, on the card and the CPU -> (max |dlogit| card vs
+    CPU, max |dlogit| card chunked vs the card's whole-prompt prefill)."""
+    C = 16
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        pc = paged.PagedKVCache(small, 1, 64, dtype=torch.float32,
+                                device=dev, page_size=4, compress_cold=True)
+        cache = pc.admit_slot(pc.init_cache(), 0, pc.pages_for_prefix(C))
+        prompt = toks[0].tolist()
+        for lo in range(0, len(prompt), C):
+            part = prompt[lo:lo + C]
+            cache = pc.ensure(cache, 0, lo + len(part) - 1)
+            chunk = torch.tensor([part + [0] * (C - len(part))], device=dev)
+            logits, _ = M.prefill_chunk(params, small, chunk, cache, 0,
+                                        len(part))
+            cache = pc.compress_cold_pages(cache, 0, lo + len(part))
+        if not pc.n_compressed:
+            fail("small chunked prefill: no page went cold")
+        out[dev] = logits.cpu()
+    return (float((out["cuda"] - out["cpu"]).abs().max()),
+            float((out["cuda"] - whole.cpu()).abs().max()))
+
+
+def first_divergence(a, b):
+    """(tokens equal, [(request, first differing index)]) of two runs."""
+    same = sum(x == y for r, q in zip(a, b)
+               for x, y in zip(r.out_tokens, q.out_tokens))
+    bad = [(i, next(j for j, (x, y) in enumerate(
+                zip(r.out_tokens, q.out_tokens)) if x != y))
+           for i, (r, q) in enumerate(zip(a, b))
+           if r.out_tokens != q.out_tokens]
+    return same, bad
+
+
 def check_small_paged(torch, M, paged, small, p_cpu, p_gpu, seed):
     """Paged-compressed decode steps of the small model on the card vs the
     CPU, with cold pages decoded in the step -> max |dlogit|."""
@@ -270,7 +374,7 @@ def to_device(tree, dev, store):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=36,
-                    help="qwen3-8b depth served in phase 5 (36 = full)")
+                    help="qwen3-8b depth served in phases 5-8 (36 = full)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -287,6 +391,7 @@ def main(argv=None):
     from repro_torch.configs import get
     from repro_torch.core import fp8, store, tpu_format
     from repro_torch.kernels import build, ecf8_decode, flash_fwd, ops
+    from repro_torch.kernels import fused_decode_matmul as fused
     from repro_torch.kvcache import codec, paged
     from repro_torch.kvcache import kernels as kv_page
     from repro_torch.launch import serve
@@ -373,7 +478,50 @@ def main(argv=None):
                 .view(torch.bfloat16))                       # 256 exponents
     check_kv_pages(torch, ops, kv_page, codec, "edge", edge, 4, flush, 5,
                    n_empty=3)
-    del flush
+
+    # -- 3c. kernel 2: fused decode + matrix product ------------------------
+    # the op's own path (ops.fused_decode_matmul; no serve path calls it),
+    # driven once at each weight shape and M with the counts at 0; the
+    # comparisons and timings below call the wrapper outside that count
+    weights = {}
+    for name, K, N in [("wq", d, cfg_full.n_heads * cfg_full.hd),
+                       ("wi_gate", d, ff), ("wo_mlp", ff, d)]:
+        w = torch.randn((K, N), generator=gen, device="cuda").mul_(K ** -0.5)
+        bits = fp8.cast_to_fp8_bits(w)
+        del w
+        weights[name] = (bits, fused.encode_tiled(bits, sym_per_lane=256),
+                         tpu_format.encode(bits.reshape(-1)))
+    fused.run.launches = 0
+    for name, (bits, tiled, _) in weights.items():
+        for M_rows in (4, fused.MAX_ROWS):
+            x = torch.randn((M_rows, tiled.k), generator=gen, device="cuda")
+            y = ops.fused_decode_matmul(x.to(torch.bfloat16), tiled)
+            if y.shape != (M_rows, tiled.n) or not bool(
+                    torch.isfinite(y).all()):
+                fail(f"fused_decode_matmul op {name} M={M_rows}: bad output")
+    launches_b2 = fused.run.launches
+    if launches_b2 != 2 * len(weights):
+        fail(f"fused_decode_matmul op: {launches_b2} launches, expected "
+             f"{2 * len(weights)}")
+    for name, (bits, tiled, c) in weights.items():
+        for M_rows in (4, fused.MAX_ROWS):
+            results[f"b2_{name}_M{M_rows}"] = check_fused(
+                torch, fused, ecf8_decode, fp8, name, bits, tiled, c, M_rows,
+                flush, gen)
+    # the weight path is bit-exact: 8 launches of 512 one-hot rows read
+    # back all 4096 rows of decode(wq)
+    bits, tiled, _ = weights["wq"]
+    eye = torch.eye(tiled.k, device="cuda", dtype=torch.bfloat16)
+    rows = torch.cat([fused.run(eye[i:i + fused.MAX_ROWS], tiled)
+                      for i in range(0, tiled.k, fused.MAX_ROWS)])
+    if not torch.equal(rows, bits.view(fp8.FP8_DTYPE).to(torch.bfloat16)
+                       .float()):
+        fail("fused_decode_matmul wq: one-hot rows do not read back "
+             "decode(W) bit for bit")
+    log(f"fused_decode_matmul wq: {-(-tiled.k // fused.MAX_ROWS)} launches of "
+        f"{fused.MAX_ROWS} one-hot rows read back decode(W) bit for bit; "
+        f"the op's path launched the kernel {launches_b2} times")
+    del weights, eye, rows, flush
 
     # -- 4. small input: the card agrees with the CPU (plain versions) -------
     small = dataclasses.replace(
@@ -400,6 +548,16 @@ def main(argv=None):
     log(f"small f32 model: paged-compressed decode-step logits (cold pages "
         f"decoded in the step) on the card vs CPU max |diff| {err:.2e} "
         f"(tol 1e-4)")
+    err, err_whole = check_small_chunked(
+        torch, M, paged, small, p_cpu, to_device(p_cpu, "cuda", store),
+        toks[:1], l_gpu[:1])
+    if err > 1e-4 or err_whole > 1e-4:
+        fail(f"small f32 chunked prefill: card vs CPU max |dlogit| = {err}, "
+             f"vs the card's whole-prompt prefill {err_whole}")
+    log(f"small f32 model: chunked prefill (16-token chunks, pages going "
+        f"cold between chunks) logits on the card vs CPU max |diff| "
+        f"{err:.2e}, vs its own whole-prompt prefill {err_whole:.2e} "
+        f"(tol 1e-4)")
 
     # -- 5. serve qwen3-8b at full width -----------------------------------
     cfg = dataclasses.replace(cfg_full, n_layers=args.layers)
@@ -418,9 +576,11 @@ def main(argv=None):
     prompts = serve.make_prompts(cfg, 8, args.seed, lo=64, hi=513)
     ecfg = EngineConfig(max_batch=4, max_len=1024)
     ecf8_decode.run.launches = flash_fwd.run.launches = 0
+    fused.run.launches = 0
     done, eng, dt = serve.serve(params_c, cfg, ecfg, prompts, 32)
     launches = {"ecf8_decode": ecf8_decode.run.launches,
                 "flash_fwd": flash_fwd.run.launches}
+    serve_b2 = fused.run.launches
     n_tok = sum(len(r.out_tokens) for r in done)
     log(f"served {len(done)} requests (prompts {min(map(len, prompts))}-"
         f"{max(map(len, prompts))} tokens), {n_tok} tokens in {dt:.2f}s: "
@@ -457,6 +617,7 @@ def main(argv=None):
     kv_page.run.launches = 0
     kv_page.run.launches_by_path.clear()
     done3, eng3, dt3 = serve.serve(params_c, cfg, ecfg_c, prompts, 32)
+    serve_b2 += fused.run.launches
     launches3 = {"ecf8_decode": ecf8_decode.run.launches,
                  "flash_fwd": flash_fwd.run.launches,
                  "kv_page_decode": kv_page.run.launches}
@@ -484,15 +645,85 @@ def main(argv=None):
         fail(f"swap run did not drain: {pc.stats()}")
     if not all(r.done and len(r.out_tokens) == 32 for r in done3):
         fail("swap run: unfinished requests")
-    if not serve.same_tokens(done, done3):
-        bad = [(i, next(j for j, (a, b) in enumerate(
-                    zip(x.out_tokens, y.out_tokens)) if a != b))
-               for i, (x, y) in enumerate(zip(done, done3))
-               if x.out_tokens != y.out_tokens]
+    _, bad = first_divergence(done, done3)
+    if bad:
         fail(f"swap run tokens differ from phase 5 (request, first token "
              f"index): {bad}")
     log("lossless: paged-compressed + swap greedy tokens IDENTICAL to "
         "phase 5's paged run")
+
+    # -- 8. chunked, decode-interleaved prefill at full depth --------------
+    del params_fp8
+    chunked = dict(max_batch=4, max_len=1024, prefill_chunk=CHUNK,
+                   prefill_budget=CHUNK)
+    runs = {}
+    for tag, extra in (("8a", {}),
+                       ("8b", dict(compress_cold=True, n_pages=SWAP_N_PAGES,
+                                   n_cold_slots=SWAP_N_COLD_SLOTS,
+                                   swap_bytes=-1))):
+        torch.cuda.reset_peak_memory_stats()
+        ecf8_decode.run.launches = flash_fwd.run.launches = 0
+        kv_page.run.launches = 0
+        kv_page.run.launches_by_path.clear()
+        fused.run.launches = 0
+        d8, e8, t8 = serve.serve(params_c, cfg,
+                                 EngineConfig(**chunked, **extra), prompts,
+                                 32)
+        serve_b2 += fused.run.launches
+        l8 = {"ecf8_decode": ecf8_decode.run.launches,
+              "flash_fwd": flash_fwd.run.launches,
+              "kv_page_decode": kv_page.run.launches}
+        runs[tag] = (d8, e8, dict(kv_page.run.launches_by_path))
+        n8 = sum(len(r.out_tokens) for r in d8)
+        log(f"phase {tag}: {cfg.n_layers} layers, chunk {CHUNK}, budget "
+            f"{CHUNK}{', compressed cold pool + swap' if extra else ''}: "
+            f"{n8} tokens in {t8:.2f}s, {n8 / t8:.1f} tok/s, {e8.steps} "
+            f"decode steps at {e8.decode_seconds / e8.steps * 1e3:.1f} "
+            f"ms/step, prefill phases {e8.prefill_seconds:.2f}s, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        log(f"  {serve.chunk_report(e8)}; launches {l8}, kv_page_decode "
+            f"by path {dict(kv_page.run.launches_by_path)}")
+        for line in serve.cache_report(e8):
+            log(f"  {line}")
+        if not all(r.done and len(r.out_tokens) == 32 for r in d8) or any(
+                not 0 <= t < cfg.vocab_size for r in d8
+                for t in r.out_tokens):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+        if (e8.n_interleaved_steps <= 0
+                or e8.n_chunk_tokens != sum(map(len, prompts))):
+            fail(f"phase {tag}: no step interleaved prefill with decode "
+                 f"({serve.chunk_report(e8)})")
+        if l8["ecf8_decode"] <= 0:
+            fail(f"phase {tag}: the weight decode never launched: {l8}")
+    d8a = runs["8a"][0]
+    same, bad = first_divergence(done, d8a)
+    log(f"phase 8a vs phase 5 (whole-prompt prefill through flash_fwd; "
+        f"chunks attend through blockwise_attention, so bf16 rounding "
+        f"differs; not a gate): {same} of {len(done) * 32} tokens equal, "
+        f"first divergence (request, token) {bad}")
+    d8b, e8b, by_path = runs["8b"]
+    pc, sched = e8b.paged, e8b.scheduler
+    st = pc.swap.stats()
+    if by_path.get("gather", 0) <= 0 or by_path.get("fault", 0) <= 0:
+        fail(f"phase 8b: kv_page_decode did not launch from both gather "
+             f"and fault: {by_path}")
+    if not (sched.n_preempted > 0 and sched.n_resumed > 0):
+        fail(f"phase 8b did not preempt and resume: {sched.counters()}")
+    if (st["swap_in_bytes_total"] != st["swap_out_bytes_total"]
+            or len(pc.swap) or pc._slot_pages
+            or pc.free_pages != pc.n_pages - 1 or pc._cold_bytes):
+        fail(f"phase 8b did not drain: {pc.stats()}")
+    _, bad = first_divergence(d8a, d8b)
+    if bad:
+        fail(f"phase 8b tokens differ from phase 8a's (request, first token "
+             f"index): {bad}")
+    log(f"lossless: chunked paged-compressed + swap greedy tokens IDENTICAL "
+        f"to phase 8a's ({e8b.n_midprefill_preempted} of "
+        f"{sched.n_preempted} preemptions mid-prefill)")
+    if serve_b2:
+        fail(f"a serve path launched fused_decode_matmul {serve_b2} times")
+    log("fused_decode_matmul: 0 launches on every serve path (phases 5, 7, "
+        "8a, 8b), as in the reference")
 
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -507,6 +738,10 @@ def main(argv=None):
              source="src/repro_torch/csrc/kv_page_decode.cu",
              replaces="src/repro/kvcache/kernels.py:34",
              launches=launches3["kv_page_decode"], **results["kv_bf16"]),
+        dict(name="fused_decode_matmul", route="cuda",
+             source="src/repro_torch/csrc/fused_decode_matmul.cu",
+             replaces="src/repro/kernels/fused_decode_matmul.py:80",
+             launches=launches_b2, **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(gpu_line(), flush=True)

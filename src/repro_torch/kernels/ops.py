@@ -11,6 +11,7 @@ import torch
 
 from ..kvcache import kernels as kv_page_decode
 from . import ecf8_decode, flash_fwd
+from . import fused_decode_matmul as _fused
 
 
 def decode_ecf8(payload, signmant, lj_limit, first_lj, offset, perm, *,
@@ -39,3 +40,11 @@ def decode_pages(payload, signmant, tables, perm, *, n_elem: int,
                                     n_elem=n_elem, dtype_name=dtype_name)
     return kv_page_decode.run(payload, signmant, tables, perm, n_elem=n_elem,
                               dtype_name=dtype_name, path=path)
+
+
+def fused_decode_matmul(x, tiled, *, out_dtype=torch.float32) -> torch.Tensor:
+    """``x @ decode(W)`` with W in the tiled ECF8 layout
+    (``fused_decode_matmul.encode_tiled``); x (M, K), M <= 512."""
+    if x.device.type == "cpu":
+        return _fused.plain(x, tiled, out_dtype)
+    return _fused.run(x, tiled, out_dtype)

@@ -34,12 +34,14 @@ Page lifecycle (with a swap store attached)::
                               v         v
                              hot       cold
 
-``page_write`` / ``page_gather`` are the tensor ops of the decode step
-(``models.model``); ``page_write`` updates the pool in place, where the
-reference returns a new pool, and so do the allocator's cache updates.
+``page_write`` / ``page_write_chunk`` / ``page_gather`` are the tensor ops
+of the decode step and the prefill chunk (``models.model``); the writes
+update the pool in place, where the reference returns a new pool, and so do
+the allocator's cache updates.
 ``PagedKVCache`` is the host-side allocator driven by ``serving.engine``
-(admit -> ensure -> compress cold -> evict / fault -> release), with the
-reference's descending free lists and page reference counts.
+(admit or admit_slot -> ensure -> compress cold -> evict / fault ->
+release), with the reference's descending free lists and page reference
+counts.
 """
 from __future__ import annotations
 
@@ -88,6 +90,34 @@ def page_write(pool, page_table, cur_len, kv):
     keep = (pids >= 0) & (pids < n_pool)
     pids = torch.where(keep, pids, GARBAGE_PAGE)
     new = torch.where(keep[:, None, None], kv[:, :, 0, :].to(pool.dtype),
+                      pool[pids, :, off, :])
+    pool[pids, :, off, :] = new
+    return pool
+
+
+def page_write_chunk(pool, row, positions, kv, n_valid: int):
+    """Scatter one prefill chunk's K (or V) into a single slot's pages, in
+    place.
+
+    pool: (n_pool, n_kv, ps, hd); row: (P,) page ids (the slot's page-table
+    row); positions: (C,) absolute token positions of the chunk; kv: (1,
+    n_kv, C, hd); n_valid: count of real (unpadded) tokens.  Padded tokens
+    are dropped, and so is a position whose page id is a swap sentinel
+    (negative) or a cold id (past the raw pool), as the reference's
+    ``mode="drop"`` scatter drops them; a negative index would otherwise
+    count from the end of the pool and overwrite a live page.  Dropped
+    positions write the garbage page's own contents back, which keeps the
+    scatter free of a host sync.  Returns pool."""
+    n_pool, _, ps, _ = pool.shape
+    P = row.shape[0]
+    positions = positions[:n_valid]
+    p_idx = (positions // ps).clamp(0, P - 1).long()
+    off = (positions % ps).long()
+    pids = row[p_idx].long()
+    keep = (pids >= 0) & (pids < n_pool)
+    pids = torch.where(keep, pids, GARBAGE_PAGE)
+    new = torch.where(keep[:, None, None],
+                      kv[0, :, :n_valid].transpose(0, 1).to(pool.dtype),
                       pool[pids, :, off, :])
     pool[pids, :, off, :] = new
     return pool
@@ -265,6 +295,14 @@ class PagedKVCache:
         """Pages to cover the prompt and the first decode write."""
         return min(prompt_len // self.page_size + 1, self.pages_per_slot)
 
+    def pages_for_prefix(self, n_tokens: int) -> int:
+        """Pages that hold the first ``n_tokens`` cache positions: the
+        chunked-prefill admission grant (unlike :func:`pages_needed` it
+        does not cover the first decode write; later chunks and the decode
+        step grow the slot page by page with :func:`ensure`)."""
+        return min(max(-(-n_tokens // self.page_size), 1),
+                   self.pages_per_slot)
+
     def pages_worst_case(self, prompt_len: int, max_new: int) -> int:
         """Pages the request can ever hold at once: its last cache write
         lands at position ``min(prompt+max_new, max_len) - 2`` (the final
@@ -297,6 +335,22 @@ class PagedKVCache:
         for kn in ("k", "v"):
             pages = self._frag_pages(src[kn])
             dst[f"{kn}_pool"][:, ids] = pages[:, :need].to(self.dtype)
+        return cache
+
+    def admit_slot(self, cache: dict, slot: int, need: int):
+        """Allocate a fresh slot for chunked prefill: grant ``need`` pages
+        (no fragment is copied: the chunks write their K/V with
+        :func:`page_write_chunk`) and reset the slot's timeline to 0."""
+        if len(self._free) < need:
+            raise OutOfPages(f"slot {slot} needs {need} pages, "
+                             f"{len(self._free)} free")
+        pids = [self._alloc_raw() for _ in range(need)]
+        self._slot_pages[slot] = pids
+        self._skip[slot] = set()
+        cache["page_table"][slot] = 0
+        cache["page_table"][slot, :need] = torch.tensor(
+            pids, dtype=torch.int32, device=self.device)
+        cache["cur_len"][slot] = 0
         return cache
 
     def _frag_pages(self, x):

@@ -13,6 +13,10 @@ Usage:
   # swap tier that preempts whole requests when the pool runs dry
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --cache paged-compressed --n-pages 40 --swap-bytes -1
+  # chunked, decode-interleaved prefill: 128-token chunks, one chunk of
+  # prompt tokens per engine step
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+      --prefill-chunk 128 --prefill-budget 128
   # on a machine without a card, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -114,6 +118,15 @@ def cache_report(eng) -> list:
     return lines
 
 
+def chunk_report(eng) -> str:
+    """The chunked-prefill line of a finished run."""
+    return (f"chunked prefill (chunk={eng.prefill_chunk}, budget="
+            f"{eng.prefill_budget}/step): {eng.n_chunks} chunks / "
+            f"{eng.n_chunk_tokens} prompt tokens, {eng.n_interleaved_steps} "
+            f"interleaved steps, {eng.n_midprefill_preempted} mid-prefill "
+            f"preemptions")
+
+
 def same_tokens(a, b) -> bool:
     return all(x.out_tokens == y.out_tokens for x, y in zip(a, b))
 
@@ -151,6 +164,16 @@ def main(argv=None, cfg=None):
                     help="allow whole-request preemption (swap out a "
                          "victim, requeue, resume later); needs "
                          "--swap-bytes")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked, decode-interleaved prefill: split each "
+                         "prompt into fixed N-token chunks and interleave "
+                         "them with decode steps.  0 = whole-prompt "
+                         "prefill.  Needs the paged cache and an "
+                         "all-attention architecture.")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="prompt tokens spent on prefill per engine step "
+                         "(bounds decode latency under long prompts); "
+                         "default: one chunk.")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
@@ -185,6 +208,8 @@ def main(argv=None, cfg=None):
           f"{n_tok / max(eng.steps, 1):.2f})")
     for line in cache_report(eng):
         print(f"[serve] {line}")
+    if eng.prefill_chunk:
+        print(f"[serve] {chunk_report(eng)}")
     if args.check_lossless and args.compress != "none":
         done2, _, _ = serve(params_fp8, cfg, ecfg, prompts, args.max_new,
                             device=args.device)

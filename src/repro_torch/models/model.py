@@ -14,6 +14,8 @@ reference's ``lax.scan``; KV pools are updated in place.
 
 Entry points:
   prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
+  prefill_chunk(params, cfg, tokens, cache, slot, n_valid)
+                                          -> (logits, cache)   [paged cache]
   decode_step(params, cfg, token, cache)  -> (logits, cache)   [paged cache]
 """
 from __future__ import annotations
@@ -26,8 +28,8 @@ from ..core.store import is_compressed, torch_dtype
 from ..device import resolve
 from ..kernels import ops
 from ..kvcache import paged as paged_kv
-from .layers import (F32, apply_rope, decode_attention, mat, mlp_apply,
-                     mlp_init, rms_norm)
+from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
+                     mat, mlp_apply, mlp_init, rms_norm)
 
 SUPPORTED_KINDS = ("attn",)
 
@@ -167,6 +169,33 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
     return _attn_out(p, o, dtype)
 
 
+def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
+                          n_valid: int):
+    """One prefill chunk of a single slot through the paged cache.
+
+    x: (1, C, d), a chunk of the slot's prompt padded to the engine's chunk
+    size; ``row`` is the slot's page-table row, ``start`` its timeline (a
+    0-d tensor: no host sync), ``n_valid`` the count of real tokens.  The
+    chunk's K/V is written into the slot's pages (in place), the slot's
+    whole history (earlier chunks included, cold pages decoded by the
+    page-decode kernel) is gathered back, and the chunk attends causally
+    over it from ``q_offset=start``.  ``pools`` is as in
+    :func:`_self_attention_decode`."""
+    C = x.shape[1]
+    positions = start + torch.arange(C, device=x.device)
+    q, k, v = _qkv(p, x, cfg, dtype, positions)
+    k_pool, v_pool, k_cold, v_cold = pools
+    paged_kv.page_write_chunk(k_pool, row, positions, k, n_valid)
+    paged_kv.page_write_chunk(v_pool, row, positions, v, n_valid)
+    row = row.clamp(min=paged_kv.GARBAGE_PAGE)[None]
+    k_hist = paged_kv.page_gather(k_pool, row, k_cold)
+    v_hist = paged_kv.page_gather(v_pool, row, v_cold)
+    o = blockwise_attention(q, k_hist, v_hist, causal=True, q_offset=start,
+                            kv_len=start + n_valid,
+                            attn_softcap=cfg.attn_softcap)
+    return _attn_out(p, o, dtype)
+
+
 def _layer_apply_full(p, x, cfg: ArchConfig, dtype):
     """Full-sequence layer (prefill).  Returns (x, (k, v))."""
     h = rms_norm(x, p["norm1"])
@@ -181,6 +210,16 @@ def _layer_apply_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
     h = rms_norm(x, p["norm1"])
     x = x + _self_attention_decode(p["attn"], h, cfg, dtype, pools, cur_len,
                                    page_table)
+    h2 = rms_norm(x, p["norm2"])
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
+
+
+def _layer_apply_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
+                       n_valid: int):
+    """Chunk-mode layer: the decode layer's residual structure at T = C."""
+    h = rms_norm(x, p["norm1"])
+    x = x + _self_attention_chunk(p["attn"], h, cfg, dtype, pools, row,
+                                  start, n_valid)
     h2 = rms_norm(x, p["norm2"])
     return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
 
@@ -266,10 +305,50 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     return logits, cache
 
 
+def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
+                 n_valid: int):
+    """Embed a chunk, run every layer in chunk mode, advance the slot's
+    timeline by ``n_valid`` (in place) -> the residual stream (1, C, d)."""
+    dtype = torch_dtype(cfg.dtype)
+    cur_len = cache["cur_len"]
+    start = cur_len[slot].clone()
+    row = cache["page_table"][slot]
+    pools = cache["units"]["pos0"]
+    units = params["units"]["pos0"]
+    x = _embed(params, cfg, tokens, dtype)
+    for u in range(cfg.n_layers):
+        x = _layer_apply_chunk(_layer(units, u), x, cfg, dtype,
+                               (pools["k_pool"][u], pools["v_pool"][u],
+                                paged_kv.cold_leaves(pools, "k", u),
+                                paged_kv.cold_leaves(pools, "v", u)),
+                               row, start, n_valid)
+    cur_len[slot] = start + n_valid
+    return x
+
+
+def _prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
+                   n_valid: int):
+    """Process one fixed-size prompt chunk for ``slot`` of a paged cache.
+
+    tokens: (1, C) int, a chunk of the prompt padded to the engine's chunk
+    size; ``n_valid`` counts its real tokens; the chunk starts at
+    ``cache["cur_len"][slot]``.  K/V is appended straight into the slot's
+    pages across chunk boundaries; the final chunk's last-position logits
+    are where the request's first token is sampled from.  Returns (logits
+    (1, 1, V) at position ``n_valid - 1`` of the chunk, cache with
+    ``cur_len[slot] += n_valid``); the pools and ``cur_len`` are updated in
+    place."""
+    check_supported(cfg)
+    x = _chunk_stack(params, cfg, tokens, cache, slot, n_valid)
+    last = x[:, max(n_valid - 1, 0):max(n_valid, 1)]
+    return _unembed(params, cfg, last, torch_dtype(cfg.dtype)), cache
+
+
 # The entry points are defined under private names and bound to the public
 # ones: tools/lint's jit-discipline pass resolves a called name across
 # files only when a single file under src/ defines it, and the reference's
 # jitted serve steps reach their model through ``M.prefill`` /
-# ``M.decode_step``.
+# ``M.decode_step`` / ``M.prefill_chunk``.
 prefill = _prefill
+prefill_chunk = _prefill_chunk
 decode_step = _decode_step

@@ -1,17 +1,18 @@
 """Typed engine configuration: the reference's ``EngineConfig`` fields.
 
-The port serves whole-prompt prefill through the paged cache on one
-device.  It honours ``max_batch``, ``max_len``, ``rng_seed``,
-``page_size``, ``n_pages``, ``compress_cold`` and ``n_cold_slots`` (the
-compressed cold pool), and ``swap_bytes`` and ``preemption`` (the host swap
-tier: ``swap_bytes`` is its capacity, -1 unbounded, 0 or None off); every
-other field of the reference keeps its name and default here, and setting
-it to anything else raises ``EngineConfigError`` ("not yet ported") —
-nothing falls back silently.
+The port serves the paged cache on one device.  It honours
+``max_batch``, ``max_len``, ``rng_seed``, ``page_size``, ``n_pages``,
+``compress_cold`` and ``n_cold_slots`` (the compressed cold pool),
+``swap_bytes`` and ``preemption`` (the host swap tier: ``swap_bytes`` is its
+capacity, -1 unbounded, 0 or None off), and ``prefill_chunk`` and
+``prefill_budget`` (chunked, decode-interleaved prefill; 0 = whole-prompt
+prefill); every other field of the reference keeps its name and default
+here, and setting it to anything else raises ``EngineConfigError`` ("not
+yet ported") — nothing falls back silently.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from ..configs.base import ArchConfig
 from ..kvcache.paged import PAGED_KINDS
@@ -20,8 +21,7 @@ CACHE_MODES = ("paged", "monolithic")
 
 # field -> the only value this slice serves
 _NOT_YET_PORTED = {
-    "mesh": None, "cache_mode": "paged", "prefill_chunk": 0,
-    "prefill_budget": None, "prefix_sharing": False,
+    "mesh": None, "cache_mode": "paged", "prefix_sharing": False,
     "draft_params": None, "draft_cfg": None, "spec_k": 4,
     "telemetry": None, "kv_monitor": None,
 }
@@ -81,15 +81,20 @@ class EngineConfig:
             raise EngineConfigError("; ".join(bad))
 
     def validate(self, cfg: ArchConfig) -> "EngineConfig":
-        """Check this config against architecture ``cfg``: the paged cache
-        needs every layer to page ('attn'/'nope') and no encoder."""
+        """Check this config against architecture ``cfg`` and return the
+        resolved copy the engine serves.  The paged cache (and with it
+        chunked prefill) needs every layer to page ('attn'/'nope') and no
+        encoder; the chunk is clamped to ``max_len``, and the budget
+        defaults to one chunk and is at least 1 (0 without chunking)."""
         if cfg.encoder_decoder or not all(
                 cfg.layer_kind(i) in PAGED_KINDS
                 for i in range(cfg.n_layers)):
             raise EngineConfigError(
                 f"{cfg.name}: serving a stack with non-paged layers is not "
                 f"yet ported")
-        return self
+        chunk = min(max(self.prefill_chunk, 0), self.max_len)
+        budget = max(self.prefill_budget or chunk, 1) if chunk else 0
+        return replace(self, prefill_chunk=chunk, prefill_budget=budget)
 
     @classmethod
     def from_args(cls, args, cfg: ArchConfig) -> "EngineConfig":
@@ -100,4 +105,6 @@ class EngineConfig:
                    n_pages=args.n_pages,
                    compress_cold=args.cache == "paged-compressed",
                    swap_bytes=args.swap_bytes,
-                   preemption=args.preemption).validate(cfg)
+                   preemption=args.preemption,
+                   prefill_chunk=args.prefill_chunk,
+                   prefill_budget=args.prefill_budget or None).validate(cfg)

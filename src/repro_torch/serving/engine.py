@@ -10,6 +10,17 @@ with requests continuously:
   * a new request is prefilled whole as a single-row batch
     (``models.model.prefill``: the flash kernel) and its K/V is copied
     into freshly allocated pages (``PagedKVCache.admit``);
+  * with ``prefill_chunk=C``, prompts are instead prefilled in C-token
+    chunks (``models.model.prefill_chunk``) that write their K/V straight
+    into the slot's pages, under a per-step prefill token budget
+    (``prefill_budget``, default C): each step first spends at most about
+    the budget on prefill (mid-prefill slots first, in admission order,
+    then new work), then runs one batched decode step, so a long prompt no
+    longer stalls every decoding request.  A mid-prefill slot rides the
+    decode step as a masked row (its stray write lands at the next chunk's
+    first position, which that chunk overwrites; its timeline is rolled
+    back after the step) and can be preempted: ``Preempted.prefill_pos``
+    records where its prefill resumes;
   * decode steps always run the full batch; inactive slots read and write
     the garbage page and their rows are never used;
   * with ``compress_cold``, every slot's full pages are entropy-coded into
@@ -77,14 +88,23 @@ class GenerationEngine:
             self.paged.attach_swap(SwapStore(
                 None if config.swap_bytes < 0 else config.swap_bytes))
         self.cache = self.paged.init_cache()
+        self.prefill_chunk = config.prefill_chunk
+        self.prefill_budget = config.prefill_budget
         self.scheduler = Scheduler(paged=self.paged,
-                                   preemption=config.preemption)
+                                   preemption=config.preemption,
+                                   chunk_tokens=config.prefill_chunk)
+        self._prefill_pos: dict[int, int] = {}  # slot -> prompt tokens done
+        self._prefill_order: list[int] = []     # admission order (FIFO)
+        self._stalled_ids: set = set()          # self-preempted this step
+        self.n_chunks = self.n_chunk_tokens = self.n_interleaved_steps = 0
+        self.n_midprefill_preempted = 0
         self._host_len = [0] * max_batch        # next write position per slot
         self._last_tok = [0] * max_batch        # decode input per slot
         self.rng0 = root_key(config.rng_seed)
         self.steps = 0
         # host wall time of the two phases, each ending in a host read of
-        # the sampled tokens (which waits for the device work)
+        # the sampled tokens or, for a chunked prefill phase, a device
+        # synchronisation (so that each waits for its own device work)
         self.prefill_seconds = self.decode_seconds = 0.0
 
     def submit(self, req: Request):
@@ -109,16 +129,34 @@ class GenerationEngine:
         self.slots[slot] = req
         self.prefill_seconds += time.perf_counter() - t0
 
+    def _start_chunked(self, slot: int, req: Request):
+        """Admit a request for chunked prefill: allocate its page grant
+        (``Scheduler.admission_grant``, the count ``pick`` tested against)
+        and enter the prefill phase; its chunks run under the step's token
+        budget in :func:`_prefill_phase`."""
+        grant = self.scheduler.admission_grant(req)
+        self.cache = self.paged.admit_slot(self.cache, slot, grant)
+        self._host_len[slot] = 0
+        self._prefill_pos[slot] = 0
+        self._prefill_order.append(slot)
+        self.slots[slot] = req
+
     def _resume(self, slot: int, st: Preempted):
         """Re-splice a preempted request: reinstall its page list, fault
         every page back (lossless restore) and rebuild the slot timeline —
-        the continuation is bit-identical to an unpreempted run."""
+        the continuation is bit-identical to an unpreempted run.  A
+        mid-prefill record re-enters the prefill phase at
+        ``st.prefill_pos`` instead of rejoining the decode batch."""
         self.cache = self.paged.attach_slot(self.cache, slot, st.pages,
                                             st.skip)
         self.cache = self.paged.fault(self.cache, slot)
         self.cache["cur_len"][slot] = st.host_len
         self._host_len[slot] = st.host_len
-        self._last_tok[slot] = st.last_tok
+        if st.prefill_pos is not None:
+            self._prefill_pos[slot] = st.prefill_pos
+            self._prefill_order.append(slot)
+        else:
+            self._last_tok[slot] = st.last_tok
         self.slots[slot] = st.req
         self.scheduler.n_resumed += 1
 
@@ -145,25 +183,35 @@ class GenerationEngine:
         self.scheduler.requeue(Preempted(
             req=self.slots[slot], pages=pages, skip=skip,
             host_len=self._host_len[slot], last_tok=self._last_tok[slot],
-            state=state))
+            state=state, prefill_pos=self._prefill_pos.get(slot)))
+        if slot in self._prefill_pos:       # preempted mid-prefill
+            self.n_midprefill_preempted += 1
+            del self._prefill_pos[slot]
+            self._prefill_order.remove(slot)
         self.slots[slot] = None
         self.scheduler.n_preempted += 1
         return True
 
-    def _admit(self):
+    def _admit(self, prefill_budget: int | None = None):
         """Fill free slots from the scheduler; preempt strictly-lower-
-        priority work when the head of the queue is blocked on pages."""
+        priority work when the head of the queue is blocked on pages.
+        ``prefill_budget``: the chunked prefill tokens left this step; once
+        spent, only decode-phase resumes admit, and no victim is preempted
+        for a request that could not be prefilled yet."""
         sched = self.scheduler
+        spent = prefill_budget is not None and prefill_budget <= 0
         while True:
             progress = False
             for slot in range(self.max_batch):
                 if self.slots[slot] is not None:
                     continue
-                item = sched.pick(slot)
+                item = sched.pick(slot, prefill_budget)
                 if item is None:
                     continue
                 if isinstance(item, Preempted):
                     self._resume(slot, item)
+                elif self.prefill_chunk:
+                    self._start_chunked(slot, item)
                 else:
                     self._start(slot, item)
                 progress = True
@@ -172,10 +220,13 @@ class GenerationEngine:
             head = sched.head()
             if head is None:
                 break
+            if spent and sched.prefill_tokens(head) > 0:
+                break
             victim = sched.admission_victim(self.slots, head)
             if victim is None or not self._preempt(victim):
                 break
-        if sched.waiting and not any(s is not None for s in self.slots):
+        if (sched.waiting and not spent
+                and not any(s is not None for s in self.slots)):
             # every slot is free yet nothing could be admitted: no release
             # will ever refill the free list.  Raised only once the batch
             # has drained, so in-flight work always completes first.
@@ -207,6 +258,95 @@ class GenerationEngine:
         self.slots[s] = None
         self.cache = self.paged.release(self.cache, s)
 
+    # -- chunked prefill ---------------------------------------------------
+
+    def _ensure_prefill(self, slot: int, pos: int) -> bool:
+        """Grow ``slot``'s page list to cover a chunk write at ``pos``.  On
+        pressure, preempt victims; as a last resort the prefilling request
+        preempts itself (its chunks so far swap out losslessly and resume
+        at the recorded position), at most once a step, after which it
+        pauses holding its pages.  Returns False when the chunk must not
+        run (self-preempted or paused)."""
+        req = self.slots[slot]
+        while True:
+            try:
+                self.cache = self.paged.ensure(self.cache, slot, pos)
+                return True
+            except OutOfPages:
+                victim = self.scheduler.victim(self.slots, exclude=(slot,))
+                if victim is not None and self._preempt(victim):
+                    continue
+                if (self.scheduler._can_preempt()
+                        and req.id not in self._stalled_ids
+                        and self._preempt(slot)):
+                    self._stalled_ids.add(req.id)
+                    return False
+                if self.scheduler._can_preempt():
+                    return False        # paused: retry next step
+                raise
+
+    def _advance_prefill(self, slot: int, allowance: int) -> int:
+        """Run prefill chunks for ``slot`` until its prompt is done or about
+        ``allowance`` tokens were spent (the last chunk may overshoot by at
+        most ``chunk - 1``).  The final chunk's logits give the request's
+        first token and move the slot to the decode phase.  Returns the
+        tokens spent."""
+        req = self.slots[slot]
+        C = self.prefill_chunk
+        spent = 0
+        while (self.slots[slot] is req and slot in self._prefill_pos
+               and spent < allowance):
+            pos = self._prefill_pos[slot]
+            part = req.prompt[pos:pos + C]
+            n = len(part)
+            if not self._ensure_prefill(slot, pos + n - 1):
+                return spent                    # self-preempted: requeued
+            toks = torch.tensor(list(part) + [0] * (C - n),
+                                dtype=torch.int64, device=self.device)[None]
+            logits, _ = M.prefill_chunk(self.params, self.cfg, toks,
+                                        self._step_cache(), slot, n)
+            self._prefill_pos[slot] = pos + n
+            self._host_len[slot] = pos + n
+            self.n_chunks += 1
+            self.n_chunk_tokens += n
+            spent += n
+            if pos + n >= len(req.prompt):      # final chunk: first token
+                tok = self._sample_one(logits, req)
+                req.out_tokens.append(tok)
+                self._last_tok[slot] = tok
+                del self._prefill_pos[slot]
+                self._prefill_order.remove(slot)
+        return spent
+
+    def _prefill_phase(self) -> int:
+        """Spend up to ``prefill_budget`` prompt tokens on prefill work:
+        mid-prefill slots drain first in admission order (an earlier prompt
+        finishes before a later one starts), then new work admits against
+        the remaining budget and runs its first chunks in the same step.
+        Returns tokens spent."""
+        budget = self.prefill_budget
+        spent = 0
+        t0 = time.perf_counter()
+        self._stalled_ids.clear()
+        while True:
+            for slot in list(self._prefill_order):
+                if spent >= budget:
+                    break
+                if self.slots[slot] is not None and slot in self._prefill_pos:
+                    spent += self._advance_prefill(slot, budget - spent)
+            before = len(self._prefill_order)
+            had_free = any(s is None for s in self.slots)
+            self._admit(prefill_budget=budget - spent)
+            if len(self._prefill_order) == before or spent >= budget \
+                    or not had_free:
+                break
+        if spent and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prefill_seconds += time.perf_counter() - t0
+        return spent
+
+    # -- stepping ----------------------------------------------------------
+
     def _ensure_with_pressure(self, slot: int):
         """Grow ``slot``'s page list to cover this step's decode write; on
         page pressure, preempt victims until it fits."""
@@ -220,28 +360,38 @@ class GenerationEngine:
                 if victim is None or not self._preempt(victim):
                     raise
 
-    def _decode_cache(self) -> dict:
-        """The cache the decode step reads: without the cold-pool leaves
-        while no page is cold (decoding an empty pool would be waste)."""
+    def _step_cache(self) -> dict:
+        """The cache the decode step and the prefill chunk read: without
+        the cold-pool leaves while no page is cold (decoding an empty pool
+        would be waste)."""
         if not self.paged.compress or self.paged.has_cold:
             return self.cache
         pools = self.cache["units"]["pos0"]
         return {**self.cache, "units": {"pos0": {
             kn: pools[kn] for kn in ("k_pool", "v_pool")}}}
 
+    def _decoding(self) -> list:
+        """Slots in the decode phase (occupied, not mid-prefill)."""
+        return [s for s in range(self.max_batch)
+                if self.slots[s] is not None and s not in self._prefill_pos]
+
     def step(self) -> bool:
-        """Admit what fits, then one batched decode step for the active
+        """One engine step: admission and, in chunked mode, budgeted
+        prefill work, then one batched decode step for the decode-phase
         slots.  Returns False when idle."""
-        self._admit()
-        active = [s for s in range(self.max_batch)
-                  if self.slots[s] is not None]
+        if self.prefill_chunk:
+            prefill_spent = self._prefill_phase()
+        else:
+            self._admit()
+            prefill_spent = 0
+        active = self._decoding()
         if not active:
-            return self.scheduler.waiting > 0
+            # prefill in flight with nothing to decode, or idle
+            return bool(self._prefill_pos) or self.scheduler.waiting > 0
         for s in active:   # grow page lists to cover this step's write
             if self.slots[s] is not None:
                 self._ensure_with_pressure(s)
-        active = [s for s in range(self.max_batch)
-                  if self.slots[s] is not None]
+        active = self._decoding()
         # fault-before-gather: the decode step must never see a swapped
         # page of an active slot (normally a no-op: resume already faults,
         # and whole-request preemption only swaps vacated slots)
@@ -252,9 +402,18 @@ class GenerationEngine:
         last = torch.tensor(self._last_tok, dtype=torch.int64,
                             device=self.device)[:, None]
         logits, out = M.decode_step(self.params, self.cfg, last,
-                                    self._decode_cache())
+                                    self._step_cache())
         self.cache["cur_len"] = out["cur_len"]
         self.steps += 1
+        if self._prefill_pos:
+            # mid-prefill rows decoded as masked garbage: the batched step
+            # advanced every timeline, so roll theirs back (their stray
+            # write sits at the next chunk's first position, which that
+            # chunk overwrites)
+            idx = torch.tensor(sorted(self._prefill_pos), device=self.device)
+            self.cache["cur_len"][idx] -= 1
+        if prefill_spent:
+            self.n_interleaved_steps += 1
         toks = greedy(logits)[:, 0].tolist()
         self.decode_seconds += time.perf_counter() - t0
         for s in active:

@@ -1,7 +1,8 @@
 """Preemptive request scheduler: priority admission over virtual capacity.
 
-The reference's ``serving/scheduler.py`` for whole-prompt prefill on one
-device.  With the swap tier (``kvcache/swap.py``) the page pool becomes a
+The reference's ``serving/scheduler.py`` on one device, with its
+chunked-prefill pieces (the per-step prefill token budget, mid-prefill
+preemption records) and without prefix sharing.  With the swap tier (``kvcache/swap.py``) the page pool becomes a
 cache over a larger *virtual* capacity — device pages + host swap — and
 this module is the policy layer over it:
 
@@ -33,7 +34,11 @@ from dataclasses import dataclass, field
 
 @dataclass
 class Preempted:
-    """A swapped-out request awaiting resume, partially generated."""
+    """A swapped-out request awaiting resume: partially generated, or, with
+    chunked prefill, partially prefilled (``prefill_pos`` is then the count
+    of prompt tokens whose K/V is in the swapped pages, equal to
+    ``host_len``; the next chunk resumes there, and ``last_tok`` is a
+    placeholder that resume never feeds to a decode step)."""
 
     req: object                 # serving.engine.Request
     pages: list                 # all-negative swap sentinels (detach_slot)
@@ -42,10 +47,18 @@ class Preempted:
     last_tok: int               # last sampled token (decode input on resume)
     state: dict = field(default_factory=dict)
     # ^ non-paged per-slot cache state (PagedKVCache.snapshot_slot_state)
+    prefill_pos: int | None = None   # prompt tokens consumed (mid-prefill)
 
     @property
     def priority(self) -> int:
         return self.req.priority
+
+    @property
+    def prefill_tokens_left(self) -> int:
+        """Prompt tokens still to prefill on resume (0 in decode phase)."""
+        if self.prefill_pos is None:
+            return 0
+        return len(self.req.prompt) - self.prefill_pos
 
 
 @dataclass
@@ -54,6 +67,7 @@ class Scheduler:
 
     paged: object
     preemption: bool = True
+    chunk_tokens: int = 0      # engine's prefill chunk (0 = whole-prompt)
     _classes: dict = field(default_factory=dict)   # priority -> deque
     _clock: int = 0
     _last_used: dict = field(default_factory=dict)  # slot -> stamp
@@ -100,11 +114,31 @@ class Scheduler:
 
     # -- fit tests ---------------------------------------------------------
 
+    def prefill_tokens(self, item) -> int:
+        """Prompt tokens the item still needs prefilled once admitted: the
+        unit of the chunked engine's per-step token budget (0 for a
+        decode-phase resume)."""
+        if isinstance(item, Preempted):
+            return item.prefill_tokens_left
+        return len(item.prompt)
+
+    def admission_grant(self, req) -> int:
+        """Pages a fresh request is granted at admission, for both the fit
+        test here and the engine's allocation.  With chunked prefill and a
+        live preemption path, the first chunk's pages (later chunks grow
+        the slot, and pressure resolves by preemption); otherwise the
+        whole-prompt grant, since a first-chunk grant with no way to evict
+        could wedge a later chunk."""
+        if self.chunk_tokens and self._can_preempt():
+            return self.paged.pages_for_prefix(
+                min(self.chunk_tokens, len(req.prompt)))
+        return self.paged.pages_needed(len(req.prompt))
+
     def _need_now(self, item) -> int:
         """Raw pages the item needs resident to start on a slot."""
         if isinstance(item, Preempted):
             return len(item.pages)      # conservative: cold slots may help
-        return self.paged.pages_needed(len(item.prompt))
+        return self.admission_grant(item)
 
     def _fits(self, item) -> bool:
         """Admissible *now and for its whole lifetime*: the current need
@@ -123,20 +157,29 @@ class Scheduler:
                                             req.max_new_tokens)
         return worst <= self.paged.shard_capacity()
 
-    def pick(self, slot: int):
+    def pick(self, slot: int, prefill_budget: int | None = None):
         """Pop the best waiting item admissible on ``slot`` now, or None.
 
         Strict head-of-line within a priority class: only the class's
         first *schedulable* item (never-fitting requests are passed over)
         is considered, so an all-priority-0 workload is served in FIFO
         order and a large request cannot be starved by smaller ones behind
-        it.  A blocked class head does let lower classes run."""
+        it.  A blocked class head does let lower classes run.
+
+        ``prefill_budget`` is the chunked engine's remaining prefill tokens
+        this step: once spent (``<= 0``), items that still need prompt
+        tokens prefilled are blocked, and only decode-phase resumes admit.
+        A budget-blocked class head blocks its class like a page-blocked
+        one."""
         for p in self._priorities():
             q = self._classes[p]
             for i, item in enumerate(q):
                 if (not isinstance(item, Preempted)
                         and not self._ever_fits(item)):
                     continue        # unschedulable: not head-of-line
+                if (prefill_budget is not None and prefill_budget <= 0
+                        and self.prefill_tokens(item) > 0):
+                    break           # out of prefill budget this step
                 if self._fits(item):
                     del q[i]
                     self.touch(slot)

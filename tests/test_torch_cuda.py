@@ -143,3 +143,65 @@ def test_kv_page_decode_wide_stride_and_refusals(card):
         kv.run(*[a.cpu() for a in args], n_elem=n, dtype_name="bfloat16")
     with pytest.raises(ValueError, match="shapes"):
         kv.run(*args, n_elem=n, dtype_name="float32")
+
+
+# --------------------------------------------------------------------------
+# the fused decode + matrix product (csrc/fused_decode_matmul.cu)
+# --------------------------------------------------------------------------
+
+def _tiled_weight(card, K, N, S):
+    from repro_torch.kernels import fused_decode_matmul as fused
+    w = torch.randn((K, N), generator=card, device="cuda") * K ** -0.5
+    bits = fp8.cast_to_fp8_bits(w)
+    return bits, fused.encode_tiled(bits, sym_per_lane=S)
+
+
+@pytest.mark.parametrize("M,K,N,S", [(4, 512, 384, 256), (37, 256, 640, 32),
+                                     (130, 1024, 256, 256)])
+def test_fused_matmul_matches_plain(card, M, K, N, S):
+    from repro_torch.kernels import fused_decode_matmul as fused
+    _, tiled = _tiled_weight(card, K, N, S)
+    x = torch.randn((M, K), generator=card, device="cuda")
+    before = fused.run.launches
+    got = ops.fused_decode_matmul(x, tiled)
+    assert fused.run.launches == before + 1
+    want = fused.plain(x, tiled)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-4, rel
+    # no float atomics: a second launch gives the same bits
+    assert torch.equal(ops.fused_decode_matmul(x, tiled), got)
+    half = ops.fused_decode_matmul(x, tiled, out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16 and torch.equal(half,
+                                                        got.to(half.dtype))
+
+
+def test_fused_matmul_weight_path_bit_exact(card):
+    from repro_torch.kernels import fused_decode_matmul as fused
+    K, N = 512, 256
+    bits, tiled = _tiled_weight(card, K, N, 256)
+    got = fused.run(torch.eye(K, device="cuda"), tiled)
+    want = bits.view(fp8.FP8_DTYPE).to(torch.bfloat16).float()
+    assert torch.equal(got, want)
+
+
+def test_fused_matmul_refusals(card):
+    from repro_torch.kernels import fused_decode_matmul as fused
+    _, tiled = _tiled_weight(card, 256, 128, 32)
+    with pytest.raises(ValueError, match="rows"):
+        fused.run(torch.zeros((513, 256), device="cuda"), tiled)
+    with pytest.raises(ValueError, match="rows"):
+        fused.run(torch.zeros((4, 128), device="cuda"), tiled)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.run(torch.zeros((4, 256)), tiled)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = fused.TiledECF8Weight(
+            torch.zeros((1, 1, 1024, 128), dtype=torch.uint8, device="cuda"),
+            torch.zeros((1, 1, 1024 * 64), dtype=torch.uint8, device="cuda"),
+            *tiled_tables(tiled), k=1024, n=128, sym_per_lane=1024)
+        fused.run(torch.zeros((4, 1024), device="cuda"), big)
+
+
+def tiled_tables(tiled):
+    return tiled.lj_limit, tiled.first_lj, tiled.offset, tiled.perm

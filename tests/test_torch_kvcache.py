@@ -39,15 +39,17 @@ _VIEW = {"float8_e4m3fn": (np.uint8, jnp.float8_e4m3fn, torch.uint8),
          "float32": (np.uint32, np.float32, torch.int32)}
 
 
-@pytest.fixture
-def pallas_store(monkeypatch):
-    """The reference Pallas page kernel writes its output rows with
-    ``pl.store``, which newer JAX releases dropped; assigning through the
-    ref is the same write."""
-    if not hasattr(pl, "store"):
-        def store(ref, idx, val):
-            ref[idx] = val
-        monkeypatch.setattr(pl, "store", store, raising=False)
+# The reference's Pallas kernels write their output rows with ``pl.store``,
+# which newer JAX releases dropped; assigning through the ref is the same
+# write.  Installed when this module is imported, so it holds for the whole
+# test process: the reference package's own tests (its page fault, its
+# prefix-sharing allocator walks) reach the same kernel, and a jitted trace
+# taken under a per-test patch would otherwise leak into them or not
+# depending on which tests a worker happened to run first.
+if not hasattr(pl, "store"):
+    def _pallas_store(ref, idx, val):
+        ref[idx] = val
+    pl.store = _pallas_store
 
 
 def _rand_bits(rng, n, name):
@@ -121,7 +123,7 @@ def test_encode_page_byte_identical_to_reference(name, n, kind):
 
 
 @pytest.mark.parametrize("name", list(_VIEW))
-def test_plain_page_decode_matches_jnp_twin_and_pallas(name, pallas_store):
+def test_plain_page_decode_matches_jnp_twin_and_pallas(name):
     """Pages with different codebooks (one a single symbol, one using the
     widest codes), zero-padded to one stride, plus a never-written
     (all-zero) cold slot: bit-exact against ``decode_pages_jnp`` on every
@@ -226,7 +228,7 @@ def test_cold_pool_allocator_matches_reference():
     assert pc.n_compressed >= 5
 
 
-def test_evict_fault_round_trip_matches_reference(pallas_store):
+def test_evict_fault_round_trip_matches_reference():
     """Cold-first eviction, then a fault that reinstalls one cold page
     into the cold pool and decodes the rest (one decode call) into raw
     pages: the slot's gathered history is bit-identical before and after,
@@ -398,3 +400,105 @@ def test_page_decode_wrapper_refuses_cpu_tensors():
     got = ops.decode_pages(*args, n_elem=1000, dtype_name="float32",
                            path="gather")
     assert kv_kernels.run.launches == before and got.shape == (1, 1000)
+
+
+# --------------------------------------------------------------------------
+# chunked prefill
+# --------------------------------------------------------------------------
+
+def test_prefill_chunk_matches_reference():
+    """One slot's prompt of 15 tokens in chunks of 6 on both packages
+    (pages of 4): a first chunk, a second resuming at start 6 that
+    straddles a page boundary and gathers a cold page, and a padded last
+    chunk (3 of 6 valid).  Logits and the slot's gathered history are
+    within the model tolerance of the reference's, the page table and
+    timeline equal; the port's last-chunk logits are within the same
+    tolerance of its own whole-prompt prefill."""
+    cfg = smoke_variant(get("qwen3-8b"))
+    ref_cfg = ref_smoke(ref_get("qwen3-8b"))
+    ref_params = RM.init_params(jax.random.PRNGKey(2), ref_cfg)
+    params = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+    kw = dict(page_size=4, compress_cold=True)
+    ref_pc = ref_paged.PagedKVCache(ref_cfg, 2, 32, dtype=jnp.float32, **kw)
+    pc = paged.PagedKVCache(cfg, 2, 32, dtype=torch.float32, device="cpu",
+                            **kw)
+    C, slot = 6, 1
+    prompt = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, 15).tolist()
+    ref_cache = ref_pc.admit_slot(ref_pc.init_cache(), slot,
+                                  ref_pc.pages_for_prefix(C))
+    cache = pc.admit_slot(pc.init_cache(), slot, pc.pages_for_prefix(C))
+    for lo in range(0, len(prompt), C):
+        part = prompt[lo:lo + C]
+        n = len(part)
+        toks = np.asarray([part + [0] * (C - n)], np.int32)
+        ref_cache = ref_pc.ensure(ref_cache, slot, lo + n - 1)
+        cache = pc.ensure(cache, slot, lo + n - 1)
+        had_cold = pc.has_cold
+        want, ref_cache = RM.prefill_chunk(ref_params, ref_cfg,
+                                           jnp.asarray(toks), ref_cache,
+                                           slot, n)
+        got, _ = M.prefill_chunk(params, cfg, torch.from_numpy(toks).long(),
+                                 pc_cache_in(pc, cache), slot, n)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGIT_ATOL, err_msg=f"chunk at {lo}")
+        np.testing.assert_array_equal(cache["page_table"].numpy(),
+                                      np.asarray(ref_cache["page_table"]))
+        np.testing.assert_array_equal(cache["cur_len"].numpy(),
+                                      np.asarray(ref_cache["cur_len"]))
+        pools, ref_pools = cache["units"]["pos0"], ref_cache["units"]["pos0"]
+        for kn in ("k", "v"):
+            for u in range(cfg.n_layers):
+                mine = paged.page_gather(
+                    pools[f"{kn}_pool"][u], cache["page_table"][slot:slot + 1],
+                    paged.cold_leaves(pools, kn, u) if pc.has_cold else None)
+                theirs = ref_paged.page_gather(
+                    ref_pools[f"{kn}_pool"][u],
+                    ref_cache["page_table"][slot:slot + 1],
+                    tuple(ref_pools[f"{kn}_{c}"][u]
+                          for c in ("cpl", "csm", "ctab", "cperm")))
+                L = lo + n
+                np.testing.assert_allclose(mine[:, :, :L].numpy(),
+                                           np.asarray(theirs)[:, :, :L],
+                                           atol=LOGIT_ATOL)
+        if lo == C:
+            assert had_cold        # the second chunk gathered a cold page
+        ref_cache = ref_pc.compress_cold_pages(ref_cache, slot, lo + n)
+        cache = pc.compress_cold_pages(cache, slot, lo + n)
+    whole, _ = M.prefill(params, cfg, torch.tensor([prompt]), max_len=32)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), atol=LOGIT_ATOL)
+
+
+def pc_cache_in(pc, cache):
+    """The cache a chunk reads: without the cold leaves while nothing is
+    cold, as the engine passes it."""
+    if pc.has_cold:
+        return cache
+    pools = cache["units"]["pos0"]
+    return {**cache, "units": {"pos0": {
+        kn: pools[kn] for kn in ("k_pool", "v_pool")}}}
+
+
+def test_chunk_write_drops_sentinels_cold_ids_and_padding():
+    """A chunk whose row holds a swap sentinel and a cold id, and whose
+    last two positions are padding: only the positions on live raw pages
+    land (as the reference writes them), every other page keeps its bits,
+    the garbage page included."""
+    rng = np.random.default_rng(4)
+    n_pool, ps, C = 5, 4, 12
+    pool = rng.normal(size=(n_pool, 2, ps, 8)).astype(np.float32)
+    row = np.array([3, -1, 7, 0], np.int32)     # raw, sentinel, cold, empty
+    kv = rng.normal(size=(1, 2, C, 8)).astype(np.float32)
+    positions = np.arange(C, dtype=np.int32)
+    got = paged.page_write_chunk(torch.from_numpy(pool.copy()),
+                                 torch.from_numpy(row),
+                                 torch.from_numpy(positions),
+                                 torch.from_numpy(kv), 10).numpy()
+    want = np.asarray(ref_paged.page_write_chunk(
+        jnp.asarray(pool), jnp.maximum(jnp.asarray(row), 0),
+        jnp.asarray(positions), jnp.asarray(kv), 10))
+    np.testing.assert_array_equal(got[1:], want[1:])
+    np.testing.assert_array_equal(got[3], kv[0, :, :4])
+    for pid in (0, 1, 2, 4):
+        np.testing.assert_array_equal(got[pid], pool[pid])

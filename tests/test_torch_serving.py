@@ -4,7 +4,8 @@ package: greedy tokens identical to the reference engine on the same
 allocator state identical after the same operation sequence, a sampled
 stream independent of the batch size, and — under the reference's
 oversubscribed configuration (cold pool + swap tier) — tokens, preemption
-counts and swap traffic equal to the reference engine's."""
+counts and swap traffic equal to the reference engine's, with whole-prompt
+and with chunked, decode-interleaved prefill."""
 import warnings
 
 import numpy as np
@@ -166,9 +167,9 @@ def test_allocator_state_matches_reference():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("cache_mode", "monolithic"), ("prefill_chunk", 8),
-    ("prefill_budget", 64), ("prefix_sharing", True), ("telemetry", object()),
-    ("spec_k", 2)])
+    ("cache_mode", "monolithic"), ("mesh", object()),
+    ("draft_cfg", smoke_variant(get("qwen3-8b"))), ("prefix_sharing", True),
+    ("telemetry", object()), ("spec_k", 2)])
 def test_unported_engine_options_raise(field, value):
     with pytest.raises(EngineConfigError, match="not yet ported"):
         EngineConfig(**{field: value})
@@ -341,3 +342,128 @@ def test_sampled_stream_is_unchanged_by_forced_preemption(raw_weights):
     assert eng.scheduler.n_preempted == 1 and eng.scheduler.n_resumed == 1
     assert eng.paged.swap.n_swap_out > 0
     assert swapped == plain
+
+
+# --------------------------------------------------------------------------
+# chunked, decode-interleaved prefill
+# --------------------------------------------------------------------------
+
+# tests/test_serving.py:379-391's fixed workloads, greedy (sampled draws
+# differ between jax.random and torch.Generator): (prompt length,
+# max_new_tokens, priority) from a seed
+_CHUNK_WL = {"preempting": ([(20, 12, 1), (16, 10, 2), (9, 12, 0),
+                             (14, 8, 0)], 123),
+             "mixed": ([(13, 8, 0), (5, 6, 1), (18, 5, 0)], 7)}
+
+
+def _chunk_workload(eng, Req, name):
+    wl, seed = _CHUNK_WL[name]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, 512, size=p).tolist() for p, _, _ in wl]
+    reqs = [Req(prompt=prompts[i], max_new_tokens=n, priority=pr,
+                id=8_000 + i) for i, (_, n, pr) in enumerate(wl)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done for r in reqs)
+    return reqs
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+@pytest.mark.parametrize("workload", sorted(_CHUNK_WL))
+def test_chunked_serving_matches_reference_engine(raw_weights, workload,
+                                                  chunk, pallas_store):
+    """The reference engine's chunked run of the same workload under the
+    oversubscribed configuration: greedy tokens, engine steps, chunk
+    counters and preemption counters equal."""
+    cfg, ref_cfg, ref_params, params = raw_weights
+    kw = dict(max_batch=2, max_len=48, prefill_chunk=chunk, **_OVERSUB)
+    ref_eng = RefEngine(ref_params, ref_cfg, config=RefEngineConfig(**kw))
+    ref_reqs = _chunk_workload(ref_eng, RefRequest, workload)
+    eng = GenerationEngine(params, cfg, config=EngineConfig(**kw),
+                           device="cpu")
+    reqs = _chunk_workload(eng, Request, workload)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+    counters = ("steps", "n_chunks", "n_chunk_tokens", "n_interleaved_steps")
+    assert {c: getattr(eng, c) for c in counters} == {
+        c: getattr(ref_eng, c) for c in counters}
+    assert (eng.scheduler.n_preempted, eng.scheduler.n_resumed) == (
+        ref_eng.scheduler.n_preempted, ref_eng.scheduler.n_resumed)
+    assert eng.n_chunks > len(reqs) and eng.n_interleaved_steps > 0
+    assert (eng.prefill_chunk, eng.prefill_budget) == (chunk, chunk)
+    assert len(eng.paged.swap) == 0 and not eng.paged._slot_pages
+    assert eng.paged.free_pages == eng.paged.n_pages - 1
+
+
+def test_chunked_tokens_equal_whole_prompt_tokens(raw_weights):
+    """The reference's invariant, in f32 on the port alone: chunked
+    prefill (under preemption) gives the whole-prompt engine's tokens."""
+    cfg, _, _, params = raw_weights
+    runs = {}
+    for chunk in (0, 4):
+        eng = GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=2, max_len=48, prefill_chunk=chunk, **_OVERSUB),
+            device="cpu")
+        runs[chunk] = [r.out_tokens for r in
+                       _chunk_workload(eng, Request, "preempting")]
+        assert eng.scheduler.n_preempted > 0
+    assert runs[4] == runs[0]
+
+
+def test_midprefill_preempt_resume_matches_unpreempted_run(raw_weights):
+    """tests/test_serving.py:425's scenario: a request preempted after its
+    first 4-token chunk records ``prefill_pos``, resumes prefill there and
+    finishes with the tokens of the port's own unpreempted chunked run."""
+    cfg, _, _, params = raw_weights
+
+    def serve(preempt):
+        eng = GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=2, max_len=48, prefill_chunk=4, prefill_budget=4,
+            **_OVERSUB), device="cpu")
+        req = Request(prompt=list(range(1, 21)), max_new_tokens=8,
+                      id=12_000)
+        eng.submit(req)
+        if preempt:
+            eng.step()                              # one 4-token chunk in
+            slot = eng.slots.index(req)
+            assert eng._prefill_pos[slot] == 4
+            assert eng._preempt(slot)
+            assert req not in eng.slots and not req.out_tokens
+            st = eng.scheduler.head()
+            assert st.prefill_pos == 4 and st.prefill_tokens_left == 16
+        eng.run()
+        assert req.done
+        return req.out_tokens, eng
+
+    plain, _ = serve(False)
+    resumed, eng = serve(True)
+    assert resumed == plain and len(plain) == 8
+    assert eng.scheduler.n_resumed == 1 and len(eng.paged.swap) == 0
+
+
+def test_scheduler_token_budget_blocks_new_prefill_work():
+    """pick() with an exhausted prefill budget admits only zero-prefill
+    items (decode-phase resumes); a budget-blocked class head blocks its
+    class, preserving FIFO."""
+    from repro_torch.kvcache import SwapStore
+    from repro_torch.serving.scheduler import Preempted, Scheduler
+    cfg = smoke_variant(get("qwen3-8b"))
+    pkv = paged.PagedKVCache(cfg, 2, 64, dtype=torch.float32, device="cpu",
+                             page_size=16)
+    pkv.attach_swap(SwapStore())
+    sched = Scheduler(paged=pkv, chunk_tokens=8)
+    a = Request(prompt=[1] * 10, max_new_tokens=4, id=13_000)
+    b = Request(prompt=[1] * 3, max_new_tokens=4, id=13_002)
+    sched.submit(a)
+    sched.submit(b)
+    assert sched.admission_grant(a) == 1            # the first chunk's page
+    assert sched.pick(0, prefill_budget=0) is None  # needs prefill
+    assert sched.pick(0, prefill_budget=8) is a     # FIFO within the class
+    # a decode-phase resume admits even with no budget left
+    done = Preempted(req=Request(prompt=[1] * 4, max_new_tokens=4,
+                                 id=13_001),
+                     pages=[], skip=set(), host_len=5, last_tok=3)
+    sched.requeue(done)
+    assert sched.prefill_tokens(done) == 0
+    assert sched.pick(1, prefill_budget=0) is done
+    assert sched.pick(1, prefill_budget=0) is None  # b still needs prefill
