@@ -9,12 +9,19 @@ toolkit:
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the four CUDA kernels built with
      nvcc for sm_90a from ``src/repro_torch/csrc``, all started together;
-  2. the ECF8 decode kernel against its plain PyTorch version, bit-exact,
-     at the qwen3-8b embed / wi_gate / wq shapes and on a one-symbol and a
-     near-uniform codebook, timed on the card (CUDA events);
-  3. the flash-attention kernel against its plain version in bf16 (B=1,
-     Hq=32, Hkv=8, D=128, causal, T in {13, 512, 2048}), with the time of
-     ``F.scaled_dot_product_attention`` as a yardstick;
+  2. the ECF8 decode kernel against its plain PyTorch version at the
+     qwen3-8b embed / wi_gate / wq shapes: fp8 bits bit-exact, and its
+     bf16, fp16 and f32 instances (the decode writing the weight's dtype
+     itself) bit-identical to plain decode + cast; the same on a
+     one-symbol and a near-uniform codebook and a container holding all
+     256 fp8 codes (NaNs compared by isnan); timed on the card (CUDA
+     events): the bf16 instance beside the fp8-bits instance followed by
+     ``.to(bf16)``;
+  3. the flash-attention kernel (bf16 and fp16 on the tensor cores)
+     against its plain version in bf16 (B=1, Hq=32, Hkv=8, D=128, causal,
+     T in {13, 451, 512, 2048}) and fp16 (T=2048), with the time of
+     ``F.scaled_dot_product_attention`` as a yardstick (TFLOP/s and the
+     factor against it printed; timed after L2 flushes);
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), f32 and fp8 pages, and a batch of
@@ -35,7 +42,10 @@ Phases, each failing loudly (non-zero exit, no result line):
   5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
      compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
-     kernels' launch counts must be non-zero over that run;
+     kernels' launch counts must be non-zero over that run, and every
+     weight decode must write bf16 itself (launches counted by output
+     dtype; a decode to fp8 bits would need a cast kernel after it; held
+     over phases 5-8);
   6. the same prompts on the fp8 baseline: greedy tokens must be identical;
   7. the same prompts served again with ``--cache paged-compressed``, an
      undersized raw pool and cold pool (``SWAP_N_PAGES``,
@@ -127,8 +137,30 @@ def cuda_ms(torch, fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
-def check_decode(torch, ecf8_decode, tpu_format, name, bits, flush, reps):
-    """Kernel 1 vs its plain version on one container -> result dict."""
+_INT_VIEW = {"bfloat16": "int16", "float16": "int16", "float32": "int32"}
+
+
+def same_values(torch, got, want) -> bool:
+    """Bit-equal, NaNs (whose payload a cast may set differently) by
+    ``isnan``."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype == torch.uint8:
+        return torch.equal(got, want)
+    bits = getattr(torch, _INT_VIEW[str(got.dtype).split(".")[-1]])
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(bits), want[~nan].view(bits)))
+
+
+def check_decode(torch, ecf8_decode, fp8, tpu_format, name, bits, flush,
+                 reps):
+    """Kernel 1 vs its plain version on one container: fp8 bits bit-exact
+    and lossless; the bf16, fp16 and f32 instances bit-identical to plain
+    decode + cast; the time of the bf16 instance beside the fp8-bits
+    instance followed by a cast -> result dict of the serve path's instance
+    (bf16).  ``launch/bench_decode.py`` times the decode path of another
+    checkout against this one."""
     t0 = time.perf_counter()
     c = tpu_format.encode(bits.reshape(-1).contiguous())
     torch.cuda.synchronize()
@@ -143,27 +175,72 @@ def check_decode(torch, ecf8_decode, tpu_format, name, bits, flush, reps):
              f"{int((got != want).sum())} of {c.n_elem} bytes")
     if not torch.equal(got, bits.reshape(-1)):
         fail(f"ecf8_decode {name}: decode is not lossless")
-    moved = sum(t.numel() * t.element_size() for t in args) + c.n_elem
-    ms = cuda_ms(torch, lambda: ecf8_decode.run(*args, **kw), reps, flush)
-    plain_ms = cuda_ms(torch, lambda: ecf8_decode.plain(*args, **kw), 2,
-                       flush)
-    bound_ms = moved / H100_BYTES_PER_S * 1e3
-    log(f"ecf8_decode {name} {tuple(bits.shape)}: bit-exact, "
-        f"S={c.sym_per_lane} stride={c.stride} encode {enc_s:.2f}s, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-        f"({moved / 1e6:.1f} MB), {moved / ms / 1e6:.1f} GB/s")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None)
+    del got
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        out = ecf8_decode.run(*args, **kw, out_dtype=dt)
+        if not same_values(torch, out, want.view(fp8.FP8_DTYPE).to(dt)):
+            fail(f"ecf8_decode {name}: the {dt} instance differs from plain "
+                 f"decode + cast")
+        del out
+    del want
+    bf16 = torch.bfloat16
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    ms = cuda_ms(torch, lambda: ecf8_decode.run(*args, **kw, out_dtype=bf16),
+                 reps, flush)
+    fp8_ms = cuda_ms(torch, lambda: ecf8_decode.run(*args, **kw), reps, flush)
+    old_ms = cuda_ms(torch, lambda: ecf8_decode.run(*args, **kw).view(
+        fp8.FP8_DTYPE).to(bf16), reps, flush)
+    plain_ms = cuda_ms(torch, lambda: ecf8_decode.plain(
+        *args, **kw, out_dtype=bf16), 2, flush)
+    bound_ms = (in_bytes + 2 * c.n_elem) / H100_BYTES_PER_S * 1e3
+    bound_fp8 = (in_bytes + c.n_elem) / H100_BYTES_PER_S * 1e3
+    log(f"ecf8_decode {name} {tuple(bits.shape)}: fp8 bits bit-exact, bf16 /"
+        f" fp16 / f32 instances bit-identical to plain decode + cast, "
+        f"S={c.sym_per_lane} stride={c.stride} encode {enc_s:.2f}s; bf16 "
+        f"out: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({(in_bytes + 2 * c.n_elem) / 1e6:.1f} MB, "
+        f"{100 * bound_ms / ms:.1f} % of it), plain + cast "
+        f"{plain_ms:.2f} ms; the fp8-bits instance + .to(bf16) (the serve "
+        f"path's shape before the decode wrote bf16) {old_ms:.4f} ms "
+        f"({old_ms / ms:.2f}x the bf16 instance), fp8 bits alone "
+        f"{fp8_ms:.4f} ms (bound {bound_fp8:.4f} ms)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                old_ms=old_ms, fp8_ms=fp8_ms)
 
 
-def check_flash(torch, flash_fwd, T, gen):
-    """Kernel 4 vs its plain version (bf16, causal) -> result dict."""
+def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
+                       spl):
+    """Kernel 1 on a small container, every output type, against plain
+    decode (+ cast)."""
+    c = tpu_format.encode(bits, sym_per_lane=spl)
+    a = (c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset, c.perm)
+    kw = dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
+    want = ecf8_decode.plain(*a, **kw)
+    if not torch.equal(want, bits):
+        fail(f"ecf8_decode {name}: the plain decode is not lossless")
+    for dt in (None, torch.bfloat16, torch.float16, torch.float32):
+        ref = want if dt is None else want.view(fp8.FP8_DTYPE).to(dt)
+        got = ecf8_decode.run(*a, **kw, out_dtype=dt)
+        if not same_values(torch, got, ref):
+            fail(f"ecf8_decode {name}: out_dtype {dt} differs from plain "
+                 f"decode + cast")
+    log(f"ecf8_decode {name}: fp8 bits, bf16, fp16 and f32 bit-identical to "
+        f"plain decode + cast (NaNs by isnan)")
+
+
+def check_flash(torch, flash_fwd, T, gen, flush, dtype=None):
+    """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal) ->
+    result dict.  Timed after L2 flushes: a window of back-to-back calls
+    alone would time the host's issue of each call (~20 us) wherever the
+    kernel is shorter."""
     B, Hq, Hkv, D = 1, 32, 8, 128
     dev = "cuda"
+    dtype = dtype or torch.bfloat16
 
     def rnd(h):
         return torch.randn((B, h, T, D), generator=gen, device=dev,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(dtype)
 
     q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
     got = flash_fwd.run(q, k, v, causal=True)
@@ -173,23 +250,30 @@ def check_flash(torch, flash_fwd, T, gen):
         fail(f"flash_fwd T={T}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
     if err > FLASH_TOL:
-        fail(f"flash_fwd T={T}: max |kernel - plain| = {err} > {FLASH_TOL}")
-    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True, 0.0), 5)
+        fail(f"flash_fwd T={T} {dtype}: max |kernel - plain| = {err} > "
+             f"{FLASH_TOL}")
+    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=True), 20,
+                 flush)
+    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True, 0.0), 5,
+                       flush)
     k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
     v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep, is_causal=True), 20)
+    lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep, is_causal=True), 20,
+                     flush)
     pairs = T * (T + 1) // 2
     flops = 4 * B * Hq * D * pairs
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
     bound_ops = flops / H100_BF16_FLOPS * 1e3
     bound_bytes = moved / H100_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
-    log(f"flash_fwd T={T}: max_abs_err {err:.3e} (tol {FLASH_TOL}), kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({'operations' if bound_ops >= bound_bytes else 'bytes'}"
-        f"), {flops / ms / 1e9:.2f} TFLOP/s")
+    log(f"flash_fwd T={T} {str(dtype).split('.')[-1]}: max_abs_err "
+        f"{err:.3e} (tol {FLASH_TOL}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (kernel / sdpa "
+        f"{ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
+        f"({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
+        f"{100 * bound_ms / ms:.1f} % of it), "
+        f"{flops / ms / 1e9:.2f} TFLOP/s")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                 library_ms=lib_ms)
@@ -432,25 +516,23 @@ def main(argv=None):
             fan_in ** -0.5)
         bits = fp8.cast_to_fp8_bits(w)
         del w
-        results[name] = check_decode(torch, ecf8_decode, tpu_format, name,
-                                     bits, flush, reps=20)
+        results[name] = check_decode(torch, ecf8_decode, fp8, tpu_format,
+                                     name, bits, flush, reps=20)
         del bits
     for name, bits in [
-            ("one-symbol", torch.full((128 * 64,), 0b0_0111_010,
-                                      dtype=torch.uint8, device="cuda")),
-            ("near-uniform", (torch.arange(128 * 64, device="cuda") * 11
-                              % 256).to(torch.uint8))]:
-        c = tpu_format.encode(bits, sym_per_lane=32)
-        a = (c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset, c.perm)
-        kw = dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
-        got, want = ecf8_decode.run(*a, **kw), ecf8_decode.plain(*a, **kw)
-        if not (torch.equal(got, want) and torch.equal(got, bits)):
-            fail(f"ecf8_decode {name} codebook: not bit-exact")
-        log(f"ecf8_decode {name} codebook: bit-exact")
+            ("one-symbol codebook", torch.full(
+                (128 * 64,), 0b0_0111_010, dtype=torch.uint8, device="cuda")),
+            ("near-uniform codebook", (torch.arange(128 * 64, device="cuda")
+                                       * 11 % 256).to(torch.uint8)),
+            ("all 256 codes", (torch.arange(128 * 32 * 5 + 3, device="cuda")
+                               * 37 % 256).to(torch.uint8))]:
+        check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
+                           32)
 
     # -- 3. kernel 4: flash-attention forward -------------------------------
-    for T in (13, 512, 2048):
-        results[f"flash_T{T}"] = check_flash(torch, flash_fwd, T, gen)
+    for T in (13, 451, 512, 2048):
+        results[f"flash_T{T}"] = check_flash(torch, flash_fwd, T, gen, flush)
+    check_flash(torch, flash_fwd, 2048, gen, flush, torch.float16)
 
     # -- 3b. kernel 3: KV page decode ----------------------------------------
     n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
@@ -576,10 +658,16 @@ def main(argv=None):
     prompts = serve.make_prompts(cfg, 8, args.seed, lo=64, hi=513)
     ecfg = EngineConfig(max_batch=4, max_len=1024)
     ecf8_decode.run.launches = flash_fwd.run.launches = 0
+    ecf8_decode.run.launches_by_dtype.clear()
     fused.run.launches = 0
     done, eng, dt = serve.serve(params_c, cfg, ecfg, prompts, 32)
     launches = {"ecf8_decode": ecf8_decode.run.launches,
                 "flash_fwd": flash_fwd.run.launches}
+    by_dtype = dict(ecf8_decode.run.launches_by_dtype)
+    log(f"ecf8_decode launches by output dtype: {by_dtype}")
+    if set(by_dtype) != {torch.bfloat16}:
+        fail(f"a compressed weight was decoded to another dtype than the "
+             f"model's bf16, which a cast kernel must follow: {by_dtype}")
     serve_b2 = fused.run.launches
     n_tok = sum(len(r.out_tokens) for r in done)
     log(f"served {len(done)} requests (prompts {min(map(len, prompts))}-"
@@ -722,6 +810,12 @@ def main(argv=None):
         f"{sched.n_preempted} preemptions mid-prefill)")
     if serve_b2:
         fail(f"a serve path launched fused_decode_matmul {serve_b2} times")
+    by_dtype = dict(ecf8_decode.run.launches_by_dtype)
+    if set(by_dtype) != {torch.bfloat16}:
+        fail(f"phases 5-8 decoded a compressed weight to another dtype than "
+             f"bf16: {by_dtype}")
+    log(f"ecf8_decode over phases 5, 7, 8a, 8b: {by_dtype[torch.bfloat16]} "
+        f"launches, all writing bf16 (no cast kernel after a decode)")
     log("fused_decode_matmul: 0 launches on every serve path (phases 5, 7, "
         "8a, 8b), as in the reference")
 
@@ -729,11 +823,13 @@ def main(argv=None):
         dict(name="ecf8_decode", route="cuda",
              source="src/repro_torch/csrc/ecf8_decode.cu",
              replaces="src/repro/kernels/ecf8_decode.py:36",
-             launches=launches["ecf8_decode"], **results["wi_gate"]),
+             launches=launches["ecf8_decode"], redesigned="slice 4",
+             **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
-             launches=launches["flash_fwd"], **results["flash_T512"]),
+             launches=launches["flash_fwd"], redesigned="slice 4",
+             **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
              replaces="src/repro/kvcache/kernels.py:34",

@@ -73,11 +73,13 @@ def materialize(x, dtype=None):
     a = x.arrays
     if m.fmt != FORMAT_TPU:
         raise ValueError(f"unknown format {m.fmt}")
-    bits = ops.decode_ecf8(a["payload"], a["signmant"], a["lj_limit"],
-                           a["first_lj"], a["offset"], a["perm"],
-                           sym_per_lane=m.sym_per_lane, n_elem=m.n_elem)
-    w8 = bits.view(fp8.FP8_DTYPE).reshape(m.shape)
-    return w8.to(torch_dtype(dtype if dtype is not None else m.out_dtype))
+    # the decode writes the dtype itself: no cast follows it
+    w = ops.decode_ecf8(a["payload"], a["signmant"], a["lj_limit"],
+                        a["first_lj"], a["offset"], a["perm"],
+                        sym_per_lane=m.sym_per_lane, n_elem=m.n_elem,
+                        out_dtype=torch_dtype(dtype if dtype is not None
+                                              else m.out_dtype))
+    return w.reshape(m.shape)
 
 
 # --------------------------------------------------------------------------

@@ -169,8 +169,10 @@ def decode_ref(c: TpuECF8) -> torch.Tensor:
 
 
 def decode_plain(payload, signmant, lj_limit, first_lj, offset, perm, *,
-                 sym_per_lane: int, n_elem: int) -> torch.Tensor:
-    """Plain PyTorch version of the ECF8 decode kernel -> (n_elem,) uint8.
+                 sym_per_lane: int, n_elem: int,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the ECF8 decode kernel -> (n_elem,) uint8
+    fp8 bits, or with ``out_dtype`` the fp8 values cast to that dtype.
 
     The same arithmetic as the reference's ``_decode_jnp_impl``: every
     lane keeps a left-aligned 32-bit window (held in int64 and masked),
@@ -212,4 +214,7 @@ def decode_plain(payload, signmant, lj_limit, first_lj, offset, perm, *,
         byteptr = byteptr + need
         bits_valid = bits_valid + 8 * need
     syms = outs.reshape(-1)[:n_elem]
-    return fp8.assemble(syms, fp8.unpack_nibbles(signmant, n_elem))
+    bits = fp8.assemble(syms, fp8.unpack_nibbles(signmant, n_elem))
+    if out_dtype is None:
+        return bits
+    return bits.view(fp8.FP8_DTYPE).to(out_dtype)

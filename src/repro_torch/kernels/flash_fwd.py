@@ -2,13 +2,17 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_fwd.py``
 (``_flash_fwd_kernel`` / ``flash_fwd_pallas``).  One CTA per
-``(b * Hq + h, 64-row q block)`` loops over 64-key K/V tiles staged in
-shared memory, keeps the running max and denominator in f32, and maps GQA
-head ``h`` to kv head ``h // (Hq / Hkv)``; it masks ragged ``Tq``/``Tk``
-itself (the Pallas kernel asserts ``Tq % bq == 0 and Tk % bk == 0``) and,
-under causality, skips the K/V tiles no row of its block can see.  What
-bounds it on the H100 is operations (``4 * D`` flops per visible query/key
-pair); this first version runs them as scalar f32 FMAs.
+``(b * Hq + h, 64-row q block)`` loops over 64-key K/V tiles, keeps the
+running max and denominator in f32, and maps GQA head ``h`` to kv head
+``h // (Hq / Hkv)``; it masks ragged ``Tq``/``Tk`` itself (the Pallas
+kernel asserts ``Tq % bq == 0 and Tk % bk == 0``) and, under causality,
+skips the K/V tiles no row of its block can see.  What bounds it on the
+H100 is operations (``4 * D`` flops per visible query/key pair).  The bf16
+and fp16 instances run both products on the tensor cores with warpgroup
+MMA (``wgmma``: Q and K from swizzled shared memory, P from the softmax's
+registers, V from shared memory; K/V tiles in a two-stage ``cp.async``
+ring); the f32 instance keeps scalar f32 FMAs, since TF32 tensor cores
+would not give f32 results.
 
 Numerics follow the function the reference's serve path runs,
 ``models/flash_attention.py::_flash_fwd_impl``, not the Pallas kernel: q is
@@ -49,6 +53,8 @@ def run(q, k, v, causal: bool = True, softcap: float = 0.0) -> torch.Tensor:
     if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"flash_fwd: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd: q, k, v must be 16-byte aligned")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_fwd: head_dim {D} not in {_HEAD_DIMS}")
     o = torch.empty_like(q)

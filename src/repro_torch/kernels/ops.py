@@ -15,12 +15,14 @@ from . import fused_decode_matmul as _fused
 
 
 def decode_ecf8(payload, signmant, lj_limit, first_lj, offset, perm, *,
-                sym_per_lane: int, n_elem: int) -> torch.Tensor:
-    """One ECF8-TPU container -> (n_elem,) uint8 fp8 bits."""
+                sym_per_lane: int, n_elem: int,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One ECF8-TPU container -> (n_elem,) uint8 fp8 bits, or (``out_dtype``
+    given) the fp8 values in that dtype, written by the decode itself."""
     fn = ecf8_decode.plain if payload.device.type == "cpu" \
         else ecf8_decode.run
     return fn(payload, signmant, lj_limit, first_lj, offset, perm,
-              sym_per_lane=sym_per_lane, n_elem=n_elem)
+              sym_per_lane=sym_per_lane, n_elem=n_elem, out_dtype=out_dtype)
 
 
 def flash_attention(q, k, v, causal: bool = True,

@@ -78,6 +78,134 @@ def test_flash_kernel_matches_plain(card, dtype, tol, Hq, Hkv, Tq, Tk, D,
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+_BITS = {torch.uint8: torch.uint8, torch.bfloat16: torch.int16,
+         torch.float16: torch.int16, torch.float32: torch.int32}
+
+
+def _same_values(got, want):
+    """Bit-equal, NaNs (whose payload the casts may set differently) by
+    ``isnan``."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.uint8:
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(_BITS[got.dtype]), want[~nan].view(_BITS[got.dtype])))
+
+
+def _decode_args(c):
+    return ((c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset,
+             c.perm), dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem))
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16, torch.float16,
+                                       torch.float32])
+@pytest.mark.parametrize("shape,spl", [((3, 1001), 32), ((5,), 256),
+                                       ((300, 517), 256), ((37, 4099), 64),
+                                       ((7, 129), 6)])
+def test_decode_kernel_out_dtypes_bit_exact(card, out_dtype, shape, spl):
+    w = torch.randn(shape, generator=card, device="cuda") * 0.05
+    bits = fp8.cast_to_fp8_bits(w)
+    args, kw = _decode_args(tpu_format.encode(bits, sym_per_lane=spl))
+    before = ecf8_decode.run.launches_by_dtype[out_dtype or torch.uint8]
+    got = ecf8_decode.run(*args, **kw, out_dtype=out_dtype)
+    assert ecf8_decode.run.launches_by_dtype[
+        out_dtype or torch.uint8] == before + 1
+    want = ecf8_decode.plain(*args, **kw, out_dtype=out_dtype)
+    assert _same_values(got, want)
+    if out_dtype is not None:
+        assert torch.equal(got, bits.reshape(-1).view(fp8.FP8_DTYPE)
+                           .to(out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16, torch.float16,
+                                       torch.float32])
+def test_decode_kernel_all_256_codes(card, out_dtype):
+    bits = (torch.arange(128 * 64 * 3 + 7, device="cuda") * 37 % 256).to(
+        torch.uint8)
+    args, kw = _decode_args(tpu_format.encode(bits, sym_per_lane=64))
+    got = ops.decode_ecf8(*args, **kw, out_dtype=out_dtype)
+    want = ecf8_decode.plain(*args, **kw, out_dtype=out_dtype)
+    assert _same_values(got, want)
+    if out_dtype is not None:
+        assert int(torch.isnan(got).sum()) == int(
+            ((bits & 0x7F) == 0x7F).sum())
+        neg0 = got[bits == 0x80]
+        assert bool((neg0 == 0).all()) and bool(torch.signbit(neg0).all())
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16, torch.float32])
+def test_decode_kernel_misaligned_stacked_layers(card, out_dtype):
+    """A layer slice of a stacked container starts its nibbles at
+    ``i * ceil(n / 2)`` bytes, here not 16-byte aligned."""
+    from repro_torch.core import store
+    w = torch.stack([torch.randn((3, 1001), generator=card, device="cuda")
+                     * s for s in (1e-3, 0.05, 3.0)])
+    bits = fp8.cast_to_fp8_bits(w)
+    ct = store.compress_stacked(bits, sym_per_lane=8)
+    offsets = [ct.layer(i).arrays["signmant"].data_ptr() % 16
+               for i in range(3)]
+    assert any(offsets), offsets
+    for i in range(3):
+        a = ct.layer(i).arrays
+        args = (a["payload"], a["signmant"], a["lj_limit"], a["first_lj"],
+                a["offset"], a["perm"])
+        kw = dict(sym_per_lane=ct.meta.sym_per_lane, n_elem=ct.meta.n_elem)
+        got = ecf8_decode.run(*args, **kw, out_dtype=out_dtype)
+        assert _same_values(got, ecf8_decode.plain(
+            *args, **kw, out_dtype=out_dtype))
+        w8 = bits[i].reshape(-1)
+        assert _same_values(got, w8 if out_dtype is None else
+                            w8.view(fp8.FP8_DTYPE).to(out_dtype))
+
+
+def test_materialize_decodes_into_the_weight_dtype(card):
+    """store.materialize on the card: one B1 launch that writes bf16, no
+    fp8-bits launch (so no cast kernel follows it)."""
+    from repro_torch.core import store
+    w = torch.randn((256, 384), generator=card, device="cuda") * 0.05
+    ct = store.compress_array(fp8.cast_to_fp8_bits(w))
+    before = dict(ecf8_decode.run.launches_by_dtype)
+    got = store.materialize(ct, "bfloat16")
+    after = ecf8_decode.run.launches_by_dtype
+    assert after[torch.bfloat16] == before.get(torch.bfloat16, 0) + 1
+    assert after[torch.uint8] == before.get(torch.uint8, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (256, 384)
+    assert torch.equal(got, fp8.cast_to_fp8(w).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Tq", [1, 13, 65, 127, 451])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("cap", [0.0, 20.0])
+def test_flash_tensor_core_ragged(card, dtype, Tq, D, group, cap):
+    Hkv = 2
+
+    def rnd(h):
+        return torch.randn((2, h, Tq, D), generator=card,
+                           device="cuda").to(dtype)
+
+    q, k, v = rnd(Hkv * group), rnd(Hkv), rnd(Hkv)
+    got = ops.flash_attention(q, k, v, True, cap)
+    want = flash_fwd.plain(q, k, v, True, cap)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Tq,Tk", [(13, 451), (130, 65), (64, 1)])
+def test_flash_tensor_core_not_causal(card, dtype, Tq, Tk):
+    def rnd(h, t):
+        return torch.randn((1, h, t, 128), generator=card,
+                           device="cuda").to(dtype)
+
+    q, k, v = rnd(8, Tq), rnd(2, Tk), rnd(2, Tk)
+    got = ops.flash_attention(q, k, v, False, 0.0)
+    want = flash_fwd.plain(q, k, v, False, 0.0)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
 # --------------------------------------------------------------------------
 # the KV page decode (csrc/kv_page_decode.cu)
 # --------------------------------------------------------------------------

@@ -111,6 +111,78 @@ def test_decode_ref_matches_reference_oracle():
                                   ref_tpu.decode_ref(ref))
 
 
+_INT_BITS = {torch.bfloat16: (torch.int16, np.int16),
+             torch.float16: (torch.int16, np.int16),
+             torch.float32: (torch.int32, np.int32)}
+_JNP = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+        torch.float32: jnp.float32}
+
+
+def _assert_same_values(got: torch.Tensor, want) -> None:
+    """Bit-equal to the reference's array, NaNs (whose payload a cast may
+    set differently) by ``isnan``."""
+    want = np.asarray(want)
+    t_bits, np_bits = _INT_BITS[got.dtype]
+    nan = np.isnan(want.astype(np.float32))
+    np.testing.assert_array_equal(torch.isnan(got).numpy(), nan)
+    np.testing.assert_array_equal(got.view(t_bits).numpy()[~nan],
+                                  want.view(np_bits)[~nan])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float16,
+                                       torch.float32])
+@pytest.mark.parametrize("kind", ["all-256-codes", "synth"])
+def test_decode_out_dtype_matches_reference_decode_and_astype(out_dtype,
+                                                               kind):
+    """``ops.decode_ecf8(..., out_dtype)`` against the reference's decode
+    followed by its ``astype`` (what ``repro.core.store.materialize``
+    computes), on every fp8 code and on a random container."""
+    from repro_torch.kernels import ops
+    bits = ((np.arange(128 * 32 * 3 + 5) * 37 % 256).astype(np.uint8)
+            if kind == "all-256-codes" else _bits("synth", 100_003, 1.5))
+    ref = ref_tpu.encode(bits, sym_per_lane=32)
+    want = ref_tpu.decode_jnp(ref).view(jnp.float8_e4m3fn).astype(
+        _JNP[out_dtype])
+    c = tpu_format.encode(torch.from_numpy(bits.copy()), sym_per_lane=32)
+    got = ops.decode_ecf8(c.payload, c.signmant, c.lj_limit, c.first_lj,
+                          c.offset, c.perm, sym_per_lane=c.sym_per_lane,
+                          n_elem=c.n_elem, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (bits.size,)
+    _assert_same_values(got, want)
+    if kind == "all-256-codes":
+        assert int(torch.isnan(got).sum()) == int(
+            ((bits & 0x7F) == 0x7F).sum())
+    bits_only = ops.decode_ecf8(c.payload, c.signmant, c.lj_limit,
+                                c.first_lj, c.offset, c.perm,
+                                sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
+    np.testing.assert_array_equal(bits_only.numpy(), bits)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_materialize_decodes_into_dtype_like_reference(monkeypatch, dtype):
+    """``store.materialize`` asks the decode for the weight's dtype and casts
+    nothing itself; its values equal the reference's ``materialize``."""
+    from repro_torch.kernels import ops
+    bits = _bits("synth", 300 * 517, 1.9).reshape(300, 517)
+    ref_ct = ref_store.compress_array(bits, out_dtype=dtype)
+    ct = store.compress_array(torch.from_numpy(bits.copy()), out_dtype=dtype)
+    asked, decoded = [], []
+    decode = ops.decode_ecf8
+
+    def spy(*a, **kw):
+        asked.append(kw.get("out_dtype"))
+        decoded.append(decode(*a, **kw))
+        return decoded[-1]
+
+    monkeypatch.setattr(ops, "decode_ecf8", spy)
+    got = store.materialize(ct)
+    assert asked == [store.torch_dtype(dtype)]
+    # the decode's own output, reshaped: no cast or copy after it
+    assert got.data_ptr() == decoded[0].data_ptr()
+    assert got.shape == (300, 517) and got.dtype == store.torch_dtype(dtype)
+    _assert_same_values(got, ref_store.materialize(ref_ct))
+
+
 def _smoke_params():
     cfg = smoke_variant(get("qwen3-8b"))
     ref_params = RM.init_params(jax.random.PRNGKey(0),
