@@ -24,16 +24,19 @@ Phases, each failing loudly (non-zero exit, no result line):
      factor against it printed; timed after L2 flushes);
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
-     cold pool of the serve shape), f32 and fp8 pages, and a batch of
-     edge pages (one symbol, all 256 exponents, mixed strides zero-padded
-     to one, never-written slots), timed on the card;
+     cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
+     pool (``SWAP_N_COLD_SLOTS``, the launch a decode step makes there),
+     f32 and fp8 pages, and a batch of edge pages (one symbol, all 256
+     exponents, mixed strides zero-padded to one, never-written slots),
+     timed on the card;
   3c. the fused decode + matrix product kernel through its op
      (``ops.fused_decode_matmul``; no serve path calls it) at qwen3-8b's
      wq / wi_gate / wo_mlp shapes in the tiled ECF8 layout, M = 4 and 512:
      within 1e-4 of its plain version relative to the output's magnitude,
      two launches bit-equal, and bit-exact on the weight (one-hot rows);
-     timed beside the serve path's decode + cast + torch.matmul and
-     torch.matmul alone;
+     timed beside what the serve path pays for the same product (the
+     weight decode writing bf16, as ``store.materialize`` asks it, then
+     torch.matmul), the decode alone and torch.matmul alone;
   4. a small f32 model whose prefill logits on the card (both kernels)
      agree with the CPU run (plain versions), whose paged-compressed
      decode-step logits, with cold pages, agree too, and whose chunked-
@@ -329,9 +332,10 @@ def check_kv_pages(torch, ops, kv, codec, name, pages, stride, flush, reps,
 def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
                 M, flush, gen):
     """Kernel 2 vs its plain version at one weight and M -> result dict,
-    with the two library yardsticks: what the serve path pays for the same
-    product today (ecf8_decode, the cast to bf16, torch.matmul) and
-    torch.matmul alone on the materialised bf16 weight."""
+    with the yardsticks: what the serve path pays for the same product
+    (``ecf8_decode`` writing bf16, as ``store.materialize`` asks it, then
+    torch.matmul), that decode alone, and torch.matmul alone on the
+    materialised bf16 weight."""
     K, N = tiled.k, tiled.n
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     got = fused.run(x, tiled)
@@ -350,13 +354,16 @@ def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
     kw = dict(sym_per_lane=c.sym_per_lane, n_elem=c.n_elem)
     w_bf16 = bits.view(fp8.FP8_DTYPE).to(torch.bfloat16)
 
+    def decode():
+        return ecf8_decode.run(*args, **kw, out_dtype=torch.bfloat16)
+
     def serve_path():
-        w = ecf8_decode.run(*args, **kw).view(fp8.FP8_DTYPE).reshape(K, N)
-        return x @ w.to(torch.bfloat16)
+        return x @ decode().reshape(K, N)
 
     ms = cuda_ms(torch, lambda: fused.run(x, tiled), 10, flush)
     plain_ms = cuda_ms(torch, lambda: fused.plain(x, tiled), 1, flush)
     serve_ms = cuda_ms(torch, serve_path, 10, flush)
+    decode_ms = cuda_ms(torch, decode, 10, flush)
     lib_ms = cuda_ms(torch, lambda: x @ w_bf16, 10, flush)
     moved = (tiled.nbytes + x.numel() * x.element_size() + M * N * 4)
     flops = 2 * M * K * N
@@ -368,12 +375,14 @@ def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
         f"max |plain| {err:.2e} (tol {FUSED_TOL:g}), two launches equal, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} "
         f"ms ({by}; {moved / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), serve "
-        f"path ecf8_decode+cast+matmul {serve_ms:.4f} ms, torch.matmul on "
-        f"bf16 W {lib_ms:.4f} ms; {moved / ms / 1e6:.1f} GB/s, "
-        f"{flops / ms / 1e9:.2f} TFLOP/s")
+        f"path ecf8_decode (bf16) + matmul {serve_ms:.4f} ms (kernel / "
+        f"serve path {ms / serve_ms:.2f}), ecf8_decode (bf16) alone "
+        f"{decode_ms:.4f} ms, torch.matmul on bf16 W {lib_ms:.4f} ms; "
+        f"{moved / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.2f} TFLOP/s")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, serve_path_ms=serve_ms,
+                decode_bf16_ms=decode_ms)
 
 
 def check_small_chunked(torch, M, paged, small, p_cpu, p_gpu, toks, whole):
@@ -544,6 +553,7 @@ def main(argv=None):
 
     for name, pages, n_empty in [
             ("bf16", kv_like(252, torch.bfloat16), 0),
+            ("bf16_48", kv_like(SWAP_N_COLD_SLOTS, torch.bfloat16), 0),
             ("f32", kv_like(16, torch.float32), 0),
             ("fp8", kv_like(16, torch.float8_e4m3fn), 0)]:
         # a cold slot's stride budget: the raw exponent plane
@@ -833,11 +843,13 @@ def main(argv=None):
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
              replaces="src/repro/kvcache/kernels.py:34",
-             launches=launches3["kv_page_decode"], **results["kv_bf16"]),
+             launches=launches3["kv_page_decode"], redesigned="slice 5",
+             **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
              source="src/repro_torch/csrc/fused_decode_matmul.cu",
              replaces="src/repro/kernels/fused_decode_matmul.py:80",
-             launches=launches_b2, **results["b2_wi_gate_M4"]),
+             launches=launches_b2, redesigned="slice 5",
+             **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(gpu_line(), flush=True)

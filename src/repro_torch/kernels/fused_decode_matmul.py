@@ -5,8 +5,13 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/fused_decode_matmul.py``
 decode(W)`` for the decode-step regime (M <= 512 rows), with the weight in
 the tiled ECF8 layout of :func:`encode_tiled`, so that one chunk of the
 container decodes to exactly one ``(S, 128)`` weight tile.  The kernel
-decodes each tile into shared memory and multiplies it there; the
-compressed bytes are the only weight traffic in device memory.
+decodes each tile into shared memory with a table-driven loop like B1's
+(payload and nibbles staged by ``cp.async``, the payload transposed into
+32-bit words, one table read a symbol) and multiplies it there on the
+tensor cores (``wgmma``, the decoded tile as the A operand, x's rows as
+B); a CTA takes up to 256 rows of x, so a tile is decoded at most
+``ceil(M / 256)`` times a call.  The compressed
+bytes are the only weight traffic in device memory.
 
 :func:`run` launches the kernel for tensors on the card; :func:`plain` is
 the plain PyTorch version (decode with ``tpu_format.decode_plain``, then
@@ -28,9 +33,10 @@ from ..core.tpu_format import LANES, MIN_STRIDE
 from . import build
 
 MAX_ROWS = 512                  # the reference's decode-GEMM regime
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_MAX_SMEM = 227 * 1024 - 2048   # a block's shared memory less the statics
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_MAX_SMEM = 225 * 1024          # a block's shared memory less the statics
 _SMS = 132                      # H100 SXM
+_SM_SMEM = 228 * 1024           # shared memory of one of its SMs
 
 
 @dataclass
@@ -109,20 +115,48 @@ def plain(x: torch.Tensor, tiled: TiledECF8Weight,
     return acc.to(out_dtype)
 
 
-def _plan(M: int, TK: int, TN: int):
-    """(row block, K splits, tiles a split): enough CTAs for two waves of
-    the card's SMs, every split non-empty."""
-    mb = 8 if M <= 8 else 64
+def _plan(M: int, TK: int, TN: int, S: int, stride: int):
+    """(row block, K splits, tiles a split, payload buffers) of a launch.
+
+    The row block is the smallest of 8, 32, 128 or 256 rows (the ``wgmma``
+    widths of one warpgroup, or two of 128) that holds M, else 256.  The
+    decode sets the pace and a CTA decodes its tiles one after another, so
+    the plan takes the fewest tile-times: waves of resident CTAs (as many as
+    an SM's shared memory holds) x tiles a split, among the K splits that
+    give at least one wave of the card's SMs where the tiles allow it.  Two
+    payload buffers (the next tile's bytes load while this tile decodes)
+    unless one, which lets more CTAs share an SM, takes fewer tile-times;
+    then the fewest splits.  Every split is non-empty."""
+    mb = next((b for b in (8, 32, 128) if M <= b), 256)
     ctas = TN * -(-M // mb)
-    split = max(1, min(TK, -(-2 * _SMS // ctas)))
-    per = -(-TK // split)
-    return mb, -(-TK // per), per
+    best = None
+    for pbufs in (2, 1):
+        smem = _smem_bytes(S, stride, mb, pbufs)
+        if pbufs == 2 and smem > _MAX_SMEM:
+            continue
+        resident = _SM_SMEM // (smem + 1024)
+        slots = _SMS * max(resident, 1)
+        for per in range(TK, 0, -1):
+            split = -(-TK // per)
+            if (split - 1) * per >= TK or ctas * split < min(_SMS,
+                                                            ctas * TK):
+                continue
+            key = (-(-ctas * split // slots) * per, -pbufs, split)
+            if best is None or key < best[0]:
+                best = (key, split, per, pbufs)
+    return mb, best[1], best[2], best[3]
 
 
-def _smem_bytes(S: int, stride: int, mb: int) -> int:
-    """Dynamic shared memory of one CTA: the bf16 tile, the bf16 x block,
-    the chunk's payload and its sign/mantissa nibbles."""
-    return S * LANES * 2 + S * mb * 2 + stride * LANES + S * LANES // 2
+def _smem_bytes(S: int, stride: int, mb: int, pbufs: int) -> int:
+    """Dynamic shared memory of one CTA: 1024 bytes of alignment slack,
+    decoded (128, 64) bf16 sub-tiles (two, or one at 32 rows or fewer), x's
+    (mb, S) bf16 block, ``pbufs`` buffers of a tile's payload (as 32-bit
+    words, ``ceil(stride / 4) + 1`` a lane) and its sign/mantissa nibbles,
+    and the 4096-entry decode table."""
+    a_buffers = 1 if mb <= 32 else 2
+    return (1024 + a_buffers * LANES * 128 + -(-S // 64) * mb * 128
+            + pbufs * (((stride + 3) // 4 + 1) * LANES * 4 + S * LANES // 2)
+            + 4096 * 4)
 
 
 def run(x: torch.Tensor, tiled: TiledECF8Weight,
@@ -154,24 +188,27 @@ def run(x: torch.Tensor, tiled: TiledECF8Weight,
             f"fused_decode_matmul: x {tuple(x.shape)} and payload "
             f"{tuple(tiled.payload.shape)} do not make a ({K}, {N}) "
             f"product of at most {MAX_ROWS} rows in ({S}, {LANES}) tiles")
+    if S % 16:
+        raise ValueError(f"fused_decode_matmul: S={S} is not a multiple of "
+                         f"16 (the tensor cores' k-step)")
     M = x.shape[0]
-    mb, split, per = _plan(M, TK, TN)
-    if _smem_bytes(S, stride, mb) > _MAX_SMEM:
+    mb, split, per, pbufs = _plan(M, TK, TN, S, stride)
+    if _smem_bytes(S, stride, mb, pbufs) > _MAX_SMEM:
         raise ValueError(
             f"fused_decode_matmul: S={S}, stride={stride} need "
-            f"{_smem_bytes(S, stride, mb)} bytes of shared memory, above "
-            f"{_MAX_SMEM}")
-    if tiled.payload.data_ptr() % 16 or tiled.signmant.data_ptr() % 16:
-        raise ValueError("fused_decode_matmul: payload and signmant must be "
-                         "16-byte aligned")
+            f"{_smem_bytes(S, stride, mb, pbufs)} bytes of shared memory, "
+            f"above {_MAX_SMEM}")
     xb = x.to(torch.bfloat16).contiguous()
+    if any(t.data_ptr() % 16 for t in (tiled.payload, tiled.signmant, xb)):
+        raise ValueError("fused_decode_matmul: payload, signmant and x must "
+                         "be 16-byte aligned")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     ws = (torch.empty((split, M, N), dtype=torch.float32, device=x.device)
           if split > 1 else out)
     lib = build.load("fused_decode_matmul", _ARGTYPES)
     err = lib.fused_decode_matmul(
         xb.data_ptr(), *(t.data_ptr() for t in tensors), out.data_ptr(),
-        ws.data_ptr(), M, K, N, S, stride, mb, split, per,
+        ws.data_ptr(), M, K, N, S, stride, mb, split, per, pbufs,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_decode_matmul launch failed: CUDA error "

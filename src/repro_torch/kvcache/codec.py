@@ -309,6 +309,27 @@ def decode_pages_plain(payload, signmant, tables, perm, *, n_elem: int,
                           dtype_name=dtype_name)
 
 
+def decode_table(tables, perm, *, dtype_name: str) -> torch.Tensor:
+    """The page-decode kernel's lookup table, in plain PyTorch: for every
+    page and every ``max_len``-bit peek, ``(symbol << 5) | length`` by the
+    rule of :func:`decode_pages_plain` (the first length whose limit
+    exceeds the peek, 1 when none does; the index clamped into the perm),
+    the symbol kept to its low 9 bits, all that :func:`assemble_pages`
+    keeps of it -> (N, 1 << max_len) int32.  ``csrc/kv_page_decode.cu``
+    builds the same table in shared memory, one read a symbol."""
+    _, L, _ = plane_spec(dtype_name)
+    tab = tables.to(torch.int64)
+    peek = torch.arange(1 << L, dtype=torch.int64, device=tables.device)
+    lt = (peek[None, :, None] < tab[:, 0, None, :]).to(torch.uint8)
+    length = torch.argmax(lt, dim=-1) + 1                  # (N, 1 << L)
+    fl = torch.gather(tab[:, 1], 1, length - 1)
+    off = torch.gather(tab[:, 2], 1, length - 1)
+    idx = (off + ((peek[None] - fl) >> (L - length))).clamp(
+        0, perm.shape[1] - 1)
+    sym = torch.gather(perm.to(torch.int64), 1, idx) & 0x1FF
+    return ((sym << 5) | length).to(torch.int32)
+
+
 def assemble_pages(syms, signmant, *, n_elem: int,
                    dtype_name: str) -> torch.Tensor:
     """(N, n_elem) exponent symbols + raw sm plane -> (N, n_elem) values

@@ -3,11 +3,16 @@
 Replaces the Pallas TPU kernel ``src/repro/kvcache/kernels.py``
 (``_decode_page_kernel`` / ``decode_page_indices_pallas``) and the XLA tail
 that the reference applies after it (``codec.finish_pages_jnp``): one CTA
-per page, one thread per lane stream, the page's payload, tables and perm
-staged in shared memory, and the perm lookup and sign/mantissa fuse done in
-the kernel, so no int32 index array goes through device memory.  What
-bounds it on the H100 is bytes: the coded page read once, the values
-written once (3.35 TB/s).
+per page, one thread per lane stream.  The page's payload and its whole
+sign/mantissa plane arrive in shared memory in one trip before the loop,
+the payload transposed into 32-bit words of one lane; the CTA builds a
+peek -> (symbol, length) table (:func:`codec.decode_table`) while the
+copies are in flight, so a symbol costs one shared-memory read and no
+round reads device memory.  The perm lookup and sign/mantissa fuse are
+done in the kernel, so no int32 index array goes through device memory.
+What bounds it on the H100 is bytes: the coded page read once, the values
+written once (3.35 TB/s); at a few hundred pages its time is one CTA's
+life.
 
 :func:`run` launches the kernel for tensors on the card; :data:`plain`
 (``codec.decode_pages_plain``) is the plain PyTorch version of the same
@@ -29,9 +34,16 @@ plain = decode_pages_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _KIND = {"float8_e4m3fn": 0, "bfloat16": 1, "float32": 2}
-# dynamic shared memory the kernel may take for one page's payload: the
-# H100's 227 KB a block, less the static tables and perm
-_MAX_SMEM = 227 * 1024 - 2048
+# dynamic shared memory the kernel may take (csrc: kMaxDynSmem): the H100's
+# 227 KB a block, less the static decode table and perm
+_MAX_SMEM = 217 * 1024
+
+
+def _smem_bytes(stride: int, sm: int) -> int:
+    """Dynamic shared memory of one CTA: the payload as 32-bit words,
+    ``ceil(stride / 4) + 1`` a lane, and the sign/mantissa plane in 16-byte
+    granules from the one that holds its first byte."""
+    return ((stride + 3) // 4 + 1) * LANES * 4 + (-(-sm // 16) + 1) * 16
 
 
 def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
@@ -62,10 +74,10 @@ def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
             f"signmant {tuple(signmant.shape)}, tables "
             f"{tuple(tables.shape)}, perm {tuple(perm.shape)} do not make "
             f"{N} {dtype_name} pages of {n_elem} elements")
-    if stride * LANES > _MAX_SMEM:
-        raise ValueError(f"kv_page_decode: stride {stride} needs "
-                         f"{stride * LANES} bytes of shared memory, above "
-                         f"{_MAX_SMEM}")
+    if _smem_bytes(stride, sm) > _MAX_SMEM:
+        raise ValueError(f"kv_page_decode: stride {stride} and a {sm}-byte "
+                         f"plane need {_smem_bytes(stride, sm)} bytes of "
+                         f"shared memory, above {_MAX_SMEM}")
     if payload.data_ptr() % 16:
         raise ValueError("kv_page_decode: payload must be 16-byte aligned")
     out = torch.empty((N, n_elem), dtype=TORCH_BITS[dtype_name],

@@ -273,6 +273,37 @@ def test_kv_page_decode_wide_stride_and_refusals(card):
         kv.run(*args, n_elem=n, dtype_name="float32")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float8_e4m3fn])
+@pytest.mark.parametrize("n", [8 * 16 * 128, 1000])
+def test_kv_page_decode_cold_slot_budget_and_empty_slots(card, dtype, n):
+    """Pages padded to a cold slot's exact stride budget (the raw exponent
+    plane), never-written slots interleaved among the live ones, and
+    ``n_elem`` a multiple of 128 or not: bit-exact against the plain
+    version, every live page lossless."""
+    from repro_torch.kvcache import codec, kernels as kv
+    name = codec.dtype_name(dtype)
+    bits_t = codec.TORCH_BITS[name]
+    exp_bits = codec.plane_spec(name)[0]
+    budget = -(-codec.sym_per_lane(n) * exp_bits // 8)
+    pages = [(torch.randn(n, generator=card, device="cuda") * s).to(dtype)
+             for s in (1e-3, 0.05, 1.0, 300.0)]
+    live = _coded_pages(pages, stride=budget)
+    assert live[0].shape[1] == budget
+    empty = [torch.zeros_like(a[:1]) for a in live]
+    order = [None, 0, None, 1, 2, None, 3, None]       # None: never written
+    args = [torch.cat([e if i is None else a[i:i + 1] for i in order])
+            for a, e in zip(live, empty)]
+    got = ops.decode_pages(*args, n_elem=n, dtype_name=name)
+    want = kv.plain(*args, n_elem=n, dtype_name=name)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(bits_t), want.view(bits_t))
+    for row, i in enumerate(order):
+        if i is not None:
+            assert torch.equal(got[row].view(bits_t),
+                               pages[i].reshape(-1).view(bits_t))
+
+
 # --------------------------------------------------------------------------
 # the fused decode + matrix product (csrc/fused_decode_matmul.cu)
 # --------------------------------------------------------------------------
@@ -333,3 +364,26 @@ def test_fused_matmul_refusals(card):
 
 def tiled_tables(tiled):
     return tiled.lj_limit, tiled.first_lj, tiled.offset, tiled.perm
+
+
+@pytest.mark.parametrize("S", [32, 256])
+@pytest.mark.parametrize("M", [1, 7, 8, 63, 64, 65, 255, 256, 257, 512])
+def test_fused_matmul_row_blocks(card, M, S):
+    """Every row block of the kernel's plan (8, 32, 128 and 256 rows, one
+    or two warpgroups, partial blocks) and both sub-tile depths: within
+    1e-4 of the plain version relative to its magnitude, two launches
+    bit-equal, and one-hot rows reading decode(W) back bit for bit."""
+    from repro_torch.kernels import fused_decode_matmul as fused
+    K, N = 512, 256
+    bits, tiled = _tiled_weight(card, K, N, S)
+    x = torch.randn((M, K), generator=card, device="cuda")
+    got = ops.fused_decode_matmul(x, tiled)
+    want = fused.plain(x, tiled)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-4, rel
+    assert torch.equal(ops.fused_decode_matmul(x, tiled), got)
+    rows = torch.randperm(K, generator=torch.Generator().manual_seed(M))[:M]
+    eye = torch.eye(K, device="cuda")[rows.cuda()]
+    w = bits.view(fp8.FP8_DTYPE).to(torch.bfloat16).float()
+    assert torch.equal(ops.fused_decode_matmul(eye, tiled), w[rows.cuda()])

@@ -80,8 +80,10 @@ def test_weight_path_bit_exact():
 
 def test_wrapper_refuses_cpu_tensors_and_plans_splits():
     """The kernel wrapper never falls back to the plain version; its launch
-    plan keeps every K split non-empty and fills at least one wave of the
-    card's 132 SMs where the K tiles allow it."""
+    plan takes a row block of 8, 32, 128 or 256 rows (so a tile is decoded
+    at most ceil(M / 256) times a call), keeps every K split non-empty and
+    fills at least one wave of the card's 132 SMs where the K tiles allow
+    it."""
     _, _, tiled = _tiled(64, 128, 32, seed=1)
     before = fused.run.launches
     with pytest.raises(ValueError, match="CUDA"):
@@ -89,7 +91,11 @@ def test_wrapper_refuses_cpu_tensors_and_plans_splits():
     assert fused.run.launches == before
     # qwen3-8b's wq / wi_gate / wo_mlp at S = 256, M = 4 and 512
     for M, TK, TN in [(4, 16, 32), (4, 16, 96), (4, 48, 32), (512, 16, 32),
-                      (512, 16, 96), (512, 48, 32)]:
-        mb, split, per = fused._plan(M, TK, TN)
+                      (512, 16, 96), (512, 48, 32), (1, 2, 2), (65, 16, 2),
+                      (200, 1, 1), (257, 16, 32)]:
+        mb, split, per, pbufs = fused._plan(M, TK, TN, 256, 51)
+        assert pbufs in (1, 2)
+        assert mb in (8, 32, 128, 256) and mb >= min(M, 256)
+        assert -(-M // mb) <= -(-M // 256)
         assert (split - 1) * per < TK <= split * per
         assert TN * -(-M // mb) * split >= min(132, TN * -(-M // mb) * TK)

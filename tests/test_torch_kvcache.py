@@ -153,6 +153,162 @@ def test_plain_page_decode_matches_jnp_twin_and_pallas(name):
         np.testing.assert_array_equal(got[i].view(_VIEW[name][0]), bits)
 
 
+def _table_sets(name):
+    """(tables, perm) of a random, a single-symbol, a widest-code (every
+    exponent) and a never-written (all-zero) page."""
+    rng = np.random.default_rng(17)
+    n = 1000
+    cps = [codec.encode_page(_torch_page(b, name)) for b in (
+        _normal_bits(rng, n, name, 1.0),
+        np.full(n, _normal_bits(rng, 1, name, 1.0)[0]),
+        _rand_bits(rng, n, name))]
+    tab = np.stack([c.tables() for c in cps])
+    perm = np.stack([c.perm for c in cps])
+    return (np.concatenate([tab, np.zeros_like(tab[:1])]),
+            np.concatenate([perm, np.zeros_like(perm[:1])]))
+
+
+# the symbol's bits in a value whose sign/mantissa plane is zero
+_SYM_FIELD = {"float8_e4m3fn": (3, 0xF), "bfloat16": (7, 0x1FF),
+              "float32": (23, 0x1FF)}
+
+
+@pytest.mark.parametrize("name", list(_VIEW))
+def test_decode_table_matches_plain_rule_for_every_peek(name):
+    """``codec.decode_table`` (the page kernel's lookup table) gives, for
+    every peek, the symbol that ``decode_pages_plain`` decodes from a lane
+    whose stream starts with that peek, on random, single-symbol,
+    every-exponent and all-zero tables."""
+    _, L, _ = codec.plane_spec(name)
+    tab, perm = _table_sets(name)
+    table = codec.decode_table(torch.from_numpy(tab), torch.from_numpy(perm),
+                               dtype_name=name).numpy()
+    assert table.shape == (len(tab), 1 << L)
+    assert ((table & 0x1F) >= 1).all() and ((table & 0x1F) <= L).all()
+    n_pages = (1 << L) // codec.LANES
+    peek = np.arange(1 << L).reshape(n_pages, codec.LANES)
+    pay = np.zeros((n_pages, 4, codec.LANES), np.uint8)
+    head = peek << (16 - L)                 # the peek, left-justified
+    pay[:, 0], pay[:, 1] = head >> 8, head & 0xFF
+    shift, mask = _SYM_FIELD[name]
+    for i in range(len(tab)):
+        got = kv_kernels.plain(
+            torch.from_numpy(pay),
+            torch.zeros((n_pages, codec.sm_bytes(name, codec.LANES)),
+                        dtype=torch.uint8),
+            torch.from_numpy(np.repeat(tab[i:i + 1], n_pages, 0)),
+            torch.from_numpy(np.repeat(perm[i:i + 1], n_pages, 0)),
+            n_elem=codec.LANES, dtype_name=name)
+        bits = got.view(_VIEW[name][2]).numpy().view(_VIEW[name][0])
+        sym = (bits.astype(np.int64) >> shift) & mask
+        np.testing.assert_array_equal(sym.reshape(-1),
+                                      (table[i] >> 5) & mask, err_msg=str(i))
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float8_e4m3fn"])
+def test_decode_table_interval_fill_matches_rule(name):
+    """The page kernel fills its table one interval of peeks at a time (the
+    peeks whose first limit above them is limit j lie in [max of the limits
+    before j, limit j); above every limit, length 1): on tables of any
+    content, ordered or not, that fill gives ``codec.decode_table``."""
+    _, L, _ = codec.plane_spec(name)
+    n_sym = 1 << codec.plane_spec(name)[0]
+    rng = np.random.default_rng(L)
+    tabs, perms = _table_sets(name)
+    for trial in range(12):
+        if trial < len(tabs):
+            tab, perm = tabs[trial].astype(np.int64), perms[trial]
+        else:
+            big = trial % 2
+            hi = (1 << 31) - 1 if big else (1 << L) + 64
+            tab = rng.integers(-hi - 1 if big else -64, hi, (3, L))
+            if trial % 3 == 0:
+                tab[0] = np.sort(tab[0])
+            perm = rng.integers(-(1 << 31), (1 << 31) - 1, n_sym)
+        tab32, perm32 = tab.astype(np.int32), perm.astype(np.int32)
+        want = codec.decode_table(torch.from_numpy(tab32[None]),
+                                  torch.from_numpy(perm32[None]),
+                                  dtype_name=name).numpy()[0]
+        lim, first, off = tab32.astype(np.int64)
+        got = np.zeros(1 << L, np.int64)
+        lo = 0
+        for j in range(L + 1):
+            hi_p = min(max(lo, lim[j]), 1 << L) if j < L else 1 << L
+            length = j + 1 if j < L else 1
+            p = np.arange(lo, max(lo, hi_p))
+            idx = np.clip(off[length - 1] + ((p - first[length - 1])
+                                             >> (L - length)), 0, n_sym - 1)
+            got[p] = ((perm32[idx].astype(np.int64) & 0x1FF) << 5) | length
+            lo = max(lo, hi_p)
+        np.testing.assert_array_equal(got, want, err_msg=str(trial))
+
+
+def _table_word_decode(pay, tab, perm, sm, n_elem, name):
+    """The page kernel's loop in numpy: the payload as big-endian 32-bit
+    words of one lane (one more word of the clamped last byte), a 64-bit
+    window refilled 32 bits at a time every two symbols when 32 or fewer
+    bits are left, one table read a symbol."""
+    _, L, _ = codec.plane_spec(name)
+    table = codec.decode_table(torch.from_numpy(tab), torch.from_numpy(perm),
+                               dtype_name=name).numpy().astype(np.uint64)
+    N, stride, lanes = pay.shape
+    W = -(-stride // 4) + 1
+    k = np.minimum(np.arange(4 * W), stride - 1)
+    b = pay[:, k, :].astype(np.uint64).reshape(N, W, 4, lanes)
+    words = (b[:, :, 0] << 24) | (b[:, :, 1] << 16) | (b[:, :, 2] << 8) \
+        | b[:, :, 3]                                    # (N, W, lanes)
+    S = codec.sym_per_lane(n_elem)
+    rows = np.arange(N)[:, None]
+    win = (words[:, 0] << np.uint64(32)) | words[:, 1]
+    nxt = np.full((N, lanes), 2)
+    valid = np.full((N, lanes), 64)
+    syms = np.zeros((N, S + 1, lanes), np.int64)
+    for s0 in range(0, S, 2):
+        low = valid <= 32
+        w = words[rows, np.minimum(nxt, W - 1), np.arange(lanes)]
+        win = np.where(low, win | (w << (32 - valid).clip(0).astype(
+            np.uint64)), win)
+        nxt, valid = nxt + low, valid + 32 * low
+        for j in range(2):
+            ent = table[rows, (win >> np.uint64(64 - L)).astype(np.int64)]
+            syms[:, s0 + j] = (ent >> np.uint64(5)).astype(np.int64)
+            win = win << (ent & np.uint64(0x1F))
+            valid = valid - (ent & np.uint64(0x1F)).astype(np.int64)
+    flat = syms[:, :S].reshape(N, -1)[:, :n_elem]
+    return codec.assemble_pages(torch.from_numpy(flat), torch.from_numpy(sm),
+                                n_elem=n_elem, dtype_name=name)
+
+
+@pytest.mark.parametrize("name", list(_VIEW))
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_table_driven_word_refill_decode_matches_plain(name, n):
+    """The kernel's design (table lookups, 32-bit word refills of a 64-bit
+    window, the clamp to byte stride - 1 written into the words) decodes
+    what ``decode_pages_plain`` decodes: on coded pages zero-padded to a
+    wider stride beside a never-written slot, and on random payload bytes
+    under every table set (streams that run past the stride)."""
+    rng = np.random.default_rng(n)
+    pages = [_normal_bits(rng, n, name, s) for s in (0.05, 300.0)]
+    pages.append(_rand_bits(rng, n, name))
+    pay, sm, tab, perm = _stack([codec.encode_page(_torch_page(b, name))
+                                 for b in pages])
+    pay = np.concatenate([pay, np.zeros_like(pay[:, :7])], axis=1)
+    cases = [[np.concatenate([a, np.zeros_like(a[:1])])
+              for a in (pay, sm, tab, perm)]]
+    rtab, rperm = _table_sets(name)
+    cases.append([rng.integers(0, 256, (len(rtab), 9, codec.LANES),
+                               dtype=np.uint8),
+                  rng.integers(0, 256, (len(rtab), sm.shape[1]),
+                               dtype=np.uint8), rtab, rperm])
+    for pay_, sm_, tab_, perm_ in cases:
+        want = kv_kernels.plain(*map(torch.from_numpy,
+                                     (pay_, sm_, tab_, perm_)),
+                                n_elem=n, dtype_name=name)
+        got = _table_word_decode(pay_, tab_, perm_, sm_, n, name)
+        tb = _VIEW[name][2]
+        assert torch.equal(got.view(tb), want.view(tb))
+
+
 # --------------------------------------------------------------------------
 # allocator: cold pool and swap tier
 # --------------------------------------------------------------------------
