@@ -26,12 +26,15 @@ Phases, each failing loudly (non-zero exit, no result line):
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
      pool (``SWAP_N_COLD_SLOTS``, the launch a decode step makes there),
-     f32 and fp8 pages, and a batch of edge pages (one symbol, all 256
+     f32 and fp8 pages, a batch of edge pages (one symbol, all 256
      exponents, mixed strides zero-padded to one, never-written slots),
-     timed on the card;
+     and 8 bf16 pages of 128 positions (8 x 128 x 128, the kernel's
+     streamed instance: too large to stage in shared memory), timed on
+     the card;
   3c. the fused decode + matrix product kernel through its op
      (``ops.fused_decode_matmul``; no serve path calls it) at qwen3-8b's
-     wq / wi_gate / wo_mlp shapes in the tiled ECF8 layout, M = 4 and 512:
+     wq / wi_gate / wo_mlp shapes in the tiled ECF8 layout, M = 4 and 512,
+     and M = 600 at wq (the op's row blocks, two launches):
      within 1e-4 of its plain version relative to the output's magnitude,
      two launches bit-equal, and bit-exact on the weight (one-hot rows);
      timed beside what the serve path pays for the same product (the
@@ -41,7 +44,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      agree with the CPU run (plain versions), whose paged-compressed
      decode-step logits, with cold pages, agree too, and whose chunked-
      prefill logits agree with the CPU and with its own whole-prompt
-     prefill;
+     prefill; served by the engine on the card, its greedy tokens are the
+     same over the monolithic cache as over the paged one, with a draft
+     model (k = 1 and 4) as without, and with a draft under page pressure
+     (preempting, swapping) as without pressure;
   5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
      compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
@@ -62,7 +68,21 @@ Phases, each failing loudly (non-zero exit, no result line):
      attend through another kernel, and printed, not gated), 8b with phase
      7's pools and swap store (tokens IDENTICAL to 8a's, preemption and
      resume, a drained store, the page-decode kernel launched from gather
-     and fault).  No serve phase may launch the fused kernel.
+     and fault);
+  9. the same prompts over the monolithic cache: tokens IDENTICAL to
+     phase 5's (the same decode attention over the same values), the
+     weight decode and flash prefill launched, every decode writing bf16;
+  10. speculative decoding (k = ``SPEC_K``) on the paged target, the same
+     prompts: 10a self-draft (the target's own ECF8 tree as the draft;
+     verify attends in chunk mode, so its agreement with phase 5's tokens
+     is counted, not gated); 10b a 2-layer draft at qwen3-8b's widths
+     (seed + 1, ECF8): some proposals rejected and rolled back, tokens
+     IDENTICAL to the same run on the fp8 baseline trees (the lossless
+     claim under speculation); 10c 10b under phase 7's pools and swap:
+     a speculating request preempted with its draft row stashed and
+     reinstalled, the store drained, the page-decode kernel launched from
+     the verify over cold history (tokens compared with 10b's, counted).
+No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +106,8 @@ FUSED_TOL = 1e-4        # relative to max |plain|: f32 sums in another order
 # slots, against a worst case of 1 + 4 * 1024 / 16 = 257 pages
 SWAP_N_PAGES, SWAP_N_COLD_SLOTS = 40, 48
 CHUNK = 128             # phase 8's prefill chunk and per-step token budget
+SPEC_K = 4              # phase 10's drafted tokens a round
+B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 
 
 def fail(msg: str):
@@ -329,16 +351,17 @@ def check_kv_pages(torch, ops, kv, codec, name, pages, stride, flush, reps,
                 bound_by="bytes", library_ms=None)
 
 
-def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
-                M, flush, gen):
-    """Kernel 2 vs its plain version at one weight and M -> result dict,
-    with the yardsticks: what the serve path pays for the same product
-    (``ecf8_decode`` writing bf16, as ``store.materialize`` asks it, then
-    torch.matmul), that decode alone, and torch.matmul alone on the
-    materialised bf16 weight."""
+def check_fused(torch, fused, run, ecf8_decode, fp8, name, bits, tiled,
+                container, M, flush, gen):
+    """Kernel 2 through its op ``run`` (``ops.fused_decode_matmul``: one
+    launch a row block of at most 512) vs its plain version at one weight
+    and M -> result dict, with the yardsticks: what the serve path pays
+    for the same product (``ecf8_decode`` writing bf16, as
+    ``store.materialize`` asks it, then torch.matmul), that decode alone,
+    and torch.matmul alone on the materialised bf16 weight."""
     K, N = tiled.k, tiled.n
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-    got = fused.run(x, tiled)
+    got = run(x, tiled)
     want = fused.plain(x, tiled)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
@@ -347,7 +370,7 @@ def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
     if err > FUSED_TOL:
         fail(f"fused_decode_matmul {name} M={M}: max |kernel - plain| / max "
              f"|plain| = {err} > {FUSED_TOL}")
-    if not torch.equal(fused.run(x, tiled), got):
+    if not torch.equal(run(x, tiled), got):
         fail(f"fused_decode_matmul {name} M={M}: two launches differ")
     c = container
     args = (c.payload, c.signmant, c.lj_limit, c.first_lj, c.offset, c.perm)
@@ -360,7 +383,7 @@ def check_fused(torch, fused, ecf8_decode, fp8, name, bits, tiled, container,
     def serve_path():
         return x @ decode().reshape(K, N)
 
-    ms = cuda_ms(torch, lambda: fused.run(x, tiled), 10, flush)
+    ms = cuda_ms(torch, lambda: run(x, tiled), 10, flush)
     plain_ms = cuda_ms(torch, lambda: fused.plain(x, tiled), 1, flush)
     serve_ms = cuda_ms(torch, serve_path, 10, flush)
     decode_ms = cuda_ms(torch, decode, 10, flush)
@@ -454,6 +477,45 @@ def check_small_paged(torch, M, paged, small, p_cpu, p_gpu, seed):
                for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
 
 
+def small_serving(torch, serving, small, params, dparams):
+    """The small f32 model served by the engine on the card over the
+    monolithic and the paged cache, with a draft (k = 1 and 4) and, k = 4,
+    under page pressure (a 10-page pool, the swap tier, one forced
+    preemption) -> (tokens of each run by name, the pressure run's
+    engine).  The workload is tests/test_speculative.py's."""
+    runs = {}
+
+    def run(name, **kw):
+        eng = serving.GenerationEngine(params, small, config=serving
+                                       .EngineConfig(max_batch=2, max_len=64,
+                                                     page_size=4, **kw))
+        reqs = [serving.Request(prompt=[i + 1] * (6 + 3 * i),
+                                max_new_tokens=10 + i, priority=i % 2,
+                                id=41_000 + i) for i in range(6)]
+        for r in reqs:
+            eng.submit(r)
+        if kw.get("swap_bytes"):
+            for _ in range(4):
+                eng.step()
+            busy = [s for s in range(2) if eng.slots[s] is not None]
+            if not busy or not eng._preempt(busy[0]):
+                fail("small pressure run: the forced preemption failed")
+        eng.run()
+        if not all(r.done for r in reqs):
+            fail(f"small {name} run: unfinished requests")
+        runs[name] = [r.out_tokens for r in reqs]
+        return eng
+
+    spec = dict(draft_cfg=small, draft_params=dparams)
+    run("paged")
+    run("monolithic", cache_mode="monolithic")
+    run("spec k=1", spec_k=1, **spec)
+    run("spec k=4", spec_k=4, **spec)
+    eng = run("spec k=4, pressure", spec_k=4, n_pages=10, swap_bytes=-1,
+              **spec)
+    return runs, eng
+
+
 def to_device(tree, dev, store):
     """A parameter tree (tensors and CompressedTensors) moved to ``dev``."""
     if isinstance(tree, dict):
@@ -489,6 +551,7 @@ def main(argv=None):
     from repro_torch.kvcache import kernels as kv_page
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch import serving
     from repro_torch.serving import EngineConfig
 
     # float32 products in full f32, as XLA computes them in the reference
@@ -570,6 +633,23 @@ def main(argv=None):
                 .view(torch.bfloat16))                       # 256 exponents
     check_kv_pages(torch, ops, kv_page, codec, "edge", edge, 4, flush, 5,
                    n_empty=3)
+    # pages of 128 positions (--page-size 128): too large to stage, so the
+    # wrapper picks the streamed instance by shape
+    n_big = cfg_full.n_kv_heads * 128 * cfg_full.hd
+    big_stride = -(-codec.sym_per_lane(n_big)
+                   * codec.plane_spec("bfloat16")[0] // 8)
+    inst = kv_page.instance(big_stride, codec.sm_bytes("bfloat16", n_big))
+    before = kv_page.run.launches_by_instance["streamed"]
+    results["kv_bf16_p128"] = check_kv_pages(
+        torch, ops, kv_page, codec, "bf16_p128",
+        kv_like(8, torch.bfloat16, n_big), big_stride, flush, 20)
+    if inst != "streamed" or kv_page.run.launches_by_instance[
+            "streamed"] <= before:
+        fail(f"kv_page_decode bf16_p128: instance {inst}, streamed launches "
+             f"{dict(kv_page.run.launches_by_instance)}")
+    log(f"kv_page_decode bf16_p128: the {inst} instance (staged would need "
+        f"{kv_page._smem_bytes(big_stride, codec.sm_bytes('bfloat16', n_big))}"
+        f" bytes of shared memory, above {kv_page._MAX_SMEM})")
 
     # -- 3c. kernel 2: fused decode + matrix product ------------------------
     # the op's own path (ops.fused_decode_matmul; no serve path calls it),
@@ -583,23 +663,25 @@ def main(argv=None):
         del w
         weights[name] = (bits, fused.encode_tiled(bits, sym_per_lane=256),
                          tpu_format.encode(bits.reshape(-1)))
+    op_shapes = [(name, M_rows) for name in weights
+                 for M_rows in (4, fused.MAX_ROWS)] + [("wq", B2_ROWS)]
     fused.run.launches = 0
-    for name, (bits, tiled, _) in weights.items():
-        for M_rows in (4, fused.MAX_ROWS):
-            x = torch.randn((M_rows, tiled.k), generator=gen, device="cuda")
-            y = ops.fused_decode_matmul(x.to(torch.bfloat16), tiled)
-            if y.shape != (M_rows, tiled.n) or not bool(
-                    torch.isfinite(y).all()):
-                fail(f"fused_decode_matmul op {name} M={M_rows}: bad output")
+    for name, M_rows in op_shapes:
+        tiled = weights[name][1]
+        x = torch.randn((M_rows, tiled.k), generator=gen, device="cuda")
+        y = ops.fused_decode_matmul(x.to(torch.bfloat16), tiled)
+        if y.shape != (M_rows, tiled.n) or not bool(torch.isfinite(y).all()):
+            fail(f"fused_decode_matmul op {name} M={M_rows}: bad output")
     launches_b2 = fused.run.launches
-    if launches_b2 != 2 * len(weights):
+    want_b2 = sum(-(-M_rows // fused.MAX_ROWS) for _, M_rows in op_shapes)
+    if launches_b2 != want_b2:
         fail(f"fused_decode_matmul op: {launches_b2} launches, expected "
-             f"{2 * len(weights)}")
-    for name, (bits, tiled, c) in weights.items():
-        for M_rows in (4, fused.MAX_ROWS):
-            results[f"b2_{name}_M{M_rows}"] = check_fused(
-                torch, fused, ecf8_decode, fp8, name, bits, tiled, c, M_rows,
-                flush, gen)
+             f"{want_b2}")
+    for name, M_rows in op_shapes:
+        bits, tiled, c = weights[name]
+        results[f"b2_{name}_M{M_rows}"] = check_fused(
+            torch, fused, ops.fused_decode_matmul, ecf8_decode, fp8, name,
+            bits, tiled, c, M_rows, flush, gen)
     # the weight path is bit-exact: 8 launches of 512 one-hot rows read
     # back all 4096 rows of decode(wq)
     bits, tiled, _ = weights["wq"]
@@ -650,6 +732,25 @@ def main(argv=None):
         f"cold between chunks) logits on the card vs CPU max |diff| "
         f"{err:.2e}, vs its own whole-prompt prefill {err_whole:.2e} "
         f"(tol 1e-4)")
+    d_small, _ = store.compress_tree(M.init_params(small, args.seed + 1,
+                                                   "cpu"),
+                                     min_elems=4096, out_dtype="float32")
+    runs, eng_p = small_serving(torch, serving, small,
+                                to_device(p_cpu, "cuda", store),
+                                to_device(d_small, "cuda", store))
+    bad = [name for name, toks in runs.items() if toks != runs["paged"]]
+    if bad:
+        fail(f"small f32 engine runs whose greedy tokens differ from the "
+             f"paged run's: {bad}")
+    if not (eng_p.scheduler.n_preempted and eng_p.n_draft_restores):
+        fail(f"small spec pressure run: {eng_p.scheduler.counters()}, "
+             f"{eng_p.n_draft_restores} draft rows reinstalled")
+    log(f"small f32 engine on the card: greedy tokens of the monolithic, "
+        f"speculative (k = 1, 4) and speculative-under-pressure runs "
+        f"IDENTICAL to the paged run's ({sum(map(len, runs['paged']))} "
+        f"tokens; pressure run {eng_p.scheduler.n_preempted} preemptions, "
+        f"{eng_p.n_draft_restores} draft rows reinstalled, "
+        f"{eng_p.spec_counters()})")
 
     # -- 5. serve qwen3-8b at full width -----------------------------------
     cfg = dataclasses.replace(cfg_full, n_layers=args.layers)
@@ -751,7 +852,6 @@ def main(argv=None):
         "phase 5's paged run")
 
     # -- 8. chunked, decode-interleaved prefill at full depth --------------
-    del params_fp8
     chunked = dict(max_batch=4, max_len=1024, prefill_chunk=CHUNK,
                    prefill_budget=CHUNK)
     runs = {}
@@ -818,16 +918,153 @@ def main(argv=None):
     log(f"lossless: chunked paged-compressed + swap greedy tokens IDENTICAL "
         f"to phase 8a's ({e8b.n_midprefill_preempted} of "
         f"{sched.n_preempted} preemptions mid-prefill)")
+
+    def reset_counts():
+        ecf8_decode.run.launches = flash_fwd.run.launches = 0
+        kv_page.run.launches = fused.run.launches = 0
+        kv_page.run.launches_by_path.clear()
+
+    def counts():
+        return {"ecf8_decode": ecf8_decode.run.launches,
+                "flash_fwd": flash_fwd.run.launches,
+                "kv_page_decode": kv_page.run.launches}
+
+    def served(tag, d, e, t):
+        n = sum(len(r.out_tokens) for r in d)
+        if not all(r.done and len(r.out_tokens) == 32 for r in d) or any(
+                not 0 <= x < cfg.vocab_size for r in d for x in r.out_tokens):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+        return (f"{n} tokens in {t:.2f}s, {n / t:.1f} tok/s, {e.steps} "
+                f"steps at {e.decode_seconds / e.steps * 1e3:.1f} ms/step, "
+                f"prefill {e.prefill_seconds:.2f}s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+
+    # -- 9. the monolithic cache at full depth -----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    d9, e9, t9 = serve.serve(params_c, cfg, EngineConfig(
+        max_batch=4, max_len=1024, cache_mode="monolithic"), prompts, 32)
+    serve_b2 += fused.run.launches
+    l9 = counts()
+    log(f"phase 9: monolithic cache, {cfg.n_layers} layers: "
+        f"{served('9', d9, e9, t9)}; launches {l9}")
+    if not (l9["ecf8_decode"] and l9["flash_fwd"]) or e9.paged is not None:
+        fail(f"phase 9: a kernel of the monolithic path never launched: "
+             f"{l9}")
+    same, bad = first_divergence(done, d9)
+    if bad:
+        r, i = bad[0]
+        fail(f"phase 9 tokens differ from phase 5's (request, first token "
+             f"index) {bad}: request {r} token {i} is "
+             f"{d9[r].out_tokens[i]} against {done[r].out_tokens[i]}")
+    log("lossless: monolithic greedy tokens IDENTICAL to phase 5's paged "
+        "run")
+
+    # -- 10. speculative decoding at full depth ----------------------------
+    spec = dict(max_batch=4, max_len=1024, spec_k=SPEC_K)
+
+    def spec_line(e, d):
+        sc = e.spec_counters()
+        n = sum(len(r.out_tokens) for r in d)
+        return (f"{sc['spec_rounds']} verify windows in {e.steps} rounds, "
+                f"accept rate {sc['spec_accept_rate']:.3f} "
+                f"({sc['spec_accepted']}/{sc['spec_drafted']} drafted), "
+                f"{n / max(sc['spec_rounds'], 1):.2f} tokens a window, "
+                f"{e.n_spec_rollbacks} rollbacks")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    d10a, e10a, t10a = serve.serve(params_c, cfg, EngineConfig(
+        **spec, draft_cfg=cfg, draft_params=params_c), prompts, 32)
+    serve_b2 += fused.run.launches
+    l10a = counts()
+    same, bad = first_divergence(done, d10a)
+    log(f"phase 10a: self-draft (the target's ECF8 tree), k={SPEC_K}: "
+        f"{served('10a', d10a, e10a, t10a)}; {spec_line(e10a, d10a)}; "
+        f"launches {l10a}; {same} of {len(done) * 32} tokens equal phase "
+        f"5's (verify attends in chunk mode; counted, not gated), first "
+        f"divergence (request, token) {bad}")
+    if not (l10a["ecf8_decode"] and l10a["flash_fwd"]):
+        fail(f"phase 10a: a kernel of the speculative path never launched: "
+             f"{l10a}")
+
+    dcfg = dataclasses.replace(cfg_full, name="qwen3-8b-draft2", n_layers=2)
+    d_c, d_fp8, d_report, d_enc = serve.build_params(
+        dcfg, args.seed + 1, "tpu", device="cuda")
+    log(f"draft: {dcfg.n_layers} layers at qwen3-8b's widths, seed "
+        f"{args.seed + 1}, ECF8 {d_report['compressed_bytes'] / 1e6:.1f} MB "
+        f"(fp8 {d_report['fp8_bytes'] / 1e6:.1f} MB), encode {d_enc:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    d10b, e10b, t10b = serve.serve(params_c, cfg, EngineConfig(
+        **spec, draft_cfg=dcfg, draft_params=d_c), prompts, 32)
+    serve_b2 += fused.run.launches
+    l10b = counts()
+    sc = e10b.spec_counters()
+    log(f"phase 10b: 2-layer draft, k={SPEC_K}: "
+        f"{served('10b', d10b, e10b, t10b)}; {spec_line(e10b, d10b)}; "
+        f"launches {l10b}")
+    if not (l10b["ecf8_decode"] and l10b["flash_fwd"]):
+        fail(f"phase 10b: a kernel of the speculative path never launched: "
+             f"{l10b}")
+    if sc["spec_drafted"] <= sc["spec_accepted"] or not e10b.n_spec_rollbacks:
+        fail(f"phase 10b: no proposal was rejected and rolled back: {sc}")
+    d10f, e10f, t10f = serve.serve(params_fp8, cfg, EngineConfig(
+        **spec, draft_cfg=dcfg, draft_params=d_fp8), prompts, 32)
+    _, bad = first_divergence(d10b, d10f)
+    if bad:
+        fail(f"phase 10b: ECF8 tokens differ from the fp8 baseline's "
+             f"(request, first token index): {bad}")
+    log(f"lossless: speculative ECF8 greedy tokens IDENTICAL to the fp8 "
+        f"baseline trees' ({t10f:.2f}s, "
+        f"{e10f.decode_seconds / e10f.steps * 1e3:.1f} ms/round on fp8 "
+        f"weights; {e10f.spec_counters()})")
+    del params_fp8, d_fp8
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    d10c, e10c, t10c = serve.serve(params_c, cfg, EngineConfig(
+        **spec, draft_cfg=dcfg, draft_params=d_c, compress_cold=True,
+        n_pages=SWAP_N_PAGES, n_cold_slots=SWAP_N_COLD_SLOTS,
+        swap_bytes=-1), prompts, 32)
+    serve_b2 += fused.run.launches
+    l10c = counts()
+    by_path = dict(kv_page.run.launches_by_path)
+    pc, sched = e10c.paged, e10c.scheduler
+    st = pc.swap.stats()
+    log(f"phase 10c: 10b with phase 7's pools and swap: "
+        f"{served('10c', d10c, e10c, t10c)}; {spec_line(e10c, d10c)}; "
+        f"launches {l10c}, kv_page_decode by path {by_path}; "
+        f"{e10c.n_draft_restores} draft rows reinstalled")
+    for line in serve.cache_report(e10c):
+        log(f"  {line}")
+    if not (sched.n_preempted and sched.n_resumed and e10c.n_draft_restores):
+        fail(f"phase 10c did not preempt and resume a speculating request "
+             f"with its draft row: {sched.counters()}, "
+             f"{e10c.n_draft_restores} draft rows reinstalled")
+    if by_path.get("verify", 0) <= 0 or not l10c["ecf8_decode"]:
+        fail(f"phase 10c: kv_page_decode did not launch from a verify over "
+             f"cold history: {by_path}")
+    if (st["swap_in_bytes_total"] != st["swap_out_bytes_total"]
+            or len(pc.swap) or pc._slot_pages
+            or pc.free_pages != pc.n_pages - 1 or pc._cold_bytes):
+        fail(f"phase 10c did not drain: {pc.stats()}")
+    same, bad = first_divergence(d10b, d10c)
+    log(f"phase 10c vs 10b: {same} of {len(done) * 32} tokens equal (page "
+        f"pressure shrinks verify windows; counted, not gated), first "
+        f"divergence (request, token) {bad}")
+
     if serve_b2:
         fail(f"a serve path launched fused_decode_matmul {serve_b2} times")
     by_dtype = dict(ecf8_decode.run.launches_by_dtype)
     if set(by_dtype) != {torch.bfloat16}:
-        fail(f"phases 5-8 decoded a compressed weight to another dtype than "
-             f"bf16: {by_dtype}")
-    log(f"ecf8_decode over phases 5, 7, 8a, 8b: {by_dtype[torch.bfloat16]} "
-        f"launches, all writing bf16 (no cast kernel after a decode)")
+        fail(f"phases 5-10 decoded a compressed weight to another dtype "
+             f"than bf16: {by_dtype}")
+    log(f"ecf8_decode over phases 5, 7, 8a, 8b, 9, 10a-c: "
+        f"{by_dtype[torch.bfloat16]} launches, all writing bf16 (no cast "
+        f"kernel after a decode)")
     log("fused_decode_matmul: 0 launches on every serve path (phases 5, 7, "
-        "8a, 8b), as in the reference")
+        "8a, 8b, 9, 10a-c), as in the reference")
 
     kernels = [
         dict(name="ecf8_decode", route="cuda",

@@ -49,6 +49,11 @@
 //      buffer of a two-stage ring while the tensor cores multiply (one
 //      buffer at 32 rows or fewer, where the product is short and a smaller
 //      CTA lets more CTAs share an SM).
+// A tile depth S that is not a multiple of the tensor cores' k-step of 16
+// is padded in shared memory: the last sub-block's decoded columns past S
+// are written as zeros, and so are x's matching k-values (read element by
+// element when S is not a multiple of 8, where x's rows are not 16-byte
+// aligned), so the padded products add exact zeros.
 // With n_split > 1 the K range is cut across CTAs (TN alone gives 32-96
 // CTAs on the qwen3-8b shapes against 132 SMs); each split writes its
 // partial sums to a workspace and a second kernel adds the splits in a fixed
@@ -64,6 +69,7 @@
 // decode.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -306,15 +312,30 @@ fused_decode_matmul_kernel(const uint16_t* __restrict__ x,
       cp_async16(nd + 16 * i, ns + 16 * i, 16);
   };
   // x's block for tile t: row r, k-values 8c .. 8c+7 as 16-byte chunk c % 8
-  // of sub-block c / 8, swizzled by r % 8; rows past M zero
+  // of sub-block c / 8, swizzled by r % 8; rows past M and k-values past S
+  // (up to the next multiple of 16) zero
+  const int S16 = (S + 15) / 16 * 16;
   auto load_x = [&](int t) {
-    const int k0 = (tk0 + t) * S, chunks = S / 8;
-    for (int i = tid; i < MB * chunks; i += NT) {
-      const int r = i / chunks, c = i % chunks;
-      const bool in = m0 + r < M;
-      const uint16_t* src = in ? x + (long long)(m0 + r) * K + k0 + 8 * c : x;
-      cp_async16(s_x + ((c / 8) * MB + r) * 128 + (((c % 8) ^ (r & 7)) << 4),
-                 src, in ? 16 : 0);
+    const int k0 = (tk0 + t) * S;
+    if (S % 8 == 0) {
+      const int chunks = S16 / 8;
+      for (int i = tid; i < MB * chunks; i += NT) {
+        const int r = i / chunks, c = i % chunks;
+        const bool in = m0 + r < M && 8 * c < S;
+        const uint16_t* src =
+            in ? x + (long long)(m0 + r) * K + k0 + 8 * c : x;
+        cp_async16(
+            s_x + ((c / 8) * MB + r) * 128 + (((c % 8) ^ (r & 7)) << 4),
+            src, in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < MB * S16; i += NT) {
+        const int r = i / S16, k = i % S16, c = k / 8;
+        const bool in = m0 + r < M && k < S;
+        *reinterpret_cast<uint16_t*>(
+            s_x + ((c / 8) * MB + r) * 128 + (((c % 8) ^ (r & 7)) << 4) +
+            2 * (k % 8)) = in ? x[(long long)(m0 + r) * K + k0 + k] : 0;
+      }
     }
   };
 
@@ -415,37 +436,51 @@ fused_decode_matmul_kernel(const uint16_t* __restrict__ x,
     const int nshift = (tid & 1) ? 0 : 4;  // even lanes: the high nibble
     Window w;
     if (decoder) w.start(reinterpret_cast<const uint32_t*>(pb) + tid, W);
+    // the eight k-values 8c .. 8c + 7 of sub-block kb, packed into one
+    // 16-byte store of the swizzled row; guarded: those past S are zero
+    // (the entry 0 has bf16 bits 0 and length 0, so nothing is consumed)
+    auto decode_chunk = [&](uint8_t* a, int kb, int c, auto guarded) {
+      constexpr bool kGuarded = decltype(guarded)::value;
+      uint32_t v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        w.refill(W);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s = kb * kSub + 8 * c + 4 * h + j;
+          // one table read: the peek and this lane's nibble give the
+          // element's bf16 bits and the code's length
+          uint32_t e;
+          if (!kGuarded || s < S) {
+            const uint32_t nb = nib[s * (kLanes / 2)] >> nshift;
+            e = s_vl[((w.hi >> 20) & 0xFF0) | (nb & 0xF)];
+          } else {
+            e = 0u;
+          }
+          if (j & 1) {
+            v[2 * h + j / 2] = __byte_perm(v[2 * h + j / 2], e, 0x7610);
+          } else {
+            v[2 * h + j / 2] = e >> 16;
+          }
+          w.consume(e);
+        }
+      }
+      *reinterpret_cast<uint4*>(a + tid * 128 + ((c ^ (tid & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    };
     for (int kb = 0; kb < nkb; ++kb, ++q) {
-      const int kv = min(kSub, S - kb * kSub);  // a multiple of 16
+      const int kv = min(kSub, S - kb * kSub);  // real k-values
+      const int kvp = (kv + 15) / 16 * 16;      // padded to the k-step
       uint8_t* const a = s_a + (q % AB) * (kLanes * 128);
       // the wgmma chains that read this buffer (sub-block q - AB) are done
       wgmma_wait<AB - 1>();
       fence_acc<NW>(acc);
       __syncthreads();
       if (decoder) {
-        for (int c = 0; c < kv / 8; ++c) {
-          uint32_t v[4];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            w.refill(W);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int s = kb * kSub + 8 * c + 4 * h + j;
-              // one table read: the peek and this lane's nibble give the
-              // element's bf16 bits and the code's length
-              const uint32_t nb = nib[s * (kLanes / 2)] >> nshift;
-              const uint32_t e = s_vl[((w.hi >> 20) & 0xFF0) | (nb & 0xF)];
-              if (j & 1) {
-                v[2 * h + j / 2] = __byte_perm(v[2 * h + j / 2], e, 0x7610);
-              } else {
-                v[2 * h + j / 2] = e >> 16;
-              }
-              w.consume(e);
-            }
-          }
-          *reinterpret_cast<uint4*>(a + tid * 128 + ((c ^ (tid & 7)) << 4)) =
-              make_uint4(v[0], v[1], v[2], v[3]);
-        }
+        for (int c = 0; c < kv / 8; ++c)
+          decode_chunk(a, kb, c, std::false_type());
+        for (int c = kv / 8; c < kvp / 8; ++c)
+          decode_chunk(a, kb, c, std::true_type());
       }
       if (kb == 0) cp_async_wait<0>();  // x's block for this tile
       fence_proxy_async();
@@ -456,7 +491,7 @@ fused_decode_matmul_kernel(const uint16_t* __restrict__ x,
       const uint8_t* const xb = s_x + (kb * MB + wg * NW) * 128;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        for (int ks = 0; ks < kv / 16; ++ks)
+        for (int ks = 0; ks < kvp / 16; ++ks)
           Mma<NW>::ss(acc + h * (NW / 2),
                       gmma_desc(a + h * 64 * 128 + 32 * ks),
                       gmma_desc(xb + 32 * ks));
@@ -531,7 +566,7 @@ extern "C" int fused_decode_matmul(const void* x, const void* payload,
                                    int S, int stride, int mb, int n_split,
                                    int tk_per_split, int pbufs,
                                    void* stream) {
-  if (M < 1 || S < 16 || S % 16 || K % S || N % kLanes || stride < 4 ||
+  if (M < 1 || S < 1 || K % S || N % kLanes || stride < 4 ||
       n_split < 1 || tk_per_split < 1 || (pbufs != 1 && pbufs != 2))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = (cudaStream_t)stream;

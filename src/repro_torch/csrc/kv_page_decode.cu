@@ -55,6 +55,22 @@
 // One CTA a page: splitting a page's lanes over 2 or 4 CTAs (each staging
 // the page and building the table) can shorten only a CTA's prologue, not
 // its rounds, and measured slower or no faster on the H100 (PERF.md).
+//
+// Two instances of the kernel, chosen by the wrapper from the page's shape
+// (kvcache/kernels.py::instance), never on failure:
+//   * staged (kStaged = true), the design above, for every page whose
+//     payload words and plane fit the dynamic shared memory (kMaxDynSmem):
+//     the qwen3-8b page of 16 positions in every cache dtype;
+//   * streamed (kStaged = false), for larger pages (a bf16 page of 128
+//     positions at qwen3-8b's widths needs 262,672 bytes staged): nothing
+//     but the decode table and the perm goes to shared memory.  A lane
+//     builds each 32-bit word from four bytes of its own payload column in
+//     device memory (b[min(k, stride - 1)], the staged words' bytes, so
+//     both instances decode the same symbols), read a refill check ahead as
+//     in the staged loop, and each store reads its plane byte(s) from
+//     device memory.  Each payload and plane byte is still read once, and
+//     the 128 lanes of a CTA read 128 adjacent bytes, so the reads
+//     coalesce; the page size has no limit.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -118,7 +134,7 @@ struct Page<2> {
   }
 };
 
-template <int kKind>
+template <int kKind, bool kStaged>
 __global__ void __launch_bounds__(kLanes)
 kv_page_decode_kernel(const uint8_t* __restrict__ payload,
                       const uint8_t* __restrict__ signmant,
@@ -149,16 +165,18 @@ kv_page_decode_kernel(const uint8_t* __restrict__ payload,
     s_offset[lane] = tab[2 * L + lane];
   }
   const uint8_t* psrc = payload + page * stride * kLanes;
-  for (int i = lane; i < stride * (kLanes / 16); i += kLanes)
-    cp_async16(smem + 16 * i, psrc + 16 * i);
   const uint8_t* plane = signmant + page * sm_bytes;
-  const uintptr_t a0 = reinterpret_cast<uintptr_t>(plane) & ~uintptr_t(15);
-  const int granules =
-      int((reinterpret_cast<uintptr_t>(plane + sm_bytes) - a0 + 15) >> 4);
-  for (int i = lane; i < granules; i += kLanes)
-    cp_async16(s_plane_base + 16 * i,
-               reinterpret_cast<const void*>(a0 + 16 * i));
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if constexpr (kStaged) {
+    for (int i = lane; i < stride * (kLanes / 16); i += kLanes)
+      cp_async16(smem + 16 * i, psrc + 16 * i);
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(plane) & ~uintptr_t(15);
+    const int granules =
+        int((reinterpret_cast<uintptr_t>(plane + sm_bytes) - a0 + 15) >> 4);
+    for (int i = lane; i < granules; i += kLanes)
+      cp_async16(s_plane_base + 16 * i,
+                 reinterpret_cast<const void*>(a0 + 16 * i));
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
 
   // 2. the decode table, while the copies are in flight
   __syncthreads();
@@ -181,33 +199,37 @@ kv_page_decode_kernel(const uint8_t* __restrict__ payload,
     }
     lo_p = max(lo_p, hi_p);
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-
-  // 3. the payload, transposed in place into words of one lane,
-  // eight words (raw rows 32c .. 32c + 31) at a time: a chunk is read whole
-  // before any thread writes it, and no later chunk reads its rows
-  const uint8_t* raw = smem + lane;
-  const uint32_t last = raw[(stride - 1) * kLanes];
-  for (int w0 = 0; w0 < W; w0 += 8) {
-    uint32_t r[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int p = 4 * (w0 + j) + k;
-        v = (v << 8) | (p < stride ? uint32_t(raw[p * kLanes]) : last);
-      }
-      r[j] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (w0 + j < W) s_words[(w0 + j) * kLanes + lane] = r[j];
-    }
+  if constexpr (kStaged) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
   __syncthreads();
+
+  // 3. (staged) the payload, transposed in place into words of one lane,
+  // eight words (raw rows 32c .. 32c + 31) at a time: a chunk is read whole
+  // before any thread writes it, and no later chunk reads its rows
+  if constexpr (kStaged) {
+    const uint8_t* raw = smem + lane;
+    const uint32_t last = raw[(stride - 1) * kLanes];
+    for (int w0 = 0; w0 < W; w0 += 8) {
+      uint32_t r[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int p = 4 * (w0 + j) + k;
+          v = (v << 8) | (p < stride ? uint32_t(raw[p * kLanes]) : last);
+        }
+        r[j] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (w0 + j < W) s_words[(w0 + j) * kLanes + lane] = r[j];
+      }
+    }
+    __syncthreads();
+  }
 
   // 4. decode.  The window is hi:lo, its top `valid` bits the stream's
   // next bits and zeros below them.  A symbol's dependent chain is a shift
@@ -216,9 +238,25 @@ kv_page_decode_kernel(const uint8_t* __restrict__ payload,
   // 32 valid bits after it, at most 24 consumed before the next) adds the
   // word read ahead of it, without a branch.
   const uint8_t* s_plane =
-      s_plane_base + (reinterpret_cast<uintptr_t>(plane) & 15);
+      kStaged ? s_plane_base + (reinterpret_cast<uintptr_t>(plane) & 15)
+              : plane;
+  // word w (< W) of this lane: staged, or built from device memory from the
+  // same bytes b[min(4w + k, stride - 1)]
   const uint32_t* wl = s_words + lane;
-  uint32_t hi = wl[0], lo = wl[kLanes], nw = wl[min(2, W - 1) * kLanes];
+  const uint8_t* pl = psrc + lane;
+  auto word = [&](int w) -> uint32_t {
+    if constexpr (kStaged) {
+      return wl[w * kLanes];
+    } else {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v = (v << 8) | uint32_t(__ldg(pl + min(4 * w + k, stride - 1) *
+                                              kLanes));
+      return v;
+    }
+  };
+  uint32_t hi = word(0), lo = word(1), nw = word(min(2, W - 1));
   int next = 2, valid = 64;
   typename Page<kKind>::T* dst = out + page * n_elem;
   // four rounds an iteration; only a page whose S * 128 slots are not all
@@ -234,7 +272,7 @@ kv_page_decode_kernel(const uint8_t* __restrict__ payload,
           lo |= need ? nw << (32 - valid) : 0u;
           next += need;
           valid += need ? 32 : 0;
-          nw = wl[min(next, W - 1) * kLanes];
+          nw = word(min(next, W - 1));
         }
         const uint32_t ent = s_tab[hi >> (32 - L)];
         const int e = (s0 + k) * kLanes + lane;
@@ -253,19 +291,22 @@ kv_page_decode_kernel(const uint8_t* __restrict__ payload,
   }
 }
 
-template <int kKind>
+template <int kKind, bool kStaged>
 int launch(const void* payload, const void* signmant, const void* tables,
            const void* perm, void* out, int n_pages, int stride, int sm_bytes,
            int max_len, int n_sym, int S, int n_elem, cudaStream_t stream) {
-  auto kernel = kv_page_decode_kernel<kKind>;
+  auto kernel = kv_page_decode_kernel<kKind, kStaged>;
   if (max_len != Page<kKind>::L || n_sym > (1 << Page<kKind>::L))
     return int(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(stride, sm_bytes);
-  if (smem > size_t(kMaxDynSmem)) return int(cudaErrorInvalidValue);
-  // once per instance (thread-safe static initialisation), not per launch
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
-  if (attr != cudaSuccess) return int(attr);
+  size_t smem = 0;
+  if constexpr (kStaged) {
+    smem = smem_bytes(stride, sm_bytes);
+    if (smem > size_t(kMaxDynSmem)) return int(cudaErrorInvalidValue);
+    // once per instance (thread-safe static initialisation), not per launch
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+    if (attr != cudaSuccess) return int(attr);
+  }
   kernel<<<n_pages, kLanes, smem, stream>>>(
       (const uint8_t*)payload, (const uint8_t*)signmant,
       (const int32_t*)tables, (const int32_t*)perm,
@@ -279,7 +320,8 @@ extern "C" int kv_page_decode(const void* payload, const void* signmant,
                               const void* tables, const void* perm, void* out,
                               int n_pages, int stride, int sm_bytes,
                               int max_len, int n_sym, int sym_per_lane,
-                              int n_elem, int kind, void* stream) {
+                              int n_elem, int kind, int staged,
+                              void* stream) {
   if (n_pages < 1 || n_sym < 1 || n_sym > kMaxSyms || stride < 4 ||
       sm_bytes < 1 || sym_per_lane < 1)
     return int(cudaErrorInvalidValue);
@@ -288,13 +330,19 @@ extern "C" int kv_page_decode(const void* payload, const void* signmant,
     return fn(payload, signmant, tables, perm, out, n_pages, stride,
               sm_bytes, max_len, n_sym, sym_per_lane, n_elem, st);
   };
-  switch (kind) {
+  switch (kind * 2 + (staged ? 1 : 0)) {
     case 0:
-      return go(launch<0>);
+      return go(launch<0, false>);
     case 1:
-      return go(launch<1>);
+      return go(launch<0, true>);
     case 2:
-      return go(launch<2>);
+      return go(launch<1, false>);
+    case 3:
+      return go(launch<1, true>);
+    case 4:
+      return go(launch<2, false>);
+    case 5:
+      return go(launch<2, true>);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -10,8 +10,9 @@ decodes each tile into shared memory with a table-driven loop like B1's
 32-bit words, one table read a symbol) and multiplies it there on the
 tensor cores (``wgmma``, the decoded tile as the A operand, x's rows as
 B); a CTA takes up to 256 rows of x, so a tile is decoded at most
-``ceil(M / 256)`` times a call.  The compressed
-bytes are the only weight traffic in device memory.
+``ceil(M / 256)`` times a call.  A tile depth S that is not a multiple of
+the tensor cores' k-step (16) is zero-padded in shared memory.  The
+compressed bytes are the only weight traffic in device memory.
 
 :func:`run` launches the kernel for tensors on the card; :func:`plain` is
 the plain PyTorch version (decode with ``tpu_format.decode_plain``, then
@@ -161,8 +162,9 @@ def _smem_bytes(S: int, stride: int, mb: int, pbufs: int) -> int:
 
 def run(x: torch.Tensor, tiled: TiledECF8Weight,
         out_dtype=torch.float32) -> torch.Tensor:
-    """``x @ decode(W)`` on the card: x (M, K) with M <= 512, cast to bf16
-    -> (M, N) of ``out_dtype`` (accumulated in f32)."""
+    """``x @ decode(W)`` on the card, one launch: x (M, K) with M <=
+    ``MAX_ROWS``, cast to bf16 -> (M, N) of ``out_dtype`` (accumulated in
+    f32).  ``ops.fused_decode_matmul`` takes any M, in row blocks."""
     tensors = (tiled.payload, tiled.signmant, tiled.lj_limit,
                tiled.first_lj, tiled.offset, tiled.perm)
     if not (x.is_cuda and all(t.is_cuda and t.is_contiguous()
@@ -188,9 +190,6 @@ def run(x: torch.Tensor, tiled: TiledECF8Weight,
             f"fused_decode_matmul: x {tuple(x.shape)} and payload "
             f"{tuple(tiled.payload.shape)} do not make a ({K}, {N}) "
             f"product of at most {MAX_ROWS} rows in ({S}, {LANES}) tiles")
-    if S % 16:
-        raise ValueError(f"fused_decode_matmul: S={S} is not a multiple of "
-                         f"16 (the tensor cores' k-step)")
     M = x.shape[0]
     mb, split, per, pbufs = _plan(M, TK, TN, S, stride)
     if _smem_bytes(S, stride, mb, pbufs) > _MAX_SMEM:

@@ -46,7 +46,13 @@ def decode_pages(payload, signmant, tables, perm, *, n_elem: int,
 
 def fused_decode_matmul(x, tiled, *, out_dtype=torch.float32) -> torch.Tensor:
     """``x @ decode(W)`` with W in the tiled ECF8 layout
-    (``fused_decode_matmul.encode_tiled``); x (M, K), M <= 512."""
-    if x.device.type == "cpu":
-        return _fused.plain(x, tiled, out_dtype)
-    return _fused.run(x, tiled, out_dtype)
+    (``fused_decode_matmul.encode_tiled``, any tile depth S that divides K);
+    x (M, K), any M >= 1, as the reference's op takes.  M is cut into row
+    blocks of at most ``MAX_ROWS`` (the kernel's regime), on the card one
+    launch each, on the CPU one call of the plain version each."""
+    fn = _fused.plain if x.device.type == "cpu" else _fused.run
+    step = _fused.MAX_ROWS
+    if x.shape[0] <= step:
+        return fn(x, tiled, out_dtype)
+    return torch.cat([fn(x[i:i + step], tiled, out_dtype)
+                      for i in range(0, x.shape[0], step)])

@@ -12,7 +12,9 @@ round reads device memory.  The perm lookup and sign/mantissa fuse are
 done in the kernel, so no int32 index array goes through device memory.
 What bounds it on the H100 is bytes: the coded page read once, the values
 written once (3.35 TB/s); at a few hundred pages its time is one CTA's
-life.
+life.  A page too large to stage (:func:`instance`) goes to the kernel's
+streamed instance, which reads its payload words and plane from device
+memory and so serves every page size the reference serves.
 
 :func:`run` launches the kernel for tensors on the card; :data:`plain`
 (``codec.decode_pages_plain``) is the plain PyTorch version of the same
@@ -32,7 +34,7 @@ from .codec import LANES, MIN_STRIDE, TORCH_BITS, TORCH_DTYPES, \
 
 plain = decode_pages_plain
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _KIND = {"float8_e4m3fn": 0, "bfloat16": 1, "float32": 2}
 # dynamic shared memory the kernel may take (csrc: kMaxDynSmem): the H100's
 # 227 KB a block, less the static decode table and perm
@@ -46,6 +48,15 @@ def _smem_bytes(stride: int, sm: int) -> int:
     return ((stride + 3) // 4 + 1) * LANES * 4 + (-(-sm // 16) + 1) * 16
 
 
+def instance(stride: int, sm: int) -> str:
+    """The kernel instance for pages of this shape: ``'staged'`` when the
+    payload words and the plane fit the dynamic shared memory
+    (:func:`_smem_bytes` <= ``_MAX_SMEM``), else ``'streamed'`` (both read
+    from device memory, no size limit).  Chosen by shape alone, never on a
+    failed launch."""
+    return "staged" if _smem_bytes(stride, sm) <= _MAX_SMEM else "streamed"
+
+
 def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
         path: str = "other") -> torch.Tensor:
     """Decode N coded pages on the card -> (N, n_elem) values of
@@ -53,7 +64,9 @@ def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
 
     ``path`` names the caller for the launch counts: ``run.launches`` is the
     total, ``run.launches_by_path[path]`` the caller's share ('gather': the
-    decode step's cold pool, 'fault': the swap tier)."""
+    decode step's and the prefill chunk's cold pool, 'verify': a
+    speculative verify's, 'fault': the swap tier), and
+    ``run.launches_by_instance`` counts the :func:`instance` launched."""
     tensors = (payload, signmant, tables, perm)
     if not all(t.is_cuda and t.is_contiguous() for t in tensors):
         raise ValueError("kv_page_decode: every input must be a contiguous "
@@ -74,11 +87,8 @@ def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
             f"signmant {tuple(signmant.shape)}, tables "
             f"{tuple(tables.shape)}, perm {tuple(perm.shape)} do not make "
             f"{N} {dtype_name} pages of {n_elem} elements")
-    if _smem_bytes(stride, sm) > _MAX_SMEM:
-        raise ValueError(f"kv_page_decode: stride {stride} and a {sm}-byte "
-                         f"plane need {_smem_bytes(stride, sm)} bytes of "
-                         f"shared memory, above {_MAX_SMEM}")
-    if payload.data_ptr() % 16:
+    inst = instance(stride, sm)
+    if inst == "staged" and payload.data_ptr() % 16:
         raise ValueError("kv_page_decode: payload must be 16-byte aligned")
     out = torch.empty((N, n_elem), dtype=TORCH_BITS[dtype_name],
                       device=payload.device)
@@ -87,15 +97,17 @@ def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
         err = lib.kv_page_decode(
             *(t.data_ptr() for t in tensors), out.data_ptr(), N, stride, sm,
             max_len, 1 << exp_bits, sym_per_lane(n_elem), n_elem,
-            _KIND[dtype_name],
+            _KIND[dtype_name], int(inst == "staged"),
             torch.cuda.current_stream(payload.device).cuda_stream)
         if err:
             raise RuntimeError(f"kv_page_decode launch failed: CUDA error "
                                f"{err}")
         run.launches += 1
         run.launches_by_path[path] += 1
+        run.launches_by_instance[inst] += 1
     return out.view(TORCH_DTYPES[dtype_name])
 
 
 run.launches = 0
 run.launches_by_path = collections.Counter()
+run.launches_by_instance = collections.Counter()

@@ -133,7 +133,7 @@ def cold_leaves(pools: dict, kn: str, u: int):
     return tuple(pools[f"{kn}_{c}"][u] for c in _COLD)
 
 
-def page_gather(pool, page_table, cpool=None):
+def page_gather(pool, page_table, cpool=None, path: str = "gather"):
     """Gather each slot's pages into a contiguous KV history.
 
     pool: (n_pool, n_kv, ps, hd); page_table: (B, P) ids into the
@@ -141,13 +141,14 @@ def page_gather(pool, page_table, cpool=None):
     (ids >= n_pool) are entropy-decoded by the page-decode kernel and
     appended to the raw pool as a virtual suffix before the gather; ids
     are clipped, so garbage rows gather page 0 (their positions are masked
-    by ``kv_len`` downstream).  Returns (B, n_kv, P * ps, hd)."""
+    by ``kv_len`` downstream).  ``path`` tags the page-decode launches.
+    Returns (B, n_kv, P * ps, hd)."""
     n_kv, ps, hd = pool.shape[1:]
     virtual = pool
     if cpool is not None:
         dec = ops.decode_pages(*cpool, n_elem=n_kv * ps * hd,
                                dtype_name=codec.dtype_name(pool.dtype),
-                               path="gather")
+                               path=path)
         virtual = torch.cat([pool, dec.view(-1, n_kv, ps, hd)])
     ids = page_table.clamp(0, virtual.shape[0] - 1).long()
     gath = virtual[ids]                            # (B, P, n_kv, ps, hd)
@@ -371,6 +372,38 @@ class PagedKVCache:
             pid = self._alloc_raw()
             cache["page_table"][slot, len(pages)] = pid
             pages.append(pid)
+        return cache
+
+    def rollback(self, cache: dict, slot: int, n_tokens: int):
+        """Truncate ``slot``'s timeline to ``n_tokens`` cache positions: the
+        speculative verify's rejection path (a verify forward appended
+        ``k + 1`` tokens' K/V and the rejected suffix must go again).
+
+        Pages past ``ceil(n_tokens / page_size)`` (at least one, so the
+        admission grant is never undercut) return to the free list in
+        reverse allocation order: :func:`ensure` pops from the tail of the
+        descending free list, so popping the slot's page list from its own
+        tail and appending each id back restores the free list, and every
+        later allocation, bit-exactly.  Such pages are raw: speculation
+        allocates and rolls back within one engine step, before cold
+        compression or eviction can reach them.  Stale K/V past
+        ``n_tokens`` inside kept pages is masked by ``kv_len`` until the
+        slot's next write overwrites it.  ``cur_len[slot]`` is set to
+        ``n_tokens`` (in place)."""
+        pages = self._slot_pages.get(slot)
+        if pages is not None:
+            keep = min(max(-(-n_tokens // self.page_size), 1),
+                       self.pages_per_slot)
+            while len(pages) > keep:
+                pid = pages.pop()
+                if not GARBAGE_PAGE < pid < self.n_pages:
+                    raise ValueError(
+                        f"rollback({slot}): page {pid} is not raw: only "
+                        f"pages allocated by the current verify window can "
+                        f"be rolled back")
+                cache["page_table"][slot, len(pages)] = GARBAGE_PAGE
+                self._decref(pid)
+        cache["cur_len"][slot] = n_tokens
         return cache
 
     def release(self, cache: dict, slot: int):

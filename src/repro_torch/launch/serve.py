@@ -17,6 +17,12 @@ Usage:
   # prompt tokens per engine step
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --prefill-chunk 128 --prefill-budget 128
+  # the monolithic cache (one contiguous max_len row a slot)
+  PYTHONPATH=src python -m repro_torch.launch.serve --cache monolithic
+  # speculative decoding: a draft proposes 4 tokens a round, the target
+  # verifies them in one forward
+  PYTHONPATH=src python -m repro_torch.launch.serve --draft qwen3-8b \\
+      --spec-k 4
   # on a machine without a card, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -88,9 +95,12 @@ def cache_report(eng) -> list:
     """Lines on the coded tiers of a finished run: pages compressed, their
     ragged coded bytes and the bytes they take in cold slots against the
     same pages raw, the cold pool's device memory, host seconds in the page
-    encoder, preemptions and swap traffic."""
+    encoder, preemptions and swap traffic (none for the monolithic
+    cache)."""
     pc = eng.paged
     lines = []
+    if pc is None:
+        return lines
     if pc.compress:
         n, coded = pc.n_compressed, pc.compressed_bytes
         page_b, slot_b = pc.stats()["page_bytes"], pc.cold_slot_bytes
@@ -127,6 +137,15 @@ def chunk_report(eng) -> str:
             f"preemptions")
 
 
+def spec_report(eng, n_tok: int) -> str:
+    """The speculative-decoding line of a finished run."""
+    sc = eng.spec_counters()
+    return (f"speculative: {sc['spec_rounds']} verify rounds, accept rate "
+            f"{sc['spec_accept_rate']:.3f} ({sc['spec_accepted']}/"
+            f"{sc['spec_drafted']} drafted), "
+            f"{n_tok / max(eng.steps, 1):.2f} tokens/step")
+
+
 def same_tokens(a, b) -> bool:
     return all(x.out_tokens == y.out_tokens for x, y in zip(a, b))
 
@@ -144,11 +163,11 @@ def main(argv=None, cfg=None):
     ap.add_argument("--check-lossless", action="store_true",
                     help="compare tokens vs the uncompressed fp8 baseline")
     ap.add_argument("--cache", default="paged",
-                    choices=["paged", "paged-compressed"],
+                    choices=["paged", "paged-compressed", "monolithic"],
                     help="KV-cache layout (paged-compressed entropy-codes "
                          "full pages in place and decodes them where the "
-                         "decode step uses them; the monolithic layout is "
-                         "not yet ported)")
+                         "decode step uses them; monolithic keeps one "
+                         "contiguous max_len row a slot)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=None,
                     help="raw page-pool size (default: worst case).  Set "
@@ -174,6 +193,21 @@ def main(argv=None, cfg=None):
                     help="prompt tokens spent on prefill per engine step "
                          "(bounds decode latency under long prompts); "
                          "default: one chunk.")
+    ap.add_argument("--draft", default=None, metavar="ARCH",
+                    help="speculative decoding: the draft model's "
+                         "architecture (--smoke applies to it too), "
+                         "compressed as --compress says.  It proposes "
+                         "--spec-k tokens a round and the target verifies "
+                         "all k+1 positions in one forward with exact "
+                         "rejection sampling: tokens identical to target-"
+                         "only decoding under greedy.  Needs --cache paged/"
+                         "paged-compressed and whole-prompt prefill.")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="drafted tokens per speculative round (default 4; "
+                         "an error without --draft)")
+    ap.add_argument("--draft-seed", type=int, default=None,
+                    help="seed of the synthesized draft weights (default "
+                         "1; an error without --draft)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
@@ -184,8 +218,12 @@ def main(argv=None, cfg=None):
         cfg = get(args.arch)
         if args.smoke:
             cfg = smoke_variant(cfg)
+    dcfg = None
+    if args.draft:
+        dcfg = smoke_variant(get(args.draft)) if args.smoke \
+            else get(args.draft)
     try:
-        ecfg = EngineConfig.from_args(args, cfg)
+        ecfg = EngineConfig.from_args(args, cfg, draft_cfg=dcfg)
     except EngineConfigError as e:
         ap.error(str(e))
 
@@ -198,6 +236,15 @@ def main(argv=None, cfg=None):
               f" {report['compressed_bytes'] / 1e6:.2f}MB "
               f"({100 * (1 - report['compressed_bytes'] / fp8_b):.1f}% "
               f"saved)")
+    ecfg_fp8 = ecfg
+    if dcfg is not None:
+        draft_seed = 1 if args.draft_seed is None else args.draft_seed
+        dparams_c, dparams_fp8, _, _ = build_params(
+            dcfg, draft_seed, args.compress, device=args.device)
+        ecfg = replace(ecfg, draft_params=dparams_c)
+        ecfg_fp8 = replace(ecfg, draft_params=dparams_fp8)
+        print(f"[serve] speculative: draft {dcfg.name} ({dcfg.n_layers} "
+              f"layers, seed {draft_seed}), k={ecfg.spec_k}")
     prompts = make_prompts(cfg, args.requests, args.seed)
     done, eng, dt = serve(params_c, cfg, ecfg, prompts, args.max_new,
                           device=args.device)
@@ -206,12 +253,14 @@ def main(argv=None, cfg=None):
           f"({n_tok / max(dt, 1e-9):.1f} tok/s host wall-clock, "
           f"{eng.steps} decode steps, batch occupancy "
           f"{n_tok / max(eng.steps, 1):.2f})")
+    if eng.spec_on:
+        print(f"[serve] {spec_report(eng, n_tok)}")
     for line in cache_report(eng):
         print(f"[serve] {line}")
     if eng.prefill_chunk:
         print(f"[serve] {chunk_report(eng)}")
     if args.check_lossless and args.compress != "none":
-        done2, _, _ = serve(params_fp8, cfg, ecfg, prompts, args.max_new,
+        done2, _, _ = serve(params_fp8, cfg, ecfg_fp8, prompts, args.max_new,
                             device=args.device)
         same = same_tokens(done, done2)
         print(f"[serve] lossless check vs fp8 baseline: "

@@ -16,7 +16,10 @@ Entry points:
   prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
   prefill_chunk(params, cfg, tokens, cache, slot, n_valid)
                                           -> (logits, cache)   [paged cache]
-  decode_step(params, cfg, token, cache)  -> (logits, cache)   [paged cache]
+  verify_chunk(params, cfg, tokens, cache, slot, n_valid)
+                                          -> (all logits, cache) [paged]
+  decode_step(params, cfg, token, cache)  -> (logits, cache)
+                                          [paged or contiguous cache]
 """
 from __future__ import annotations
 
@@ -169,8 +172,28 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
     return _attn_out(p, o, dtype)
 
 
+def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, dtype, kc, vc,
+                                      cur_len):
+    """One-token decode through the contiguous (monolithic) cache: each
+    slot's new K/V is written in place at its own ``cur_len`` in ``kc`` /
+    ``vc`` (B, n_kv, max_len, hd), and the token attends over ``cur_len +
+    1`` positions.  The write position is clamped to ``max_len - 1`` as
+    the reference's ``dynamic_update_slice`` clamps it: a vacated slot
+    keeps stepping past the end of its row, and its outputs are never
+    read."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
+    pos = cur_len.clamp(max=kc.shape[2] - 1).long()
+    rows = torch.arange(B, device=x.device)
+    kc[rows, :, pos] = k[:, :, 0].to(kc.dtype)
+    vc[rows, :, pos] = v[:, :, 0].to(vc.dtype)
+    o = decode_attention(q, kc, vc, kv_len=cur_len + 1,
+                         attn_softcap=cfg.attn_softcap)
+    return _attn_out(p, o, dtype)
+
+
 def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
-                          n_valid: int):
+                          n_valid: int, path: str = "gather"):
     """One prefill chunk of a single slot through the paged cache.
 
     x: (1, C, d), a chunk of the slot's prompt padded to the engine's chunk
@@ -180,7 +203,8 @@ def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
     whole history (earlier chunks included, cold pages decoded by the
     page-decode kernel) is gathered back, and the chunk attends causally
     over it from ``q_offset=start``.  ``pools`` is as in
-    :func:`_self_attention_decode`."""
+    :func:`_self_attention_decode`; ``path`` tags the page-decode launches
+    of its cold pages (``kvcache.kernels.run``)."""
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
     q, k, v = _qkv(p, x, cfg, dtype, positions)
@@ -188,8 +212,8 @@ def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
     paged_kv.page_write_chunk(k_pool, row, positions, k, n_valid)
     paged_kv.page_write_chunk(v_pool, row, positions, v, n_valid)
     row = row.clamp(min=paged_kv.GARBAGE_PAGE)[None]
-    k_hist = paged_kv.page_gather(k_pool, row, k_cold)
-    v_hist = paged_kv.page_gather(v_pool, row, v_cold)
+    k_hist = paged_kv.page_gather(k_pool, row, k_cold, path=path)
+    v_hist = paged_kv.page_gather(v_pool, row, v_cold, path=path)
     o = blockwise_attention(q, k_hist, v_hist, causal=True, q_offset=start,
                             kv_len=start + n_valid,
                             attn_softcap=cfg.attn_softcap)
@@ -207,19 +231,26 @@ def _layer_apply_full(p, x, cfg: ArchConfig, dtype):
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
                         page_table):
+    """Decode layer; ``page_table`` None means ``pools`` is the contiguous
+    cache's (k, v) of this layer."""
     h = rms_norm(x, p["norm1"])
-    x = x + _self_attention_decode(p["attn"], h, cfg, dtype, pools, cur_len,
+    if page_table is None:
+        o = _self_attention_decode_contiguous(p["attn"], h, cfg, dtype,
+                                              *pools, cur_len)
+    else:
+        o = _self_attention_decode(p["attn"], h, cfg, dtype, pools, cur_len,
                                    page_table)
+    x = x + o
     h2 = rms_norm(x, p["norm2"])
     return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
 
 
 def _layer_apply_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
-                       n_valid: int):
+                       n_valid: int, path: str):
     """Chunk-mode layer: the decode layer's residual structure at T = C."""
     h = rms_norm(x, p["norm1"])
     x = x + _self_attention_chunk(p["attn"], h, cfg, dtype, pools, row,
-                                  start, n_valid)
+                                  start, n_valid, path)
     h2 = rms_norm(x, p["norm2"])
     return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
 
@@ -249,15 +280,19 @@ def _unembed(params, cfg: ArchConfig, x, dtype):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-               device="cuda"):
-    """Contiguous per-layer K/V of a prefill: ``units/pos0/{k,v}`` is
-    ``(n_layers, batch, n_kv, max_len, hd)``."""
+               device="cuda", per_slot: bool = False):
+    """Contiguous per-layer K/V: ``units/pos0/{k,v}`` is ``(n_layers,
+    batch, n_kv, max_len, hd)``.  ``per_slot=True`` makes ``cur_len`` a
+    (batch,) vector, every slot on its own timeline (the engine's
+    monolithic cache); else it is one shared 0-d length (a prefill's)."""
     dev = resolve(device)
     s = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    cur = (torch.zeros((batch,), dtype=torch.int32, device=dev) if per_slot
+           else torch.zeros((), dtype=torch.int32, device=dev))
     return {"units": {"pos0": {"k": torch.zeros(s, dtype=dtype, device=dev),
                                "v": torch.zeros(s, dtype=dtype, device=dev)}},
             "tail": {},
-            "cur_len": torch.zeros((), dtype=torch.int32, device=dev)}
+            "cur_len": cur}
 
 
 def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
@@ -283,32 +318,38 @@ def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
 
 def _decode_step(params, cfg: ArchConfig, token, cache):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
-    paged cache (``kvcache.paged.PagedKVCache.init_cache``) with per-slot
-    ``cur_len`` (B,); its pools are written in place and ``cur_len``
-    advances by one.  Cold-pool leaves, where the cache carries them, are
-    decoded in every layer (the engine leaves them out while no page is
-    cold)."""
+    paged cache (``kvcache.paged.PagedKVCache.init_cache``) or a contiguous
+    one (:func:`init_cache`, ``per_slot`` or a prefill's shared length);
+    its K/V is written in place and ``cur_len`` advances by one.  Cold-pool
+    leaves, where a paged cache carries them, are decoded in every layer
+    (the engine leaves them out while no page is cold)."""
     dtype = torch_dtype(cfg.dtype)
+    B = token.shape[0]
     cur_len = cache["cur_len"]
-    page_table = cache["page_table"]
+    page_table = cache.get("page_table")
     pools = cache["units"]["pos0"]
     units = params["units"]["pos0"]
+    lens = cur_len.expand(B) if cur_len.ndim == 0 else cur_len
     x = _embed(params, cfg, token, dtype)
     for u in range(cfg.n_layers):
-        x = _layer_apply_decode(_layer(units, u), x, cfg, dtype,
-                                (pools["k_pool"][u], pools["v_pool"][u],
-                                 paged_kv.cold_leaves(pools, "k", u),
-                                 paged_kv.cold_leaves(pools, "v", u)),
-                                cur_len, page_table)
+        if page_table is None:
+            layer_pools = (pools["k"][u], pools["v"][u])
+        else:
+            layer_pools = (pools["k_pool"][u], pools["v_pool"][u],
+                           paged_kv.cold_leaves(pools, "k", u),
+                           paged_kv.cold_leaves(pools, "v", u))
+        x = _layer_apply_decode(_layer(units, u), x, cfg, dtype, layer_pools,
+                                lens, page_table)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache
 
 
 def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
-                 n_valid: int):
+                 n_valid: int, path: str = "gather"):
     """Embed a chunk, run every layer in chunk mode, advance the slot's
-    timeline by ``n_valid`` (in place) -> the residual stream (1, C, d)."""
+    timeline by ``n_valid`` (in place) -> the residual stream (1, C, d).
+    ``path`` tags the page-decode launches of cold pages."""
     dtype = torch_dtype(cfg.dtype)
     cur_len = cache["cur_len"]
     start = cur_len[slot].clone()
@@ -321,7 +362,7 @@ def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
                                (pools["k_pool"][u], pools["v_pool"][u],
                                 paged_kv.cold_leaves(pools, "k", u),
                                 paged_kv.cold_leaves(pools, "v", u)),
-                               row, start, n_valid)
+                               row, start, n_valid, path)
     cur_len[slot] = start + n_valid
     return x
 
@@ -344,11 +385,32 @@ def _prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
     return _unembed(params, cfg, last, torch_dtype(cfg.dtype)), cache
 
 
+def _verify_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
+                  n_valid: int):
+    """The speculative-decoding verify forward: :func:`prefill_chunk`'s
+    chunk program, unembedding **every** chunk row.
+
+    tokens: (1, C), the slot's last emitted token then the draft's
+    proposals, padded to the engine's verify width ``spec_k + 1``.  Returns
+    (logits (1, C, V), cache): row ``i`` conditions on the cache prefix
+    and ``tokens[:, :i + 1]``, the target distribution proposal ``i + 1``
+    is accepted against, and row ``n_valid - 1`` scores the bonus token.
+    K/V of all ``n_valid`` tokens lands in the slot's pages and
+    ``cur_len[slot]`` advances by ``n_valid`` (in place); the engine rolls
+    the rejected suffix back (``PagedKVCache.rollback``).  Cold pages of
+    the history are decoded with the page-decode launches tagged
+    ``'verify'``."""
+    check_supported(cfg)
+    x = _chunk_stack(params, cfg, tokens, cache, slot, n_valid, "verify")
+    return _unembed(params, cfg, x, torch_dtype(cfg.dtype)), cache
+
+
 # The entry points are defined under private names and bound to the public
 # ones: tools/lint's jit-discipline pass resolves a called name across
 # files only when a single file under src/ defines it, and the reference's
 # jitted serve steps reach their model through ``M.prefill`` /
-# ``M.decode_step`` / ``M.prefill_chunk``.
+# ``M.decode_step`` / ``M.prefill_chunk`` / ``M.verify_chunk``.
 prefill = _prefill
 prefill_chunk = _prefill_chunk
+verify_chunk = _verify_chunk
 decode_step = _decode_step

@@ -27,7 +27,18 @@ with requests continuously:
     the cold pool after each step and decoded where the step uses them;
   * with a swap store (``swap_bytes``), page pressure preempts whole
     requests: the victim's pages go to the host losslessly, it is requeued
-    at the front of its priority class and resumes bit-identically.
+    at the front of its priority class and resumes bit-identically;
+  * ``cache_mode="monolithic"`` keeps one contiguous ``max_len`` row a
+    slot instead (``models.model.init_cache(per_slot=True)``): a prefill
+    fragment is spliced into its row (:func:`splice_fragment`), and there
+    is no preemption, swap or chunking;
+  * with a draft model (``draft_cfg`` / ``draft_params``), each step is a
+    speculative round (:meth:`GenerationEngine._spec_round`): the draft,
+    whose cache is always monolithic, proposes ``spec_k`` tokens a slot,
+    the target scores them in one verify forward
+    (``models.model.verify_chunk``) and ``serving.spec.verify`` keeps an
+    exact rejection-sampled prefix; the rejected suffix is rolled back in
+    both caches.
 
 Weights may be an ECF8-compressed tree (``core.store.compress_tree``):
 every weight is decoded where it is used (the ECF8 decode kernel).
@@ -40,6 +51,7 @@ import itertools
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
@@ -47,6 +59,7 @@ from ..core.store import torch_dtype
 from ..device import resolve
 from ..kvcache import OutOfPages, PagedKVCache, SwapExhausted, SwapStore
 from ..models import model as M
+from . import spec as SPEC
 from .config import EngineConfig
 from .sampler import greedy, key_generator, request_key, root_key, \
     sample_logits
@@ -66,28 +79,94 @@ class Request:
     done: bool = False
 
 
+def _leaves(tree: dict, names=()):
+    """(path names, tensor) of every leaf of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, names + (k,))
+        else:
+            yield names + (k,), v
+
+
+def _at(tree: dict, names):
+    for k in names:
+        tree = tree[k]
+    return tree
+
+
+def _slot_view(leaf, names, slot: int):
+    """``slot``'s row of a cache leaf: leaves under ``"units"`` are
+    stacked over layers (batch at axis 1), others carry the batch at axis
+    0, and ``cur_len`` is a (B,) vector indexed directly."""
+    if "cur_len" in names:
+        return leaf[slot]
+    return leaf.narrow(1 if "units" in names else 0, slot, 1)
+
+
+def splice_fragment(cache: dict, frag: dict, slot: int) -> dict:
+    """Copy a single-request prefill fragment (``models.model.prefill``'s
+    cache, batch 1) into row ``slot`` of the monolithic batched cache, in
+    place (the reference's ``splice_fragment``).  ``frag`` has the same
+    leaves with batch size 1 and a 0-d ``cur_len``."""
+    for names, leaf in _leaves(cache):
+        fr = _at(frag, names)
+        if "cur_len" in names:
+            leaf[slot] = fr
+        else:
+            _slot_view(leaf, names, slot).copy_(fr.to(leaf.dtype))
+    return cache
+
+
 class GenerationEngine:
     def __init__(self, params, cfg: ArchConfig,
                  config: EngineConfig | None = None, device="cuda"):
-        """``params`` must already live on ``device`` (the card unless the
-        caller asks for the CPU)."""
-        config = (config or EngineConfig()).validate(cfg)
-        M.check_supported(cfg)
+        """``params`` (and a draft's ``config.draft_params``) must already
+        live on ``device`` (the card unless the caller asks for the CPU).
+        ``config`` is resolved by ``EngineConfig.validate``: an incompatible
+        feature request warns and falls back there."""
+        config = config or EngineConfig()
+        if (config.draft_params is None) != (config.draft_cfg is None):
+            raise ValueError(
+                "draft_params and draft_cfg must be provided together")
+        config = self.config = config.validate(cfg)
         self.device = resolve(device)
         self.params, self.cfg = params, cfg
         self.max_batch = max_batch = config.max_batch
         self.max_len = config.max_len
         self.slots: list = [None] * max_batch   # Request or None
         self._inflight: list = []               # submitted, not yet returned
-        self.paged = PagedKVCache(
-            cfg, max_batch, config.max_len, dtype=torch_dtype(cfg.dtype),
-            device=self.device, page_size=config.page_size,
-            n_pages=config.n_pages, compress_cold=config.compress_cold,
-            n_cold_slots=config.n_cold_slots)
-        if config.swap_bytes:
-            self.paged.attach_swap(SwapStore(
-                None if config.swap_bytes < 0 else config.swap_bytes))
-        self.cache = self.paged.init_cache()
+        self.cache_mode = config.cache_mode
+        if self.cache_mode == "paged":
+            self.paged = PagedKVCache(
+                cfg, max_batch, config.max_len, dtype=torch_dtype(cfg.dtype),
+                device=self.device, page_size=config.page_size,
+                n_pages=config.n_pages, compress_cold=config.compress_cold,
+                n_cold_slots=config.n_cold_slots)
+            if config.swap_bytes:
+                self.paged.attach_swap(SwapStore(
+                    None if config.swap_bytes < 0 else config.swap_bytes))
+            self.cache = self.paged.init_cache()
+        else:
+            self.paged = None
+            self.cache = M.init_cache(cfg, max_batch, config.max_len,
+                                      torch_dtype(cfg.dtype), self.device,
+                                      per_slot=True)
+        self.spec_on = config.draft_cfg is not None
+        self.spec_k = config.spec_k
+        if self.spec_on:
+            self.draft_params = config.draft_params
+            self.draft_cfg = config.draft_cfg
+            # the paired draft cache, always monolithic: a small draft
+            # needs no paging, and its rollback is a timeline reset
+            # (_spec_round)
+            self.draft_cache = M.init_cache(
+                self.draft_cfg, max_batch, config.max_len,
+                torch_dtype(self.draft_cfg.dtype), self.device,
+                per_slot=True)
+        self.n_spec_rounds = self.n_spec_drafted = self.n_spec_accepted = 0
+        # verify windows whose rejected suffix was rolled back, and draft
+        # rows reinstalled from a preemption's host stash
+        self.n_spec_rollbacks = self.n_draft_restores = 0
         self.prefill_chunk = config.prefill_chunk
         self.prefill_budget = config.prefill_budget
         self.scheduler = Scheduler(paged=self.paged,
@@ -121,7 +200,18 @@ class GenerationEngine:
                             device=self.device)[None, :]
         logits, frag = M.prefill(self.params, self.cfg, toks,
                                  max_len=self.max_len)
-        self.cache = self.paged.admit(self.cache, slot, frag, len(req.prompt))
+        if self.paged is not None:
+            self.cache = self.paged.admit(self.cache, slot, frag,
+                                          len(req.prompt))
+        else:
+            self.cache = splice_fragment(self.cache, frag, slot)
+        del frag
+        if self.spec_on:
+            # the draft consumes the prompt too (its logits are unused: the
+            # first token is sampled from the target's prefill)
+            _, dfrag = M.prefill(self.draft_params, self.draft_cfg, toks,
+                                 max_len=self.max_len)
+            self.draft_cache = splice_fragment(self.draft_cache, dfrag, slot)
         self._host_len[slot] = len(req.prompt)
         tok = self._sample_one(logits, req)
         req.out_tokens.append(tok)
@@ -150,6 +240,8 @@ class GenerationEngine:
         self.cache = self.paged.attach_slot(self.cache, slot, st.pages,
                                             st.skip)
         self.cache = self.paged.fault(self.cache, slot)
+        if self.spec_on and st.draft_state is not None:
+            self._draft_restore(slot, st.draft_state)
         self.cache["cur_len"][slot] = st.host_len
         self._host_len[slot] = st.host_len
         if st.prefill_pos is not None:
@@ -183,7 +275,9 @@ class GenerationEngine:
         self.scheduler.requeue(Preempted(
             req=self.slots[slot], pages=pages, skip=skip,
             host_len=self._host_len[slot], last_tok=self._last_tok[slot],
-            state=state, prefill_pos=self._prefill_pos.get(slot)))
+            state=state, prefill_pos=self._prefill_pos.get(slot),
+            draft_state=(self._draft_snapshot(slot) if self.spec_on
+                         else None)))
         if slot in self._prefill_pos:       # preempted mid-prefill
             self.n_midprefill_preempted += 1
             del self._prefill_pos[slot]
@@ -225,7 +319,7 @@ class GenerationEngine:
             victim = sched.admission_victim(self.slots, head)
             if victim is None or not self._preempt(victim):
                 break
-        if (sched.waiting and not spent
+        if (sched.waiting and not spent and self.paged is not None
                 and not any(s is not None for s in self.slots)):
             # every slot is free yet nothing could be admitted: no release
             # will ever refill the free list.  Raised only once the batch
@@ -256,7 +350,146 @@ class GenerationEngine:
         """Retire a finished request: clear the slot, release its pages."""
         req.done = True
         self.slots[s] = None
-        self.cache = self.paged.release(self.cache, s)
+        if self.paged is not None:
+            self.cache = self.paged.release(self.cache, s)
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _draft_snapshot(self, slot: int) -> list:
+        """Host copies of ``slot``'s row of every draft-cache leaf: the
+        paired draft row stashed in ``Preempted.draft_state`` when the
+        target slot is preempted (preempting one preempts both)."""
+        return [_slot_view(leaf, names, slot).to("cpu", copy=True)
+                for names, leaf in _leaves(self.draft_cache)]
+
+    def _draft_restore(self, slot: int, snap: list):
+        """Inverse of :meth:`_draft_snapshot`, bit-exact."""
+        for (names, leaf), fr in zip(_leaves(self.draft_cache), snap):
+            if "cur_len" in names:
+                leaf[slot] = fr.to(leaf.device)
+            else:
+                _slot_view(leaf, names, slot).copy_(fr)
+        self.n_draft_restores += 1
+
+    def _spec_round(self, active):
+        """One speculative round for every decode-phase slot: ``k``
+        batched draft steps (+1 that only advances the draft's state), one
+        verify forward a slot appending ``k + 1`` tokens' K/V
+        (``models.model.verify_chunk``), exact rejection sampling
+        (``serving.spec.verify``), then the rejected suffix rolled back in
+        the target's pages and timeline and in the draft's timeline.  Emits
+        1 .. k + 1 tokens a slot: distribution-identical to target-only
+        decoding, token-identical under greedy.
+
+        Draft rollback.  ``snaps[j]`` is the draft's ``cur_len`` vector
+        after ``j`` draft steps; a slot that emits ``j`` tokens goes back
+        to ``snaps[j]`` (its new last token is the ``j``-th emission, which
+        the draft consumes first in the next round).  The reference keeps
+        the whole draft cache of each step, since its caches are immutable
+        values; here they are written in place, and a copy of a full-width
+        draft cache each draft step would swamp the round.  For the
+        attention-only drafts served here the timeline alone is exact:
+        every position at or past the restored ``cur_len`` is rewritten by
+        the draft's next step there before any step reads it, and
+        ``kv_len = cur_len + 1`` masks it until then.  A recurrent draft
+        would need its per-slot state snapshotted instead."""
+        k = self.spec_k
+        t0 = time.perf_counter()
+        # grow every slot's pages to cover its whole verify window before
+        # drafting: pressure can preempt another active slot, and a
+        # victim's draft row must be stashed in its round-start state
+        windows = {}
+        for s in active:
+            if self.slots[s] is None:
+                continue            # preempted by an earlier slot's ensure
+            n_cache = self._host_len[s]
+            k_eff = max(min(k, self.max_len - 1 - n_cache), 0)
+            # speculation never preempts a neighbour just to draft deeper:
+            # under pressure the window shrinks, and only the mandatory
+            # single write (k_eff == 0, the target-only step's allocation)
+            # applies preemption pressure
+            while k_eff:
+                try:
+                    self.cache = self.paged.ensure(self.cache, s,
+                                                   n_cache + k_eff)
+                    break
+                except OutOfPages:
+                    k_eff -= 1
+            if not k_eff:
+                self._ensure_with_pressure(s)
+            windows[s] = (n_cache, k_eff)
+        active = [s for s in active if self.slots[s] is not None]
+        if not active:
+            return
+        snaps = [self.draft_cache["cur_len"].clone()]
+        q_rows = []                     # draft logits per proposal (B, 1, V)
+        props = np.zeros((self.max_batch, k), np.int64)
+        tok = torch.tensor(self._last_tok, dtype=torch.int64,
+                           device=self.device)[:, None]
+        for j in range(1, k + 2):
+            logits, self.draft_cache = M.decode_step(
+                self.draft_params, self.draft_cfg, tok, self.draft_cache)
+            snaps.append(self.draft_cache["cur_len"].clone())
+            if j > k:
+                break                   # the last step only advances state
+            q_rows.append(logits)
+            nxt = greedy(logits)[:, 0].cpu().numpy().astype(np.int64)
+            # sampled rows propose with the plain-decode rule and key
+            for s in active:
+                req = self.slots[s]
+                if req.temperature > 0:
+                    nxt[s] = SPEC.propose(
+                        logits[s:s + 1], self.rng0, req.id,
+                        len(req.out_tokens) + j - 1, req.temperature)
+            props[:, j - 1] = nxt
+            tok = torch.from_numpy(nxt).to(self.device)[:, None]
+        for s in active:
+            req = self.slots[s]
+            n_cache, k_eff = windows[s]
+            toks = torch.zeros((1, k + 1), dtype=torch.int64)
+            toks[0, 0] = self._last_tok[s]
+            toks[0, 1:1 + k_eff] = torch.from_numpy(props[s, :k_eff])
+            logits, _ = M.verify_chunk(self.params, self.cfg,
+                                       toks.to(self.device),
+                                       self._step_cache(), s, k_eff + 1)
+            p_log = logits[0, :k_eff + 1].float().cpu().numpy()
+            q_log = (torch.stack([q_rows[j][s, 0] for j in range(k_eff)])
+                     .float().cpu().numpy()
+                     if k_eff and req.temperature > 0 else None)
+            out, m = SPEC.verify(p_log, q_log, props[s, :k_eff].tolist(),
+                                 rng0=self.rng0, req_id=req.id,
+                                 pos0=len(req.out_tokens),
+                                 temperature=req.temperature,
+                                 device=self.device)
+            # clip to the request's budget and the window (both >= 1: a
+            # finished request never re-enters the active list)
+            allow = min(req.max_new_tokens - len(req.out_tokens),
+                        self.max_len - len(req.prompt)
+                        - len(req.out_tokens))
+            emit = out[:max(allow, 1)]
+            new_len = n_cache + len(emit)
+            self.cache = self.paged.rollback(self.cache, s, new_len)
+            self._host_len[s] = new_len
+            self.draft_cache["cur_len"][s] = snaps[len(emit)][s]
+            req.out_tokens.extend(emit)
+            self._last_tok[s] = emit[-1]
+            self.n_spec_rounds += 1
+            self.n_spec_drafted += k_eff
+            self.n_spec_accepted += m
+            self.n_spec_rollbacks += len(emit) < k_eff + 1
+            if (len(req.out_tokens) >= req.max_new_tokens
+                    or len(req.prompt) + len(req.out_tokens)
+                    >= self.max_len):
+                self._finish(s, req)
+        self.decode_seconds += time.perf_counter() - t0
+
+    def spec_counters(self) -> dict:
+        """Speculative-decoding counters of the run so far."""
+        return {"spec_rounds": self.n_spec_rounds,
+                "spec_drafted": self.n_spec_drafted,
+                "spec_accepted": self.n_spec_accepted,
+                "spec_accept_rate": (self.n_spec_accepted
+                                     / max(self.n_spec_drafted, 1))}
 
     # -- chunked prefill ---------------------------------------------------
 
@@ -364,7 +597,8 @@ class GenerationEngine:
         """The cache the decode step and the prefill chunk read: without
         the cold-pool leaves while no page is cold (decoding an empty pool
         would be waste)."""
-        if not self.paged.compress or self.paged.has_cold:
+        if (self.paged is None or not self.paged.compress
+                or self.paged.has_cold):
             return self.cache
         pools = self.cache["units"]["pos0"]
         return {**self.cache, "units": {"pos0": {
@@ -388,16 +622,25 @@ class GenerationEngine:
         if not active:
             # prefill in flight with nothing to decode, or idle
             return bool(self._prefill_pos) or self.scheduler.waiting > 0
-        for s in active:   # grow page lists to cover this step's write
-            if self.slots[s] is not None:
-                self._ensure_with_pressure(s)
-        active = self._decoding()
-        # fault-before-gather: the decode step must never see a swapped
-        # page of an active slot (normally a no-op: resume already faults,
-        # and whole-request preemption only swaps vacated slots)
-        for s in active:
-            if self.paged.has_swapped(s):
-                self.cache = self.paged.fault(self.cache, s)
+        if self.paged is not None:
+            for s in active:   # grow page lists to cover this step's write
+                if self.slots[s] is not None:
+                    self._ensure_with_pressure(s)
+            active = self._decoding()
+            # fault-before-gather: the decode step must never see a swapped
+            # page of an active slot (normally a no-op: resume already
+            # faults, and whole-request preemption only swaps vacated
+            # slots)
+            for s in active:
+                if self.paged.has_swapped(s):
+                    self.cache = self.paged.fault(self.cache, s)
+        if self.spec_on:
+            # a speculative round replaces the decode step (chunked prefill
+            # is gated off, so no slot is mid-prefill here)
+            self._spec_round(active)
+            self.steps += 1
+            self._compress_cold()
+            return True
         t0 = time.perf_counter()
         last = torch.tensor(self._last_tok, dtype=torch.int64,
                             device=self.device)[:, None]
@@ -426,12 +669,17 @@ class GenerationEngine:
             if len(req.out_tokens) >= req.max_new_tokens or (
                     len(req.prompt) + len(req.out_tokens) >= self.max_len):
                 self._finish(s, req)
-        if self.paged.compress:
+        self._compress_cold()
+        return True
+
+    def _compress_cold(self):
+        """Entropy-code every active slot's full pages into the cold pool
+        (``compress_cold``), after a decode step or a speculative round."""
+        if self.paged is not None and self.paged.compress:
             for s in range(self.max_batch):
                 if self.slots[s] is not None:
                     self.cache = self.paged.compress_cold_pages(
                         self.cache, s, self._host_len[s])
-        return True
 
     def run(self, max_steps: int = 10_000) -> list:
         """Drain the queue; returns every submitted request that finished

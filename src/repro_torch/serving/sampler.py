@@ -76,3 +76,18 @@ def sample_logits(logits, gen: torch.Generator, *, temperature: float = 1.0,
     u = torch.rand(x.shape, generator=gen, device=x.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
     return torch.argmax(x + gumbel, dim=-1).to(torch.int32)[:, None]
+
+
+def residual_probs(p, q):
+    """The exact rejection-sampling residual ``max(0, p - q) / Z``.
+
+    ``p`` / ``q`` are probability vectors (..., V): the target's and the
+    draft's distributions at one position.  ``Z = sum(max(0, p - q))`` is
+    the total rejection probability, so drawing from the residual after a
+    rejection makes the next token's marginal exactly ``p``.  ``p == q``
+    gives ``Z == 0``, where a rejection cannot happen; the function then
+    returns ``p`` to stay total (the reference's convention)."""
+    r = torch.clamp(p - q, min=0.0)
+    z = r.sum(dim=-1, keepdim=True)
+    return torch.where(z > 0, r / torch.where(z > 0, z, torch.ones_like(z)),
+                       p)

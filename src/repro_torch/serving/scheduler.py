@@ -2,7 +2,9 @@
 
 The reference's ``serving/scheduler.py`` on one device, with its
 chunked-prefill pieces (the per-step prefill token budget, mid-prefill
-preemption records) and without prefix sharing.  With the swap tier (``kvcache/swap.py``) the page pool becomes a
+preemption records) and without prefix sharing.  Over the monolithic cache
+(``paged`` None) every slot holds a whole ``max_len`` row, so admission is
+plain priority order and nothing is preempted.  With the swap tier (``kvcache/swap.py``) the page pool becomes a
 cache over a larger *virtual* capacity — device pages + host swap — and
 this module is the policy layer over it:
 
@@ -48,6 +50,9 @@ class Preempted:
     state: dict = field(default_factory=dict)
     # ^ non-paged per-slot cache state (PagedKVCache.snapshot_slot_state)
     prefill_pos: int | None = None   # prompt tokens consumed (mid-prefill)
+    draft_state: object = None
+    # ^ the paired draft-cache row (speculative decoding), stashed on the
+    #   host at preemption and reinstalled on resume
 
     @property
     def priority(self) -> int:
@@ -63,9 +68,10 @@ class Preempted:
 
 @dataclass
 class Scheduler:
-    """Queue + policy.  ``paged`` is the engine's ``PagedKVCache``."""
+    """Queue + policy.  ``paged`` is the engine's ``PagedKVCache`` (None
+    for the monolithic cache)."""
 
-    paged: object
+    paged: object = None
     preemption: bool = True
     chunk_tokens: int = 0      # engine's prefill chunk (0 = whole-prompt)
     _classes: dict = field(default_factory=dict)   # priority -> deque
@@ -97,7 +103,8 @@ class Scheduler:
         in :func:`impossible` once the engine has drained."""
         for p in self._priorities():
             for item in self._classes[p]:
-                if isinstance(item, Preempted) or self._ever_fits(item):
+                if (self.paged is None or isinstance(item, Preempted)
+                        or self._ever_fits(item)):
                     return item
         return None
 
@@ -105,6 +112,8 @@ class Scheduler:
         """First queued request whose worst-case resident set can never
         fit the pool — the diagnostic for the engine's drained-queue
         ``OutOfPages`` (never raised while other work is in flight)."""
+        if self.paged is None:
+            return None
         for p in self._priorities():
             for item in self._classes[p]:
                 if (not isinstance(item, Preempted)
@@ -171,6 +180,11 @@ class Scheduler:
         tokens prefilled are blocked, and only decode-phase resumes admit.
         A budget-blocked class head blocks its class like a page-blocked
         one."""
+        if self.paged is None:
+            for p in self._priorities():
+                self.touch(slot)
+                return self._classes[p].popleft()
+            return None
         for p in self._priorities():
             q = self._classes[p]
             for i, item in enumerate(q):
@@ -198,9 +212,10 @@ class Scheduler:
     def _can_preempt(self) -> bool:
         """Preemption needs an attached swap store with headroom — a full
         store would make every eviction attempt fail (and roll back)."""
-        store = self.paged.swap
-        if not self.preemption or store is None:
+        if not self.preemption or self.paged is None \
+                or self.paged.swap is None:
             return False
+        store = self.paged.swap
         return (store.capacity_bytes is None
                 or store.bytes_used < store.capacity_bytes)
 

@@ -264,13 +264,48 @@ def test_kv_page_decode_wide_stride_and_refusals(card):
     args = _coded_pages([raw], stride=256)       # > 48 KB of shared memory
     got = kv.run(*args, n_elem=n, dtype_name="bfloat16")
     assert torch.equal(got[0].view(torch.int16), raw.view(torch.int16))
-    with pytest.raises(ValueError, match="shared memory"):
-        kv.run(*_coded_pages([raw], stride=4096), n_elem=n,
-               dtype_name="bfloat16")
+    # a stride above what the staged instance can hold goes to the
+    # streamed one (it used to be refused)
+    wide = _coded_pages([raw], stride=4096)
+    assert kv.instance(4096, wide[1].shape[1]) == "streamed"
+    before = kv.run.launches_by_instance["streamed"]
+    got = kv.run(*wide, n_elem=n, dtype_name="bfloat16")
+    assert kv.run.launches_by_instance["streamed"] == before + 1
+    assert torch.equal(got[0].view(torch.int16), raw.view(torch.int16))
     with pytest.raises(ValueError, match="CUDA"):
         kv.run(*[a.cpu() for a in args], n_elem=n, dtype_name="bfloat16")
     with pytest.raises(ValueError, match="shapes"):
         kv.run(*args, n_elem=n, dtype_name="float32")
+
+
+@pytest.mark.parametrize("dtype,page_size", [
+    (torch.bfloat16, 128), (torch.float32, 64), (torch.float32, 128),
+    (torch.bfloat16, 64)])
+def test_kv_page_decode_large_pages(card, dtype, page_size):
+    """qwen3-8b pages of 64 or 128 positions at a cold slot's stride
+    budget, never-written slots among them: the streamed instance where
+    the staged one cannot hold the page (bf16 at 128, f32 at 64 and 128),
+    bit-exact against the plain version and lossless."""
+    from repro_torch.kvcache import codec, kernels as kv
+    name = codec.dtype_name(dtype)
+    bits_t = codec.TORCH_BITS[name]
+    n = 8 * page_size * 128
+    budget = -(-codec.sym_per_lane(n) * codec.plane_spec(name)[0] // 8)
+    pages = [(torch.randn(n, generator=card, device="cuda") * s).to(dtype)
+             for s in (1e-3, 1.0, 300.0)]
+    live = _coded_pages(pages, stride=budget)
+    args = [torch.cat([a[:1], torch.zeros_like(a[:1]), a[1:]]) for a in live]
+    inst = kv.instance(budget, live[1].shape[1])
+    assert inst == ("staged" if (name, page_size) == ("bfloat16", 64)
+                    else "streamed")
+    before = kv.run.launches_by_instance[inst]
+    got = ops.decode_pages(*args, n_elem=n, dtype_name=name)
+    assert kv.run.launches_by_instance[inst] == before + 1
+    want = kv.plain(*args, n_elem=n, dtype_name=name)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(bits_t), want.view(bits_t))
+    for i, p in zip((0, 2, 3), pages):
+        assert torch.equal(got[i].view(bits_t), p.reshape(-1).view(bits_t))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
@@ -387,3 +422,119 @@ def test_fused_matmul_row_blocks(card, M, S):
     eye = torch.eye(K, device="cuda")[rows.cuda()]
     w = bits.view(fp8.FP8_DTYPE).to(torch.bfloat16).float()
     assert torch.equal(ops.fused_decode_matmul(eye, tiled), w[rows.cuda()])
+
+
+@pytest.mark.parametrize("M,K,N,S", [
+    (600, 512, 256, 256), (1100, 256, 128, 32), (8, 48, 128, 24),
+    (37, 40, 256, 8), (130, 120, 128, 20), (300, 72, 384, 72)])
+def test_fused_matmul_op_beyond_kernel_regime(card, M, K, N, S):
+    """What the reference's op computes beyond the kernel's first contract:
+    M above ``MAX_ROWS`` through the op's row blocks (one launch each), and
+    tile depths S that are not a multiple of 16 (zero-padded in shared
+    memory; S % 8 != 0 reads x element by element): within 1e-4 of the
+    plain version relative to its magnitude, two calls bit-equal, and
+    one-hot rows reading decode(W) back bit for bit."""
+    from repro_torch.kernels import fused_decode_matmul as fused
+    bits, tiled = _tiled_weight(card, K, N, S)
+    x = torch.randn((M, K), generator=card, device="cuda")
+    before = fused.run.launches
+    got = ops.fused_decode_matmul(x, tiled)
+    assert fused.run.launches == before + -(-M // fused.MAX_ROWS)
+    want = fused.plain(x, tiled)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-4, rel
+    assert torch.equal(ops.fused_decode_matmul(x, tiled), got)
+    eye = ops.fused_decode_matmul(torch.eye(K, device="cuda"), tiled)
+    assert torch.equal(eye, bits.view(fp8.FP8_DTYPE).to(torch.bfloat16)
+                       .float())
+
+
+# --------------------------------------------------------------------------
+# the monolithic decode step and the speculative verify, card vs CPU
+# --------------------------------------------------------------------------
+
+def _small_model():
+    """A small f32 qwen3 (2 layers, d 256) with ECF8 weights: the CPU tree
+    (plain versions) and its copy on the card (the kernels)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.core import store
+    from repro_torch.models import model as M
+    small = dataclasses.replace(
+        get("qwen3-8b"), name="qwen3-small", n_layers=2, d_model=256,
+        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+        dtype="float32")
+    p_cpu, _ = store.compress_tree(M.init_params(small, 0, "cpu"),
+                                   min_elems=4096, out_dtype="float32")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if store.is_compressed(tree):
+            return store.CompressedTensor(
+                {k: a.to(dev) for k, a in tree.arrays.items()}, tree.meta)
+        return tree.to(dev)
+
+    return small, p_cpu, to(p_cpu, "cuda")
+
+
+def test_monolithic_decode_step_card_vs_cpu(card):
+    """Decode steps over the per-slot contiguous cache, one slot stepping
+    past the end of its row (the clamped write): logits on the card within
+    1e-4 of the CPU's, B1 launched."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import splice_fragment
+    small, p_cpu, p_gpu = _small_model()
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = M.init_cache(small, 3, 32, torch.float32, dev, per_slot=True)
+        for slot, n in ((0, 29), (2, 9)):
+            toks = (torch.arange(1, n + 1)[None] * (slot + 3)) % 500
+            _, frag = M.prefill(params, small, toks.to(dev), max_len=32)
+            cache = splice_fragment(cache, frag, slot)
+        tok = torch.tensor([[5], [7], [9]], device=dev)
+        logits = []
+        for _ in range(6):
+            lg, cache = M.decode_step(params, small, tok, cache)
+            logits.append(lg.cpu())
+            tok = (tok * 13 + 1) % small.vocab_size
+        out[dev] = (torch.stack(logits), cache["cur_len"].cpu())
+    assert out["cuda"][1].tolist() == [35, 6, 15]
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    assert err <= 1e-4, err
+
+
+def test_verify_chunk_card_vs_cpu(card):
+    """A verify window over a slot whose history has cold pages: logits of
+    every row on the card within 1e-4 of the CPU's, the page-decode kernel
+    launched from the verify, and the rollback leaving both allocators
+    alike."""
+    from repro_torch.kvcache import kernels as kv
+    from repro_torch.kvcache import paged
+    from repro_torch.models import model as M
+    small, p_cpu, p_gpu = _small_model()
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        pc = paged.PagedKVCache(small, 2, 64, dtype=torch.float32,
+                                device=dev, page_size=4, compress_cold=True)
+        toks = torch.arange(1, 24)[None] % 500
+        _, frag = M.prefill(params, small, toks.to(dev), max_len=64)
+        cache = pc.admit(pc.init_cache(), 1, frag, 23)
+        cache = pc.compress_cold_pages(cache, 1, 23)
+        assert pc.has_cold
+        cache = pc.ensure(cache, 1, 27)
+        before = kv.run.launches_by_path["verify"]
+        window = torch.tensor([[5, 17, 3, 250, 81]], device=dev)
+        lg, cache = M.verify_chunk(params, small, window, cache, 1, 5)
+        if dev == "cuda":
+            assert kv.run.launches_by_path["verify"] > before
+        cache = pc.rollback(cache, 1, 25)
+        out[dev] = (lg.cpu(), cache["cur_len"].cpu(),
+                    cache["page_table"].cpu(), list(pc._free))
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    assert err <= 1e-4, err
+    for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)

@@ -99,3 +99,43 @@ def test_wrapper_refuses_cpu_tensors_and_plans_splits():
         assert -(-M // mb) <= -(-M // 256)
         assert (split - 1) * per < TK <= split * per
         assert TN * -(-M // mb) * split >= min(132, TN * -(-M // mb) * TK)
+
+
+@pytest.mark.parametrize("M,K,N,S", [(600, 64, 128, 32), (8, 48, 128, 24),
+                                     (5, 40, 256, 8), (3, 60, 128, 20)])
+def test_op_contract_matches_reference(M, K, N, S, pallas_store):
+    """The inputs the reference's op computes and the kernel's first
+    design refused: M above ``MAX_ROWS`` (cut into row blocks of at most
+    512, one kernel launch each on the card) and tile depths S that are
+    not a multiple of 16 (zero-padded in the kernel's shared memory).  The
+    op on the CPU agrees with the reference's Pallas kernel in interpret
+    mode (the same bf16 products in f32, summed in another order)."""
+    bits, want_w, got_w = _tiled(K, N, S, seed=M + S)
+    x = np.random.default_rng(M).normal(size=(M, K)).astype(np.float32)
+    want = np.asarray(ref_fused.matmul_pallas(jnp.asarray(x), want_w,
+                                              interpret=True))
+    got = ops.fused_decode_matmul(torch.from_numpy(x), got_w)
+    assert got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_op_cuts_rows_into_kernel_blocks(monkeypatch):
+    """The op calls its kernel (here the plain version, on the CPU) on row
+    blocks of at most ``MAX_ROWS``, and the blocks' rows equal one call
+    over all rows."""
+    _, _, tiled = _tiled(64, 128, 32, seed=2)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1100, 64)).astype(np.float32))
+    whole = fused.plain(x, tiled)
+    seen = []
+    plain = fused.plain
+
+    def spy(xb, t, out_dtype=torch.float32):
+        seen.append(xb.shape[0])
+        return plain(xb, t, out_dtype)
+
+    monkeypatch.setattr(fused, "plain", spy)
+    got = ops.fused_decode_matmul(x, tiled)
+    assert seen == [512, 512, 76]
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6)

@@ -658,3 +658,31 @@ def test_chunk_write_drops_sentinels_cold_ids_and_padding():
     np.testing.assert_array_equal(got[3], kv[0, :, :4])
     for pid in (0, 1, 2, 4):
         np.testing.assert_array_equal(got[pid], pool[pid])
+
+
+# the instance each page shape of qwen3-8b (8 KV heads, head_dim 128) gets
+# at a cold slot's stride budget: staged while the payload words and plane
+# fit the shared memory, streamed above (a bf16 page of 128 positions, an
+# f32 page of 64 or more)
+_INSTANCE = {("bfloat16", 16): "staged", ("bfloat16", 64): "staged",
+             ("bfloat16", 128): "streamed", ("float32", 16): "staged",
+             ("float32", 64): "streamed", ("float32", 128): "streamed",
+             ("float8_e4m3fn", 16): "staged", ("float8_e4m3fn", 64): "staged",
+             ("float8_e4m3fn", 128): "staged"}
+
+
+@pytest.mark.parametrize("name,page_size", sorted(_INSTANCE))
+def test_page_decode_instance_chosen_by_shared_memory(name, page_size):
+    """The wrapper picks the kernel instance from the page's shape through
+    ``_smem_bytes``: no page size that ``PagedKVCache`` accepts is refused
+    (the reference serves them all through its in-graph twin)."""
+    cfg = get("qwen3-8b")
+    pc = paged.PagedKVCache(cfg, 4, 1024, dtype=codec.TORCH_DTYPES[name],
+                            device="meta", page_size=page_size,
+                            compress_cold=True, n_cold_slots=1)
+    smem = kv_kernels._smem_bytes(pc.stride_budget, pc.sm_nbytes)
+    inst = kv_kernels.instance(pc.stride_budget, pc.sm_nbytes)
+    assert inst == _INSTANCE[(name, page_size)]
+    assert (inst == "staged") == (smem <= kv_kernels._MAX_SMEM)
+    if (name, page_size) in (("bfloat16", 128), ("float32", 64)):
+        assert smem == 262_672          # the refusal the streamed one lifts

@@ -171,6 +171,12 @@ def test_allocator_state_matches_reference():
     ("draft_cfg", smoke_variant(get("qwen3-8b"))), ("prefix_sharing", True),
     ("telemetry", object()), ("spec_k", 2)])
 def test_unported_engine_options_raise(field, value):
+    """Every option of the reference that the port does not serve yet
+    raises; the monolithic cache and the speculative fields (``cache_mode``,
+    ``draft_cfg``, ``spec_k``), ported since, are accepted."""
+    if field in ("cache_mode", "draft_cfg", "spec_k"):
+        assert getattr(EngineConfig(**{field: value}), field) == value
+        return
     with pytest.raises(EngineConfigError, match="not yet ported"):
         EngineConfig(**{field: value})
 
@@ -467,3 +473,85 @@ def test_scheduler_token_budget_blocks_new_prefill_work():
     assert sched.prefill_tokens(done) == 0
     assert sched.pick(1, prefill_budget=0) is done
     assert sched.pick(1, prefill_budget=0) is None  # b still needs prefill
+
+
+# --------------------------------------------------------------------------
+# the monolithic cache
+# --------------------------------------------------------------------------
+
+def test_splice_fragment_roundtrips_prefill(raw_weights):
+    """tests/test_serving.py:99: splicing a single-row prefill fragment at
+    slot s reproduces that request's cache at batch row s and nothing
+    else; ``cur_len`` is a per-slot vector indexed directly."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import splice_fragment
+    cfg, _, _, params = raw_weights
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 6)))
+    _, frag = M.prefill(params, cfg, toks, max_len=16)
+    cache = M.init_cache(cfg, 3, 16, torch.float32, "cpu", per_slot=True)
+    cache = splice_fragment(cache, frag, 2)
+    for kn in ("k", "v"):
+        leaf, fr = cache["units"]["pos0"][kn], frag["units"]["pos0"][kn]
+        assert torch.equal(leaf[:, 2:3], fr)
+        assert float(leaf[:, :2].abs().max()) == 0.0
+    assert cache["cur_len"].tolist() == [0, 0, 6]
+
+
+@pytest.mark.parametrize("workload", sorted(WORKLOADS))
+def test_monolithic_tokens_match_reference_and_paged(raw_weights, workload):
+    """Greedy tokens over the monolithic cache equal the reference engine's
+    monolithic tokens and the port's paged tokens (the same decode
+    attention over the same values)."""
+    cfg, ref_cfg, ref_params, params = raw_weights
+    max_batch, work = WORKLOADS[workload]
+    ref_eng = RefEngine(ref_params, ref_cfg, config=RefEngineConfig(
+        max_batch=max_batch, max_len=48, cache_mode="monolithic"))
+    ref_reqs = [RefRequest(prompt=p, max_new_tokens=n) for p, n in work]
+    for r in ref_reqs:
+        ref_eng.submit(r)
+    ref_eng.run()
+    mono, eng = _run(params, cfg, work, max_batch=max_batch, max_len=48,
+                     cache_mode="monolithic")
+    pag, _ = _run(params, cfg, work, max_batch=max_batch, max_len=48)
+    assert eng.paged is None and eng.cache_mode == "monolithic"
+    want = [r.out_tokens for r in ref_reqs]
+    assert [r.out_tokens for r in mono] == want
+    assert [r.out_tokens for r in pag] == want
+    assert eng.steps == ref_eng.steps
+
+
+def test_vacated_slot_write_clamps_at_max_len(raw_weights):
+    """A vacated slot keeps stepping past the end of its row: its write
+    position is clamped to ``max_len - 1`` as the reference's
+    ``dynamic_update_slice`` clamps it (a PyTorch index there would be out
+    of range), and the live slot's logits and both rows equal the
+    reference's decode step on the same state."""
+    from repro_torch.models import model as M
+    cfg, ref_cfg, ref_params, params = raw_weights
+    max_len = 16
+    rng = np.random.default_rng(9)
+    k0 = rng.normal(size=(cfg.n_layers, 2, cfg.n_kv_heads, max_len,
+                          cfg.hd)).astype(np.float32)
+    v0 = rng.normal(size=k0.shape).astype(np.float32)
+    lens = np.array([max_len, 5], np.int32)       # slot 0 at the end
+    tok = np.array([[7], [11]])
+    ref_cache = {"units": {"pos0": {"k": jnp.asarray(k0),
+                                    "v": jnp.asarray(v0)}},
+                 "tail": {}, "cur_len": jnp.asarray(lens)}
+    want, ref_out = RM.decode_step(ref_params, ref_cfg, jnp.asarray(tok),
+                                   ref_cache)
+    cache = {"units": {"pos0": {"k": torch.from_numpy(k0.copy()),
+                                "v": torch.from_numpy(v0.copy())}},
+             "tail": {}, "cur_len": torch.from_numpy(lens.copy())}
+    got, out = M.decode_step(params, cfg, torch.from_numpy(tok), cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    assert out["cur_len"].tolist() == [max_len + 1, 6]
+    for kn in ("k", "v"):
+        got_c = out["units"]["pos0"][kn].numpy()
+        want_c = np.asarray(ref_out["units"]["pos0"][kn])
+        np.testing.assert_allclose(got_c, want_c, atol=1e-5)
+        # slot 0's write landed at max_len - 1, slot 1's at 5; nothing else
+        changed = np.argwhere((got_c != (k0 if kn == "k" else v0)).any(
+            axis=(0, 2, 4)))
+        assert changed.tolist() == [[0, max_len - 1], [1, 5]]
