@@ -81,7 +81,21 @@ Phases, each failing loudly (non-zero exit, no result line):
      claim under speculation); 10c 10b under phase 7's pools and swap:
      a speculating request preempted with its draft row stashed and
      reinstalled, the store drained, the page-decode kernel launched from
-     the verify over cold history (tokens compared with 10b's, counted).
+     the verify over cold history (tokens compared with 10b's, counted);
+  11. cross-request prefix sharing with the serving telemetry on a chat
+     stream (``chat_stream``: two 256-token system prompts A and B from
+     ``--seed``, 32-192-token suffixes, in the order A x 4, B x 4, A x 4;
+     chunk and budget ``CHUNK``, 32 new tokens): 11a on the plain paged
+     cache, sharing off and on (telemetry on in both, tracer included),
+     and sharing on with telemetry off: tokens IDENTICAL across the three,
+     prefix hits, prompt tokens saved equal to the matched tokens, pages
+     shared while two A requests are live, no copy-on-write split, the
+     exported Chrome trace valid; TTFT, queue wait and decode-step
+     percentiles printed, and the decode step with telemetry on beside
+     off; 11b the stream under phase 7's pools and swap store, sharing
+     on: tokens IDENTICAL to 11a's, a prefix retired to swap and faulted
+     back through the page-decode kernel, preemptions resumed, the pools
+     drained to the prefix index's pages.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +121,7 @@ FUSED_TOL = 1e-4        # relative to max |plain|: f32 sums in another order
 SWAP_N_PAGES, SWAP_N_COLD_SLOTS = 40, 48
 CHUNK = 128             # phase 8's prefill chunk and per-step token budget
 SPEC_K = 4              # phase 10's drafted tokens a round
+SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 
 
@@ -526,6 +541,219 @@ def to_device(tree, dev, store):
     return tree.to(dev)
 
 
+def chat_stream(np, vocab: int, seed: int):
+    """Phase 11's traffic: two ``SYSTEM_TOKENS``-token system prompts A and
+    B and 32-192-token user suffixes, drawn from ``seed``, in the order
+    A x 4, B x 4, A x 4 -> (prompts, system-prompt labels)."""
+    rng = np.random.default_rng(seed)
+    system = {k: rng.integers(1, vocab, size=SYSTEM_TOKENS).tolist()
+              for k in "AB"}
+    labels = list("A" * 4 + "B" * 4 + "A" * 4)
+    return [system[k] + rng.integers(0, vocab, size=rng.integers(
+        32, 193)).tolist() for k in labels], labels
+
+
+def prefix_phase(torch, np, serve, EngineConfig, telemetry, trace_export,
+                 kernels, cfg, params_c, seed):
+    """Phase 11 (module docstring) -> (measurements, B1 and B3 launches of
+    11a's sharing-on run and of 11b).  ``kernels`` maps name -> wrapper
+    (``run``) whose launch counts the phase reads."""
+    import tempfile
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    prompts, labels = chat_stream(np, cfg.vocab_size, seed)
+    base = dict(max_batch=4, max_len=1024, page_size=16, prefill_chunk=CHUNK,
+                prefill_budget=CHUNK)
+    log(f"phase 11: {len(prompts)} chat requests (system prompts "
+        f"{SYSTEM_TOKENS} tokens, {'/'.join(labels)}), prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+        f"{sum(map(len, prompts))} in all; chunk / budget {CHUNK}, page 16, "
+        f"max_batch 4, 32 new tokens, {cfg.n_layers} layers")
+
+    def reset():
+        b1.launches = b3.launches = b2.launches = b4.launches = 0
+        b3.launches_by_path.clear()
+
+    def run(tag, tel=None, time_telemetry=False, **extra):
+        shared_peak = [0]
+        tel_seconds = {}
+
+        def on_step(i):
+            live_a = sum(1 for r in eng_box[0].slots
+                         if r is not None and labels[reqs.index(r)] == "A")
+            if live_a >= 2 and eng_box[0].paged.prefix is not None:
+                shared_peak[0] = max(shared_peak[0],
+                                     eng_box[0].paged.n_shared_pages())
+
+        eng_box, reqs = [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ecfg = EngineConfig(**base, telemetry=tel, **extra)
+        eng = serve.GenerationEngine(params_c, cfg, config=ecfg,
+                                     device="cuda")
+        eng_box.append(eng)
+        if time_telemetry:
+            # host seconds in the engine's per-step telemetry methods
+            # (shadowed on this instance by timed wrappers)
+            for name in ("_observe_decode", "_record_monitor",
+                         "_sample_gauges"):
+                def timed(*a, _f=getattr(eng, name), _n=name):
+                    t = time.perf_counter()
+                    _f(*a)
+                    tel_seconds[_n] = tel_seconds.get(_n, 0.0) + (
+                        time.perf_counter() - t)
+                setattr(eng, name, timed)
+        reqs.extend(serve.Request(prompt=p, max_new_tokens=32)
+                    for p in prompts)
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run(on_step=on_step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(r.done and len(r.out_tokens) == 32 for r in reqs) or any(
+                not 0 <= x < cfg.vocab_size for r in reqs
+                for x in r.out_tokens):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+        launches = {"ecf8_decode": b1.launches, "kv_page_decode": b3.launches,
+                    "fused_decode_matmul": b2.launches,
+                    "flash_fwd": b4.launches,
+                    "kv_page_decode_by_path": dict(b3.launches_by_path)}
+        n = sum(len(r.out_tokens) for r in reqs)
+        log(f"phase {tag}: {n} tokens in {dt:.2f}s, {n / dt:.1f} tok/s, "
+            f"{eng.steps} steps at {eng.decode_seconds / eng.steps * 1e3:.1f}"
+            f" ms/step, prefill phases {eng.prefill_seconds:.2f}s "
+            f"({eng.n_chunks} chunks, {eng.n_chunk_tokens} prompt tokens), "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} "
+            f"GiB; launches {launches}")
+        return reqs, eng, launches, shared_peak[0], tel_seconds
+
+    def pct(reg, name):
+        h = reg.get(name)
+        return (f"p50 {h.percentile(0.5) * 1e3:.1f} / p99 "
+                f"{h.percentile(0.99) * 1e3:.1f} ms (n={h.count})")
+
+    def exact_ttft(tracer):
+        """Each request's TTFT from its state spans (start of its first
+        'decoding' span less the start of its 'queued' one), sorted: the
+        registry's histogram resolves only its ~20 % buckets."""
+        first = {}
+        for ph, _, name, track, ts, _, _ in tracer.events:
+            if ph == "X" and track.startswith("req:"):
+                first.setdefault((track, name), ts)
+        return sorted(first[(t, "decoding")] - first[(t, "queued")]
+                      for t, n in first if n == "queued")
+
+    out = {}
+    tel_off = telemetry.Telemetry()
+    t_off, e_off, l_off, _, _ = run("11a (sharing off, telemetry on)",
+                                    tel_off)
+    tel_on = telemetry.Telemetry()
+    t_on, e_on, l_on, peak, tel_s = run("11a (sharing on, telemetry on)",
+                                        tel_on, time_telemetry=True,
+                                        prefix_sharing=True)
+    t_bare, e_bare, _, _, _ = run("11a (sharing on, telemetry off)",
+                                  prefix_sharing=True)
+    reg, reg_off = tel_on.registry, tel_off.registry
+    hits, matched = (reg.value("prefix_hit_total"),
+                     reg.value("prefix_match_tokens_total"))
+    saved = e_off.n_chunk_tokens - e_on.n_chunk_tokens
+    log(f"phase 11a: {hits} prefix hits / {reg.value('prefix_miss_total')} "
+        f"misses, {matched} matched tokens, {saved} prompt tokens not "
+        f"prefilled; peak shared pages while two A requests are live {peak};"
+        f" {e_on.paged.n_cow_splits} CoW splits; {serve.prefix_report(e_on)}")
+    bad = first_divergence(t_off, t_on)[1] + first_divergence(t_on, t_bare)[1]
+    if bad:
+        fail(f"phase 11a: tokens differ between sharing off / on / on "
+             f"without telemetry (request, first token index): {bad}")
+    if not hits or saved != matched or peak <= 0 or e_on.paged.n_cow_splits:
+        fail(f"phase 11a: hits {hits}, saved {saved} vs matched {matched}, "
+             f"shared peak {peak}, CoW splits {e_on.paged.n_cow_splits}")
+    if not l_on["ecf8_decode"] or l_on["fused_decode_matmul"] or \
+            l_off["fused_decode_matmul"]:
+        fail(f"phase 11a: launches {l_on}")
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        trace = trace_export.export_chrome_trace(tel_on.tracer, path, reg)
+        loaded = json.loads(Path(path).read_text())
+    errors = trace_export.validate_chrome_trace(loaded)
+    if errors or loaded != trace:
+        fail(f"phase 11a: the exported trace is invalid: {errors[:5]}")
+    ttft = {}
+    for tag, t, r in (("off", tel_off, reg_off), ("on", tel_on, reg)):
+        ttft[tag] = exact_ttft(t.tracer)
+        log(f"phase 11a sharing {tag}: TTFT {pct(r, 'serving_ttft_seconds')}"
+            f" (from the state spans: median "
+            f"{statistics.median(ttft[tag]) * 1e3:.1f}, max "
+            f"{ttft[tag][-1] * 1e3:.1f} ms), queue wait "
+            f"{pct(r, 'serving_queue_wait_seconds')}, decode step "
+            f"{pct(r, 'serving_decode_step_seconds')}, request latency "
+            f"{pct(r, 'serving_request_latency_seconds')}")
+    step_on = e_on.decode_seconds / e_on.steps * 1e3
+    step_bare = e_bare.decode_seconds / e_bare.steps * 1e3
+    tel_us = sum(tel_s.values()) / e_on.steps * 1e6
+    log(f"phase 11a: decode step with telemetry on {step_on:.2f} ms "
+        f"({e_on.steps} steps) against off {step_bare:.2f} ms "
+        f"({e_bare.steps} steps); the per-step telemetry methods took "
+        f"{tel_us:.1f} us of host time a step ("
+        f"{', '.join(f'{k} {v / e_on.steps * 1e6:.1f}' for k, v in tel_s.items())}"
+        f"); prefill phases sharing on {e_on.prefill_seconds:.2f}s against "
+        f"off {e_off.prefill_seconds:.2f}s; trace "
+        f"{len(trace['traceEvents'])} events ({tel_on.tracer.n_dropped} "
+        f"dropped), valid")
+    out["11a"] = dict(
+        ttft_p50_on=reg.get("serving_ttft_seconds").percentile(0.5),
+        ttft_p99_on=reg.get("serving_ttft_seconds").percentile(0.99),
+        ttft_p50_off=reg_off.get("serving_ttft_seconds").percentile(0.5),
+        ttft_p99_off=reg_off.get("serving_ttft_seconds").percentile(0.99),
+        ttft_exact_on=ttft["on"], ttft_exact_off=ttft["off"],
+        prefill_s_on=e_on.prefill_seconds, prefill_s_off=e_off.prefill_seconds,
+        step_ms_tel_on=step_on, step_ms_tel_off=step_bare,
+        telemetry_us_a_step=tel_us, hits=hits, matched=matched)
+
+    tel_b = telemetry.Telemetry()
+    t_b, e_b, l_b, _, _ = run("11b (sharing on, phase 7's pools + swap)",
+                              tel_b, prefix_sharing=True, compress_cold=True,
+                              n_pages=SWAP_N_PAGES,
+                              n_cold_slots=SWAP_N_COLD_SLOTS, swap_bytes=-1)
+    pc, sched = e_b.paged, e_b.scheduler
+    st = pc.stats()
+    spans = [ev[5] for ev in tel_b.tracer.events
+             if ev[0] == "X" and ev[2] == "prefix_fault"]
+    fault_l = l_b["kv_page_decode_by_path"].get("fault", 0)
+    for line in serve.cache_report(e_b):
+        log(f"  {line}")
+    log(f"phase 11b: {serve.prefix_report(e_b)}; {len(spans)} prefix faults"
+        f" (host {', '.join(f'{x * 1e3:.2f}' for x in spans)} ms), "
+        f"kv_page_decode from fault {fault_l}, retirement encode "
+        f"{pc.retire_seconds:.2f}s of {pc.encode_seconds:.2f}s encode_page; "
+        f"{sched.n_preempted} preemptions, {sched.n_resumed} resumes")
+    _, bad = first_divergence(t_on, t_b)
+    if bad:
+        fail(f"phase 11b tokens differ from 11a's (request, first token "
+             f"index): {bad}")
+    if not (st["prefix_retired_total"] > 0 and spans
+            and fault_l >= len(spans)):
+        fail(f"phase 11b: no prefix retired and faulted back through "
+             f"kv_page_decode: retired {st['prefix_retired_total']}, "
+             f"prefix faults {len(spans)}, fault launches {fault_l}")
+    if not (sched.n_preempted > 0 and sched.n_resumed == sched.n_preempted):
+        fail(f"phase 11b did not preempt and resume: {sched.counters()}")
+    sw = pc.swap.stats()
+    if (pc._slot_pages or pc._cold_bytes
+            or sw["swap_pages"] != sw["swap_prefix_pages"]
+            or any(v != 1 for v in pc._ref.values())
+            or pc.free_pages + st["prefix_resident_blocks"] != pc.n_pages - 1
+            or l_b["fused_decode_matmul"]):
+        fail(f"phase 11b did not drain to the prefix index: {st}")
+    log("lossless: prefix-shared greedy tokens IDENTICAL with sharing off, "
+        "with telemetry off, and under phase 7's pools and swap (11b)")
+    out["11b"] = dict(prefix_faults=len(spans),
+                      prefix_fault_ms=[x * 1e3 for x in spans],
+                      retire_s=pc.retire_seconds, encode_s=pc.encode_seconds)
+    return out, {"11a": l_on, "11b": l_b}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=36,
@@ -553,6 +781,9 @@ def main(argv=None):
     from repro_torch.models import model as M
     from repro_torch import serving
     from repro_torch.serving import EngineConfig
+    from repro_torch.serving import telemetry
+    from repro_torch.runtime import trace_export
+    import numpy as np
 
     # float32 products in full f32, as XLA computes them in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1054,38 +1285,53 @@ def main(argv=None):
         f"pressure shrinks verify windows; counted, not gated), first "
         f"divergence (request, token) {bad}")
 
+    # -- 11. prefix sharing and the serving telemetry at full depth --------
+    prefix_out, prefix_launches = prefix_phase(
+        torch, np, serve, EngineConfig, telemetry, trace_export,
+        {"ecf8_decode": ecf8_decode.run, "kv_page_decode": kv_page.run,
+         "fused_decode_matmul": fused.run, "flash_fwd": flash_fwd.run},
+        cfg, params_c, args.seed)
+    log(f"phase 11 measurements: {json.dumps(prefix_out)}")
+
     if serve_b2:
         fail(f"a serve path launched fused_decode_matmul {serve_b2} times")
     by_dtype = dict(ecf8_decode.run.launches_by_dtype)
     if set(by_dtype) != {torch.bfloat16}:
-        fail(f"phases 5-10 decoded a compressed weight to another dtype "
+        fail(f"phases 5-11 decoded a compressed weight to another dtype "
              f"than bf16: {by_dtype}")
-    log(f"ecf8_decode over phases 5, 7, 8a, 8b, 9, 10a-c: "
+    log(f"ecf8_decode over phases 5, 7, 8a, 8b, 9, 10a-c, 11: "
         f"{by_dtype[torch.bfloat16]} launches, all writing bf16 (no cast "
         f"kernel after a decode)")
     log("fused_decode_matmul: 0 launches on every serve path (phases 5, 7, "
-        "8a, 8b, 9, 10a-c), as in the reference")
+        "8a, 8b, 9, 10a-c, 11a-b), as in the reference")
+
+    def on_prefix_path(name):
+        return {tag: prefix_launches[tag][name] for tag in ("11a", "11b")}
 
     kernels = [
         dict(name="ecf8_decode", route="cuda",
              source="src/repro_torch/csrc/ecf8_decode.cu",
              replaces="src/repro/kernels/ecf8_decode.py:36",
              launches=launches["ecf8_decode"], redesigned="slice 4",
+             launches_prefix_sharing=on_prefix_path("ecf8_decode"),
              **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
              launches=launches["flash_fwd"], redesigned="slice 4",
+             launches_prefix_sharing=on_prefix_path("flash_fwd"),
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
              replaces="src/repro/kvcache/kernels.py:34",
              launches=launches3["kv_page_decode"], redesigned="slice 5",
+             launches_prefix_sharing=on_prefix_path("kv_page_decode"),
              **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
              source="src/repro_torch/csrc/fused_decode_matmul.cu",
              replaces="src/repro/kernels/fused_decode_matmul.py:80",
              launches=launches_b2, redesigned="slice 5",
+             launches_prefix_sharing=on_prefix_path("fused_decode_matmul"),
              **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

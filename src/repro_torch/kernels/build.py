@@ -26,6 +26,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict = {}
+_n_built = 0            # sources compiled by this process
+
+
+def events() -> int:
+    """Kernel builds and library loads so far in this process: the count
+    behind the serving engine's compile counters (which read it as a delta,
+    so a process whose kernels are already loaded reads 0)."""
+    return _n_built + len(_loaded)
 
 
 def nvcc() -> str:
@@ -55,6 +63,7 @@ def build(names=SOURCES) -> dict:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
+    global _n_built
     exe = nvcc()
     t0 = time.perf_counter()
     procs = {}
@@ -70,6 +79,7 @@ def build(names=SOURCES) -> dict:
             failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         tmp.replace(library_path(n))
+        _n_built += 1
         out[n] = (time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

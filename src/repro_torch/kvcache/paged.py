@@ -34,14 +34,25 @@ Page lifecycle (with a swap store attached)::
                               v         v
                              hot       cold
 
+Cross-request prefix sharing (``enable_prefix_sharing``): a
+:class:`PrefixIndex` maps the token content of page-aligned prompt blocks
+to the raw page holding their K/V, so a request whose prompt starts with an
+indexed prefix adopts those pages by reference (``admit_shared``) and its
+prefill starts at the match boundary.  A raw page's reference count is its
+number of holders (slots whose page list contains it, plus the index); it
+frees only at zero.  A shared page is split into a private copy before a
+write could land in it (``make_writable``); an index-only page is retired
+to the swap store's unpinned LRU cache when the pool runs short
+(``_reclaim_prefix``) and faults back bit-exactly on a later match.
+
 ``page_write`` / ``page_write_chunk`` / ``page_gather`` are the tensor ops
 of the decode step and the prefill chunk (``models.model``); the writes
 update the pool in place, where the reference returns a new pool, and so do
 the allocator's cache updates.
 ``PagedKVCache`` is the host-side allocator driven by ``serving.engine``
-(admit or admit_slot -> ensure -> compress cold -> evict / fault ->
-release), with the reference's descending free lists and page reference
-counts.
+(admit, admit_slot or admit_shared -> ensure -> compress cold -> evict /
+fault -> release), with the reference's descending free lists and page
+reference counts.
 """
 from __future__ import annotations
 
@@ -160,6 +171,44 @@ def page_gather(pool, page_table, cpool=None, path: str = "gather"):
 # host-side controller
 # --------------------------------------------------------------------------
 
+class PrefixIndex:
+    """Content-addressed index of page-aligned prompt-prefix blocks.
+
+    Key: the token content of blocks ``0..i`` as a tuple (the dict hashes
+    it; equality is checked on lookup, so a hash collision can never
+    mis-match a prefix).  Value: the physical entry holding block ``i``'s
+    K/V — a raw pool page id, or a negative swap sentinel (``-(key + 1)``)
+    once the page was retired to the swap store's prefix cache.  Dict
+    insertion order doubles as LRU order: :meth:`touch` moves a matched
+    key to the back, reclaim walks from the front."""
+
+    def __init__(self):
+        self._entries: dict[tuple, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, key):
+        return self._entries.get(key)
+
+    def put(self, key, entry: int) -> None:
+        """Insert or update; an update keeps the key's LRU position."""
+        self._entries[key] = entry
+
+    def touch(self, key) -> None:
+        self._entries[key] = self._entries.pop(key)
+
+    def drop(self, key) -> None:
+        self._entries.pop(key, None)
+
+    def lru_keys(self) -> list:
+        """Keys, least recently matched first."""
+        return list(self._entries)
+
+    def entries(self):
+        return self._entries.values()
+
+
 class PagedKVCache:
     """Allocator + lifecycle manager for the paged, compressible cache."""
 
@@ -226,15 +275,25 @@ class PagedKVCache:
         self._slot_pages: dict[int, list[int]] = {}
         self._skip: dict[int, set[int]] = {}        # incompressible pages
         self._cold_bytes: dict[int, int] = {}       # cold slot -> bytes
-        # physical-page reference counts (1 = private; prefix sharing,
-        # which adds holders, is not yet ported)
+        # physical-page reference counts: every live raw pid has an entry
+        # (1 = private).  Holders are slots (one ref per slot whose page
+        # list contains the pid) and the prefix index (one per entry); a
+        # pid returns to the free list only when its count reaches zero
         self._ref: dict[int, int] = {}
+        self.prefix = None              # PrefixIndex (enable_prefix_sharing)
+        self.n_prefix_retired = 0       # index pages retired to swap
+        self.n_prefix_dropped = 0       # index pages dropped (no swap room)
+        self.n_cow_splits = 0           # shared pages split before a write
         self.swap = None                # SwapStore (attach_swap)
+        self.telemetry = None           # serving.telemetry.Telemetry
+        #   (engine-set; evict / fault publish page counts and host<->device
+        #   swap spans through it — observation only)
         # cumulative work of the coded tiers (launch/serve.py's report):
         # pages moved into the cold pool and their coded bytes, host
-        # seconds in codec.encode_page, page-decode calls made by fault()
+        # seconds in codec.encode_page (of which retiring prefix pages),
+        # page-decode calls made by fault() and admit_shared()
         self.n_compressed = self.compressed_bytes = 0
-        self.encode_seconds = 0.0
+        self.encode_seconds = self.retire_seconds = 0.0
         self.n_fault_decodes = 0
 
     def init_cache(self) -> dict:
@@ -270,6 +329,9 @@ class PagedKVCache:
         pid = self._free.pop()
         self._ref[pid] = 1
         return pid
+
+    def _incref(self, pid: int) -> None:
+        self._ref[pid] = self._ref.get(pid, 0) + 1
 
     def _decref(self, pid: int) -> None:
         """Drop one reference; the page frees only when nobody holds it."""
@@ -323,6 +385,8 @@ class PagedKVCache:
         (``models.model.prefill``'s cache, batch 1) into them."""
         need = self.pages_needed(prompt_len)
         if len(self._free) < need:
+            cache = self._reclaim_prefix(cache, need - len(self._free))
+        if len(self._free) < need:
             raise OutOfPages(f"slot {slot} needs {need} pages, "
                              f"{len(self._free)} free")
         pids = [self._alloc_raw() for _ in range(need)]
@@ -342,6 +406,8 @@ class PagedKVCache:
         """Allocate a fresh slot for chunked prefill: grant ``need`` pages
         (no fragment is copied: the chunks write their K/V with
         :func:`page_write_chunk`) and reset the slot's timeline to 0."""
+        if len(self._free) < need:
+            cache = self._reclaim_prefix(cache, need - len(self._free))
         if len(self._free) < need:
             raise OutOfPages(f"slot {slot} needs {need} pages, "
                              f"{len(self._free)} free")
@@ -367,6 +433,8 @@ class PagedKVCache:
             return cache
         p = min(pos // self.page_size, self.pages_per_slot - 1)
         while len(pages) <= p:
+            if not self._free:
+                cache = self._reclaim_prefix(cache, 1)
             if not self._free:
                 raise OutOfPages(f"slot {slot} needs page {len(pages)}")
             pid = self._alloc_raw()
@@ -416,7 +484,7 @@ class PagedKVCache:
             elif e >= self.n_pages:
                 self._free_cold(e - self.n_pages)
             elif e != GARBAGE_PAGE:
-                self._decref(e)
+                self._decref(e)     # shared prefix pages stay for the index
         self._skip.pop(slot, None)
         cache["page_table"][slot] = 0
         return cache
@@ -516,6 +584,8 @@ class PagedKVCache:
         idxs = list(range(len(pages))) if page_idxs is None else list(page_idxs)
         # cold-first: already-compressed pages are the cheapest victims
         idxs.sort(key=lambda p: (pages[p] < self.n_pages, p))
+        t0 = time.perf_counter()
+        n_moved = 0
         for p in idxs:
             e = pages[p]
             if e < 0 or e == GARBAGE_PAGE:
@@ -525,10 +595,20 @@ class PagedKVCache:
                 key = self.swap.put(self._copy_cold_page(cache, cs))
                 self._free_cold(cs)
             else:
+                # a shared page gets a *private* swap copy and a decref:
+                # the prefix index keeps its own (still resident) reference
                 key = self.swap.put(self._encode_raw_page(cache, e))
                 self._decref(e)
             pages[p] = -(key + 1)
             cache["page_table"][slot, p] = -(key + 1)
+            n_moved += 1
+        if n_moved and self.telemetry is not None:
+            self.telemetry.registry.counter(
+                "kvcache_evict_pages_total").inc(n_moved)
+            if self.telemetry.tracer is not None:
+                self.telemetry.tracer.complete(
+                    "swap", "evict", "engine", t0,
+                    args={"slot": slot, "pages": n_moved})
         return cache
 
     def fault(self, cache: dict, slot: int, page_idxs=None):
@@ -559,10 +639,13 @@ class PagedKVCache:
             raw_need += int(not to_cold)
             plan.append((p, sp, to_cold))
         if raw_need > len(self._free):
+            cache = self._reclaim_prefix(cache, raw_need - len(self._free))
+        if raw_need > len(self._free):
             raise OutOfPages(
                 f"faulting {len(idxs)} swapped pages of slot {slot} needs "
                 f"{raw_need} raw pages, {len(self._free)} free")
 
+        t0 = time.perf_counter()
         raw_jobs = []                   # (entry, pid) scattered after decode
         for p, sp, to_cold in plan:
             self.swap.pop(-pages[p] - 1)
@@ -579,6 +662,13 @@ class PagedKVCache:
             cache["page_table"][slot, p] = entry
         if raw_jobs:
             self._restore_raw(cache, raw_jobs)
+        if self.telemetry is not None:
+            self.telemetry.registry.counter(
+                "kvcache_fault_pages_total").inc(len(plan))
+            if self.telemetry.tracer is not None:
+                self.telemetry.tracer.complete(
+                    "swap", "fault", "engine", t0,
+                    args={"slot": slot, "pages": len(plan)})
         return cache
 
     def _restore_raw(self, cache: dict, jobs) -> None:
@@ -636,6 +726,239 @@ class PagedKVCache:
         cache["page_table"][slot] = row.to(self.device)
         return cache
 
+    # -- cross-request prefix sharing --------------------------------------
+
+    def enable_prefix_sharing(self) -> None:
+        """Attach a :class:`PrefixIndex`, so requests with a common
+        page-aligned prompt prefix share one physical copy of its pages
+        (copy-on-write protected).  The reference refuses more than one
+        batch shard here (page ids are shard-local); the port's cache is a
+        single shard, so there is nothing to refuse."""
+        if self.prefix is None:
+            self.prefix = PrefixIndex()
+
+    def _prefix_key(self, prompt, i: int) -> tuple:
+        """Content address of prompt block ``i``: the token ids of blocks
+        ``0..i``.  Keys are prefix-closed — block ``i``'s K/V is determined
+        by (and only by) the tokens in the key, so equal keys imply
+        bit-identical page content."""
+        return tuple(prompt[: (i + 1) * self.page_size])
+
+    def match_prefix(self, prompt) -> int:
+        """Longest index-resident prefix of ``prompt``, in tokens (a
+        multiple of ``page_size``).
+
+        Capped at ``(len(prompt) - 1) // page_size`` blocks so the final
+        prompt token is always prefilled (it gives the first token's
+        logits) and the first unmatched write lands exactly on the match
+        boundary: writes never land inside a matched page.  Swap-retired
+        entries whose page the store has since evicted drop out of the
+        index here."""
+        if self.prefix is None or not len(prompt):
+            return 0
+        n = 0
+        for i in range((len(prompt) - 1) // self.page_size):
+            key = self._prefix_key(prompt, i)
+            ent = self.prefix.get(key)
+            if ent is None:
+                break
+            if ent < 0 and (self.swap is None
+                            or not self.swap.contains(-ent - 1)):
+                self.prefix.drop(key)
+                break
+            n += 1
+        return n * self.page_size
+
+    def match_page_cost(self, prompt) -> int:
+        """Raw pages that adopting ``prompt``'s index match takes from the
+        headroom the scheduler counts (free pages plus index-only pages): a
+        swap-retired block faults back into a fresh page, and a resident
+        index-only block stops being reclaimable once the slot co-holds it.
+        The reference's fit test leaves this out, so an admission it passes
+        can run out of pages inside ``admit_shared``."""
+        if self.prefix is None:
+            return 0
+        cost = 0
+        for i in range(self.match_prefix(prompt) // self.page_size):
+            ent = self.prefix.get(self._prefix_key(prompt, i))
+            cost += ent < 0 or self._ref.get(ent, 0) == 1
+        return cost
+
+    def admit_shared(self, cache: dict, slot: int, prompt, extra: int):
+        """Admit a chunked-prefill slot against the prefix index ->
+        ``(cache, matched_tokens)``.
+
+        Matched raw pages are increffed (the slot becomes a co-holder of
+        the same physical page); matched swap-retired pages are faulted
+        back bit-exactly (one batched page decode, ``_restore_raw``) into
+        fresh raw pages that the index adopts again; ``extra`` fresh pages
+        cover the unmatched suffix.  ``cur_len[slot]`` starts at
+        ``matched_tokens``, where the slot's first prefill chunk begins."""
+        ps = self.page_size
+        shared: list[int] = []
+        raw_jobs = []               # (SwapEntry, pid) for _restore_raw
+        n_faulted = 0
+        t0 = time.perf_counter()
+        if self.prefix is not None:
+            for i in range((len(prompt) - 1) // ps if len(prompt) else 0):
+                key = self._prefix_key(prompt, i)
+                ent = self.prefix.get(key)
+                if ent is None:
+                    break
+                if ent < 0:
+                    k = -ent - 1
+                    if self.swap is None or not self.swap.contains(k):
+                        self.prefix.drop(key)
+                        break
+                    if not self._free:
+                        cache = self._reclaim_prefix(cache, 1)
+                    if not self._free:
+                        break       # match shrinks; the suffix is prefilled
+                    sp = self.swap.pop(k)
+                    ent = self._alloc_raw()         # the index's reference
+                    raw_jobs.extend((e, ent) for e in sp.entries)
+                    self.prefix.put(key, ent)
+                    n_faulted += 1
+                self._incref(ent)                   # the slot's reference
+                self.prefix.touch(key)
+                shared.append(ent)
+        if raw_jobs:
+            self._restore_raw(cache, raw_jobs)
+
+        extra = max(min(extra, self.pages_per_slot - len(shared)), 0)
+        if len(self._free) < extra:
+            cache = self._reclaim_prefix(cache, extra - len(self._free))
+        if len(self._free) < extra:
+            for pid in shared:      # undo: the admission failed whole
+                self._decref(pid)
+            raise OutOfPages(f"slot {slot} needs {extra} pages past its "
+                             f"shared prefix, {len(self._free)} free")
+        pids = [self._alloc_raw() for _ in range(extra)]
+        self._slot_pages[slot] = shared + pids
+        self._skip[slot] = set()
+        cache["page_table"][slot] = 0
+        if shared or pids:
+            cache["page_table"][slot, :len(shared) + extra] = torch.tensor(
+                shared + pids, dtype=torch.int32, device=self.device)
+        cache["cur_len"][slot] = len(shared) * ps
+        if n_faulted and self.telemetry is not None:
+            self.telemetry.registry.counter(
+                "kvcache_fault_pages_total").inc(n_faulted)
+            if self.telemetry.tracer is not None:
+                self.telemetry.tracer.complete(
+                    "swap", "prefix_fault", "engine", t0,
+                    args={"slot": slot, "pages": n_faulted})
+        return cache, len(shared) * ps
+
+    def register_prefix(self, slot: int, prompt, n_tokens: int) -> None:
+        """Publish the slot's fully prefilled, page-aligned prompt blocks
+        into the index (after each prefill chunk).
+
+        Caps at ``len(prompt) // page_size`` blocks: a full prompt block is
+        never written again (the first decode write lands at position
+        ``len(prompt)``, in a later block), so published pages are
+        immutable while referenced.  A block whose content is already
+        indexed keeps the incumbent copy (LRU-touched, not replaced)."""
+        if self.prefix is None:
+            return
+        pages = self._slot_pages.get(slot)
+        if pages is None:
+            return
+        nb = min(min(n_tokens, len(prompt)) // self.page_size, len(pages))
+        for i in range(nb):
+            pid = pages[i]
+            if not GARBAGE_PAGE < pid < self.n_pages:
+                continue            # cold/swapped entries are not shareable
+            key = self._prefix_key(prompt, i)
+            if self.prefix.get(key) is not None:
+                self.prefix.touch(key)
+                continue
+            self.prefix.put(key, pid)
+            self._incref(pid)
+
+    def make_writable(self, cache: dict, slot: int, lo: int, hi: int):
+        """Copy-on-write guard: split any shared raw page of ``slot``
+        covering positions ``[lo, hi]`` into a private copy before a write
+        lands there.  The copy (every layer's K and V) and the page-table
+        update are issued before the caller's write, in stream order.
+
+        Block-aligned matching makes a split unreachable on the normal path
+        (writes start at the match boundary and full prompt blocks are
+        never rewritten), so this is a safety invariant; ``n_cow_splits``
+        counts actual splits."""
+        pages = self._slot_pages.get(slot)
+        if pages is None or self.prefix is None:
+            return cache
+        ps = self.page_size
+        pools = cache["units"]["pos0"]
+        for p in range(lo // ps, min(hi // ps, len(pages) - 1) + 1):
+            pid = pages[p]
+            if (not GARBAGE_PAGE < pid < self.n_pages
+                    or self._ref.get(pid, 1) <= 1):
+                continue
+            if not self._free:
+                cache = self._reclaim_prefix(cache, 1)
+            if not self._free:
+                raise OutOfPages(f"CoW split of slot {slot} page {p} has no "
+                                 f"free page")
+            new = self._alloc_raw()
+            for kn in ("k", "v"):
+                pools[f"{kn}_pool"][:, new] = pools[f"{kn}_pool"][:, pid]
+            self._decref(pid)
+            pages[p] = new
+            cache["page_table"][slot, p] = new
+            self.n_cow_splits += 1
+        return cache
+
+    def _reclaim_prefix(self, cache: dict, need: int):
+        """Retire up to ``need`` index-only prefix pages (refcount 1: no
+        slot co-holds them), least recently matched first.  With a swap
+        store each page is entropy-coded into the store's **unpinned** LRU
+        prefix cache (it faults back bit-exactly on the next match); when
+        the store cannot hold it, or there is no store, the entry is
+        dropped.  Either way the raw page frees, so every allocation site
+        can treat index-only pages as reclaimable headroom."""
+        if self.prefix is None or need <= 0:
+            return cache
+        freed = 0
+        for key in self.prefix.lru_keys():
+            if freed >= need:
+                break
+            ent = self.prefix.get(key)
+            if ent is None or ent < 0 or self._ref.get(ent, 1) != 1:
+                continue
+            k = None
+            if self.swap is not None:
+                t0 = time.perf_counter()
+                sp = self._encode_raw_page(cache, ent)
+                self.retire_seconds += time.perf_counter() - t0
+                k = self.swap.put(sp, pinned=False)
+            if k is not None:
+                self.prefix.put(key, -(k + 1))      # keeps LRU position
+                self.n_prefix_retired += 1
+            else:
+                self.prefix.drop(key)
+                self.n_prefix_dropped += 1
+            self._decref(ent)
+            freed += 1
+        return cache
+
+    def reclaimable_pages(self) -> int:
+        """Raw pages held only by the prefix index (refcount 1): on-demand
+        headroom the scheduler counts as available when sizing
+        admission."""
+        if self.prefix is None:
+            return 0
+        return sum(1 for e in self.prefix.entries()
+                   if e > 0 and self._ref.get(e, 0) == 1)
+
+    def n_shared_pages(self) -> int:
+        """Raw index pages currently co-held by at least one slot."""
+        if self.prefix is None:
+            return 0
+        return sum(1 for e in self.prefix.entries()
+                   if e > 0 and self._ref.get(e, 0) > 1)
+
     # -- cold compression --------------------------------------------------
 
     def compress_cold_pages(self, cache: dict, slot: int, pos: int):
@@ -648,7 +971,10 @@ class PagedKVCache:
         pages = self._slot_pages[slot]
         full = min(pos // self.page_size, len(pages))
         for p in range(full):
-            if pages[p] >= self.n_pages or p in self._skip[slot]:
+            # shared prefix pages (refcount > 1) stay raw: compressing the
+            # slot's copy would duplicate a page other holders still gather
+            if (pages[p] >= self.n_pages or p in self._skip[slot]
+                    or self._ref.get(pages[p], 1) > 1):
                 continue
             if not self._cold_free:
                 return cache
@@ -681,9 +1007,20 @@ class PagedKVCache:
     def stats(self) -> dict:
         """Live memory accounting (bytes; 'raw_equiv' = the same pages kept
         uncompressed, 'monolithic' = the replaced ``(max_batch, max_len)``
-        cache)."""
-        raw = len({e for pages in self._slot_pages.values() for e in pages
-                   if GARBAGE_PAGE < e < self.n_pages})
+        cache).  Host bookkeeping only: no tensor is read."""
+        # physical accounting: with prefix sharing a pid can appear in
+        # several slots' page lists (and in the index with no slot at all)
+        # but occupies device memory once
+        raw_phys = {e for pages in self._slot_pages.values() for e in pages
+                    if GARBAGE_PAGE < e < self.n_pages}
+        prefix_resident = prefix_only = 0
+        if self.prefix is not None:
+            for e in self.prefix.entries():
+                if e > 0:
+                    prefix_resident += 1
+                    prefix_only += self._ref.get(e, 0) == 1
+                    raw_phys.add(e)
+        raw = len(raw_phys)
         cold = len(self._cold_bytes)
         swapped = sum(1 for pages in self._slot_pages.values()
                       for e in pages if e < 0)
@@ -705,6 +1042,16 @@ class PagedKVCache:
             "monolithic_bytes": self.max_batch * self.pages_per_slot
             * page_bytes,
         }
+        if self.prefix is not None:
+            out.update({
+                "prefix_index_blocks": len(self.prefix),
+                "prefix_resident_blocks": prefix_resident,
+                "prefix_reclaimable_pages": prefix_only,
+                "prefix_shared_pages": self.n_shared_pages(),
+                "prefix_retired_total": self.n_prefix_retired,
+                "prefix_dropped_total": self.n_prefix_dropped,
+                "prefix_cow_splits_total": self.n_cow_splits,
+            })
         if self.swap is not None:
             out.update(self.swap.stats())
         return out

@@ -4,9 +4,9 @@ Cold pages are ~27% smaller *and bit-exact*, which turns host memory into a
 second cache tier: a coded page can leave the device entirely and be
 restored later with zero output deviation.  ``SwapStore`` is that tier — a
 host dict of ``SwappedPage`` containers keyed by an opaque swap id, with
-byte accounting and cumulative traffic counters (the reference's
-``kvcache/swap.py`` on one shard, without the prefix cache's unpinned pages
-and the telemetry registry, which the port does not serve yet).
+byte accounting, cumulative traffic counters, the LRU cache of retired
+shared-prefix pages (unpinned pages) and the telemetry registry's level
+gauges (the reference's ``kvcache/swap.py`` on one shard).
 
 Lifecycle (driven by ``paged.PagedKVCache.evict`` / ``fault``):
 
@@ -21,6 +21,10 @@ Lifecycle (driven by ``paged.PagedKVCache.evict`` / ``fault``):
       the page-decode kernel (``kernels.ops.decode_pages``) into fresh raw
       pool pages; cold-swapped pages reinstall their coded container into
       a fresh cold slot without being decoded.
+  index-only prefix page  --retire-->  unpinned: the prefix index's page
+      is coded like a raw page and kept here until capacity pressure
+      evicts it or a later prompt match faults it back
+      (``paged.PagedKVCache._reclaim_prefix`` / ``admit_shared``).
 """
 from __future__ import annotations
 
@@ -70,13 +74,27 @@ class SwapStore:
     """Host store of swapped pages with capacity + traffic accounting.
 
     ``capacity_bytes``: hard ceiling on resident swapped bytes (``None``
-    = unbounded); a put over the ceiling raises :class:`SwapExhausted` and
-    the caller rolls the eviction back.  Every page belongs to a live
-    (possibly preempted) request and is never dropped by the store."""
+    = unbounded).  The store has one shard: the reference's ``shard``
+    argument and per-shard ledgers have nothing to partition here.
+
+    Pages are **pinned** by default: they belong to a live (possibly
+    preempted) request and are never dropped by the store; a pinned put
+    over the ceiling raises :class:`SwapExhausted` and the caller rolls the
+    eviction back.  ``put(..., pinned=False)`` stores an evictable page
+    instead, the retired shared-prefix cache of
+    ``paged.PagedKVCache._reclaim_prefix``.  Under capacity pressure the
+    store silently evicts unpinned pages in LRU order (oldest retirement
+    first) to make room; only when no unpinned page is left does a pinned
+    put raise (an unpinned put returns ``None`` instead: dropping a prefix
+    is always legal, the caller forgets the index entry).  The allocator
+    checks prefix keys with :meth:`contains` when it matches a prompt, so
+    a silent eviction needs no callback."""
 
     def __init__(self, capacity_bytes: int | None = None):
         self.capacity_bytes = capacity_bytes
         self._pages: dict[int, SwappedPage] = {}
+        self._unpinned: dict[int, None] = {}    # ordered set: LRU order
+        self.n_prefix_evicted = 0               # unpinned pages dropped
         self._next_key = 0
         self.bytes_used = 0
         # cumulative traffic (never reset except by the engine's rollback
@@ -85,24 +103,68 @@ class SwapStore:
         self.swap_in_bytes = 0
         self.n_swap_out = 0
         self.n_swap_in = 0
+        self._registry = None
 
     def __len__(self) -> int:
         return len(self._pages)
 
-    def put(self, page: SwappedPage) -> int:
-        """Store a swapped page; returns its opaque swap key."""
-        if (self.capacity_bytes is not None
-                and self.bytes_used + page.nbytes > self.capacity_bytes):
-            raise SwapExhausted(
-                f"swap store full: {self.bytes_used}B used + "
-                f"{page.nbytes}B > capacity {self.capacity_bytes}B")
+    def attach_registry(self, registry) -> None:
+        """Publish the store's *levels* into a telemetry registry as gauges
+        (``kvcache_swap_bytes_used`` / ``kvcache_swap_pages``), updated on
+        every put / pop / discard.  Levels only: cumulative traffic flows
+        through ``stats()`` into the ``kvstat_*`` gauges, because the
+        engine rolls the traffic counters back on an aborted eviction and
+        a monotone registry counter could not follow."""
+        self._registry = registry
+        self.sync_registry()
+
+    def sync_registry(self) -> None:
+        if self._registry is None:
+            return
+        self._registry.gauge("kvcache_swap_bytes_used").set(self.bytes_used)
+        self._registry.gauge("kvcache_swap_pages").set(len(self._pages))
+
+    def put(self, page: SwappedPage, *, pinned: bool = True) -> int | None:
+        """Store a swapped page; returns its opaque swap key.
+
+        Over capacity, unpinned (prefix-cache) pages are evicted LRU-first
+        to make room; if the page still does not fit, a pinned put raises
+        :class:`SwapExhausted` and an unpinned put returns ``None`` (the
+        page is not stored)."""
+        if self.capacity_bytes is not None:
+            while (self.bytes_used + page.nbytes > self.capacity_bytes
+                   and self._unpinned):
+                self._evict_unpinned(next(iter(self._unpinned)))
+            if self.bytes_used + page.nbytes > self.capacity_bytes:
+                if not pinned:
+                    return None
+                raise SwapExhausted(
+                    f"swap store full: {self.bytes_used}B used + "
+                    f"{page.nbytes}B > capacity {self.capacity_bytes}B")
         key = self._next_key
         self._next_key += 1
         self._pages[key] = page
+        if not pinned:
+            self._unpinned[key] = None
         self.bytes_used += page.nbytes
         self.swap_out_bytes += page.nbytes
         self.n_swap_out += 1
+        self.sync_registry()
         return key
+
+    def _evict_unpinned(self, key: int) -> None:
+        """Silently drop an unpinned page (capacity pressure: the data is a
+        cache of a reproducible prefix, not request state)."""
+        page = self._pages.pop(key)
+        del self._unpinned[key]
+        self.bytes_used -= page.nbytes
+        self.n_prefix_evicted += 1
+        self.sync_registry()
+
+    def contains(self, key: int) -> bool:
+        """Whether ``key`` is still resident (an unpinned page may have been
+        evicted since it was stored)."""
+        return key in self._pages
 
     def peek(self, key: int) -> SwappedPage:
         """Read without removing (capacity planning before a fault)."""
@@ -111,21 +173,30 @@ class SwapStore:
     def pop(self, key: int) -> SwappedPage:
         """Remove and return a page on fault (counts swap-in traffic)."""
         page = self._pages.pop(key)
+        self._unpinned.pop(key, None)
         self.bytes_used -= page.nbytes
         self.swap_in_bytes += page.nbytes
         self.n_swap_in += 1
+        self.sync_registry()
         return page
 
     def discard(self, key: int) -> None:
         """Drop a page whose request finished while preempted (its data
         will never be read again — not swap-in traffic)."""
         page = self._pages.pop(key, None)
-        if page is not None:
-            self.bytes_used -= page.nbytes
+        if page is None:
+            return
+        self._unpinned.pop(key, None)
+        self.bytes_used -= page.nbytes
+        self.sync_registry()
 
     def stats(self) -> dict:
         return {
             "swap_pages": len(self._pages),
+            "swap_prefix_pages": len(self._unpinned),
+            "swap_prefix_bytes": sum(self._pages[k].nbytes
+                                     for k in self._unpinned),
+            "swap_prefix_evicted_total": self.n_prefix_evicted,
             "swap_bytes_used": self.bytes_used,
             "swap_capacity_bytes": self.capacity_bytes,
             "swap_out_bytes_total": self.swap_out_bytes,

@@ -23,6 +23,11 @@ Usage:
   # verifies them in one forward
   PYTHONPATH=src python -m repro_torch.launch.serve --draft qwen3-8b \\
       --spec-k 4
+  # cross-request prefix sharing over a 256-token shared system prompt,
+  # with a Chrome trace of the run and a stats line every 16 steps
+  PYTHONPATH=src python -m repro_torch.launch.serve --prefill-chunk 128 \\
+      --prefix-sharing --shared-prefix 256 --trace-out trace.json \\
+      --metrics-interval 16
   # on a machine without a card, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
@@ -42,8 +47,11 @@ from ..configs import get, smoke_variant
 from ..core.store import compress_tree, fp8_cast_tree
 from ..device import resolve
 from ..models import model as M
+from ..runtime.trace_export import export_chrome_trace
+from ..runtime.tracing import TorchProfilerHook
 from ..serving import EngineConfig, EngineConfigError, GenerationEngine, \
     Request
+from ..serving.telemetry import Telemetry, serving_report_line
 
 # the reference's leaf-selection threshold for serving (launch/serve.py)
 MIN_ELEMS = 4096
@@ -69,23 +77,28 @@ def build_params(cfg, seed: int, fmt: str = "tpu", device="cuda"):
     return served, baseline, report, time.perf_counter() - t0
 
 
-def make_prompts(cfg, n: int, seed: int, lo: int = 4, hi: int = 12):
-    """``n`` prompts of ``lo <= len < hi`` tokens drawn from ``seed``."""
+def make_prompts(cfg, n: int, seed: int, lo: int = 4, hi: int = 12,
+                 shared_prefix: int = 0):
+    """``n`` prompts of ``lo <= len < hi`` tokens drawn from ``seed``, each
+    after the same ``shared_prefix``-token system prompt (drawn first, as
+    the reference's ``--shared-prefix`` draws it)."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab_size,
-                         size=rng.integers(lo, hi)).tolist()
+    system = rng.integers(1, cfg.vocab_size, size=shared_prefix).tolist()
+    return [system + rng.integers(0, cfg.vocab_size,
+                                  size=rng.integers(lo, hi)).tolist()
             for _ in range(n)]
 
 
 def serve(params, cfg, ecfg: EngineConfig, prompts, max_new: int,
-          device="cuda"):
-    """Serve ``prompts`` greedily -> (finished requests, engine, seconds)."""
+          device="cuda", on_step=None):
+    """Serve ``prompts`` greedily -> (finished requests, engine, seconds);
+    ``on_step`` is ``GenerationEngine.run``'s."""
     eng = GenerationEngine(params, cfg, config=ecfg, device=device)
     reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     for r in reqs:
         eng.submit(r)
     t0 = time.perf_counter()
-    eng.run()
+    eng.run(on_step=on_step)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     return reqs, eng, time.perf_counter() - t0
@@ -119,13 +132,59 @@ def cache_report(eng) -> list:
             f"{pc.encode_seconds:.2f}s on the host")
     if pc.swap is not None:
         st = pc.swap.stats()
+        mon = eng.kv_monitor.summary() if eng.kv_monitor is not None else {}
+        peak = (f"peak host-resident {mon['peak_swap_bytes'] / 1e6:.3f} MB, "
+                if "peak_swap_bytes" in mon else "")
         lines.append(
-            f"swap tier: {eng.scheduler.n_preempted} preemptions, "
+            f"swap tier: {peak}{eng.scheduler.n_preempted} preemptions, "
             f"{eng.scheduler.n_resumed} resumes, {st['n_swap_out']} pages "
             f"out ({st['swap_out_bytes_total'] / 1e6:.2f} MB), "
             f"{st['n_swap_in']} in ({st['swap_in_bytes_total'] / 1e6:.2f} "
             f"MB), {pc.n_fault_decodes} fault decodes")
     return lines
+
+
+def kv_report(eng, cache_name: str) -> str | None:
+    """The kv-cache line of a finished paged run with a monitor: peak paged
+    bytes against the monolithic cache, the cold-page compression ratio."""
+    mon = eng.kv_monitor
+    if eng.cache_mode != "paged" or mon is None or not mon.n_samples:
+        return None
+    s = mon.summary()
+    ratio = s["cold_compression_ratio"]
+    cold = (f"cold-page compression {ratio:.3f}x raw"
+            if ratio == ratio else "no page went cold")
+    return (f"kv-cache ({cache_name}, page={eng.paged.page_size}): peak "
+            f"{s['peak_paged_bytes'] / 1e6:.3f}MB vs monolithic "
+            f"{s['monolithic_bytes'] / 1e6:.3f}MB "
+            f"({100 * (1 - s['paged_vs_monolithic']):.1f}% saved), {cold}")
+
+
+def prefix_report(eng) -> str:
+    """The prefix-sharing line of a finished run: hits and misses from the
+    telemetry registry (as the reference reads them), the index's blocks,
+    retirements to swap and copy-on-write splits."""
+    sp = eng.paged.stats()
+    reg = eng.tel.registry if eng.tel is not None else None
+    hits = int(reg.value("prefix_hit_total")) if reg is not None else 0
+    miss = int(reg.value("prefix_miss_total")) if reg is not None else 0
+    return (f"prefix sharing: {hits} hits / {miss} misses, index "
+            f"{sp['prefix_index_blocks']} blocks "
+            f"({sp['prefix_resident_blocks']} resident), "
+            f"{sp['prefix_retired_total']} retired to swap, "
+            f"{sp['prefix_cow_splits_total']} CoW splits")
+
+
+def latency_report(registry) -> str | None:
+    """TTFT and request-latency percentiles from the registry."""
+    ttft = registry.get("serving_ttft_seconds")
+    lat = registry.get("serving_request_latency_seconds")
+    if ttft is None or not ttft.count:
+        return None
+    return (f"ttft p50/p95/p99 {ttft.percentile(0.5) * 1e3:.0f}/"
+            f"{ttft.percentile(0.95) * 1e3:.0f}/"
+            f"{ttft.percentile(0.99) * 1e3:.0f}ms, request latency p50 "
+            f"{lat.percentile(0.5):.2f}s p99 {lat.percentile(0.99):.2f}s")
 
 
 def chunk_report(eng) -> str:
@@ -193,6 +252,16 @@ def main(argv=None, cfg=None):
                     help="prompt tokens spent on prefill per engine step "
                          "(bounds decode latency under long prompts); "
                          "default: one chunk.")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="cross-request prefix sharing: requests with a "
+                         "common page-aligned prompt prefix reference one "
+                         "physical copy of its KV pages (copy-on-write) "
+                         "and skip recomputing the matched positions.  "
+                         "Needs --prefill-chunk.")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="prepend the same N-token system prompt to every "
+                         "request (chat-style workload; makes "
+                         "--prefix-sharing hits visible in the report)")
     ap.add_argument("--draft", default=None, metavar="ARCH",
                     help="speculative decoding: the draft model's "
                          "architecture (--smoke applies to it too), "
@@ -209,6 +278,21 @@ def main(argv=None, cfg=None):
                     help="seed of the synthesized draft weights (default "
                          "1; an error without --draft)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "(per-request lifecycle spans, engine-phase spans, "
+                         "counter tracks; open in ui.perfetto.dev)")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    metavar="STEPS",
+                    help="print a one-line stats report every N engine "
+                         "steps (tokens, queue depth, step/TTFT "
+                         "percentiles)")
+    ap.add_argument("--torch-profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace (host and card) "
+                         "into DIR over the --profile-steps window")
+    ap.add_argument("--profile-steps", default="0:1", metavar="A:B",
+                    help="engine-step window for --torch-profile "
+                         "(default 0:1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "PyTorch versions")
@@ -245,9 +329,40 @@ def main(argv=None, cfg=None):
         ecfg_fp8 = replace(ecfg, draft_params=dparams_fp8)
         print(f"[serve] speculative: draft {dcfg.name} ({dcfg.n_layers} "
               f"layers, seed {draft_seed}), k={ecfg.spec_k}")
-    prompts = make_prompts(cfg, args.requests, args.seed)
-    done, eng, dt = serve(params_c, cfg, ecfg, prompts, args.max_new,
-                          device=args.device)
+    prompts = make_prompts(cfg, args.requests, args.seed,
+                           shared_prefix=args.shared_prefix)
+    profiler = None
+    if args.torch_profile:
+        try:
+            a, b = (int(x) for x in args.profile_steps.split(":"))
+        except ValueError:
+            raise SystemExit(f"--profile-steps {args.profile_steps!r}: "
+                             f"expected 'A:B' (engine-step window)")
+        profiler = TorchProfilerHook(args.torch_profile, a, b)
+    # the engine's KV-cache monitor publishes into this registry too
+    tel = Telemetry(trace=args.trace_out is not None)
+
+    def on_step(i):
+        if profiler is not None:
+            profiler.on_step(i)
+        if args.metrics_interval and (i + 1) % args.metrics_interval == 0:
+            print(f"[serve] step {i + 1}: "
+                  f"{serving_report_line(tel.registry)}")
+
+    done, eng, dt = serve(params_c, cfg,
+                          replace(ecfg, telemetry=tel),
+                          prompts, args.max_new, device=args.device,
+                          on_step=on_step)
+    if profiler is not None:
+        profiler.close()
+        print(f"[serve] torch.profiler trace in {profiler.trace_path}")
+    if args.trace_out:
+        trace = export_chrome_trace(tel.tracer, args.trace_out,
+                                    registry=tel.registry)
+        print(f"[serve] wrote {args.trace_out}: "
+              f"{len(trace['traceEvents'])} trace events "
+              f"({tel.tracer.n_dropped} dropped) — open in "
+              f"ui.perfetto.dev")
     n_tok = sum(len(r.out_tokens) for r in done)
     print(f"[serve] {len(done)} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s host wall-clock, "
@@ -255,10 +370,15 @@ def main(argv=None, cfg=None):
           f"{n_tok / max(eng.steps, 1):.2f})")
     if eng.spec_on:
         print(f"[serve] {spec_report(eng, n_tok)}")
+    for line in (latency_report(tel.registry), kv_report(eng, args.cache)):
+        if line is not None:
+            print(f"[serve] {line}")
     for line in cache_report(eng):
         print(f"[serve] {line}")
     if eng.prefill_chunk:
         print(f"[serve] {chunk_report(eng)}")
+    if eng.prefix_sharing:
+        print(f"[serve] {prefix_report(eng)}")
     if args.check_lossless and args.compress != "none":
         done2, _, _ = serve(params_fp8, cfg, ecfg_fp8, prompts, args.max_new,
                             device=args.device)

@@ -5,11 +5,12 @@ The port serves, on one device: the paged cache (``page_size``,
 ``n_pages``, the compressed cold pool ``compress_cold`` / ``n_cold_slots``,
 the host swap tier ``swap_bytes`` (-1 unbounded, 0 or None off) with
 ``preemption``, chunked prefill ``prefill_chunk`` / ``prefill_budget``) or
-the monolithic cache (``cache_mode="monolithic"``), and speculative
-decoding (``draft_params``, ``draft_cfg``, ``spec_k``).  ``mesh``,
-``prefix_sharing``, ``telemetry`` and ``kv_monitor`` keep their names and
-defaults; setting one to anything else raises ``EngineConfigError`` ("not
-yet ported").
+the monolithic cache (``cache_mode="monolithic"``), cross-request prefix
+sharing (``prefix_sharing``), speculative decoding (``draft_params``,
+``draft_cfg``, ``spec_k``) and the observability objects (``telemetry``,
+a ``serving.telemetry.Telemetry``; ``kv_monitor``, a
+``runtime.monitor.KVCacheMonitor``).  ``mesh`` keeps its name and default;
+setting it raises ``EngineConfigError`` ("not yet ported").
 
 The gating matrix (the reference's ``serving/config.py``):
 
@@ -19,6 +20,8 @@ feature                   requires
 paged cache               a pageable decoder stack (an 'attn'/'nope' layer,
                           no encoder-decoder)
 chunked prefill           the paged cache and an all-'attn'/'nope' stack
+prefix sharing            chunked prefill (and one batch shard, which the
+                          port's cache always is)
 speculative decoding      the paged cache, an all-'attn'/'nope' target,
                           whole-prompt prefill and a same-vocabulary draft
 ========================  =================================================
@@ -41,9 +44,8 @@ from ..models.model import check_supported
 
 CACHE_MODES = ("paged", "monolithic")
 
-# field -> the only value this slice serves
-_NOT_YET_PORTED = {"mesh": None, "prefix_sharing": False,
-                   "telemetry": None, "kv_monitor": None}
+# field -> the only value the port serves
+_NOT_YET_PORTED = {"mesh": None}
 
 
 class EngineConfigError(ValueError):
@@ -137,6 +139,13 @@ class EngineConfig:
                 f"mesh axis; falling back to whole-prompt prefill")
             chunk = 0
         budget = max(self.prefill_budget or chunk, 1) if chunk else 0
+        prefix_sharing = bool(self.prefix_sharing)
+        if prefix_sharing and not chunk:
+            problems.append(
+                "prefix_sharing needs chunked prefill (prefill_chunk > 0, "
+                "with its paged-cache requirements) and a single batch "
+                "shard; serving without sharing")
+            prefix_sharing = False
         draft_params, draft_cfg = self.draft_params, self.draft_cfg
         if draft_cfg is not None and (
                 cache_mode != "paged" or not all_paged
@@ -155,8 +164,8 @@ class EngineConfig:
         for msg in problems:
             warnings.warn(msg, stacklevel=2)
         return replace(self, cache_mode=cache_mode, prefill_chunk=chunk,
-                       prefill_budget=budget, draft_params=draft_params,
-                       draft_cfg=draft_cfg)
+                       prefill_budget=budget, prefix_sharing=prefix_sharing,
+                       draft_params=draft_params, draft_cfg=draft_cfg)
 
     @classmethod
     def from_args(cls, args, cfg: ArchConfig | None = None,
@@ -165,9 +174,10 @@ class EngineConfig:
 
         ``--spec-k`` or ``--draft-seed`` without ``--draft`` raises
         ``EngineConfigError`` at once; with ``cfg`` the result is resolved
-        with ``validate(cfg, strict=True)``, so incompatible requests fail
-        before any weights exist.  ``overrides`` supply fields with no flag
-        (``draft_cfg``, ``draft_params``)."""
+        with ``validate(cfg, strict=True)``, so incompatible requests (e.g.
+        ``--prefix-sharing`` with ``--draft``) fail before any weights
+        exist.  ``overrides`` supply fields with no flag (``draft_cfg``,
+        ``draft_params``, ``telemetry``, ``kv_monitor``)."""
         ignored = []
         if not getattr(args, "draft", None):
             if getattr(args, "spec_k", None) is not None:
@@ -189,6 +199,7 @@ class EngineConfig:
             swap_bytes=args.swap_bytes, preemption=args.preemption,
             prefill_chunk=args.prefill_chunk,
             prefill_budget=args.prefill_budget or None,
+            prefix_sharing=args.prefix_sharing,
             spec_k=spec_k if spec_k is not None else 4, **overrides)
         if cfg is not None:
             ecfg = ecfg.validate(cfg, strict=True)

@@ -32,6 +32,13 @@ with requests continuously:
     slot instead (``models.model.init_cache(per_slot=True)``): a prefill
     fragment is spliced into its row (:func:`splice_fragment`), and there
     is no preemption, swap or chunking;
+  * with ``prefix_sharing`` (chunked prefill only), admission matches the
+    prompt against the cache's prefix index: the matched page-aligned
+    blocks are adopted by reference (``PagedKVCache.admit_shared``, one
+    physical copy however many requests hold them) and prefill starts at
+    the match boundary; every finished chunk publishes its full prompt
+    blocks (``register_prefix``), and a shared page is split before a
+    write could land in it (``make_writable``);
   * with a draft model (``draft_cfg`` / ``draft_params``), each step is a
     speculative round (:meth:`GenerationEngine._spec_round`): the draft,
     whose cache is always monolithic, proposes ``spec_k`` tokens a slot,
@@ -39,6 +46,13 @@ with requests continuously:
     (``models.model.verify_chunk``) and ``serving.spec.verify`` keeps an
     exact rejection-sampled prefix; the rejected suffix is rolled back in
     both caches.
+
+With ``telemetry`` (``serving.telemetry.Telemetry``) the engine publishes
+the reference's metrics, request-lifecycle spans and engine-phase spans;
+with ``kv_monitor`` (or telemetry) it records the cache's stats every step.
+Both are host-side observation: they read the host clock where the engine
+already holds a result, add no device synchronisation, and leave the
+tokens unchanged.
 
 Weights may be an ECF8-compressed tree (``core.store.compress_tree``):
 every weight is decoded where it is used (the ECF8 decode kernel).
@@ -57,8 +71,10 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.store import torch_dtype
 from ..device import resolve
+from ..kernels import build
 from ..kvcache import OutOfPages, PagedKVCache, SwapExhausted, SwapStore
 from ..models import model as M
+from ..runtime.monitor import KVCacheMonitor, StragglerMonitor
 from . import spec as SPEC
 from .config import EngineConfig
 from .sampler import greedy, key_generator, request_key, root_key, \
@@ -169,6 +185,9 @@ class GenerationEngine:
         self.n_spec_rollbacks = self.n_draft_restores = 0
         self.prefill_chunk = config.prefill_chunk
         self.prefill_budget = config.prefill_budget
+        self.prefix_sharing = config.prefix_sharing
+        if self.prefix_sharing:
+            self.paged.enable_prefix_sharing()
         self.scheduler = Scheduler(paged=self.paged,
                                    preemption=config.preemption,
                                    chunk_tokens=config.prefill_chunk)
@@ -185,6 +204,108 @@ class GenerationEngine:
         # the sampled tokens or, for a chunked prefill phase, a device
         # synchronisation (so that each waits for its own device work)
         self.prefill_seconds = self.decode_seconds = 0.0
+        # telemetry is host-side observation only (None = off): request
+        # lifecycle spans, engine-phase spans and the metrics registry
+        self.kv_monitor = config.kv_monitor
+        telemetry = self.tel = config.telemetry
+        self._submit_t: dict = {}       # request id -> submit wall time
+        self._straggler = None
+        if telemetry is not None:
+            self._straggler = StragglerMonitor()
+            if self.kv_monitor is None:
+                self.kv_monitor = KVCacheMonitor(
+                    registry=telemetry.registry)
+            self.scheduler.telemetry = telemetry
+            if self.paged is not None:
+                self.paged.telemetry = telemetry
+                if self.paged.swap is not None:
+                    self.paged.swap.attach_registry(telemetry.registry)
+        # kernel builds and loads are process-wide: remember the count at
+        # construction so compile events register only when *this* engine
+        # triggers one
+        self._compiles_seen = build.events()
+
+    # -- telemetry ---------------------------------------------------------
+
+    def _note_compiles(self, phase: str):
+        """Publish kernel builds and loads since the last check as compile
+        events of ``phase`` ('decode' or 'prefill'), the phase that just
+        ran.  ``serving_decode_compile_total`` and
+        ``serving_prefill_compile_total`` keep the reference's names, where
+        they count jit traces; here they count the ``kernels.build``
+        compilations and library loads that happen during this engine's
+        life, as deltas from its construction, so a process whose kernels
+        are already built and loaded reads 0, as a warm jit cache does."""
+        tel = self.tel
+        if tel is None:
+            return
+        n = build.events()
+        if n <= self._compiles_seen:
+            return
+        if phase == "decode":
+            tel.registry.counter("serving_decode_compile_total").inc(
+                n - self._compiles_seen)
+        else:
+            tel.registry.counter("serving_prefill_compile_total").inc(
+                n - self._compiles_seen)
+        if tel.tracer is not None:
+            tel.tracer.instant("engine", f"{phase}_compile",
+                               args={"step": self.steps})
+        self._compiles_seen = n
+
+    def _sample_gauges(self):
+        """Per-step level samples: queue depth and slot occupancy, as
+        registry gauges (peak-tracking) and tracer counter tracks."""
+        tel = self.tel
+        if tel is None:
+            return
+        q = self.scheduler.waiting
+        act = sum(1 for s in self.slots if s is not None)
+        tel.registry.gauge("serving_queue_depth").set(q)
+        tel.registry.gauge("serving_active_slots").set(act)
+        if self.prefill_chunk:
+            tel.registry.gauge("serving_prefilling_slots").set(
+                len(self._prefill_pos))
+        if self.prefix_sharing:
+            tel.registry.gauge("prefix_shared_pages").set(
+                self.paged.n_shared_pages())
+        if tel.tracer is not None:
+            tel.tracer.counter("serving_queue_depth", q)
+            tel.tracer.counter("serving_active_slots", act)
+
+    def _record_monitor(self):
+        """The cache's stats (host bookkeeping, no tensor read), merged with
+        the scheduler's and the chunked prefill's counters, into the
+        KV-cache monitor and the tracer's counter tracks."""
+        if self.kv_monitor is None or self.paged is None:
+            return
+        stats = self.paged.stats()
+        stats.update(self.scheduler.counters())
+        if self.prefill_chunk:
+            stats.update({
+                "n_prefill_chunks": self.n_chunks,
+                "prefill_chunk_tokens": self.n_chunk_tokens,
+                "n_interleaved_steps": self.n_interleaved_steps,
+                "prefilling_slots": len(self._prefill_pos),
+            })
+        self.kv_monitor.record(stats)
+        if self.tel is not None and self.tel.tracer is not None:
+            tr = self.tel.tracer
+            tr.counter("kvcache_pages_in_use",
+                       stats.get("pages_in_use", 0))
+            if "swap_bytes_used" in stats:
+                tr.counter("kvcache_swap_bytes_used",
+                           stats["swap_bytes_used"])
+
+    # -- scheduling --------------------------------------------------------
+
+    def prefix_match_tokens(self, prompt) -> int:
+        """Longest index-resident prefix of ``prompt`` this engine could
+        adopt by reference (0 without prefix sharing).  Advisory: reading
+        the index allocates nothing."""
+        if self.paged is None or self.paged.prefix is None:
+            return 0
+        return self.paged.match_prefix(list(prompt))
 
     def submit(self, req: Request):
         if not 0 < len(req.prompt) <= self.max_len:
@@ -192,10 +313,19 @@ class GenerationEngine:
                              f" tokens does not fit max_len={self.max_len}")
         self.scheduler.submit(req)
         self._inflight.append(req)
+        if self.tel is not None:
+            self._submit_t[req.id] = time.perf_counter()
+            self.tel.registry.counter(
+                "serving_requests_submitted_total").inc()
+            if self.tel.requests is not None:
+                self.tel.requests.transition(req.id, "queued")
 
     def _start(self, slot: int, req: Request):
         """Prefill a fresh request and copy its K/V into ``slot``'s pages."""
-        t0 = time.perf_counter()
+        tel, t0 = self.tel, time.perf_counter()
+        if tel is not None and tel.requests is not None:
+            tel.requests.transition(req.id, "prefilling",
+                                    args={"slot": slot})
         toks = torch.tensor(req.prompt, dtype=torch.int64,
                             device=self.device)[None, :]
         logits, frag = M.prefill(self.params, self.cfg, toks,
@@ -217,19 +347,62 @@ class GenerationEngine:
         req.out_tokens.append(tok)
         self._last_tok[slot] = tok
         self.slots[slot] = req
-        self.prefill_seconds += time.perf_counter() - t0
+        now = time.perf_counter()
+        self.prefill_seconds += now - t0
+        if tel is not None:
+            sub = self._submit_t.get(req.id)
+            if sub is not None:
+                tel.registry.histogram("serving_queue_wait_seconds").observe(
+                    t0 - sub)
+                tel.registry.histogram("serving_ttft_seconds").observe(
+                    now - sub)
+            tel.registry.counter("serving_tokens_generated_total").inc()
+            if tel.tracer is not None:
+                tel.tracer.complete("engine", "prefill", "engine", t0, now,
+                                    args={"req": req.id,
+                                          "tokens": len(req.prompt)})
+            if tel.requests is not None:
+                tel.requests.transition(req.id, "decoding")
+            self._note_compiles("prefill")
 
     def _start_chunked(self, slot: int, req: Request):
         """Admit a request for chunked prefill: allocate its page grant
         (``Scheduler.admission_grant``, the count ``pick`` tested against)
         and enter the prefill phase; its chunks run under the step's token
-        budget in :func:`_prefill_phase`."""
+        budget in :func:`_prefill_phase`.
+
+        With prefix sharing, admission matches the prompt against the
+        prefix index first: matched pages are adopted by reference
+        (``admit_shared``) and prefill resumes at the match boundary, so
+        the matched positions are never recomputed."""
         grant = self.scheduler.admission_grant(req)
-        self.cache = self.paged.admit_slot(self.cache, slot, grant)
-        self._host_len[slot] = 0
-        self._prefill_pos[slot] = 0
+        matched = 0
+        if self.prefix_sharing:
+            self.cache, matched = self.paged.admit_shared(
+                self.cache, slot, req.prompt, grant)
+        else:
+            self.cache = self.paged.admit_slot(self.cache, slot, grant)
+        self._host_len[slot] = matched
+        self._prefill_pos[slot] = matched
         self._prefill_order.append(slot)
         self.slots[slot] = req
+        tel = self.tel
+        if tel is None:
+            return
+        if self.prefix_sharing:
+            reg = tel.registry
+            if matched:
+                reg.counter("prefix_hit_total").inc()
+                reg.counter("prefix_match_tokens_total").inc(matched)
+            else:
+                reg.counter("prefix_miss_total").inc()
+        sub = self._submit_t.get(req.id)
+        if sub is not None:
+            tel.registry.histogram("serving_queue_wait_seconds").observe(
+                time.perf_counter() - sub)
+        if tel.requests is not None:
+            tel.requests.transition(req.id, "prefilling",
+                                    args={"slot": slot})
 
     def _resume(self, slot: int, st: Preempted):
         """Re-splice a preempted request: reinstall its page list, fault
@@ -237,6 +410,7 @@ class GenerationEngine:
         the continuation is bit-identical to an unpreempted run.  A
         mid-prefill record re-enters the prefill phase at
         ``st.prefill_pos`` instead of rejoining the decode batch."""
+        tel, t0 = self.tel, time.perf_counter()
         self.cache = self.paged.attach_slot(self.cache, slot, st.pages,
                                             st.skip)
         self.cache = self.paged.fault(self.cache, slot)
@@ -251,11 +425,26 @@ class GenerationEngine:
             self._last_tok[slot] = st.last_tok
         self.slots[slot] = st.req
         self.scheduler.n_resumed += 1
+        if tel is not None:
+            now = time.perf_counter()
+            tel.registry.counter("serving_resumed_total").inc()
+            tel.registry.histogram("serving_resume_seconds").observe(
+                now - t0)
+            if tel.tracer is not None:
+                tel.tracer.complete("engine", "resume", "engine", t0, now,
+                                    args={"req": st.req.id, "slot": slot})
+            if tel.requests is not None:
+                tel.requests.transition(
+                    st.req.id, ("prefilling" if st.prefill_pos is not None
+                                else "decoding"),
+                    args={"slot": slot, "resumed": True})
 
     def _preempt(self, slot: int) -> bool:
         """Swap out a whole active request and requeue it (front of its
         priority class).  Returns False — with the engine state intact —
         when the swap store cannot take the pages."""
+        req = self.slots[slot]
+        tel, t0 = self.tel, time.perf_counter()
         store = self.paged.swap
         traffic = (store.swap_out_bytes, store.swap_in_bytes,
                    store.n_swap_out, store.n_swap_in)
@@ -269,11 +458,15 @@ class GenerationEngine:
             self.cache = self.paged.fault(self.cache, slot)
             (store.swap_out_bytes, store.swap_in_bytes,
              store.n_swap_out, store.n_swap_in) = traffic
+            store.sync_registry()
+            if tel is not None and tel.tracer is not None:
+                tel.tracer.instant("engine", "preempt_aborted",
+                                   args={"req": req.id, "slot": slot})
             return False
         state = self.paged.snapshot_slot_state(self.cache, slot)
         pages, skip = self.paged.detach_slot(slot)
         self.scheduler.requeue(Preempted(
-            req=self.slots[slot], pages=pages, skip=skip,
+            req=req, pages=pages, skip=skip,
             host_len=self._host_len[slot], last_tok=self._last_tok[slot],
             state=state, prefill_pos=self._prefill_pos.get(slot),
             draft_state=(self._draft_snapshot(slot) if self.spec_on
@@ -284,6 +477,16 @@ class GenerationEngine:
             self._prefill_order.remove(slot)
         self.slots[slot] = None
         self.scheduler.n_preempted += 1
+        if tel is not None:
+            now = time.perf_counter()
+            tel.registry.counter("serving_preempted_total").inc()
+            tel.registry.histogram("serving_preempt_seconds").observe(
+                now - t0)
+            if tel.tracer is not None:
+                tel.tracer.complete("engine", "preempt", "engine", t0, now,
+                                    args={"req": req.id, "slot": slot})
+            if tel.requests is not None:
+                tel.requests.transition(req.id, "preempted")
         return True
 
     def _admit(self, prefill_budget: int | None = None):
@@ -347,9 +550,21 @@ class GenerationEngine:
                                  temperature=req.temperature)[0, 0])
 
     def _finish(self, s: int, req: Request):
-        """Retire a finished request: clear the slot, release its pages."""
+        """Retire a finished request: clear the slot, publish telemetry,
+        release its pages."""
         req.done = True
         self.slots[s] = None
+        tel = self.tel
+        if tel is not None:
+            tel.registry.counter("serving_requests_finished_total").inc()
+            sub = self._submit_t.pop(req.id, None)
+            if sub is not None:
+                tel.registry.histogram(
+                    "serving_request_latency_seconds").observe(
+                        time.perf_counter() - sub)
+            if tel.requests is not None:
+                tel.requests.finish(req.id,
+                                    args={"tokens": len(req.out_tokens)})
         if self.paged is not None:
             self.cache = self.paged.release(self.cache, s)
 
@@ -393,7 +608,7 @@ class GenerationEngine:
         the draft's next step there before any step reads it, and
         ``kv_len = cur_len + 1`` masks it until then.  A recurrent draft
         would need its per-slot state snapshotted instead."""
-        k = self.spec_k
+        k, tel = self.spec_k, self.tel
         t0 = time.perf_counter()
         # grow every slot's pages to cover its whole verify window before
         # drafting: pressure can preempt another active slot, and a
@@ -477,11 +692,27 @@ class GenerationEngine:
             self.n_spec_drafted += k_eff
             self.n_spec_accepted += m
             self.n_spec_rollbacks += len(emit) < k_eff + 1
+            if tel is not None:
+                tel.registry.counter("spec_drafted_total").inc(k_eff)
+                tel.registry.counter("spec_accepted_total").inc(m)
+                tel.registry.histogram("spec_accept_rate").observe(
+                    m / k_eff if k_eff else 0.0)
+                tel.registry.counter(
+                    "serving_tokens_generated_total").inc(len(emit))
             if (len(req.out_tokens) >= req.max_new_tokens
                     or len(req.prompt) + len(req.out_tokens)
                     >= self.max_len):
                 self._finish(s, req)
-        self.decode_seconds += time.perf_counter() - t0
+        now = time.perf_counter()
+        self.decode_seconds += now - t0
+        if tel is not None:
+            tel.registry.histogram("serving_decode_step_seconds").observe(
+                now - t0)
+            if tel.tracer is not None:
+                tel.tracer.complete("engine", "spec_round", "engine", t0,
+                                    now, args={"step": self.steps,
+                                               "active": len(active)})
+            self._note_compiles("decode")
 
     def spec_counters(self) -> dict:
         """Speculative-decoding counters of the run so far."""
@@ -534,21 +765,49 @@ class GenerationEngine:
             n = len(part)
             if not self._ensure_prefill(slot, pos + n - 1):
                 return spent                    # self-preempted: requeued
+            if self.prefix_sharing:
+                # copy-on-write safety: block-aligned matching makes the
+                # chunk start at the match boundary, so this splits
+                # nothing on the normal path; a shared page in the write
+                # window is copied (every layer, K and V) before the chunk
+                # writes in place
+                self.cache = self.paged.make_writable(self.cache, slot,
+                                                      pos, pos + n - 1)
             toks = torch.tensor(list(part) + [0] * (C - n),
                                 dtype=torch.int64, device=self.device)[None]
+            tc0 = time.perf_counter()
             logits, _ = M.prefill_chunk(self.params, self.cfg, toks,
                                         self._step_cache(), slot, n)
             self._prefill_pos[slot] = pos + n
             self._host_len[slot] = pos + n
+            if self.prefix_sharing:
+                # publish the newly completed prompt blocks, so concurrent
+                # and later requests share them
+                self.paged.register_prefix(slot, req.prompt, pos + n)
             self.n_chunks += 1
             self.n_chunk_tokens += n
             spent += n
+            tel = self.tel
+            if tel is not None:
+                tel.registry.histogram(
+                    "serving_prefill_chunk_seconds").observe(
+                        time.perf_counter() - tc0)
             if pos + n >= len(req.prompt):      # final chunk: first token
                 tok = self._sample_one(logits, req)
                 req.out_tokens.append(tok)
                 self._last_tok[slot] = tok
                 del self._prefill_pos[slot]
                 self._prefill_order.remove(slot)
+                if tel is not None:
+                    sub = self._submit_t.get(req.id)
+                    if sub is not None:
+                        tel.registry.histogram(
+                            "serving_ttft_seconds").observe(
+                                time.perf_counter() - sub)
+                    tel.registry.counter(
+                        "serving_tokens_generated_total").inc()
+                    if tel.requests is not None:
+                        tel.requests.transition(req.id, "decoding")
         return spent
 
     def _prefill_phase(self) -> int:
@@ -576,6 +835,12 @@ class GenerationEngine:
         if spent and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prefill_seconds += time.perf_counter() - t0
+        if spent and self.tel is not None:
+            if self.tel.tracer is not None:
+                self.tel.tracer.complete("engine", "prefill_phase",
+                                         "engine", t0,
+                                         args={"tokens": spent})
+            self._note_compiles("prefill")
         return spent
 
     # -- stepping ----------------------------------------------------------
@@ -620,12 +885,22 @@ class GenerationEngine:
             prefill_spent = 0
         active = self._decoding()
         if not active:
-            # prefill in flight with nothing to decode, or idle
-            return bool(self._prefill_pos) or self.scheduler.waiting > 0
+            if self._prefill_pos:
+                self._record_monitor()
+                self._sample_gauges()
+                return True         # prefill in flight, nothing to decode
+            return self.scheduler.waiting > 0
         if self.paged is not None:
             for s in active:   # grow page lists to cover this step's write
                 if self.slots[s] is not None:
                     self._ensure_with_pressure(s)
+                    if self.prefix_sharing:
+                        # copy-on-write safety for the decode write (a
+                        # no-op on the normal path: decode writes land past
+                        # the prompt, and only full prompt blocks share)
+                        self.cache = self.paged.make_writable(
+                            self.cache, s, self._host_len[s],
+                            self._host_len[s])
             active = self._decoding()
             # fault-before-gather: the decode step must never see a swapped
             # page of an active slot (normally a no-op: resume already
@@ -640,6 +915,8 @@ class GenerationEngine:
             self._spec_round(active)
             self.steps += 1
             self._compress_cold()
+            self._record_monitor()
+            self._sample_gauges()
             return True
         t0 = time.perf_counter()
         last = torch.tensor(self._last_tok, dtype=torch.int64,
@@ -658,11 +935,17 @@ class GenerationEngine:
         if prefill_spent:
             self.n_interleaved_steps += 1
         toks = greedy(logits)[:, 0].tolist()
-        self.decode_seconds += time.perf_counter() - t0
+        # sampled rows draw on the host's read of their logits
+        for s in active:
+            if self.slots[s].temperature > 0:
+                toks[s] = self._sample_one(logits[s:s + 1], self.slots[s])
+        now = time.perf_counter()
+        self.decode_seconds += now - t0
+        if self.tel is not None:
+            self._observe_decode(t0, now, len(active))
         for s in active:
             req = self.slots[s]
-            t = (toks[s] if req.temperature <= 0
-                 else self._sample_one(logits[s:s + 1], req))
+            t = toks[s]
             req.out_tokens.append(t)
             self._last_tok[s] = t
             self._host_len[s] += 1
@@ -670,7 +953,32 @@ class GenerationEngine:
                     len(req.prompt) + len(req.out_tokens) >= self.max_len):
                 self._finish(s, req)
         self._compress_cold()
+        self._record_monitor()
+        self._sample_gauges()
         return True
+
+    def _observe_decode(self, t0: float, now: float, n_active: int):
+        """Publish one decode step ``[t0, now]`` of ``n_active`` slots: one
+        timing feeds the step histogram and the straggler monitor (the
+        token read that ends the step waited for its device work)."""
+        tel = self.tel
+        dt = now - t0
+        tel.registry.histogram("serving_decode_step_seconds").observe(dt)
+        sstat = self._straggler.observe(dt, self.steps)
+        tel.registry.gauge("serving_decode_step_ewma_seconds").set(
+            self._straggler.ewma_seconds)
+        if sstat.is_straggler:
+            tel.registry.counter("serving_decode_straggler_total").inc()
+            if tel.tracer is not None:
+                tel.tracer.instant("engine", "decode_straggler",
+                                   args={"step": self.steps, "z": sstat.z,
+                                         "seconds": dt})
+        if tel.tracer is not None:
+            tel.tracer.complete("engine", "decode_step", "engine", t0, now,
+                                args={"step": self.steps,
+                                      "active": n_active})
+        tel.registry.counter("serving_tokens_generated_total").inc(n_active)
+        self._note_compiles("decode")
 
     def _compress_cold(self):
         """Entropy-code every active slot's full pages into the cold pool
@@ -681,11 +989,16 @@ class GenerationEngine:
                     self.cache = self.paged.compress_cold_pages(
                         self.cache, s, self._host_len[s])
 
-    def run(self, max_steps: int = 10_000) -> list:
+    def run(self, max_steps: int = 10_000, on_step=None) -> list:
         """Drain the queue; returns every submitted request that finished
-        (queued, admitted or preempted when ``run`` was called)."""
-        for _ in range(max_steps):
+        (queued, admitted or preempted when ``run`` was called).
+        ``on_step(step_index)``, when given, is called after every engine
+        step (``launch/serve.py`` hangs the periodic stats line and the
+        profiler window off it)."""
+        for i in range(max_steps):
             busy = self.step()
+            if on_step is not None:
+                on_step(i)
             if not busy and not any(s is not None for s in self.slots):
                 break
         done = [r for r in self._inflight if r.done]

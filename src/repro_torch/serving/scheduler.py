@@ -2,11 +2,13 @@
 
 The reference's ``serving/scheduler.py`` on one device, with its
 chunked-prefill pieces (the per-step prefill token budget, mid-prefill
-preemption records) and without prefix sharing.  Over the monolithic cache
-(``paged`` None) every slot holds a whole ``max_len`` row, so admission is
-plain priority order and nothing is preempted.  With the swap tier (``kvcache/swap.py``) the page pool becomes a
-cache over a larger *virtual* capacity — device pages + host swap — and
-this module is the policy layer over it:
+preemption records) and prefix sharing (a matched prefix costs no prefill
+budget and no pages at admission).  Over the monolithic cache (``paged``
+None) every slot holds a whole ``max_len`` row, so admission is plain
+priority order and nothing is preempted.  With the swap tier
+(``kvcache/swap.py``) the page pool becomes a cache over a larger
+*virtual* capacity — device pages + host swap — and this module is the
+policy layer over it:
 
   * **priority classes** — ``Request.priority`` (higher runs first);
     FIFO within a class, so priority 0 everywhere gives plain FIFO
@@ -74,6 +76,7 @@ class Scheduler:
     paged: object = None
     preemption: bool = True
     chunk_tokens: int = 0      # engine's prefill chunk (0 = whole-prompt)
+    telemetry: object = None   # serving.telemetry.Telemetry (engine-set)
     _classes: dict = field(default_factory=dict)   # priority -> deque
     _clock: int = 0
     _last_used: dict = field(default_factory=dict)  # slot -> stamp
@@ -82,12 +85,21 @@ class Scheduler:
 
     # -- queue -------------------------------------------------------------
 
+    def _note_depth(self) -> None:
+        # gauge on every enqueue / dequeue (not once an engine step) so its
+        # peak catches a transient depth inside an admission pass
+        if self.telemetry is not None:
+            self.telemetry.registry.gauge("serving_queue_depth").set(
+                self.waiting)
+
     def submit(self, req) -> None:
         self._classes.setdefault(req.priority, deque()).append(req)
+        self._note_depth()
 
     def requeue(self, state: Preempted) -> None:
         """Preempted work resumes before new work of its class."""
         self._classes.setdefault(state.priority, deque()).appendleft(state)
+        self._note_depth()
 
     @property
     def waiting(self) -> int:
@@ -129,6 +141,10 @@ class Scheduler:
         decode-phase resume)."""
         if isinstance(item, Preempted):
             return item.prefill_tokens_left
+        if self.paged is not None and self.paged.prefix is not None:
+            # a prefix-shared admission skips the matched positions: only
+            # the unmatched suffix costs prefill budget (and TTFT)
+            return len(item.prompt) - self.paged.match_prefix(item.prompt)
         return len(item.prompt)
 
     def admission_grant(self, req) -> int:
@@ -137,22 +153,36 @@ class Scheduler:
         live preemption path, the first chunk's pages (later chunks grow
         the slot, and pressure resolves by preemption); otherwise the
         whole-prompt grant, since a first-chunk grant with no way to evict
-        could wedge a later chunk."""
+        could wedge a later chunk.
+
+        With prefix sharing the matched blocks are not part of the grant:
+        ``admit_shared`` increfs them instead of allocating, so the grant
+        covers the unmatched suffix only."""
+        matched = 0
+        if self.paged is not None and self.paged.prefix is not None:
+            matched = self.paged.match_prefix(req.prompt)
         if self.chunk_tokens and self._can_preempt():
             return self.paged.pages_for_prefix(
-                min(self.chunk_tokens, len(req.prompt)))
-        return self.paged.pages_needed(len(req.prompt))
+                min(self.chunk_tokens, len(req.prompt) - matched))
+        return (self.paged.pages_needed(len(req.prompt))
+                - matched // self.paged.page_size)
 
     def _need_now(self, item) -> int:
-        """Raw pages the item needs resident to start on a slot."""
+        """Raw pages the item needs resident to start on a slot: its grant,
+        and for a prefix-shared admission the pages its match takes from
+        the headroom ``_fits`` counts (``PagedKVCache.match_page_cost``)."""
         if isinstance(item, Preempted):
             return len(item.pages)      # conservative: cold slots may help
-        return self.admission_grant(item)
+        return (self.admission_grant(item)
+                + self.paged.match_page_cost(item.prompt))
 
     def _fits(self, item) -> bool:
         """Admissible *now and for its whole lifetime*: the current need
-        must fit the free list, and the worst-case working set the pool."""
-        if self._need_now(item) > self.paged.free_pages:
+        must fit the free list, and the worst-case working set the pool.
+        Index-only prefix pages (refcount 1) are reclaimed on demand by
+        every allocation site, so they count as available."""
+        avail = self.paged.free_pages + self.paged.reclaimable_pages()
+        if self._need_now(item) > avail:
             return False
         req = item.req if isinstance(item, Preempted) else item
         return self._ever_fits(req)
@@ -183,7 +213,9 @@ class Scheduler:
         if self.paged is None:
             for p in self._priorities():
                 self.touch(slot)
-                return self._classes[p].popleft()
+                item = self._classes[p].popleft()
+                self._note_depth()
+                return item
             return None
         for p in self._priorities():
             q = self._classes[p]
@@ -197,6 +229,7 @@ class Scheduler:
                 if self._fits(item):
                     del q[i]
                     self.touch(slot)
+                    self._note_depth()
                     return item
                 break               # class head blocks in-class backfill
         return None

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve
 from .sampler import _mix64, key_generator, request_key, residual_probs, \
     sample_logits
 
@@ -64,7 +65,7 @@ def propose(q_logits, rng0: int, req_id: int, position: int,
 
 
 def verify(p_logits, q_logits, proposals, *, rng0: int, req_id: int,
-           pos0: int, temperature: float, device="cpu"):
+           pos0: int, temperature: float, device="cuda"):
     """Exact rejection sampling over one verify window.
 
     Args:
@@ -78,12 +79,14 @@ def verify(p_logits, q_logits, proposals, *, rng0: int, req_id: int,
       temperature: the request's; ``<= 0`` is the exact greedy path (numpy
         argmax comparisons, no randomness).
       device: where the draws run (the engine's: the bonus token then
-        draws exactly as plain decode does there).
+        draws exactly as plain decode does there); the card unless the
+        caller asks for the CPU.
 
     Returns ``(tokens, n_accepted)``: the accepted prefix of the proposals
     and one more token, the residual draw at the first rejection or the
     bonus token after a fully accepted window; ``len(tokens) ==
     n_accepted + 1``."""
+    dev = resolve(device)
     n = len(proposals)
     p_logits = np.asarray(p_logits, np.float32)
     if temperature <= 0:
@@ -95,7 +98,6 @@ def verify(p_logits, q_logits, proposals, *, rng0: int, req_id: int,
             out.append(int(t))
         return out + [int(np.argmax(p_logits[n]))], n
 
-    dev = torch.device(device)
     p_log = torch.from_numpy(p_logits).to(dev)
     if n:
         p = torch.softmax(p_log / temperature, dim=-1)

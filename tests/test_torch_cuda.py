@@ -538,3 +538,153 @@ def test_verify_chunk_card_vs_cpu(card):
     for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
         assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
                 else a == b)
+
+
+# --------------------------------------------------------------------------
+# prefix sharing on the card
+# --------------------------------------------------------------------------
+
+def _serve_stream(params, cfg, dev, reqs, serial=False, **extra):
+    """Serve a stream with prefix sharing (``serial``: each request is
+    admitted once the previous one finished) -> (tokens, engine)."""
+    from repro_torch.serving import EngineConfig, GenerationEngine
+    eng = GenerationEngine(params, cfg, config=EngineConfig(
+        max_len=64, page_size=8, prefill_chunk=8, prefix_sharing=True,
+        **extra), device=dev)
+    for r in reqs:
+        eng.submit(r)
+        if serial:
+            eng.run()
+    eng.run()
+    assert all(r.done for r in reqs)
+    return [r.out_tokens for r in reqs], eng
+
+
+def _chat(Request):
+    prefix = list(range(1, 33))                 # 32 tokens = 4 pages of 8
+    return [Request(prompt=prefix + [40 + i] * (1 + i % 3),
+                    max_new_tokens=4, id=31_000 + i) for i in range(4)]
+
+
+def _retire(Request):
+    """tests/test_prefix_sharing.py's retire-and-fault stream: the idle
+    prefix retires to swap for the long prompt and faults back for the
+    third request."""
+    prefix = list(range(1, 17))
+    return [Request(prompt=prefix + [40], max_new_tokens=4, id=32_000),
+            Request(prompt=[90 + i for i in range(30)], max_new_tokens=8,
+                    id=32_001),
+            Request(prompt=prefix + [41], max_new_tokens=4, id=32_002)]
+
+
+def test_prefix_sharing_card_vs_cpu(card):
+    """The small f32 model serving a shared-prefix stream: greedy tokens on
+    the card identical to the CPU's, with prefix hits and no CoW split;
+    and a prefix retired to swap under a small raw pool, faulted back
+    through the page-decode kernel, with the same tokens as the CPU's."""
+    from repro_torch.kvcache import kernels as kv
+    from repro_torch.serving import Request
+    small, p_cpu, p_gpu = _small_model()
+    runs = {dev: _serve_stream(p, small, dev, _chat(Request), max_batch=3)
+            for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+    (cpu, e_cpu), (gpu, e_gpu) = runs["cpu"], runs["cuda"]
+    assert gpu == cpu
+    assert e_gpu.n_chunk_tokens == e_cpu.n_chunk_tokens < sum(
+        len(r.prompt) for r in _chat(Request))
+    assert e_gpu.paged.n_cow_splits == 0 and len(e_gpu.paged.prefix) >= 4
+    before = kv.run.launches_by_path["fault"]
+    tight = dict(max_batch=2, n_pages=7, swap_bytes=-1)
+    g2, e2 = _serve_stream(p_gpu, small, "cuda", _retire(Request), True,
+                           **tight)
+    c2, _ = _serve_stream(p_cpu, small, "cpu", _retire(Request), True,
+                          **tight)
+    assert g2 == c2
+    assert e2.paged.n_prefix_retired > 0
+    assert kv.run.launches_by_path["fault"] > before
+
+
+def _shared_pair(dev):
+    """A card-or-CPU allocator with a 17-token prompt admitted to slots 0
+    and 1 (blocks 0-1 shared through the index), random K/V in the pools."""
+    from repro_torch.configs import get, smoke_variant
+    from repro_torch.kvcache import SwapStore, paged
+    cfg = smoke_variant(get("qwen3-8b"))
+    pkv = paged.PagedKVCache(cfg, 2, 32, dtype=torch.float32, device=dev,
+                             page_size=8, n_pages=10)
+    pkv.enable_prefix_sharing()
+    pkv.attach_swap(SwapStore())
+    cache = pkv.init_cache()
+    gen = torch.Generator().manual_seed(5)
+    for kn in ("k_pool", "v_pool"):
+        pool = cache["units"]["pos0"][kn]
+        pool.copy_(torch.randn(pool.shape, generator=gen).to(dev))
+    prompt = list(range(1, 18))
+    for s, extra in ((0, 3), (1, 1)):
+        cache, _ = pkv.admit_shared(cache, s, prompt, extra)
+        pkv.register_prefix(s, prompt, 16)
+    return pkv, cache, prompt
+
+
+def test_cow_split_on_card(card):
+    """A write window over a shared page splits it on the card: the new
+    page equals the source in every layer's K and V, a chunk-like write
+    into the new page leaves the source (still gathered by slot 0)
+    untouched, and the allocator state equals the CPU's."""
+    from repro_torch.kvcache import paged
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pkv, cache, _ = _shared_pair(dev)
+        src = pkv._slot_pages[1][1]
+        cache = pkv.make_writable(cache, 1, 10, 12)
+        new = pkv._slot_pages[1][1]
+        pools = cache["units"]["pos0"]
+        for kn in ("k_pool", "v_pool"):
+            assert torch.equal(pools[kn][:, new], pools[kn][:, src])
+        before = pools["k_pool"][:, src].clone()
+        kv = torch.full((1, pools["k_pool"].shape[2], 3,
+                         pools["k_pool"].shape[4]), 7.0, device=dev)
+        for u in range(pools["k_pool"].shape[0]):
+            paged.page_write_chunk(pools["k_pool"][u],
+                                   cache["page_table"][1],
+                                   torch.arange(10, 13, device=dev), kv, 3)
+        assert torch.equal(pools["k_pool"][:, src], before)
+        assert bool((pools["k_pool"][:, new, :, 2:5] == 7.0).all())
+        assert pkv.n_cow_splits == 1 and pkv._ref[src] == 2
+        out[dev] = (pkv._slot_pages, dict(pkv._ref), list(pkv._free),
+                    cache["page_table"].cpu(),
+                    {kn: pools[kn].cpu() for kn in ("k_pool", "v_pool")})
+    for a, b in zip(out["cuda"], out["cpu"]):
+        if isinstance(a, dict) and isinstance(next(iter(a.values())),
+                                              torch.Tensor):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+
+
+def test_prefix_fault_through_page_decode_bit_exact(card):
+    """An index-only prefix page retired to swap (host encode) and faulted
+    back on a later match decodes through the page-decode kernel on the
+    fault path into a page bit-identical to the one retired, in every
+    layer's K and V."""
+    from repro_torch.kvcache import kernels as kv
+    pkv, cache, prompt = _shared_pair("cuda")
+    pools = cache["units"]["pos0"]
+    pids = pkv._slot_pages[0][:2]
+    kept = {kn: pools[kn][:, pids].clone() for kn in ("k_pool", "v_pool")}
+    for s in (0, 1):
+        cache = pkv.release(cache, s)
+    cache = pkv._reclaim_prefix(cache, pkv.n_pages)
+    assert pkv.n_prefix_retired == 2 and pkv.free_pages == pkv.n_pages - 1
+    for kn in ("k_pool", "v_pool"):           # the old pages are scribbled
+        pools[kn][:, pids] = -1.0
+    before = kv.run.launches_by_path["fault"]
+    cache, matched = pkv.admit_shared(cache, 0, prompt, 1)
+    torch.cuda.synchronize()
+    assert matched == 16
+    assert kv.run.launches_by_path["fault"] == before + 1
+    back = pkv._slot_pages[0][:2]
+    for kn in ("k_pool", "v_pool"):
+        got = pools[kn][:, back].view(torch.int32)
+        assert torch.equal(got, kept[kn].view(torch.int32)), kn

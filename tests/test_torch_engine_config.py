@@ -2,9 +2,10 @@
 the gating matrix (resolved fields, warning texts in lenient mode, one
 error listing every problem under ``strict=True``), ``from_args`` and the
 engine built from it.  The reference's ``tests/test_engine_config.py``
-cases that involve no mesh, no prefix sharing and no legacy keyword
-arguments (none of which the port serves yet), each also held against
-the reference's own ``EngineConfig`` on the same request."""
+cases that involve no mesh and no legacy keyword arguments (neither of
+which the port serves), each also held against the reference's own
+``EngineConfig`` on the same request; the prefix-sharing rows of the
+matrix too."""
 import dataclasses
 import warnings
 from types import SimpleNamespace
@@ -92,6 +93,12 @@ _MATRIX = {
     "spec-vocab": (dict(), {"vocab_size": 1024}),
     "everything-wrong": (dict(cache_mode="monolithic", prefill_chunk=8),
                          {"vocab_size": 1024}),
+    "prefix": (dict(prefix_sharing=True, prefill_chunk=8), None),
+    "prefix-no-chunk": (dict(prefix_sharing=True), None),
+    "prefix-monolithic": (dict(prefix_sharing=True, prefill_chunk=8,
+                               cache_mode="monolithic"), None),
+    "prefix-spec": (dict(prefix_sharing=True, prefill_chunk=8), {}),
+    "prefix-spec-no-chunk": (dict(prefix_sharing=True), {}),
 }
 
 
@@ -109,7 +116,8 @@ def test_matrix_resolves_and_warns_as_the_reference(arch, row):
     got, got_w = _both(EngineConfig, cfg, **port_kw)
     want, want_w = _both(RefEngineConfig, ref_cfg, **ref_kw)
     assert got_w == want_w
-    for f in ("cache_mode", "prefill_chunk", "prefill_budget", "spec_k"):
+    for f in ("cache_mode", "prefill_chunk", "prefill_budget", "spec_k",
+              "prefix_sharing"):
         assert getattr(got, f) == getattr(want, f), f
     assert (got.draft_cfg is None) == (want.draft_cfg is None)
     assert (got.draft_params is None) == (want.draft_params is None)
@@ -195,6 +203,11 @@ def test_arch_driven_resolution_is_silent():
     ("mesh", object()), ("prefix_sharing", True), ("telemetry", object()),
     ("kv_monitor", object())])
 def test_unported_fields_still_refused(field, value):
+    """``mesh`` is still refused; prefix sharing and the observability
+    objects are served."""
+    if field != "mesh":
+        assert getattr(EngineConfig(**{field: value}), field) is value
+        return
     with pytest.raises(EngineConfigError, match="not yet ported"):
         EngineConfig(**{field: value})
 
@@ -229,7 +242,7 @@ def test_from_args_mapping_matches_reference(arch, cache):
     want = RefEngineConfig.from_args(_args(cache=cache), ref_cfg)
     for f in ("max_batch", "max_len", "rng_seed", "cache_mode", "page_size",
               "n_pages", "compress_cold", "swap_bytes", "preemption",
-              "prefill_chunk", "prefill_budget", "spec_k"):
+              "prefill_chunk", "prefill_budget", "prefix_sharing", "spec_k"):
         assert getattr(got, f) == getattr(want, f), f
 
 

@@ -282,7 +282,7 @@ def test_serve_import_pulls_in_no_jax():
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    from repro_torch.serving import GenerationEngine
+    from repro_torch.serving import GenerationEngine, spec
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = smoke_variant(get("qwen3-8b"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -294,6 +294,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         GenerationEngine(params, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spec.verify(np.zeros((1, 4)), None, [], rng0=0, req_id=0, pos0=0,
+                    temperature=0.0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -172,9 +172,10 @@ def test_allocator_state_matches_reference():
     ("telemetry", object()), ("spec_k", 2)])
 def test_unported_engine_options_raise(field, value):
     """Every option of the reference that the port does not serve yet
-    raises; the monolithic cache and the speculative fields (``cache_mode``,
-    ``draft_cfg``, ``spec_k``), ported since, are accepted."""
-    if field in ("cache_mode", "draft_cfg", "spec_k"):
+    (``mesh``) raises; the monolithic cache, the speculative fields, prefix
+    sharing and telemetry (``cache_mode``, ``draft_cfg``, ``spec_k``,
+    ``prefix_sharing``, ``telemetry``), ported since, are accepted."""
+    if field != "mesh":
         assert getattr(EngineConfig(**{field: value}), field) == value
         return
     with pytest.raises(EngineConfigError, match="not yet ported"):

@@ -318,7 +318,7 @@ def test_greedy_verify_equals_reference(seed):
         props = arg[:cut] + [(a + 1 + seed) % V for a in arg[cut:n]]
         for m in range(n + 1):
             got = spec.verify(p[:m + 1], q[:m], props[:m], rng0=0, req_id=1,
-                              pos0=0, temperature=0.0)
+                              pos0=0, temperature=0.0, device="cpu")
             want = ref_spec.verify(p[:m + 1], q[:m], props[:m],
                                    rng0=jax.random.PRNGKey(0), req_id=1,
                                    pos0=0, temperature=0.0)
@@ -349,7 +349,7 @@ def test_verify_marginal_matches_target_chi_square():
         t = spec.propose(torch.from_numpy(q_log)[None], rng0, trial, 9,
                          temperature=T)
         out, m = spec.verify(p_log, q_log, [t], rng0=rng0, req_id=trial,
-                             pos0=9, temperature=T)
+                             pos0=9, temperature=T, device="cpu")
         counts[out[0]] += 1
         accepted += m
     crit = 20.52        # chi-square 0.999 quantile, dof 5
@@ -382,7 +382,7 @@ def test_verify_key_stream_matches_plain_decode_when_q_equals_p():
                                   temperature=T) for i in range(n)]
             out, m = spec.verify(rows[pos:pos + n + 1], rows[pos:pos + n],
                                  props, rng0=rng0, req_id=rid, pos0=pos,
-                                 temperature=T)
+                                 temperature=T, device="cpu")
             assert m == n
             got.extend(out)
             pos += len(out)
@@ -406,14 +406,15 @@ def test_rejection_draw_invariant_to_window_offset():
                              rid, 7, temperature=T)
         p_log = np.stack([p_row, rng.normal(size=V).astype(np.float32)])
         out_a, m_a = spec.verify(p_log, q_row[None], [prop7], rng0=rng0,
-                                 req_id=rid, pos0=7, temperature=T)
+                                 req_id=rid, pos0=7, temperature=T,
+                                 device="cpu")
         props = [spec.propose(torch.from_numpy(shared[i])[None, None], rng0,
                               rid, 5 + i, temperature=T) for i in range(2)]
         props.append(prop7)
         out_b, m_b = spec.verify(np.concatenate([shared, p_log]),
                                  np.stack([shared[0], shared[1], q_row]),
                                  props, rng0=rng0, req_id=rid, pos0=5,
-                                 temperature=T)
+                                 temperature=T, device="cpu")
         assert m_b >= 2, "q == p must accept"
         assert out_b[2] == out_a[0] and m_b - 2 == m_a, (out_a, out_b)
         hits += m_a == 0
