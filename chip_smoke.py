@@ -16,12 +16,14 @@ Phases, each failing loudly (non-zero exit, no result line):
      one-symbol and a near-uniform codebook and a container holding all
      256 fp8 codes (NaNs compared by isnan); timed on the card (CUDA
      events): the bf16 instance beside the fp8-bits instance followed by
-     ``.to(bf16)``;
+     ``.to(bf16)``; and at one layer's expert container of
+     moonshot-v1-16b-a3b, (64, 2048, 1408);
   3. the flash-attention kernel (bf16 and fp16 on the tensor cores)
      against its plain version in bf16 (B=1, Hq=32, Hkv=8, D=128, causal,
      T in {13, 451, 512, 2048}) and fp16 (T=2048), with the time of
      ``F.scaled_dot_product_attention`` as a yardstick (TFLOP/s and the
-     factor against it printed; timed after L2 flushes);
+     factor against it printed; timed after L2 flushes); and at
+     moonshot's heads (Hq = Hkv = 16, group size 1, T in {451, 2048});
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
@@ -29,8 +31,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      f32 and fp8 pages, a batch of edge pages (one symbol, all 256
      exponents, mixed strides zero-padded to one, never-written slots),
      and 8 bf16 pages of 128 positions (8 x 128 x 128, the kernel's
-     streamed instance: too large to stage in shared memory), timed on
-     the card;
+     streamed instance: too large to stage in shared memory), and 48
+     bf16 pages at moonshot's page shape (16 x 16 x 128), with the
+     instance the wrapper picks for it, timed on the card;
   3c. the fused decode + matrix product kernel through its op
      (``ops.fused_decode_matmul``; no serve path calls it) at qwen3-8b's
      wq / wi_gate / wo_mlp shapes in the tiled ECF8 layout, M = 4 and 512,
@@ -47,7 +50,12 @@ Phases, each failing loudly (non-zero exit, no result line):
      prefill; served by the engine on the card, its greedy tokens are the
      same over the monolithic cache as over the paged one, with a draft
      model (k = 1 and 4) as without, and with a draft under page pressure
-     (preempting, swapping) as without pressure;
+     (preempting, swapping) as without pressure; moonshot's smoke variant
+     at capacity factor 1.25 (tokens dropped): prefill and paged-
+     compressed decode logits on the card against the CPU, and its MoE
+     layer bit-equal over two card runs (f32 and bf16); the smoke
+     variants of granite-20b (GELU, one KV head) and nemotron-4-15b
+     (squared ReLU): prefill logits on the card against the CPU;
   5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
      compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
@@ -96,6 +104,16 @@ Phases, each failing loudly (non-zero exit, no result line):
      on: tokens IDENTICAL to 11a's, a prefix retired to swap and faulted
      back through the page-decode kernel, preemptions resumed, the pools
      drained to the prefix index's pages.
+  12. moonshot-v1-16b-a3b (64 experts top-6, 2 shared) at full width and
+     depth (48 layers), its trees streamed a layer at a
+     time by ``launch/serve.py::build_params``, phase 5's prompt rule:
+     12a the ECF8 tree alone on the card, paged (the weight decode and
+     flash prefill launched, every decode writing bf16); 12c the same
+     tree under phase 7's pools and swap store (preempting and resuming,
+     the page-decode kernel launched from gather and fault, tokens
+     IDENTICAL to 12a's); 12b the fp8 baseline tree alone on the card
+     (tokens IDENTICAL to 12a's); weights, step, tok/s, prefill and the
+     peak device memory with each tree resident printed.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -123,6 +142,7 @@ CHUNK = 128             # phase 8's prefill chunk and per-step token budget
 SPEC_K = 4              # phase 10's drafted tokens a round
 SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
+MOE_ARCH = "moonshot-v1-16b-a3b"    # phase 12's model
 
 
 def fail(msg: str):
@@ -269,12 +289,13 @@ def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
         f"plain decode + cast (NaNs by isnan)")
 
 
-def check_flash(torch, flash_fwd, T, gen, flush, dtype=None):
-    """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal) ->
-    result dict.  Timed after L2 flushes: a window of back-to-back calls
-    alone would time the host's issue of each call (~20 us) wherever the
-    kernel is shorter."""
-    B, Hq, Hkv, D = 1, 32, 8, 128
+def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8)):
+    """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal, ``heads``
+    = (Hq, Hkv), qwen3-8b's by default) -> result dict.  Timed after L2
+    flushes: a window of back-to-back calls alone would time the host's
+    issue of each call (~20 us) wherever the kernel is shorter."""
+    B, D = 1, 128
+    Hq, Hkv = heads
     dev = "cuda"
     dtype = dtype or torch.bfloat16
 
@@ -307,7 +328,8 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None):
     bound_ops = flops / H100_BF16_FLOPS * 1e3
     bound_bytes = moved / H100_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
-    log(f"flash_fwd T={T} {str(dtype).split('.')[-1]}: max_abs_err "
+    log(f"flash_fwd T={T} Hq={Hq} Hkv={Hkv} {str(dtype).split('.')[-1]}: "
+        f"max_abs_err "
         f"{err:.3e} (tol {FLASH_TOL}), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (kernel / sdpa "
         f"{ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
@@ -529,6 +551,60 @@ def small_serving(torch, serving, small, params, dparams):
     eng = run("spec k=4, pressure", spec_k=4, n_pages=10, swap_bytes=-1,
               **spec)
     return runs, eng
+
+
+def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
+    """Phase 4's MoE and MLP-type models (ECF8 at the smoke threshold, f32):
+    the card's logits against the CPU's, and the MoE layer bit-equal over
+    two runs on the card."""
+    toks = torch.randint(0, 512, (2, 37), generator=torch.Generator()
+                         .manual_seed(seed))
+
+    def small(arch, **kw):
+        # the smoke variant with heads of 64 (the flash kernel's smallest)
+        return dataclasses.replace(smoke_variant(get(arch)), head_dim=64,
+                                   **kw)
+
+    for arch, cfg in ((MOE_ARCH, small(MOE_ARCH, capacity_factor=1.25)),
+                      ("granite-20b", small("granite-20b")),
+                      ("nemotron-4-15b", small("nemotron-4-15b"))):
+        p_cpu, _ = store.compress_tree(M.init_params(cfg, seed, "cpu"),
+                                       min_elems=4096, out_dtype="float32")
+        p_gpu = to_device(p_cpu, "cuda", store)
+        l_cpu, _ = M.prefill(p_cpu, cfg, toks, max_len=64)
+        l_gpu, _ = M.prefill(p_gpu, cfg, toks.cuda(), max_len=64)
+        err = float((l_gpu.cpu() - l_cpu).abs().max())
+        if not bool(torch.isfinite(l_gpu).all()) or err > 1e-4:
+            fail(f"small f32 {arch}: prefill card vs CPU max |dlogit| = "
+                 f"{err}")
+        traits = f"{cfg.mlp_type}, {cfg.n_kv_heads} KV heads"
+        if cfg.n_experts:
+            traits += (f", {cfg.n_experts} experts top-{cfg.top_k}, "
+                       f"capacity factor {cfg.capacity_factor}")
+        line = (f"small f32 {arch} ({traits}): prefill logits card vs CPU "
+                f"max |diff| {err:.2e}")
+        if cfg.n_experts:
+            err = check_small_paged(torch, M, paged, cfg, p_cpu, p_gpu, seed)
+            if err > 1e-4:
+                fail(f"small f32 {arch}: paged-compressed decode card vs "
+                     f"CPU max |dlogit| = {err}")
+            line += f", paged-compressed decode {err:.2e}"
+            T = toks.numel()
+            cap = max(8, int(T * cfg.top_k * cfg.capacity_factor
+                             / cfg.n_experts + 0.999))
+            x = torch.randn((2, 37, cfg.d_model), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(seed))
+            layer = M._layer(p_gpu["units"]["pos0"], 0)["moe"]
+            for dt in (torch.float32, torch.bfloat16):
+                y1, _ = moe.moe_apply(layer, x.to(dt), cfg, dtype=dt)
+                y2, _ = moe.moe_apply(layer, x.to(dt), cfg, dtype=dt)
+                if not torch.equal(y1, y2):
+                    fail(f"small {arch}: two MoE layer runs on the card "
+                         f"differ in {dt}")
+            line += (f"; the MoE layer (B*T = {T}, capacity {cap}) "
+                     f"bit-equal over two card runs in f32 and bf16")
+        log(line + " (tol 1e-4)")
 
 
 def to_device(tree, dev, store):
@@ -754,6 +830,139 @@ def prefix_phase(torch, np, serve, EngineConfig, telemetry, trace_export,
     return out, {"11a": l_on, "11b": l_b}
 
 
+def moe_phase(torch, serve, EngineConfig, kernels, cfg, seed):
+    """Phase 12 (module docstring) on ``cfg`` -> (measurements, launches of
+    12a, 12b and 12c).  ``kernels`` maps name -> wrapper (``run``) whose
+    launch counts the phase reads."""
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    gib = 2 ** 30
+    log(f"phase 12: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.n_experts} "
+        f"experts top-{cfg.top_k} of width {cfg.moe_d_ff}, "
+        f"{cfg.n_shared_experts} shared, capacity factor "
+        f"{cfg.capacity_factor}, vocab {cfg.vocab_size}, tied embeddings "
+        f"{cfg.tie_embeddings}, {cfg.dtype}), {cfg.n_layers} layers")
+    prompts = serve.make_prompts(cfg, 8, seed, lo=64, hi=513)
+    base_mem = torch.cuda.memory_allocated()
+
+    def reset():
+        b1.launches = b3.launches = b2.launches = b4.launches = 0
+        b1.launches_by_dtype.clear()
+        b3.launches_by_path.clear()
+
+    def run(tag, params, **extra):
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        done, eng, dt = serve.serve(params, cfg, EngineConfig(
+            max_batch=4, max_len=1024, **extra), prompts, 32)
+        if not all(r.done and len(r.out_tokens) == 32 for r in done) or any(
+                not 0 <= x < cfg.vocab_size for r in done
+                for x in r.out_tokens):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+        launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                    "kv_page_decode": b3.launches,
+                    "fused_decode_matmul": b2.launches,
+                    "kv_page_decode_by_path": dict(b3.launches_by_path),
+                    "ecf8_decode_by_dtype": {str(k): v for k, v in
+                                             b1.launches_by_dtype.items()}}
+        n = sum(len(r.out_tokens) for r in done)
+        m = dict(step_ms=eng.decode_seconds / eng.steps * 1e3,
+                 steps=eng.steps, tok_s=n / dt, wall_s=dt,
+                 prefill_s=eng.prefill_seconds,
+                 peak_gib=torch.cuda.max_memory_allocated() / gib)
+        log(f"phase {tag}: {n} tokens in {dt:.2f}s, {m['tok_s']:.1f} tok/s, "
+            f"{eng.steps} decode steps at {m['step_ms']:.1f} ms/step, "
+            f"prefill {eng.prefill_seconds:.2f}s, peak device memory "
+            f"{m['peak_gib']:.2f} GiB; launches {launches}")
+        if launches["fused_decode_matmul"]:
+            fail(f"phase {tag} launched fused_decode_matmul: {launches}")
+        if set(b1.launches_by_dtype) - {torch.bfloat16}:
+            fail(f"phase {tag}: a weight was decoded to another dtype than "
+                 f"bf16: {launches}")
+        return done, eng, m, launches
+
+    # 12a: the ECF8 tree alone on the card, built layer by layer
+    torch.cuda.reset_peak_memory_stats()
+    params_c, _, report, enc_s = serve.build_params(
+        cfg, seed, "tpu", device="cuda", baseline=False)
+    fp8_b, ecf8_b = report["fp8_bytes"], report["compressed_bytes"]
+    saved = 100 * (1 - ecf8_b / fp8_b)
+    built = dict(encode_s=enc_s, fp8_mb=fp8_b / 1e6, ecf8_mb=ecf8_b / 1e6,
+                 saved_pct=saved,
+                 build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                 ecf8_resident_gib=(torch.cuda.memory_allocated()
+                                    - base_mem) / gib)
+    log(f"phase 12 weights: {report['n_compressed']} tensors, fp8 "
+        f"{fp8_b / 1e6:.1f} MB -> ECF8 {ecf8_b / 1e6:.1f} MB ({saved:.2f}% "
+        f"saved), streamed build and encode {enc_s:.1f}s, build peak "
+        f"{built['build_peak_gib']:.2f} GiB, ECF8 tree resident "
+        f"{built['ecf8_resident_gib']:.2f} GiB (device memory before the "
+        f"phase {base_mem / gib:.2f} GiB)")
+    d12a, e12a, m12a, l12a = run("12a (ECF8, paged)", params_c)
+    per_pass = 11 * cfg.n_layers + 2
+    if not (l12a["ecf8_decode"] and l12a["flash_fwd"]):
+        fail(f"phase 12a: a kernel of the MoE path never launched: {l12a}")
+    log(f"phase 12a: ecf8_decode {per_pass} launches a pass (11 x "
+        f"{cfg.n_layers} + 2: 4 attention, router, 3 expert and 3 shared "
+        f"weights a layer, the tied embedding twice), flash_fwd "
+        f"{cfg.n_layers} a whole-prompt prefill")
+
+    # 12c: undersized pools and the swap tier, the same ECF8 tree
+    d12c, e12c, m12c, l12c = run(
+        "12c (ECF8, paged-compressed, phase 7's pools + swap)", params_c,
+        compress_cold=True, n_pages=SWAP_N_PAGES,
+        n_cold_slots=SWAP_N_COLD_SLOTS, swap_bytes=-1)
+    pc, sched = e12c.paged, e12c.scheduler
+    st = pc.swap.stats()
+    for line in serve.cache_report(e12c):
+        log(f"  {line}")
+    by_path = l12c["kv_page_decode_by_path"]
+    if by_path.get("gather", 0) <= 0 or by_path.get("fault", 0) <= 0:
+        fail(f"phase 12c: kv_page_decode did not launch from both gather "
+             f"and fault: {by_path}")
+    if not (sched.n_preempted > 0 and sched.n_resumed > 0):
+        fail(f"phase 12c did not preempt and resume: {sched.counters()}")
+    if (st["swap_in_bytes_total"] != st["swap_out_bytes_total"]
+            or len(pc.swap) or pc._slot_pages
+            or pc.free_pages != pc.n_pages - 1 or pc._cold_bytes):
+        fail(f"phase 12c did not drain: {pc.stats()}")
+    _, bad = first_divergence(d12a, d12c)
+    if bad:
+        fail(f"phase 12c tokens differ from 12a's (request, first token "
+             f"index): {bad}")
+    m12c.update(preempted=sched.n_preempted, resumed=sched.n_resumed,
+                encode_page_s=pc.encode_seconds)
+    log(f"lossless: 12c greedy tokens IDENTICAL to 12a's under phase 7's "
+        f"pools and swap ({sched.n_preempted} preemptions, "
+        f"{sched.n_resumed} resumes)")
+    del params_c, e12a, e12c, pc
+    torch.cuda.empty_cache()
+
+    # 12b: the fp8 baseline tree alone on the card
+    torch.cuda.reset_peak_memory_stats()
+    params_fp8, _, _, fp8_s = serve.build_params(cfg, seed, "none",
+                                                 device="cuda")
+    built["fp8_resident_gib"] = (torch.cuda.memory_allocated()
+                                 - base_mem) / gib
+    log(f"phase 12b: fp8 baseline tree built in {fp8_s:.1f}s, resident "
+        f"{built['fp8_resident_gib']:.2f} GiB")
+    d12b, e12b, m12b, l12b = run("12b (fp8 baseline, paged)", params_fp8)
+    _, bad = first_divergence(d12a, d12b)
+    if bad:
+        fail(f"phase 12b: ECF8 tokens differ from the fp8 baseline's "
+             f"(request, first token index): {bad}")
+    log(f"lossless: moonshot ECF8 greedy tokens IDENTICAL to the fp8 "
+        f"baseline's; decode step {m12a['step_ms']:.1f} ms (ECF8) against "
+        f"{m12b['step_ms']:.1f} ms (fp8), peak device memory "
+        f"{m12a['peak_gib']:.2f} GiB with the ECF8 tree resident against "
+        f"{m12b['peak_gib']:.2f} GiB with the fp8 tree")
+    del params_fp8, e12b
+    torch.cuda.empty_cache()
+    return (dict(built=built, **{"12a": m12a, "12b": m12b, "12c": m12c}),
+            {"12a": l12a, "12b": l12b, "12c": l12c})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=36,
@@ -771,7 +980,7 @@ def main(argv=None):
         fail(f"{ROOT}/src/repro_torch not found: run from a repository "
              f"checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get
+    from repro_torch.configs import get, smoke_variant
     from repro_torch.core import fp8, store, tpu_format
     from repro_torch.kernels import build, ecf8_decode, flash_fwd, ops
     from repro_torch.kernels import fused_decode_matmul as fused
@@ -779,6 +988,7 @@ def main(argv=None):
     from repro_torch.kvcache import kernels as kv_page
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch import serving
     from repro_torch.serving import EngineConfig
     from repro_torch.serving import telemetry
@@ -812,9 +1022,12 @@ def main(argv=None):
     cfg_full = get("qwen3-8b")
     d, V, ff = cfg_full.d_model, cfg_full.vocab_size, cfg_full.d_ff
     results = {}
+    moe_full = get(MOE_ARCH)
+    expert = (moe_full.n_experts, moe_full.d_model, moe_full.moe_d_ff)
     for name, shape, fan_in in [("wq", (d, cfg_full.n_heads * cfg_full.hd), d),
                                 ("wi_gate", (d, ff), d),
-                                ("embed", (V, d), d)]:
+                                ("embed", (V, d), d),
+                                ("moe_wi_gate", expert, moe_full.d_model)]:
         w = torch.randn(shape, generator=gen, device="cuda").mul_(
             fan_in ** -0.5)
         bits = fp8.cast_to_fp8_bits(w)
@@ -836,6 +1049,10 @@ def main(argv=None):
     for T in (13, 451, 512, 2048):
         results[f"flash_T{T}"] = check_flash(torch, flash_fwd, T, gen, flush)
     check_flash(torch, flash_fwd, 2048, gen, flush, torch.float16)
+    for T in (451, 2048):             # moonshot's heads: group size 1
+        results[f"flash_moe_T{T}"] = check_flash(
+            torch, flash_fwd, T, gen, flush,
+            heads=(moe_full.n_heads, moe_full.n_kv_heads))
 
     # -- 3b. kernel 3: KV page decode ----------------------------------------
     n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
@@ -864,6 +1081,22 @@ def main(argv=None):
                 .view(torch.bfloat16))                       # 256 exponents
     check_kv_pages(torch, ops, kv_page, codec, "edge", edge, 4, flush, 5,
                    n_empty=3)
+    # moonshot's page (16 KV heads x 16 positions x 128, twice qwen3-8b's)
+    # in phase 12c's cold pool
+    n_moe = moe_full.n_kv_heads * 16 * moe_full.hd
+    moe_stride = -(-codec.sym_per_lane(n_moe)
+                   * codec.plane_spec("bfloat16")[0] // 8)
+    moe_inst = kv_page.instance(moe_stride, codec.sm_bytes("bfloat16", n_moe))
+    before = kv_page.run.launches_by_instance[moe_inst]
+    results["kv_moe_bf16_48"] = check_kv_pages(
+        torch, ops, kv_page, codec, "moonshot bf16_48",
+        kv_like(SWAP_N_COLD_SLOTS, torch.bfloat16, n_moe), moe_stride,
+        flush, 20)
+    if kv_page.run.launches_by_instance[moe_inst] <= before:
+        fail(f"kv_page_decode moonshot: the {moe_inst} instance never ran")
+    log(f"kv_page_decode moonshot page ({n_moe} elements): the {moe_inst} "
+        f"instance ({kv_page._smem_bytes(moe_stride, codec.sm_bytes('bfloat16', n_moe))}"
+        f" bytes of shared memory against {kv_page._MAX_SMEM})")
     # pages of 128 positions (--page-size 128): too large to stage, so the
     # wrapper picks the streamed instance by shape
     n_big = cfg_full.n_kv_heads * 128 * cfg_full.hd
@@ -982,6 +1215,12 @@ def main(argv=None):
         f"tokens; pressure run {eng_p.scheduler.n_preempted} preemptions, "
         f"{eng_p.n_draft_restores} draft rows reinstalled, "
         f"{eng_p.spec_counters()})")
+
+    # the MoE family and the other dense MLPs at smoke size: moonshot's
+    # smoke variant at capacity factor 1.25 (tokens dropped), granite's
+    # GELU with one KV head, nemotron's squared ReLU
+    small_moe_checks(torch, M, moe, paged, store, smoke_variant, get,
+                     args.seed)
 
     # -- 5. serve qwen3-8b at full width -----------------------------------
     cfg = dataclasses.replace(cfg_full, n_layers=args.layers)
@@ -1305,8 +1544,24 @@ def main(argv=None):
     log("fused_decode_matmul: 0 launches on every serve path (phases 5, 7, "
         "8a, 8b, 9, 10a-c, 11a-b), as in the reference")
 
+    # -- 12. moonshot-v1-16b-a3b at full width from ECF8 weights ----------
+    # the qwen3-8b trees and the engines holding their caches go first
+    del (params_c, d_c, eng, eng2, eng3, runs, e8, e8b, e9, e10a, e10b,
+         e10f, e10c, pc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_out, moe_launches = moe_phase(
+        torch, serve, EngineConfig,
+        {"ecf8_decode": ecf8_decode.run, "kv_page_decode": kv_page.run,
+         "fused_decode_matmul": fused.run, "flash_fwd": flash_fwd.run},
+        moe_full, args.seed)
+    log(f"phase 12 measurements: {json.dumps(moe_out)}")
+
     def on_prefix_path(name):
         return {tag: prefix_launches[tag][name] for tag in ("11a", "11b")}
+
+    def on_moe_path(name):
+        return {tag: moe_launches[tag][name] for tag in ("12a", "12b", "12c")}
 
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -1314,24 +1569,29 @@ def main(argv=None):
              replaces="src/repro/kernels/ecf8_decode.py:36",
              launches=launches["ecf8_decode"], redesigned="slice 4",
              launches_prefix_sharing=on_prefix_path("ecf8_decode"),
-             **results["wi_gate"]),
+             launches_moe=on_moe_path("ecf8_decode"),
+             at_moe_shape=results["moe_wi_gate"], **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
              launches=launches["flash_fwd"], redesigned="slice 4",
              launches_prefix_sharing=on_prefix_path("flash_fwd"),
+             launches_moe=on_moe_path("flash_fwd"),
+             at_moe_shape=results["flash_moe_T2048"],
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
              replaces="src/repro/kvcache/kernels.py:34",
              launches=launches3["kv_page_decode"], redesigned="slice 5",
              launches_prefix_sharing=on_prefix_path("kv_page_decode"),
-             **results["kv_bf16"]),
+             launches_moe=on_moe_path("kv_page_decode"),
+             at_moe_shape=results["kv_moe_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
              source="src/repro_torch/csrc/fused_decode_matmul.cu",
              replaces="src/repro/kernels/fused_decode_matmul.py:80",
              launches=launches_b2, redesigned="slice 5",
              launches_prefix_sharing=on_prefix_path("fused_decode_matmul"),
+             launches_moe=on_moe_path("fused_decode_matmul"),
              **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -9,6 +9,7 @@ slices one layer's container out (views, no copy).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -130,14 +131,14 @@ def _stacked(path) -> int:
     return int("units" in path or "layers" in path)
 
 
-def _selected(path, x, min_elems: int) -> bool:
+def _selected(path, shape, min_elems: int) -> bool:
     """The reference's leaf-selection rule: a tensor whose per-layer
     element count reaches ``min_elems`` and that is at least 2-D per
     layer (norm scales and biases stay as they are)."""
     stacked = _stacked(path)
-    n = x.numel()
-    per_layer = n // x.shape[0] if (stacked and x.ndim) else n
-    return per_layer >= min_elems and x.ndim >= 2 + stacked
+    n = math.prod(shape)
+    per_layer = n // shape[0] if (stacked and shape) else n
+    return per_layer >= min_elems and len(shape) >= 2 + stacked
 
 
 def _map_tree(fn, tree, path=()):
@@ -162,7 +163,7 @@ def compress_tree(params, fmt: str = FORMAT_TPU, min_elems: int = 65536,
             return x
         n = x.numel()
         report["raw_bytes"] += n * x.element_size()
-        if not _selected(path, x, min_elems):
+        if not _selected(path, x.shape, min_elems):
             report["n_kept"] += 1
             return x
         w8 = fp8.cast_to_fp8_bits(x)
@@ -183,7 +184,63 @@ def fp8_cast_tree(params, min_elems: int = 65536):
     leaf selection matches :func:`compress_tree` exactly, so the two trees
     are bit-comparable."""
     def visit(path, x):
-        if isinstance(x, torch.Tensor) and _selected(path, x, min_elems):
+        if isinstance(x, torch.Tensor) and _selected(path, x.shape,
+                                                     min_elems):
             return fp8.cast_to_fp8(x)
         return x
     return _map_tree(visit, params)
+
+
+def build_trees(init, fmt: str = FORMAT_TPU, min_elems: int = 65536,
+                out_dtype: str = "bfloat16", baseline: bool = True):
+    """Both trees of a serve run, streamed from their f32 draws: the
+    compression (``fmt``, or None for ``"none"``) and the fp8 baseline
+    (or None unless ``baseline``).
+
+    ``init(leaf)`` builds the f32 tree through a leaf hook that receives
+    each leaf's draws one layer at a time (``models.model.init_params``'s
+    ``leaf``).  Each layer of a selected leaf is cast to fp8 bits as it is
+    drawn, so at most one layer's f32 draw of a stacked leaf is alive; the
+    leaf's fp8 stack is then compressed layer by layer
+    (:func:`compress_stacked`) and kept as the baseline's leaf or dropped.
+    Bit-equal to ``compress_tree(init())`` and ``fp8_cast_tree(init())``,
+    report included -> (compressed, baseline, report)."""
+    report = {"raw_bytes": 0, "fp8_bytes": 0, "compressed_bytes": 0,
+              "n_compressed": 0, "n_kept": 0}
+    base = {}
+
+    def leaf(path, draws, n_layers):
+        first = next(draws)
+        shape = first.shape if n_layers is None else (n_layers, *first.shape)
+        report["raw_bytes"] += math.prod(shape) * first.element_size()
+        if not _selected(path, shape, min_elems):
+            report["n_kept"] += 1
+            x = first if n_layers is None else torch.stack([first, *draws])
+            base[path] = x
+            return x
+        bits = torch.empty(shape, dtype=torch.uint8, device=first.device)
+        if n_layers is None:
+            bits.copy_(fp8.cast_to_fp8_bits(first))
+        else:
+            bits[0] = fp8.cast_to_fp8_bits(first)
+            del first
+            for i, x in enumerate(draws, 1):
+                bits[i] = fp8.cast_to_fp8_bits(x)
+                del x
+        report["fp8_bytes"] += bits.numel()
+        if baseline:
+            base[path] = bits.view(fp8.FP8_DTYPE)
+        if fmt == "none":
+            return None
+        ct = (compress_array if n_layers is None else compress_stacked)(
+            bits, fmt=fmt, out_dtype=out_dtype)
+        report["compressed_bytes"] += ct.nbytes_compressed()
+        report["n_compressed"] += 1
+        return ct
+
+    tree = init(leaf)
+    base_tree = (_map_tree(lambda path, _: base[path], tree) if baseline
+                 else None)
+    if fmt == "none":
+        return None, base_tree, None
+    return tree, base_tree, report

@@ -1,7 +1,8 @@
 """Where the time of one prefill and of the decode steps goes, on the card.
 
 Serves ``--batch`` requests of ``--prompt`` tokens through the engine on
-qwen3-8b cut to ``--layers`` layers (full width), warms up, then traces one
+``--arch`` (qwen3-8b by default; full width, ``--layers`` cuts the depth),
+warms up, then traces one
 more prefill and ``--steps`` batched decode steps with ``torch.profiler``
 and prints, for each window: wall time, device busy time (the sum of kernel
 times; one stream, so kernels do not overlap), the idle share, and device
@@ -10,6 +11,8 @@ are entropy-coded into the cold pool (host work, outside the traced
 windows) and every traced decode step decodes the cold pool.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 36
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch moonshot-v1-16b-a3b
 """
 from __future__ import annotations
 
@@ -52,7 +55,9 @@ def _report(title: str, prof, wall_s: float, top: int = 12):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=36)
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the architecture's own)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=256)
     ap.add_argument("--steps", type=int, default=4)
@@ -63,9 +68,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=args.layers)
-    served, baseline, _, _ = build_params(cfg, args.seed, args.compress)
-    del baseline
+    cfg = get(args.arch)
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
+    served, _, _, _ = build_params(cfg, args.seed, args.compress,
+                                   baseline=False)
     eng = GenerationEngine(served, cfg, EngineConfig(
         max_batch=args.batch, max_len=1024,
         compress_cold=args.cache == "paged-compressed"))

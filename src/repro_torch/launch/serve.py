@@ -28,8 +28,14 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --prefill-chunk 128 \\
       --prefix-sharing --shared-prefix 256 --trace-out trace.json \\
       --metrics-interval 16
+  # the mixture-of-experts model (64 experts top-6, 2 shared), its weight
+  # trees built a layer at a time
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --check-lossless
   # on a machine without a card, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      moonshot-v1-16b-a3b --smoke --device cpu
 
 The helpers below are the same steps for a caller that brings its own
 ``ArchConfig`` or prompts (``chip_smoke.py`` serves a depth-cut qwen3-8b).
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 
 from ..configs import get, smoke_variant
-from ..core.store import compress_tree, fp8_cast_tree
+from ..core.store import build_trees
 from ..device import resolve
 from ..models import model as M
 from ..runtime.trace_export import export_chrome_trace
@@ -57,24 +63,27 @@ from ..serving.telemetry import Telemetry, serving_report_line
 MIN_ELEMS = 4096
 
 
-def build_params(cfg, seed: int, fmt: str = "tpu", device="cuda"):
+def build_params(cfg, seed: int, fmt: str = "tpu", device="cuda",
+                 baseline: bool = True):
     """Synthesize weights and prepare both trees a serve run uses.
 
     Returns ``(served, baseline, report, encode_seconds)``: ``baseline`` is
-    the fp8 cast of the large weights, ``served`` their ECF8 compression
-    (``fmt="tpu"``) or the baseline itself (``fmt="none"``)."""
-    params = M.init_params(cfg, seed, device=device)
+    the fp8 cast of the large weights (None unless ``baseline``),
+    ``served`` their ECF8 compression (``fmt="tpu"``) or the baseline
+    itself (``fmt="none"``).  The trees are streamed from the draws of
+    ``models.model.init_params`` one layer at a time
+    (``core.store.build_trees``): no f32 master of a stacked leaf is ever
+    whole, and the weights are those of ``init_params(cfg, seed)``."""
     t0 = time.perf_counter()
-    report = None
-    if fmt != "none":
-        served, report = compress_tree(params, fmt=fmt, min_elems=MIN_ELEMS,
-                                       out_dtype=cfg.dtype)
-    baseline = fp8_cast_tree(params, min_elems=MIN_ELEMS)
+    served, base, report = build_trees(
+        lambda leaf: M.init_params(cfg, seed, device=device, leaf=leaf),
+        fmt=fmt, min_elems=MIN_ELEMS, out_dtype=cfg.dtype,
+        baseline=baseline or fmt == "none")
     if fmt == "none":
-        served = baseline
+        served = base
     if resolve(device).type == "cuda":
         torch.cuda.synchronize()
-    return served, baseline, report, time.perf_counter() - t0
+    return served, base, report, time.perf_counter() - t0
 
 
 def make_prompts(cfg, n: int, seed: int, lo: int = 4, hi: int = 12,

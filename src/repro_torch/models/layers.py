@@ -1,5 +1,6 @@
 """Core transformer layers: norms, RoPE, GQA attention (blockwise / decode),
-the SwiGLU MLP.  Plain PyTorch functions on tensors.
+the MLPs (SwiGLU, GELU, GeGLU, squared ReLU).  Plain PyTorch functions on
+tensors.
 
 Weights may be ``CompressedTensor``s (ECF8): every use site goes through
 ``mat`` = materialize-and-cast, the paper's just-in-time per-layer
@@ -153,27 +154,38 @@ def decode_attention(q, k_cache, v_cache, *, kv_len,
 # --------------------------------------------------------------------------
 
 def mlp_apply(params, x, mlp_type: str, dtype):
-    if mlp_type != "swiglu":
-        raise ValueError(f"mlp_type {mlp_type!r}: not yet ported")
-    g = x @ mat(params["wi_gate"], dtype)
-    u = x @ mat(params["wi_up"], dtype)
-    return (F.silu(g.to(F32)).to(dtype) * u) @ mat(params["wo"], dtype)
+    """The reference's four MLP types.  ``swiglu`` and ``geglu`` apply
+    their gate's activation in f32; ``gelu`` and ``sqrelu`` apply theirs in
+    the compute dtype."""
+    if mlp_type == "swiglu":
+        g = x @ mat(params["wi_gate"], dtype)
+        u = x @ mat(params["wi_up"], dtype)
+        return (F.silu(g.to(F32)).to(dtype) * u) @ mat(params["wo"], dtype)
+    if mlp_type == "gelu":
+        h = F.gelu(x @ mat(params["wi"], dtype), approximate="tanh")
+        return h @ mat(params["wo"], dtype)
+    if mlp_type == "geglu":
+        g = x @ mat(params["wi_gate"], dtype)
+        u = x @ mat(params["wi_up"], dtype)
+        return (F.gelu(g.to(F32), approximate="tanh").to(dtype) * u) @ mat(
+            params["wo"], dtype)
+    if mlp_type == "sqrelu":
+        h = F.relu(x @ mat(params["wi"], dtype))
+        return torch.square(h) @ mat(params["wo"], dtype)
+    raise ValueError(mlp_type)
 
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
-             lead: tuple = (), dtype=F32):
-    """SwiGLU weights with the reference's distributions (``normal *
-    fan_in**-0.5``); ``lead`` prepends a stacked-layer dim."""
-    if mlp_type != "swiglu":
-        raise ValueError(f"mlp_type {mlp_type!r}: not yet ported")
-    dev = gen.device
-
-    def normal(shape, s):
-        return torch.randn(lead + shape, generator=gen, dtype=dtype,
-                           device=dev).mul_(s)
-
-    return {
-        "wi_gate": normal((d_model, d_ff), d_model ** -0.5),
-        "wi_up": normal((d_model, d_ff), d_model ** -0.5),
-        "wo": normal((d_ff, d_model), d_ff ** -0.5),
-    }
+def mlp_init(new, d_model: int, d_ff: int, mlp_type: str):
+    """MLP weights with the reference's leaves and distributions (``normal
+    * fan_in**-0.5``): ``wi_gate`` / ``wi_up`` / ``wo`` for the gated
+    types, ``wi`` / ``wo`` for ``gelu`` and ``sqrelu``.  ``new(name,
+    shape, scale)`` draws a leaf (``models.model.init_params``)."""
+    s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
+    if mlp_type in ("swiglu", "geglu"):
+        return {"wi_gate": new("wi_gate", (d_model, d_ff), s_in),
+                "wi_up": new("wi_up", (d_model, d_ff), s_in),
+                "wo": new("wo", (d_ff, d_model), s_ff)}
+    if mlp_type in ("gelu", "sqrelu"):
+        return {"wi": new("wi", (d_model, d_ff), s_in),
+                "wo": new("wo", (d_ff, d_model), s_ff)}
+    raise ValueError(mlp_type)

@@ -1,10 +1,13 @@
-"""Decoder-only LM for the ``("attn",)`` pattern (the dense qwen3 family),
-built from ``ArchConfig``.  Plain functions over a nested-dict parameter
-tree laid out as the reference's:
+"""Decoder-only LM for the ``("attn",)`` pattern (the dense qwen3 family,
+the MLP types of granite and nemotron, and the mixture-of-experts
+family), built from ``ArchConfig``.  Plain functions over a nested-dict
+parameter tree laid out as the reference's:
 
     {"embed": (V, d), "final_norm": (d,), ["unembed": (d, V),]
      "units": {"pos0": {"norm1", "attn": {wq, wk, wv, wo[, q_norm,
-               k_norm]}, "norm2", "mlp": {wi_gate, wi_up, wo}}},
+               k_norm]}, "norm2", "mlp": {wi_gate, wi_up, wo} | {wi, wo}
+               | "moe": {gate, wi_gate, wi_up, wo[, shared: {wi_gate,
+               wi_up, wo}]}}},
      "tail": {}}
 
 where every leaf under ``"units"`` is stacked over a leading layer dim, and
@@ -33,72 +36,113 @@ from ..kernels import ops
 from ..kvcache import paged as paged_kv
 from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
                      mat, mlp_apply, mlp_init, rms_norm)
+from .moe import moe_apply, moe_init
 
 SUPPORTED_KINDS = ("attn",)
+MLP_TYPES = ("swiglu", "gelu", "geglu", "sqrelu")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this slice of the port does not serve."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if (not kinds <= set(SUPPORTED_KINDS) or cfg.unit != 1
-            or cfg.encoder_decoder or cfg.n_experts or cfg.post_norms
-            or cfg.mlp_type != "swiglu"):
+            or cfg.encoder_decoder or cfg.post_norms
+            or cfg.mlp_type not in MLP_TYPES):
         raise NotImplementedError(
-            f"{cfg.name}: not yet ported (this slice serves the dense "
-            f"('attn',) SwiGLU family)")
+            f"{cfg.name}: not yet ported (this slice serves the ('attn',) "
+            f"family: dense MLPs {MLP_TYPES} and mixture-of-experts)")
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
-def _attn_init(gen, cfg: ArchConfig, lead, dtype):
+class _Draws:
+    """The leaf maker of :func:`init_params`: ``new(name, shape, scale)``
+    draws ``normal(shape) * scale`` (zeros when ``scale`` is None) once a
+    layer, ``n_layers`` times (None: once, unstacked), from the shared
+    generator, and hands the draws to ``leaf``; ``sub(name)`` is the maker
+    of a sub-tree."""
+
+    def __init__(self, gen, dtype, leaf, n_layers, path=()):
+        self.gen, self.dtype, self.leaf = gen, dtype, leaf
+        self.n_layers, self.path = n_layers, path
+
+    def sub(self, name: str) -> "_Draws":
+        return _Draws(self.gen, self.dtype, self.leaf, self.n_layers,
+                      self.path + (name,))
+
+    def __call__(self, name: str, shape: tuple, scale=None):
+        gen, dtype = self.gen, self.dtype
+
+        def draws():
+            for _ in range(self.n_layers or 1):
+                if scale is None:
+                    yield torch.zeros(shape, dtype=dtype, device=gen.device)
+                else:
+                    yield torch.randn(shape, generator=gen, dtype=dtype,
+                                      device=gen.device).mul_(scale)
+
+        return self.leaf(self.path + (name,), draws(), self.n_layers)
+
+
+def _stack(path, draws, n_layers):
+    """The default leaf: the layers' draws stacked (one draw unstacked)."""
+    xs = list(draws)
+    return xs[0] if n_layers is None else torch.stack(xs)
+
+
+def _attn_init(new, cfg: ArchConfig):
     d, hd = cfg.d_model, cfg.hd
-    dev = gen.device
     s = d ** -0.5
-
-    def normal(shape):
-        return torch.randn(lead + shape, generator=gen, dtype=dtype,
-                           device=dev).mul_(s)
-
     p = {
-        "wq": normal((d, cfg.n_heads * hd)),
-        "wk": normal((d, cfg.n_kv_heads * hd)),
-        "wv": normal((d, cfg.n_kv_heads * hd)),
-        "wo": normal((cfg.n_heads * hd, d)),
+        "wq": new("wq", (d, cfg.n_heads * hd), s),
+        "wk": new("wk", (d, cfg.n_kv_heads * hd), s),
+        "wv": new("wv", (d, cfg.n_kv_heads * hd), s),
+        "wo": new("wo", (cfg.n_heads * hd, d), s),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros(lead + (hd,), dtype=dtype, device=dev)
-        p["k_norm"] = torch.zeros(lead + (hd,), dtype=dtype, device=dev)
+        p["q_norm"] = new("q_norm", (hd,))
+        p["k_norm"] = new("k_norm", (hd,))
     return p
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
-                dtype=torch.float32):
+                dtype=torch.float32, leaf=None):
     """Random weights with the reference's distributions (``normal *
-    fan_in**-0.5``, norm scales zero), f32 masters, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (the draws
-    differ from ``jax.random``; parity tests convert the reference's own
-    weights with ``repro_torch.convert``)."""
+    fan_in**-0.5``, norm scales zero), drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the draws differ from
+    ``jax.random``; parity tests convert the reference's own weights with
+    ``repro_torch.convert``).
+
+    A stacked leaf is drawn one layer at a time.  ``leaf(path, draws,
+    n_layers)`` builds each leaf from its draws (an iterator of ``dtype``
+    tensors, one a layer, ``n_layers`` None for an unstacked leaf) and must
+    consume them before it returns; the default stacks them into f32
+    masters.  ``core.store.build_trees`` casts and compresses each layer as
+    it comes instead, so a caller never holds more than one layer's f32
+    draw of a stacked leaf, and both see the same weights."""
     check_supported(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    leaf = leaf or _stack
+    top = _Draws(gen, dtype, leaf, None)
     d, V = cfg.d_model, cfg.vocab_size
-    params = {
-        "embed": torch.randn((V, d), generator=gen, dtype=dtype,
-                             device=dev).mul_(d ** -0.5),
-        "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
-    }
+    params = {"embed": top("embed", (V, d), d ** -0.5),
+              "final_norm": top("final_norm", (d,))}
     if not cfg.tie_embeddings:
-        params["unembed"] = torch.randn(
-            (d, V), generator=gen, dtype=dtype, device=dev).mul_(d ** -0.5)
-    lead = (cfg.n_layers,)
-    params["units"] = {"pos0": {
-        "norm1": torch.zeros(lead + (d,), dtype=dtype, device=dev),
-        "attn": _attn_init(gen, cfg, lead, dtype),
-        "norm2": torch.zeros(lead + (d,), dtype=dtype, device=dev),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, lead, dtype),
-    }}
+        params["unembed"] = top("unembed", (d, V), d ** -0.5)
+    new = _Draws(gen, dtype, leaf, cfg.n_layers, ("units", "pos0"))
+    layer = {"norm1": new("norm1", (d,)),
+             "attn": _attn_init(new.sub("attn"), cfg),
+             "norm2": new("norm2", (d,))}
+    if cfg.n_experts:
+        layer["moe"] = moe_init(new.sub("moe"), d, cfg.n_experts,
+                                cfg.moe_d_ff, cfg.n_shared_experts,
+                                cfg.moe_d_ff)
+    else:
+        layer["mlp"] = mlp_init(new.sub("mlp"), d, cfg.d_ff, cfg.mlp_type)
+    params["units"] = {"pos0": layer}
     params["tail"] = {}
     return params
 
@@ -157,10 +201,12 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
 
     ``pools`` is (k_pool, v_pool, k_cold, v_cold), the cold entries being
     :func:`kvcache.paged.cold_leaves` tuples or None: cold pages are
-    decoded by the page-decode kernel, once for K and once for V.  A swap
-    sentinel (negative id) can only sit in a vacated slot's row, whose
-    outputs are never read: ``page_write`` drops its write and
-    ``page_gather`` clamps it to the garbage page."""
+    decoded by the page-decode kernel, once for K and once for V.
+    ``page_table`` comes clamped to the garbage page (:func:`_decode_step`):
+    a swap sentinel (negative id) can only sit in a vacated slot's row,
+    whose write lands on the garbage page as the reference's does.  Such a
+    row's output is never read by its slot, but a mixture-of-experts layer
+    routes it with the live rows, so it must be the reference's own."""
     q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
     k_pool, v_pool, k_cold, v_cold = pools
     paged_kv.page_write(k_pool, page_table, cur_len, k)
@@ -220,13 +266,23 @@ def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
     return _attn_out(p, o, dtype)
 
 
+def _ffn(p, x, cfg: ArchConfig, dtype):
+    """The layer's feed-forward block: the MoE layer or the dense MLP.  The
+    MoE's load-balancing loss is computed and dropped, as the reference's
+    serve path drops it."""
+    if "moe" in p:
+        y, _ = moe_apply(p["moe"], x, cfg, dtype=dtype)
+        return y
+    return mlp_apply(p["mlp"], x, cfg.mlp_type, dtype)
+
+
 def _layer_apply_full(p, x, cfg: ArchConfig, dtype):
     """Full-sequence layer (prefill).  Returns (x, (k, v))."""
     h = rms_norm(x, p["norm1"])
     o, kv = _self_attention_full(p["attn"], h, cfg, dtype)
     x = x + o
     h2 = rms_norm(x, p["norm2"])
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype), kv
+    return x + _ffn(p, h2, cfg, dtype), kv
 
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
@@ -242,7 +298,7 @@ def _layer_apply_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
                                    page_table)
     x = x + o
     h2 = rms_norm(x, p["norm2"])
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
+    return x + _ffn(p, h2, cfg, dtype)
 
 
 def _layer_apply_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
@@ -252,7 +308,7 @@ def _layer_apply_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
     x = x + _self_attention_chunk(p["attn"], h, cfg, dtype, pools, row,
                                   start, n_valid, path)
     h2 = rms_norm(x, p["norm2"])
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, dtype)
+    return x + _ffn(p, h2, cfg, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -330,6 +386,8 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     pools = cache["units"]["pos0"]
     units = params["units"]["pos0"]
     lens = cur_len.expand(B) if cur_len.ndim == 0 else cur_len
+    if page_table is not None:
+        page_table = page_table.clamp(min=paged_kv.GARBAGE_PAGE)
     x = _embed(params, cfg, token, dtype)
     for u in range(cfg.n_layers):
         if page_table is None:

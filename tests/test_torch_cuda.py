@@ -688,3 +688,93 @@ def test_prefix_fault_through_page_decode_bit_exact(card):
     for kn in ("k_pool", "v_pool"):
         got = pools[kn][:, back].view(torch.int32)
         assert torch.equal(got, kept[kn].view(torch.int32)), kn
+
+
+# --------------------------------------------------------------------------
+# the mixture-of-experts family (moonshot-v1-16b-a3b's shapes)
+# --------------------------------------------------------------------------
+
+def test_decode_kernel_on_3d_expert_container(card):
+    """B1 on one layer's expert leaf (E, d, ff) compressed as one container:
+    fp8 bits bit-exact, and ``materialize`` writes the bf16 expert stack in
+    its shape."""
+    from repro_torch.core import store
+    w = torch.randn((64, 256, 176), generator=card, device="cuda") * 0.06
+    bits = fp8.cast_to_fp8_bits(w)
+    ct = store.compress_stacked(bits[None])           # one layer
+    a = ct.layer(0).arrays
+    args = (a["payload"], a["signmant"], a["lj_limit"], a["first_lj"],
+            a["offset"], a["perm"])
+    kw = dict(sym_per_lane=ct.meta.sym_per_lane, n_elem=ct.meta.n_elem)
+    got = ops.decode_ecf8(*args, **kw)
+    assert torch.equal(got, ecf8_decode.plain(*args, **kw))
+    assert torch.equal(got, bits.reshape(-1))
+    m = store.materialize(ct.layer(0), "bfloat16")
+    assert m.shape == (64, 256, 176) and m.dtype == torch.bfloat16
+    assert torch.equal(m, bits.view(fp8.FP8_DTYPE).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("T", [13, 451])
+def test_flash_kernel_group_size_one(card, T):
+    """B4 at moonshot's heads: 16 query and 16 KV heads of 128."""
+    def rnd():
+        return torch.randn((1, 16, T, 128), generator=card,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(), rnd(), rnd()
+    got = ops.flash_attention(q, k, v, True, 0.0)
+    want = flash_fwd.plain(q, k, v, True, 0.0)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+def test_kv_page_decode_moonshot_page(card):
+    """B3 at moonshot's page (16 KV heads x 16 positions x 128, bf16) and
+    its cold-slot stride budget: bit-exact, by the instance the wrapper
+    picks for that shape."""
+    from repro_torch.kvcache import codec, kernels as kv
+    n = 16 * 16 * 128
+    pages = [(torch.randn(n, generator=card, device="cuda") * s)
+             .to(torch.bfloat16) for s in (0.02, 1.0, 40.0)]
+    stride = -(-codec.sym_per_lane(n) * codec.plane_spec("bfloat16")[0]
+               // 8)
+    inst = kv.instance(stride, codec.sm_bytes("bfloat16", n))
+    args = _coded_pages(pages, stride)
+    before = kv.run.launches_by_instance[inst]
+    got = ops.decode_pages(*args, n_elem=n, dtype_name="bfloat16")
+    assert kv.run.launches_by_instance[inst] == before + 1
+    for i, p in enumerate(pages):
+        assert torch.equal(got[i].view(torch.int16),
+                           p.view(torch.int16))
+
+
+def test_moe_layer_card_vs_cpu_and_repeatable(card):
+    """The MoE layer at capacity factor 1.25 (tokens dropped) on ECF8
+    weights: f32 on the card within 1e-5 of the CPU, and bf16 bit-equal
+    over two runs on the card (the combine adds without atomics)."""
+    import dataclasses
+    from repro_torch.configs import get, smoke_variant
+    from repro_torch.core import store
+    from repro_torch.models import model as M, moe
+    cfg = dataclasses.replace(smoke_variant(get("moonshot-v1-16b-a3b")),
+                              capacity_factor=1.25)
+    p_cpu, _ = store.compress_tree(M.init_params(cfg, 0, "cpu"),
+                                   min_elems=4096, out_dtype="float32")
+    layer = M._layer(p_cpu["units"]["pos0"], 0)["moe"]
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if store.is_compressed(tree):
+            return store.CompressedTensor(
+                {k: a.cuda() for k, a in tree.arrays.items()}, tree.meta)
+        return tree.cuda()
+
+    x = torch.randn((3, 29, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want, _ = moe.moe_apply(layer, x, cfg, dtype=torch.float32)
+    got, _ = moe.moe_apply(to(layer), x.cuda(), cfg, dtype=torch.float32)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    xb = x.cuda().to(torch.bfloat16)
+    a, _ = moe.moe_apply(to(layer), xb, cfg, dtype=torch.bfloat16)
+    b, _ = moe.moe_apply(to(layer), xb, cfg, dtype=torch.bfloat16)
+    assert torch.equal(a, b)
