@@ -17,13 +17,16 @@ Phases, each failing loudly (non-zero exit, no result line):
      256 fp8 codes (NaNs compared by isnan); timed on the card (CUDA
      events): the bf16 instance beside the fp8-bits instance followed by
      ``.to(bf16)``; and at one layer's expert container of
-     moonshot-v1-16b-a3b, (64, 2048, 1408);
+     moonshot-v1-16b-a3b, (64, 2048, 1408), and gemma2-9b's wi_gate and
+     embedding (3584 x 14336, 256000 x 3584);
   3. the flash-attention kernel (bf16 and fp16 on the tensor cores)
      against its plain version in bf16 (B=1, Hq=32, Hkv=8, D=128, causal,
      T in {13, 451, 512, 2048}) and fp16 (T=2048), with the time of
      ``F.scaled_dot_product_attention`` as a yardstick (TFLOP/s and the
-     factor against it printed; timed after L2 flushes); and at
-     moonshot's heads (Hq = Hkv = 16, group size 1, T in {451, 2048});
+     factor against it printed; timed after L2 flushes); at moonshot's
+     heads (Hq = Hkv = 16, group size 1, T in {451, 2048}); and at
+     gemma2-9b's (Hq/Hkv 16/8, D = 256, softcap 50): bf16 at T in {13,
+     451, 4096, 6000} within 2e-2, f32 at T in {13, 451} within 1e-5;
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
@@ -32,8 +35,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      exponents, mixed strides zero-padded to one, never-written slots),
      and 8 bf16 pages of 128 positions (8 x 128 x 128, the kernel's
      streamed instance: too large to stage in shared memory), and 48
-     bf16 pages at moonshot's page shape (16 x 16 x 128), with the
-     instance the wrapper picks for it, timed on the card;
+     bf16 pages at moonshot's page shape (16 x 16 x 128) and at gemma2's
+     (8 x 16 x 256), with the instance the wrapper picks for each, timed
+     on the card;
   3c. the fused decode + matrix product kernel through its op
      (``ops.fused_decode_matmul``; no serve path calls it) at qwen3-8b's
      wq / wi_gate / wo_mlp shapes in the tiled ECF8 layout, M = 4 and 512,
@@ -56,6 +60,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      layer bit-equal over two card runs (f32 and bf16); the smoke
      variants of granite-20b (GELU, one KV head) and nemotron-4-15b
      (squared ReLU): prefill logits on the card against the CPU;
+     gemma2-9b's (heads of 64, window 32): prefill at 37 tokens
+     (local_attention, rolled rings) and paged-compressed decode steps
+     past the rings' wrap, the card against the CPU;
   5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
      compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
@@ -114,6 +121,18 @@ Phases, each failing loudly (non-zero exit, no result line):
      IDENTICAL to 12a's); 12b the fp8 baseline tree alone on the card
      (tokens IDENTICAL to 12a's); weights, step, tok/s, prefill and the
      peak device memory with each tree resident printed.
+  13. gemma2-9b at full width and depth (42 layers, ("local", "attn"),
+     window 4096, head_dim 256, softcaps, post-norms), 4 requests of
+     ``GEMMA_PROMPTS`` tokens, max_len 8192, page 16, 32 new tokens:
+     13a the ECF8 tree alone, paged (B1 at 7 x 42 + 2 launches a pass, B4
+     at D = 256 in every layer of a prompt the window covers and in the
+     global ones past it); 13c 13a on a raw pool of
+     ``GEMMA_SWAP_N_PAGES`` pages without a cold pool, swap on: a slot
+     whose rings have wrapped is preempted, resumes with its rings
+     reinstalled and its pages faulted back through B3; 13d the
+     monolithic cache; 13b the fp8 tree alone: tokens of 13b-d IDENTICAL
+     to 13a's; weights, step, tok/s, prefill, peak device memory and
+     launches printed.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -133,6 +152,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16, SXM data sheet
+H100_F32_FLOPS = 67e12              # f32 outside the tensor cores, SXM
 FLASH_TOL = 2e-2
 FUSED_TOL = 1e-4        # relative to max |plain|: f32 sums in another order
 # phase 7's undersized pools: raw pages (id 0 is the garbage page) and cold
@@ -143,6 +163,16 @@ SPEC_K = 4              # phase 10's drafted tokens a round
 SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 MOE_ARCH = "moonshot-v1-16b-a3b"    # phase 12's model
+GEMMA_ARCH = "gemma2-9b"            # phase 13's model
+# phase 13's prompts: longer than the local window (4096) at prefill
+# (local_attention, a rolled ring), one that wraps its ring in decode, one
+# that never does; submitted in this order
+GEMMA_PROMPTS = (6000, 5000, 4080, 1024)
+GEMMA_MAX_LEN = 8192
+# 13c's raw pool (id 0 is the garbage page), from a 1-layer CPU rehearsal:
+# the first three prompts' pages and nothing more, so that the first page
+# one of them needs in decode preempts a slot whose ring has wrapped
+GEMMA_SWAP_N_PAGES = 946
 
 
 def fail(msg: str):
@@ -289,12 +319,15 @@ def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
         f"plain decode + cast (NaNs by isnan)")
 
 
-def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8)):
+def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
+                D=128, softcap=0.0, tol=FLASH_TOL):
     """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal, ``heads``
-    = (Hq, Hkv), qwen3-8b's by default) -> result dict.  Timed after L2
-    flushes: a window of back-to-back calls alone would time the host's
-    issue of each call (~20 us) wherever the kernel is shorter."""
-    B, D = 1, 128
+    = (Hq, Hkv) of ``D``, qwen3-8b's by default, tanh ``softcap``), every
+    output element within ``tol`` -> result dict.  Timed after L2 flushes:
+    a window of back-to-back calls alone would time the host's issue of
+    each call (~20 us) wherever the kernel is shorter.  SDPA, the
+    yardstick, has no softcap: it is timed without one."""
+    B = 1
     Hq, Hkv = heads
     dev = "cuda"
     dtype = dtype or torch.bfloat16
@@ -304,19 +337,19 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8)):
                            dtype=torch.float32).to(dtype)
 
     q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
-    got = flash_fwd.run(q, k, v, causal=True)
-    want = flash_fwd.plain(q, k, v, True, 0.0)
+    got = flash_fwd.run(q, k, v, causal=True, softcap=softcap)
+    want = flash_fwd.plain(q, k, v, True, softcap)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got.float()).all()):
-        fail(f"flash_fwd T={T}: non-finite output")
+        fail(f"flash_fwd T={T} D={D}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
-    if err > FLASH_TOL:
-        fail(f"flash_fwd T={T} {dtype}: max |kernel - plain| = {err} > "
-             f"{FLASH_TOL}")
-    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=True), 20,
-                 flush)
-    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True, 0.0), 5,
-                       flush)
+    if err > tol:
+        fail(f"flash_fwd T={T} D={D} {dtype}: max |kernel - plain| = {err} "
+             f"> {tol}")
+    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=True,
+                                              softcap=softcap), 20, flush)
+    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True,
+                                                      softcap), 5, flush)
     k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
     v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -325,12 +358,13 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8)):
     pairs = T * (T + 1) // 2
     flops = 4 * B * Hq * D * pairs
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    bound_ops = flops / H100_BF16_FLOPS * 1e3
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    bound_ops = flops / peak * 1e3
     bound_bytes = moved / H100_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
-    log(f"flash_fwd T={T} Hq={Hq} Hkv={Hkv} {str(dtype).split('.')[-1]}: "
-        f"max_abs_err "
-        f"{err:.3e} (tol {FLASH_TOL}), kernel {ms:.4f} ms, plain "
+    log(f"flash_fwd T={T} Hq={Hq} Hkv={Hkv} D={D} softcap {softcap:g} "
+        f"{str(dtype).split('.')[-1]}: max_abs_err "
+        f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (kernel / sdpa "
         f"{ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
         f"({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
@@ -481,9 +515,10 @@ def first_divergence(a, b):
     return same, bad
 
 
-def check_small_paged(torch, M, paged, small, p_cpu, p_gpu, seed):
-    """Paged-compressed decode steps of the small model on the card vs the
-    CPU, with cold pages decoded in the step -> max |dlogit|."""
+def check_small_paged(torch, M, paged, small, p_cpu, p_gpu, seed,
+                      steps=6):
+    """``steps`` paged-compressed decode steps of the small model on the
+    card vs the CPU, with cold pages decoded in the step -> max |dlogit|."""
     gen = torch.Generator().manual_seed(seed)
     runs = {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
@@ -498,7 +533,7 @@ def check_small_paged(torch, M, paged, small, p_cpu, p_gpu, seed):
             cache = pc.compress_cold_pages(cache, slot, T)
         out = []
         tok = torch.tensor([[5], [7]], device=dev)
-        for _ in range(6):
+        for _ in range(steps):
             for slot in range(2):
                 cache = pc.ensure(cache, slot, lens[slot])
             logits, cache = M.decode_step(params, small, tok, cache)
@@ -554,9 +589,11 @@ def small_serving(torch, serving, small, params, dparams):
 
 
 def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
-    """Phase 4's MoE and MLP-type models (ECF8 at the smoke threshold, f32):
-    the card's logits against the CPU's, and the MoE layer bit-equal over
-    two runs on the card."""
+    """Phase 4's MoE, MLP-type and gemma2 models (ECF8 at the smoke
+    threshold, f32): the card's logits against the CPU's, the MoE layer
+    bit-equal over two runs on the card, and gemma2's local rings (window
+    32) at a prompt longer than the window and over decode steps past
+    their wrap."""
     toks = torch.randint(0, 512, (2, 37), generator=torch.Generator()
                          .manual_seed(seed))
 
@@ -567,7 +604,8 @@ def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
 
     for arch, cfg in ((MOE_ARCH, small(MOE_ARCH, capacity_factor=1.25)),
                       ("granite-20b", small("granite-20b")),
-                      ("nemotron-4-15b", small("nemotron-4-15b"))):
+                      ("nemotron-4-15b", small("nemotron-4-15b")),
+                      (GEMMA_ARCH, small(GEMMA_ARCH))):
         p_cpu, _ = store.compress_tree(M.init_params(cfg, seed, "cpu"),
                                        min_elems=4096, out_dtype="float32")
         p_gpu = to_device(p_cpu, "cuda", store)
@@ -581,8 +619,20 @@ def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
         if cfg.n_experts:
             traits += (f", {cfg.n_experts} experts top-{cfg.top_k}, "
                        f"capacity factor {cfg.capacity_factor}")
+        if "local" in cfg.pattern:
+            traits += (f", pattern {cfg.pattern}, window {cfg.local_window}"
+                       f" < prompt {toks.shape[1]}")
         line = (f"small f32 {arch} ({traits}): prefill logits card vs CPU "
                 f"max |diff| {err:.2e}")
+        if "local" in cfg.pattern:
+            # prompts of 23 and 9 tokens, 16 steps: the 23-token slot's
+            # rings wrap at position 32
+            err = check_small_paged(torch, M, paged, cfg, p_cpu, p_gpu, seed,
+                                    steps=16)
+            if err > 1e-4:
+                fail(f"small f32 {arch}: paged-compressed decode past the "
+                     f"ring's wrap, card vs CPU max |dlogit| = {err}")
+            line += f", paged-compressed decode past the ring's wrap {err:.2e}"
         if cfg.n_experts:
             err = check_small_paged(torch, M, paged, cfg, p_cpu, p_gpu, seed)
             if err > 1e-4:
@@ -963,6 +1013,188 @@ def moe_phase(torch, serve, EngineConfig, kernels, cfg, seed):
             {"12a": l12a, "12b": l12b, "12c": l12c})
 
 
+def gemma_phase(torch, np, serve, EngineConfig, kernels, cfg, seed):
+    """Phase 13 (module docstring) on ``cfg`` -> (measurements, launches of
+    13a-d).  ``kernels`` maps name -> wrapper (``run``) whose launch counts
+    the phase reads."""
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    gib = 2 ** 30
+    W = min(cfg.local_window, GEMMA_MAX_LEN)
+    per_pass = 7 * cfg.n_layers + 2
+    # flash in every layer of a prompt the window covers, in the global
+    # layers alone (local_attention in the local ones) past it
+    want_b4 = sum(cfg.n_layers if n <= cfg.local_window
+                  else cfg.n_layers // cfg.unit for n in GEMMA_PROMPTS)
+    log(f"phase 13: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, pattern "
+        f"{cfg.pattern}, window {cfg.local_window}, {cfg.mlp_type} d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, softcaps {cfg.attn_softcap:g}"
+        f" / {cfg.logit_softcap:g}, post-norms {cfg.post_norms}, "
+        f"{cfg.dtype}), {cfg.n_layers} layers; prompts {GEMMA_PROMPTS}, "
+        f"max_batch 4, max_len {GEMMA_MAX_LEN}, page 16, 32 new tokens")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in GEMMA_PROMPTS]
+    base_mem = torch.cuda.memory_allocated()
+
+    def reset():
+        b1.launches = b3.launches = b2.launches = b4.launches = 0
+        b1.launches_by_dtype.clear()
+        b3.launches_by_path.clear()
+
+    def run(tag, params, **extra):
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        eng = serve.GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=4, max_len=GEMMA_MAX_LEN, page_size=16, **extra),
+            device="cuda")
+        preempted_at = []           # host lengths of the slots preempted
+        preempt = eng._preempt
+
+        def spy(slot):
+            preempted_at.append(eng._host_len[slot])
+            return preempt(slot)
+
+        eng._preempt = spy
+        done = [serve.Request(prompt=p, max_new_tokens=32) for p in prompts]
+        for r in done:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(r.done and len(r.out_tokens) == 32 for r in done) or any(
+                not 0 <= x < cfg.vocab_size for r in done
+                for x in r.out_tokens):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+        launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                    "kv_page_decode": b3.launches,
+                    "fused_decode_matmul": b2.launches,
+                    "kv_page_decode_by_path": dict(b3.launches_by_path),
+                    "ecf8_decode_by_dtype": {str(k): v for k, v in
+                                             b1.launches_by_dtype.items()}}
+        n = sum(len(r.out_tokens) for r in done)
+        m = dict(step_ms=eng.decode_seconds / eng.steps * 1e3,
+                 steps=eng.steps, tok_s=n / dt, wall_s=dt,
+                 prefill_s=eng.prefill_seconds,
+                 peak_gib=torch.cuda.max_memory_allocated() / gib,
+                 preempted_at=preempted_at)
+        log(f"phase {tag}: {n} tokens in {dt:.2f}s, {m['tok_s']:.1f} tok/s, "
+            f"{eng.steps} decode steps at {m['step_ms']:.1f} ms/step, "
+            f"prefill {eng.prefill_seconds:.2f}s, peak device memory "
+            f"{m['peak_gib']:.2f} GiB; launches {launches}")
+        if launches["fused_decode_matmul"]:
+            fail(f"phase {tag} launched fused_decode_matmul: {launches}")
+        if b1.launches and set(b1.launches_by_dtype) - {torch.bfloat16}:
+            fail(f"phase {tag}: a weight was decoded to another dtype than "
+                 f"bf16: {launches}")
+        if b4.launches != want_b4:
+            fail(f"phase {tag}: flash_fwd launched {b4.launches} times, "
+                 f"expected {want_b4}")
+        return done, eng, m, launches
+
+    # 13a: the ECF8 tree alone on the card, built a unit at a time
+    torch.cuda.reset_peak_memory_stats()
+    params_c, _, report, enc_s = serve.build_params(
+        cfg, seed, "tpu", device="cuda", baseline=False)
+    fp8_b, ecf8_b = report["fp8_bytes"], report["compressed_bytes"]
+    saved = 100 * (1 - ecf8_b / fp8_b)
+    built = dict(encode_s=enc_s, fp8_mb=fp8_b / 1e6, ecf8_mb=ecf8_b / 1e6,
+                 saved_pct=saved,
+                 build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                 ecf8_resident_gib=(torch.cuda.memory_allocated()
+                                    - base_mem) / gib)
+    log(f"phase 13 weights: {report['n_compressed']} tensors, fp8 "
+        f"{fp8_b / 1e6:.1f} MB -> ECF8 {ecf8_b / 1e6:.1f} MB ({saved:.2f}% "
+        f"saved), streamed build and encode {enc_s:.1f}s, build peak "
+        f"{built['build_peak_gib']:.2f} GiB, ECF8 tree resident "
+        f"{built['ecf8_resident_gib']:.2f} GiB (device memory before the "
+        f"phase {base_mem / gib:.2f} GiB)")
+    d13a, e13a, m13a, l13a = run("13a (ECF8, paged)", params_c)
+    passes = len(prompts) + e13a.steps
+    if l13a["ecf8_decode"] != per_pass * passes:
+        fail(f"phase 13a: ecf8_decode launched {l13a['ecf8_decode']} times, "
+             f"expected {per_pass} x {passes} passes")
+    log(f"phase 13a: ecf8_decode {per_pass} launches a pass (7 x "
+        f"{cfg.n_layers} + 2, the tied embedding twice) x {passes} passes; "
+        f"flash_fwd {want_b4} (head_dim {cfg.hd}: {cfg.n_layers} a prompt "
+        f"the window covers, {cfg.n_layers // cfg.unit} past it); rings of "
+        f"{W} positions")
+
+    # 13c: a raw pool too small for all four slots, no cold pool, swap
+    d13c, e13c, m13c, l13c = run(
+        "13c (ECF8, paged, undersized raw pool + swap)", params_c,
+        n_pages=GEMMA_SWAP_N_PAGES, swap_bytes=-1)
+    pc, sched = e13c.paged, e13c.scheduler
+    st = pc.swap.stats()
+    for line in serve.cache_report(e13c):
+        log(f"  {line}")
+    by_path = l13c["kv_page_decode_by_path"]
+    if by_path.get("fault", 0) <= 0:
+        fail(f"phase 13c: kv_page_decode did not launch from fault: "
+             f"{by_path}")
+    if not (sched.n_preempted > 0 and sched.n_resumed == sched.n_preempted
+            and max(m13c["preempted_at"], default=0) > W):
+        fail(f"phase 13c did not preempt and resume a slot whose ring had "
+             f"wrapped: {sched.counters()}, preempted at host lengths "
+             f"{m13c['preempted_at']} (window {W})")
+    if (st["swap_in_bytes_total"] != st["swap_out_bytes_total"]
+            or len(pc.swap) or pc._slot_pages
+            or pc.free_pages != pc.n_pages - 1):
+        fail(f"phase 13c did not drain: {pc.stats()}")
+    _, bad = first_divergence(d13a, d13c)
+    if bad:
+        fail(f"phase 13c tokens differ from 13a's (request, first token "
+             f"index): {bad}")
+    m13c.update(preempted=sched.n_preempted, resumed=sched.n_resumed,
+                encode_page_s=pc.encode_seconds,
+                swap_out_mb=st["swap_out_bytes_total"] / 1e6)
+    log(f"lossless: 13c greedy tokens IDENTICAL to 13a's ({sched.n_preempted}"
+        f" preemptions at host lengths {m13c['preempted_at']} past the "
+        f"window {W}, {sched.n_resumed} resumes with the rings reinstalled;"
+        f" encode_page {pc.encode_seconds:.2f}s on the host, kv_page_decode "
+        f"{by_path.get('fault', 0)} launches from fault)")
+    del e13c, pc
+
+    # 13d: the monolithic cache, the same tree
+    d13d, e13d, m13d, l13d = run("13d (ECF8, monolithic)", params_c,
+                                 cache_mode="monolithic")
+    _, bad = first_divergence(d13a, d13d)
+    if bad:
+        fail(f"phase 13d tokens differ from 13a's (request, first token "
+             f"index): {bad}")
+    log("lossless: 13d monolithic greedy tokens IDENTICAL to 13a's")
+    del params_c, e13a, e13d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13b: the fp8 baseline tree alone on the card
+    torch.cuda.reset_peak_memory_stats()
+    params_fp8, _, _, fp8_s = serve.build_params(cfg, seed, "none",
+                                                 device="cuda")
+    built["fp8_resident_gib"] = (torch.cuda.memory_allocated()
+                                 - base_mem) / gib
+    log(f"phase 13b: fp8 baseline tree built in {fp8_s:.1f}s, resident "
+        f"{built['fp8_resident_gib']:.2f} GiB")
+    d13b, e13b, m13b, l13b = run("13b (fp8 baseline, paged)", params_fp8)
+    _, bad = first_divergence(d13a, d13b)
+    if bad:
+        fail(f"phase 13b: ECF8 tokens differ from the fp8 baseline's "
+             f"(request, first token index): {bad}")
+    log(f"lossless: gemma2 ECF8 greedy tokens IDENTICAL to the fp8 "
+        f"baseline's; decode step {m13a['step_ms']:.1f} ms (ECF8) against "
+        f"{m13b['step_ms']:.1f} ms (fp8), peak device memory "
+        f"{m13a['peak_gib']:.2f} GiB with the ECF8 tree resident against "
+        f"{m13b['peak_gib']:.2f} GiB with the fp8 tree")
+    del params_fp8, e13b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (dict(built=built, **{"13a": m13a, "13b": m13b, "13c": m13c,
+                                 "13d": m13d}),
+            {"13a": l13a, "13b": l13b, "13c": l13c, "13d": l13d})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=36,
@@ -1024,10 +1256,15 @@ def main(argv=None):
     results = {}
     moe_full = get(MOE_ARCH)
     expert = (moe_full.n_experts, moe_full.d_model, moe_full.moe_d_ff)
+    g2 = get(GEMMA_ARCH)
     for name, shape, fan_in in [("wq", (d, cfg_full.n_heads * cfg_full.hd), d),
                                 ("wi_gate", (d, ff), d),
                                 ("embed", (V, d), d),
-                                ("moe_wi_gate", expert, moe_full.d_model)]:
+                                ("moe_wi_gate", expert, moe_full.d_model),
+                                ("g2_wi_gate", (g2.d_model, g2.d_ff),
+                                 g2.d_model),
+                                ("g2_embed", (g2.vocab_size, g2.d_model),
+                                 g2.d_model)]:
         w = torch.randn(shape, generator=gen, device="cuda").mul_(
             fan_in ** -0.5)
         bits = fp8.cast_to_fp8_bits(w)
@@ -1053,6 +1290,17 @@ def main(argv=None):
         results[f"flash_moe_T{T}"] = check_flash(
             torch, flash_fwd, T, gen, flush,
             heads=(moe_full.n_heads, moe_full.n_kv_heads))
+    # gemma2-9b's heads: 16 / 8 of 256 (two warpgroups split O), softcap 50;
+    # 4096 is a local layer's longest flash prefill, 6000 a global one's
+    g2_heads = dict(heads=(g2.n_heads, g2.n_kv_heads), D=g2.hd,
+                    softcap=g2.attn_softcap)
+    for T in (13, 451, 4096, 6000):
+        results[f"flash_g2_T{T}"] = check_flash(torch, flash_fwd, T, gen,
+                                                flush, **g2_heads)
+    for T in (13, 451):
+        results[f"flash_g2_f32_T{T}"] = check_flash(
+            torch, flash_fwd, T, gen, flush, torch.float32, tol=1e-5,
+            **g2_heads)
 
     # -- 3b. kernel 3: KV page decode ----------------------------------------
     n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
@@ -1097,6 +1345,19 @@ def main(argv=None):
     log(f"kv_page_decode moonshot page ({n_moe} elements): the {moe_inst} "
         f"instance ({kv_page._smem_bytes(moe_stride, codec.sm_bytes('bfloat16', n_moe))}"
         f" bytes of shared memory against {kv_page._MAX_SMEM})")
+    # gemma2's page (8 KV heads x 16 positions x 256), one layer's pages of
+    # a 48-page fault
+    n_g2 = g2.n_kv_heads * 16 * g2.hd
+    g2_stride = -(-codec.sym_per_lane(n_g2)
+                  * codec.plane_spec("bfloat16")[0] // 8)
+    g2_inst = kv_page.instance(g2_stride, codec.sm_bytes("bfloat16", n_g2))
+    before = kv_page.run.launches_by_instance[g2_inst]
+    results["kv_g2_bf16_48"] = check_kv_pages(
+        torch, ops, kv_page, codec, "gemma2 bf16_48",
+        kv_like(SWAP_N_COLD_SLOTS, torch.bfloat16, n_g2), g2_stride, flush,
+        20)
+    if kv_page.run.launches_by_instance[g2_inst] <= before:
+        fail(f"kv_page_decode gemma2: the {g2_inst} instance never ran")
     # pages of 128 positions (--page-size 128): too large to stage, so the
     # wrapper picks the streamed instance by shape
     n_big = cfg_full.n_kv_heads * 128 * cfg_full.hd
@@ -1557,11 +1818,23 @@ def main(argv=None):
         moe_full, args.seed)
     log(f"phase 12 measurements: {json.dumps(moe_out)}")
 
+    # -- 13. gemma2-9b at full width and depth from ECF8 weights -----------
+    gemma_out, gemma_launches = gemma_phase(
+        torch, np, serve, EngineConfig,
+        {"ecf8_decode": ecf8_decode.run, "kv_page_decode": kv_page.run,
+         "fused_decode_matmul": fused.run, "flash_fwd": flash_fwd.run},
+        g2, args.seed)
+    log(f"phase 13 measurements: {json.dumps(gemma_out)}")
+
     def on_prefix_path(name):
         return {tag: prefix_launches[tag][name] for tag in ("11a", "11b")}
 
     def on_moe_path(name):
         return {tag: moe_launches[tag][name] for tag in ("12a", "12b", "12c")}
+
+    def on_gemma_path(name):
+        return {tag: gemma_launches[tag][name]
+                for tag in ("13a", "13b", "13c", "13d")}
 
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -1570,14 +1843,18 @@ def main(argv=None):
              launches=launches["ecf8_decode"], redesigned="slice 4",
              launches_prefix_sharing=on_prefix_path("ecf8_decode"),
              launches_moe=on_moe_path("ecf8_decode"),
-             at_moe_shape=results["moe_wi_gate"], **results["wi_gate"]),
+             launches_gemma2=on_gemma_path("ecf8_decode"),
+             at_moe_shape=results["moe_wi_gate"],
+             at_gemma2_shape=results["g2_embed"], **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
              launches=launches["flash_fwd"], redesigned="slice 4",
              launches_prefix_sharing=on_prefix_path("flash_fwd"),
              launches_moe=on_moe_path("flash_fwd"),
+             launches_gemma2=on_gemma_path("flash_fwd"),
              at_moe_shape=results["flash_moe_T2048"],
+             at_gemma2_shape=results["flash_g2_T4096"],
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
@@ -1585,13 +1862,16 @@ def main(argv=None):
              launches=launches3["kv_page_decode"], redesigned="slice 5",
              launches_prefix_sharing=on_prefix_path("kv_page_decode"),
              launches_moe=on_moe_path("kv_page_decode"),
-             at_moe_shape=results["kv_moe_bf16_48"], **results["kv_bf16"]),
+             launches_gemma2=on_gemma_path("kv_page_decode"),
+             at_moe_shape=results["kv_moe_bf16_48"],
+             at_gemma2_shape=results["kv_g2_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
              source="src/repro_torch/csrc/fused_decode_matmul.cu",
              replaces="src/repro/kernels/fused_decode_matmul.py:80",
              launches=launches_b2, redesigned="slice 5",
              launches_prefix_sharing=on_prefix_path("fused_decode_matmul"),
              launches_moe=on_moe_path("fused_decode_matmul"),
+             launches_gemma2=on_gemma_path("fused_decode_matmul"),
              **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -1,7 +1,8 @@
 """Architecture configuration (a copy of the reference's ``ArchConfig``).
 
 Every architecture is a frozen ``ArchConfig``; ``registry.get(name)``
-resolves ``--arch`` ids.  The port serves the ``("attn",)`` pattern so far.
+resolves ``--arch`` ids.  The port serves the ``("attn",)`` and
+``("local", "attn")`` patterns so far.
 """
 from __future__ import annotations
 

@@ -20,12 +20,20 @@
 // H100: operations (4*D flops per visible (q, k) pair).
 //
 // bf16 / fp16 (the serve path) run on the tensor cores with Hopper's
-// warpgroup MMA (wgmma): a CTA of one warpgroup owns 64 query rows.
+// warpgroup MMA (wgmma): a CTA owns 64 query rows, with one warpgroup for
+// D <= 128.  At D = 256 one warpgroup's f32 O accumulator alone would take
+// 128 registers a thread beside S's 32 and P's 16, past what fits without
+// spilling, so O's 256 columns are split across two warpgroups of one CTA:
+// both compute the same S = Q.K^T chain and softmax statistics from the
+// shared Q and K tiles (the S work doubles, 1.5x the instance's ideal
+// operations), and each accumulates O += P.V over its own 128 columns of
+// the shared V tile, so K and V are loaded once and every thread holds the
+// D = 128 instance's registers.
 // S = Q.K^T is a wgmma m64n64k16 chain with Q and K read from shared
 // memory through descriptors (128-byte swizzle, K-major), accumulating in
 // f32 registers; the online softmax runs on
 // those registers, and P, rounded to the input dtype, is fed from them as
-// the register A operand of O += P.V (m64n{D}k16, V read MN-major from
+// the register A operand of O += P.V (m64n{D/groups}k16, V read MN-major from
 // shared memory) -- exactly the rounding points above; only the summation
 // order differs from the plain version.  K/V tiles arrive by 16-byte
 // cp.async (zero-filled past Tk) into a two-stage ring, so the next tile
@@ -76,7 +84,7 @@ struct Elem<__half> {
 };
 
 template <int D>
-constexpr size_t smem_bytes() {
+__host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) *
          (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
           size_t(BQ) * (BK + 1) + 3 * BQ);
@@ -87,9 +95,13 @@ constexpr size_t smem_bytes() {
 // bf16 / fp16: tensor cores (mma.sync.m16n8k16, ldmatrix, cp.async ring)
 // --------------------------------------------------------------------------
 
-// one warpgroup a CTA: two, sharing each K/V tile, ran 10-35 % slower on
-// the H100 (at ~200 registers a thread only one such CTA fits an SM)
-constexpr int TC_NT = 128;
+// one warpgroup a CTA up to D = 128: two, sharing each K/V tile, ran
+// 10-35 % slower on the H100 (at ~200 registers a thread only one such CTA
+// fits an SM); D = 256 splits O's columns across D / 128 warpgroups
+template <int D>
+__host__ __device__ constexpr int tc_groups() {
+  return D > 128 ? D / 128 : 1;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 
 // two f32 -> one register of two T, the lower column in the low half
@@ -311,28 +323,33 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo,
 
 
 template <int D>
-constexpr size_t tc_smem_bytes() {
+__host__ __device__ constexpr size_t tc_smem_bytes() {
   // Q, 2 x (K, V), and room to align the tiles to 1024 bytes
   return 2 * (size_t(BQ) * D + 4 * size_t(BK) * D) + 1024;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(TC_NT)
+__global__ void __launch_bounds__(128 * tc_groups<D>())
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o, int Hq,
                     int Hkv, int Tq, int Tk, float scale, float softcap,
                     int causal) {
+  constexpr int NTH = 128 * tc_groups<D>();
+  constexpr int DV = D / tc_groups<D>();  // O columns of one warpgroup
   constexpr int CH = D / 8;   // 16-byte chunks a row
   constexpr int KS = D / 16;  // k-steps of Q.K^T
   constexpr int NS = BK / 8;  // n-tiles of S
-  constexpr int ND = D / 8;   // n-tiles of O
+  constexpr int ND = DV / 8;  // n-tiles of this warpgroup's O
+  static_assert(tc_smem_bytes<D>() <= 232448, "shared memory per block");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw +
                                ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   T* sK = sQ + BQ * D;        // 2 stages
   T* sV = sK + 2 * BK * D;    // 2 stages
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = (tid % 128) / 32;  // warp within its warpgroup
+  const int c0 = (tid / 128) * DV;    // the warpgroup's first O column
   const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
   const int hk = h / (Hq / Hkv);
@@ -350,7 +367,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = tile * BK;
     T* dk = sK + stage * BK * D;
     T* dv = sV + stage * BK * D;
-    for (int i = tid; i < BK * CH; i += TC_NT) {
+    for (int i = tid; i < BK * CH; i += NTH) {
       const int r = i / CH, c = i % CH;
       const bool in = k0 + r < Tk;
       const size_t src = in ? size_t(k0 + r) * D + c * 8 : 0;
@@ -363,7 +380,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the scaled Q tile, rounded to T, rows past Tq zero
   const float scale_t = Elem<T>::round(scale);
-  for (int i = tid; i < BQ * CH; i += TC_NT) {
+  for (int i = tid; i < BQ * CH; i += NTH) {
     const int r = i / CH, c = i % CH;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (q0 + r < Tq)
@@ -377,7 +394,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   fence_proxy_async();
   __syncthreads();
 
-  const int r0 = warp * 16;  // this warp's 16 rows of the 64
+  const int r0 = warp * 16;  // this warp's 16 rows of the 64 (S and O)
 
   float acc[ND * 4];  // element e of n-tile j at 4j + e
 #pragma unroll
@@ -475,12 +492,14 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       pa[kk][3] = Pack<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
     }
     // keys 16kk..16kk+15: two 8-row groups (1024 bytes apart) of every
-    // 64-column block (8 KB apart), read MN-major
+    // 64-column block (8 KB apart) from the warpgroup's column c0 on, read
+    // MN-major
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = gmma_desc(tV + kk * 16 * 64, 64 * 64 * 2, 1024);
-      if constexpr (D == 64) {
+      const uint64_t dv = gmma_desc(tV + (c0 >> 6) * (64 * 64) + kk * 16 * 64,
+                                    64 * 64 * 2, 1024);
+      if constexpr (DV == 64) {
         Wgmma<T>::rs_n64(acc, pa[kk], dv);
       } else {
         Wgmma<T>::rs_n128(acc, pa[kk], dv);
@@ -491,8 +510,9 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // this stage's readers are done before it refills
   }
 
-  // o = acc / max(l, 1e-30) in T, through this warp's rows of the Q tile
-  // (read only before the loop) for 16-byte stores
+  // o = acc / max(l, 1e-30) in T, through this warp's rows and this
+  // warpgroup's columns of the Q tile (no longer read: the loop's last
+  // barrier is behind every S product) for 16-byte stores
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float l = l_run[hf];
@@ -507,15 +527,15 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const uint32_t w = Pack<T>::pack(acc[4 * j + 2 * hf] / l_run[hf],
                                       acc[4 * j + 2 * hf + 1] / l_run[hf]);
       *reinterpret_cast<uint32_t*>(
-          sQ + swz<D>(r0 + g + 8 * hf, 8 * j + 2 * t)) = w;
+          sQ + swz<D>(r0 + g + 8 * hf, c0 + 8 * j + 2 * t)) = w;
     }
   }
   __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = i % CH;
+  for (int i = lane; i < 16 * (DV / 8); i += 32) {
+    const int r = i / (DV / 8), c = c0 + 8 * (i % (DV / 8));
     if (q0 + r0 + r < Tq)
-      *reinterpret_cast<uint4*>(ob + size_t(q0 + r0 + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(sQ + swz<D>(r0 + r, c * 8));
+      *reinterpret_cast<uint4*>(ob + size_t(q0 + r0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(sQ + swz<D>(r0 + r, c));
   }
 }
 
@@ -531,6 +551,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = D + 1;   // padded row stride of the Q and K tiles
   constexpr int LP = BK + 1;  // padded row stride of the score tile
   constexpr int CPT = D / 32; // output columns per thread
+  static_assert(smem_bytes<D>() <= 232448, "shared memory per block");
   extern __shared__ float smem[];
   float* sQ = smem;            // BQ x LD, scaled q
   float* sK = sQ + BQ * LD;    // BK x LD
@@ -690,7 +711,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if constexpr (std::is_same<T, float>::value) {
     return go(flash_fwd_kernel<T, D>, smem_bytes<D>(), NT, BQ);
   } else {
-    return go(flash_fwd_tc_kernel<T, D>, tc_smem_bytes<D>(), TC_NT, BQ);
+    return go(flash_fwd_tc_kernel<T, D>, tc_smem_bytes<D>(),
+              128 * tc_groups<D>(), BQ);
   }
 }
 
@@ -704,6 +726,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
                            causal, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, softcap,
+                            causal, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, softcap,
                             causal, stream);
     default:
       return int(cudaErrorInvalidValue);

@@ -11,8 +11,9 @@ H100 is operations (``4 * D`` flops per visible query/key pair).  The bf16
 and fp16 instances run both products on the tensor cores with warpgroup
 MMA (``wgmma``: Q and K from swizzled shared memory, P from the softmax's
 registers, V from shared memory; K/V tiles in a two-stage ``cp.async``
-ring); the f32 instance keeps scalar f32 FMAs, since TF32 tensor cores
-would not give f32 results.
+ring); at head_dim 256 two warpgroups of the CTA share every tile and
+split O's columns, each recomputing S.  The f32 instance keeps scalar f32
+FMAs, since TF32 tensor cores would not give f32 results.
 
 Numerics follow the function the reference's serve path runs,
 ``models/flash_attention.py::_flash_fwd_impl``, not the Pallas kernel: q is
@@ -37,7 +38,7 @@ from . import build
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def run(q, k, v, causal: bool = True, softcap: float = 0.0) -> torch.Tensor:

@@ -4,8 +4,12 @@ the compressed cold pool and the host swap tier.
 Every batch slot owns a list of fixed-size pages (``page_size`` token
 positions x all KV heads); a shared ``(max_batch, pages_per_slot)`` page
 table maps logical page index -> physical page id, identically for every
-attention layer (one allocation decision serves the whole stack).  A short
-request only holds the pages it wrote.
+global attention layer (one allocation decision serves the whole stack).
+A short request only holds the pages it wrote.  A ``local`` (sliding-
+window) layer pages nothing: it keeps a per-slot ring of ``ring_len``
+positions beside the pools (the monolithic cache's leaf), which the
+prefill fragment splices in at admission and preemption carries to the
+host and back (``snapshot_slot_state`` / ``restore_slot_state``).
 
 Physical id space (the reference's, on one device):
   * id 0 is the **garbage page** — inactive slots' table rows point at it
@@ -70,8 +74,14 @@ from .codec import LANES
 from .swap import SwapEntry, SwappedPage
 
 GARBAGE_PAGE = 0
-PAGED_KINDS = ("attn", "nope")
+PAGED_KINDS = ("attn", "nope")   # "local" keeps its ring
 _COLD = ("cpl", "csm", "ctab", "cperm")
+
+
+def ring_len(cfg: ArchConfig, max_len: int) -> int:
+    """Positions of a ``local`` layer's ring buffer: the window, or the
+    whole timeline when that is shorter."""
+    return min(cfg.local_window, max_len)
 
 
 class OutOfPages(RuntimeError):
@@ -142,6 +152,16 @@ def cold_leaves(pools: dict, kn: str, u: int):
     if f"{kn}_cpl" not in pools:
         return None
     return tuple(pools[f"{kn}_{c}"][u] for c in _COLD)
+
+
+def without_cold(cache: dict) -> dict:
+    """A view of ``cache`` without its cold-pool leaves (the pools, rings,
+    timelines and page table kept): what the decode step reads while no
+    page is cold, since decoding an empty cold pool would be waste."""
+    units = {name: {k: v for k, v in leaves.items()
+                    if k.partition("_")[2] not in _COLD}
+             for name, leaves in cache["units"].items()}
+    return {**cache, "units": units}
 
 
 def page_gather(pool, page_table, cpool=None, path: str = "gather"):
@@ -217,7 +237,8 @@ class PagedKVCache:
                  n_pages: int | None = None, compress_cold: bool = False,
                  n_cold_slots: int | None = None):
         """Args:
-          cfg: architecture config; every layer must page ('attn'/'nope').
+          cfg: architecture config: whole units of paged ('attn'/'nope')
+            and ``local`` layers (the latter keep rings, not pages).
           max_batch/max_len: static engine batch shape; every slot can hold
             at most ``max_len`` tokens (``pages_per_slot`` pages).
           dtype: cache storage dtype (fp8 / bf16 / f32: a page-codec type).
@@ -230,10 +251,11 @@ class PagedKVCache:
           n_cold_slots: cold pool size (default: worst case minus one tail
             page per slot).
         """
-        if any(cfg.layer_kind(i) not in PAGED_KINDS
-               for i in range(cfg.n_layers)) or cfg.unit != 1:
+        if (any(k not in PAGED_KINDS + ("local",) for k in cfg.pattern)
+                or cfg.n_layers % cfg.unit):
             raise NotImplementedError(
-                f"{cfg.name}: paging non-'attn' layers is not yet ported")
+                f"{cfg.name}: only whole units of 'attn'/'nope'/'local' "
+                f"layers are ported")
         self.cfg = cfg
         self.device = resolve(device)
         self.max_batch, self.max_len = max_batch, max_len
@@ -250,7 +272,13 @@ class PagedKVCache:
         self.page_size = ps
         self.pages_per_slot = max_len // ps
         self.n_pages = n_pages or (1 + max_batch * self.pages_per_slot)
-        self.n_attn_layers = cfg.n_layers
+        self.n_units = cfg.n_layers // cfg.unit
+        # pattern positions whose layers page, and those that keep a ring
+        self.paged_pos = [f"pos{j}" for j, k in enumerate(cfg.pattern)
+                          if k in PAGED_KINDS]
+        self.ring_pos = [f"pos{j}" for j, k in enumerate(cfg.pattern)
+                         if k == "local"]
+        self.n_attn_layers = self.n_units * len(self.paged_pos)
         self.page_elems = cfg.n_kv_heads * ps * cfg.hd
         exp_bits, self.max_code_len, _ = codec.plane_spec(self.dtype_name)
         self.n_sym = 1 << exp_bits
@@ -296,11 +324,11 @@ class PagedKVCache:
         self.encode_seconds = self.retire_seconds = 0.0
         self.n_fault_decodes = 0
 
-    def init_cache(self) -> dict:
-        """The paged cache: per-layer page pools (and cold-pool leaves),
-        per-slot timelines and the shared page table."""
-        cfg, dev, L = self.cfg, self.device, self.cfg.n_layers
-        pool = (L, self.n_pages, cfg.n_kv_heads, self.page_size, cfg.hd)
+    def _pool_leaves(self) -> dict:
+        """One paged position's page pools (and cold-pool leaves), stacked
+        over the units."""
+        cfg, dev, U = self.cfg, self.device, self.n_units
+        pool = (U, self.n_pages, cfg.n_kv_heads, self.page_size, cfg.hd)
         leaves = {"k_pool": torch.zeros(pool, dtype=self.dtype, device=dev),
                   "v_pool": torch.zeros(pool, dtype=self.dtype, device=dev)}
         if self.compress:
@@ -311,9 +339,25 @@ class PagedKVCache:
             for kn in ("k", "v"):
                 for c, (shape, dt) in shapes.items():
                     leaves[f"{kn}_{c}"] = torch.zeros(
-                        (L, self.n_cold) + shape, dtype=dt, device=dev)
+                        (U, self.n_cold) + shape, dtype=dt, device=dev)
+        return leaves
+
+    def init_cache(self) -> dict:
+        """The paged cache: page pools (and cold-pool leaves) of every
+        paged pattern position, the rings of the ``local`` ones ((n_units,
+        max_batch, n_kv, ring_len, hd), as the monolithic cache's),
+        per-slot timelines and the shared page table."""
+        cfg, dev = self.cfg, self.device
+        ring = (self.n_units, self.max_batch, cfg.n_kv_heads,
+                ring_len(cfg, self.max_len), cfg.hd)
+        units = {}
+        for j, kind in enumerate(cfg.pattern):
+            units[f"pos{j}"] = (self._pool_leaves() if kind in PAGED_KINDS
+                                else {kn: torch.zeros(ring, dtype=self.dtype,
+                                                      device=dev)
+                                      for kn in ("k", "v")})
         return {
-            "units": {"pos0": leaves},
+            "units": units,
             "tail": {},
             "cur_len": torch.zeros((self.max_batch,), dtype=torch.int32,
                                    device=dev),
@@ -382,7 +426,8 @@ class PagedKVCache:
 
     def admit(self, cache: dict, slot: int, frag: dict, prompt_len: int):
         """Allocate a fresh slot's pages and copy its prefill fragment
-        (``models.model.prefill``'s cache, batch 1) into them."""
+        (``models.model.prefill``'s cache, batch 1, prefilled with this
+        cache's ``max_len``) into them, and its rings into the slot's."""
         need = self.pages_needed(prompt_len)
         if len(self._free) < need:
             cache = self._reclaim_prefix(cache, need - len(self._free))
@@ -396,10 +441,15 @@ class PagedKVCache:
         cache["page_table"][slot] = 0
         cache["page_table"][slot, :need] = ids.to(torch.int32)
         cache["cur_len"][slot] = prompt_len
-        dst, src = cache["units"]["pos0"], frag["units"]["pos0"]
-        for kn in ("k", "v"):
-            pages = self._frag_pages(src[kn])
-            dst[f"{kn}_pool"][:, ids] = pages[:, :need].to(self.dtype)
+        for name in self.paged_pos:
+            dst, src = cache["units"][name], frag["units"][name]
+            for kn in ("k", "v"):
+                pages = self._frag_pages(src[kn])
+                dst[f"{kn}_pool"][:, ids] = pages[:, :need].to(self.dtype)
+        for name in self.ring_pos:
+            dst, src = cache["units"][name], frag["units"][name]
+            for kn in ("k", "v"):
+                dst[kn][:, slot] = src[kn][:, 0].to(self.dtype)
         return cache
 
     def admit_slot(self, cache: dict, slot: int, need: int):
@@ -421,9 +471,10 @@ class PagedKVCache:
         return cache
 
     def _frag_pages(self, x):
-        """Prefill fragment (L, 1, n_kv, max_len, hd) -> (L, P, n_kv, ps, hd)."""
+        """Prefill fragment (U, 1, n_kv, max_len, hd) -> (U, P, n_kv, ps,
+        hd), U the unit count."""
         cfg, ps, P = self.cfg, self.page_size, self.pages_per_slot
-        x = x.reshape(cfg.n_layers, cfg.n_kv_heads, P, ps, cfg.hd)
+        x = x.reshape(self.n_units, cfg.n_kv_heads, P, ps, cfg.hd)
         return x.permute(0, 2, 1, 3, 4)
 
     def ensure(self, cache: dict, slot: int, pos: int):
@@ -491,25 +542,30 @@ class PagedKVCache:
 
     # -- coded pages: host <-> device ----------------------------------------
 
+    def _groups(self):
+        """(paged position, 'k' or 'v') in the canonical sub-page order."""
+        return [(name, kn) for name in self.paged_pos for kn in ("k", "v")]
+
     def _encode_host(self, subs) -> list:
-        """Entropy-code sub-pages on the host -> [(kn, u, CompressedPage)]
-        in the canonical order (K layers, then V layers).  ``subs`` maps
-        kn -> one page of every layer, (L, n_kv, ps, hd), on the host."""
+        """Entropy-code sub-pages on the host -> [(name, kn, u,
+        CompressedPage)] in the canonical order (each paged position's K
+        units, then its V units).  ``subs`` maps (name, kn) -> one page of
+        every unit, (U, n_kv, ps, hd), on the host."""
         t0 = time.perf_counter()
-        out = [(kn, u, codec.encode_page(subs[kn][u]))
-               for kn in ("k", "v") for u in range(self.cfg.n_layers)]
+        out = [(name, kn, u, codec.encode_page(subs[name, kn][u]))
+               for name, kn in self._groups() for u in range(self.n_units)]
         self.encode_seconds += time.perf_counter() - t0
         return out
 
     def _install_cold(self, cache: dict, cs: int, entries) -> None:
-        """Write coded sub-pages (``SwapEntry``-like: kn, u, payload,
+        """Write coded sub-pages (``SwapEntry``-like: name, kn, u, payload,
         signmant, tables, perm) into cold slot ``cs``, payloads zero-padded
         to the stride budget; one host->device copy per leaf."""
-        L = self.cfg.n_layers
-        leaves = cache["units"]["pos0"]
-        for kn in ("k", "v"):
-            mine = [e for e in entries if e.kn == kn]
-            pay = np.zeros((L, self.stride_budget, LANES), np.uint8)
+        for name, kn in self._groups():
+            leaves = cache["units"][name]
+            mine = [e for e in entries if (e.name, e.kn) == (name, kn)]
+            pay = np.zeros((self.n_units, self.stride_budget, LANES),
+                           np.uint8)
             for e in mine:
                 pay[e.u, : e.payload.shape[0]] = e.payload
             host = {"cpl": pay,
@@ -521,8 +577,8 @@ class PagedKVCache:
                     self.device)
 
     def _raw_page_host(self, cache: dict, pid: int) -> dict:
-        pools = cache["units"]["pos0"]
-        return {kn: pools[f"{kn}_pool"][:, pid].cpu() for kn in ("k", "v")}
+        return {(name, kn): cache["units"][name][f"{kn}_pool"][:, pid].cpu()
+                for name, kn in self._groups()}
 
     # -- swap tier (hot/cold -> host, see kvcache/swap.py) -----------------
 
@@ -547,24 +603,26 @@ class PagedKVCache:
     def _encode_raw_page(self, cache: dict, pid: int) -> SwappedPage:
         """Entropy-code one raw pool page into a host SwappedPage."""
         page = SwappedPage(was_cold=False)
-        for kn, u, cp in self._encode_host(self._raw_page_host(cache, pid)):
-            page.entries.append(SwapEntry(kn, u, cp.payload, cp.signmant,
-                                          cp.tables(), cp.perm))
+        for name, kn, u, cp in self._encode_host(
+                self._raw_page_host(cache, pid)):
+            page.entries.append(SwapEntry(name, kn, u, cp.payload,
+                                          cp.signmant, cp.tables(), cp.perm))
             page.nbytes += cp.nbytes()
         return page
 
     def _copy_cold_page(self, cache: dict, cslot: int) -> SwappedPage:
         """Copy an already-coded cold page's container to the host (the
         cheap, cold-first eviction path: no re-encode)."""
-        leaves = cache["units"]["pos0"]
         page = SwappedPage(was_cold=True,
                            nbytes=self._cold_bytes.get(cslot, 0))
-        for kn in ("k", "v"):
+        for name, kn in self._groups():
+            leaves = cache["units"][name]
             # a copy even on the CPU: the cold slot is reused at once
             host = [leaves[f"{kn}_{c}"][:, cslot].to("cpu", copy=True)
                     .numpy() for c in _COLD]
-            for u in range(self.cfg.n_layers):
-                page.entries.append(SwapEntry(kn, u, *(h[u] for h in host)))
+            for u in range(self.n_units):
+                page.entries.append(SwapEntry(name, kn, u,
+                                              *(h[u] for h in host)))
         return page
 
     def evict(self, cache: dict, slot: int, page_idxs=None):
@@ -691,18 +749,32 @@ class PagedKVCache:
         self.n_fault_decodes += 1
         dec = dec.view(len(jobs), self.cfg.n_kv_heads, self.page_size,
                        self.cfg.hd)
-        pools = cache["units"]["pos0"]
-        for kn in ("k", "v"):
-            rows = [i for i, (e, _) in enumerate(jobs) if e.kn == kn]
+        for name, kn in self._groups():
+            rows = [i for i, (e, _) in enumerate(jobs)
+                    if (e.name, e.kn) == (name, kn)]
             u = torch.tensor([jobs[i][0].u for i in rows], device=dev)
             pid = torch.tensor([jobs[i][1] for i in rows], device=dev)
-            pools[f"{kn}_pool"][u, pid] = dec[torch.tensor(rows, device=dev)]
+            cache["units"][name][f"{kn}_pool"][u, pid] = dec[
+                torch.tensor(rows, device=dev)]
 
     def snapshot_slot_state(self, cache: dict, slot: int) -> dict:
-        """Host copies of the slot's non-paged per-slot cache state, which
-        preemption would have to carry across: none, since every layer the
-        port serves pages (the constructor refuses any other)."""
-        return {}
+        """Host copies of the slot's non-paged per-slot cache state: the
+        rings of its ``local`` layers, which hold no page ids and would be
+        overwritten by the next request admitted to the slot.  Preemption
+        stashes them with this and reinstalls them with
+        :func:`restore_slot_state` on resume -> {(name, kn): (U, n_kv, W,
+        hd) host tensor}, empty for a stack that only pages."""
+        return {(name, kn): cache["units"][name][kn][:, slot].to(
+                    "cpu", copy=True)
+                for name in self.ring_pos for kn in ("k", "v")}
+
+    def restore_slot_state(self, cache: dict, slot: int,
+                           snap: dict) -> dict:
+        """Inverse of :func:`snapshot_slot_state`, in place (bit-exact: the
+        state never leaves its dtype)."""
+        for (name, kn), host in snap.items():
+            cache["units"][name][kn][:, slot] = host.to(self.device)
+        return cache
 
     def detach_slot(self, slot: int):
         """Pop a preempted slot's host state -> (page list, skip set).
@@ -890,7 +962,6 @@ class PagedKVCache:
         if pages is None or self.prefix is None:
             return cache
         ps = self.page_size
-        pools = cache["units"]["pos0"]
         for p in range(lo // ps, min(hi // ps, len(pages) - 1) + 1):
             pid = pages[p]
             if (not GARBAGE_PAGE < pid < self.n_pages
@@ -902,8 +973,9 @@ class PagedKVCache:
                 raise OutOfPages(f"CoW split of slot {slot} page {p} has no "
                                  f"free page")
             new = self._alloc_raw()
-            for kn in ("k", "v"):
-                pools[f"{kn}_pool"][:, new] = pools[f"{kn}_pool"][:, pid]
+            for name, kn in self._groups():
+                pool = cache["units"][name][f"{kn}_pool"]
+                pool[:, new] = pool[:, pid]
             self._decref(pid)
             pages[p] = new
             cache["page_table"][slot, p] = new
@@ -987,17 +1059,18 @@ class PagedKVCache:
         change) when a sub-page's stream exceeds the stride budget."""
         pid = self._slot_pages[slot][p]
         enc = self._encode_host(self._raw_page_host(cache, pid))
-        if any(cp.stride > self.stride_budget for _, _, cp in enc):
+        if any(cp.stride > self.stride_budget for *_, cp in enc):
             return False                # incompressible: stay raw
         cslot = self._cold_free.pop()
         self._install_cold(cache, cslot, [
-            SwapEntry(kn, u, cp.payload, cp.signmant, cp.tables(), cp.perm)
-            for kn, u, cp in enc])
+            SwapEntry(name, kn, u, cp.payload, cp.signmant, cp.tables(),
+                      cp.perm)
+            for name, kn, u, cp in enc])
         entry = self.n_pages + cslot
         self._slot_pages[slot][p] = entry
         cache["page_table"][slot, p] = entry
         self._decref(pid)
-        self._cold_bytes[cslot] = sum(cp.nbytes() for _, _, cp in enc)
+        self._cold_bytes[cslot] = sum(cp.nbytes() for *_, cp in enc)
         self.n_compressed += 1
         self.compressed_bytes += self._cold_bytes[cslot]
         return True

@@ -46,8 +46,9 @@ class SwapEntry:
     the ``(3, L)`` canonical-decode stack and ``perm`` the canonical symbol
     order, exactly as produced by ``codec.CompressedPage``."""
 
+    name: str               # the paged pattern position, "pos<j>"
     kn: str                 # "k" | "v"
-    u: int                  # layer index
+    u: int                  # unit index
     payload: np.ndarray     # (stride, LANES) uint8
     signmant: np.ndarray    # raw sign+mantissa plane, uint8
     tables: np.ndarray      # (3, L) int32

@@ -13,6 +13,10 @@ windows) and every traced decode step decodes the cold pool.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 36
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch moonshot-v1-16b-a3b
+    # gemma2-9b at chip_smoke.py phase 13's max_len: prompts past the
+    # local window (local_attention at prefill, rings of 4096 in decode)
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch gemma2-9b --max-len 8192 --prompt 4500
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ def main(argv=None):
                     help="depth (default: the architecture's own)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=256)
+    ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--compress", default="tpu", choices=["none", "tpu"])
     ap.add_argument("--cache", default="paged",
@@ -73,7 +78,7 @@ def main(argv=None):
     served, _, _, _ = build_params(cfg, args.seed, args.compress,
                                    baseline=False)
     eng = GenerationEngine(served, cfg, EngineConfig(
-        max_batch=args.batch, max_len=1024,
+        max_batch=args.batch, max_len=args.max_len,
         compress_cold=args.cache == "paged-compressed"))
     rng = np.random.default_rng(args.seed)
 

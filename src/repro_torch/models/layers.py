@@ -1,6 +1,6 @@
-"""Core transformer layers: norms, RoPE, GQA attention (blockwise / decode),
-the MLPs (SwiGLU, GELU, GeGLU, squared ReLU).  Plain PyTorch functions on
-tensors.
+"""Core transformer layers: norms, RoPE, GQA attention (blockwise / local
+window / decode), the MLPs (SwiGLU, GELU, GeGLU, squared ReLU).  Plain
+PyTorch functions on tensors.
 
 Weights may be ``CompressedTensor``s (ECF8): every use site goes through
 ``mat`` = materialize-and-cast, the paper's just-in-time per-layer
@@ -134,6 +134,45 @@ def blockwise_attention(q, k, v, *, causal: bool = True, q_offset=0,
             acc = acc * corr[..., None] + _gqa_combine(p, v_blk)
             m = m_new
         outs.append(acc / torch.clamp(denom[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2) if n_q > 1 else outs[0]
+    return out[:, :, :Tq].to(v.dtype)
+
+
+def local_attention(q, k, v, *, window: int, attn_softcap: float = 0.0,
+                    q_chunk: int = 1024):
+    """Causal sliding-window attention, O(Tq * window): the reference's
+    ``local_attention``, computed outside any kernel there as here.
+
+    q: (B, Hq, Tq, D), k/v: (B, Hkv, Tq, D).  Each q chunk ``[i*C,
+    (i+1)*C)`` attends to the K/V slice ``[i*C - W, (i+1)*C)`` (zero-padded
+    in front), masked to ``q_pos - W < kv_pos <= q_pos`` and ``kv_pos >=
+    0``; the softcap comes before the mask, q is scaled in its own dtype,
+    and the softmax is f32."""
+    B, Hq, Tq, D = q.shape
+    q = scale_in_dtype(q, D ** -0.5)
+    C = min(q_chunk, Tq)
+    n_q = -(-Tq // C)
+    Tq_p = n_q * C
+    if Tq_p != Tq:
+        q = F.pad(q, (0, 0, 0, Tq_p - Tq))
+    W = min(window, k.shape[2])
+    ctx = C + W                     # kv context of one q chunk
+    k_pad = F.pad(k, (0, 0, W, Tq_p - Tq))
+    v_pad = F.pad(v, (0, 0, W, Tq_p - Tq))
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        q_blk = q[:, :, qi * C:(qi + 1) * C]
+        k_blk = k_pad[:, :, qi * C:qi * C + ctx]
+        v_blk = v_pad[:, :, qi * C:qi * C + ctx]
+        s = _softcap(_gqa_scores(q_blk, k_blk).to(F32), attn_softcap)
+        q_pos = qi * C + torch.arange(C, device=dev)
+        kv_pos = qi * C + torch.arange(ctx, device=dev) - W
+        mask = ((kv_pos[None, :] <= q_pos[:, None])
+                & (kv_pos[None, :] > q_pos[:, None] - W)
+                & (kv_pos[None, :] >= 0))
+        s = torch.where(mask[None, None], s, -1e30)
+        outs.append(_gqa_combine(torch.softmax(s, dim=-1), v_blk))
     out = torch.cat(outs, dim=2) if n_q > 1 else outs[0]
     return out[:, :, :Tq].to(v.dtype)
 

@@ -1,19 +1,26 @@
-"""Decoder-only LM for the ``("attn",)`` pattern (the dense qwen3 family,
-the MLP types of granite and nemotron, and the mixture-of-experts
-family), built from ``ArchConfig``.  Plain functions over a nested-dict
-parameter tree laid out as the reference's:
+"""Decoder-only LM for the attention patterns ``("attn",)`` (the dense
+qwen3 family, the MLP types of granite and nemotron, the mixture-of-experts
+family) and ``("local", "attn")`` (gemma2: sliding-window layers between
+global ones, post-block norms, softcaps), built from ``ArchConfig``.  Plain
+functions over a nested-dict parameter tree laid out as the reference's:
 
     {"embed": (V, d), "final_norm": (d,), ["unembed": (d, V),]
-     "units": {"pos0": {"norm1", "attn": {wq, wk, wv, wo[, q_norm,
+     "units": {"pos<j>": {"norm1", "attn": {wq, wk, wv, wo[, q_norm,
                k_norm]}, "norm2", "mlp": {wi_gate, wi_up, wo} | {wi, wo}
                | "moe": {gate, wi_gate, wi_up, wo[, shared: {wi_gate,
-               wi_up, wo}]}}},
+               wi_up, wo}]}[, "post_norm1", "post_norm2"]}},
      "tail": {}}
 
-where every leaf under ``"units"`` is stacked over a leading layer dim, and
-each weight keeps the ``(in, out)`` layout (``x @ W``) so that its ECF8
-container bytes equal the reference's.  The layer loop replaces the
-reference's ``lax.scan``; KV pools are updated in place.
+with one ``pos<j>`` for each position ``j`` of the config's pattern: layer
+``i`` is unit ``i // unit``, position ``i % unit``, and every leaf under
+``"units"`` is stacked over the ``n_layers // unit`` units.  Each weight
+keeps the ``(in, out)`` layout (``x @ W``), so that its ECF8 container
+bytes equal the reference's.  The unit loop replaces the reference's
+``lax.scan``; KV pools and rings are updated in place.
+
+A ``local`` layer's cache is a ring of ``W = min(local_window, max_len)``
+positions a slot (position ``t`` at ring slot ``t % W``), beside the page
+pools of the ``attn`` layers in a paged cache.
 
 Entry points:
   prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
@@ -35,22 +42,22 @@ from ..device import resolve
 from ..kernels import ops
 from ..kvcache import paged as paged_kv
 from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
-                     mat, mlp_apply, mlp_init, rms_norm)
+                     local_attention, mat, mlp_apply, mlp_init, rms_norm)
 from .moe import moe_apply, moe_init
 
-SUPPORTED_KINDS = ("attn",)
+SUPPORTED_KINDS = ("attn", "local")
 MLP_TYPES = ("swiglu", "gelu", "geglu", "sqrelu")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this slice of the port does not serve."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if (not kinds <= set(SUPPORTED_KINDS) or cfg.unit != 1
-            or cfg.encoder_decoder or cfg.post_norms
-            or cfg.mlp_type not in MLP_TYPES):
+    kinds = set(cfg.pattern)
+    if (not kinds <= set(SUPPORTED_KINDS) or cfg.n_layers % cfg.unit
+            or cfg.encoder_decoder or cfg.mlp_type not in MLP_TYPES):
         raise NotImplementedError(
-            f"{cfg.name}: not yet ported (this slice serves the ('attn',) "
-            f"family: dense MLPs {MLP_TYPES} and mixture-of-experts)")
+            f"{cfg.name}: not yet ported (the port serves whole units of "
+            f"the 'attn' and 'local' kinds: dense MLPs {MLP_TYPES} and "
+            f"mixture-of-experts)")
 
 
 # --------------------------------------------------------------------------
@@ -60,9 +67,9 @@ def check_supported(cfg: ArchConfig) -> None:
 class _Draws:
     """The leaf maker of :func:`init_params`: ``new(name, shape, scale)``
     draws ``normal(shape) * scale`` (zeros when ``scale`` is None) once a
-    layer, ``n_layers`` times (None: once, unstacked), from the shared
-    generator, and hands the draws to ``leaf``; ``sub(name)`` is the maker
-    of a sub-tree."""
+    unit, ``n_layers`` times (the unit count; None: once, unstacked), from
+    the shared generator, and hands the draws to ``leaf``; ``sub(name)`` is
+    the maker of a sub-tree."""
 
     def __init__(self, gen, dtype, leaf, n_layers, path=()):
         self.gen, self.dtype, self.leaf = gen, dtype, leaf
@@ -115,13 +122,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     ``jax.random``; parity tests convert the reference's own weights with
     ``repro_torch.convert``).
 
-    A stacked leaf is drawn one layer at a time.  ``leaf(path, draws,
-    n_layers)`` builds each leaf from its draws (an iterator of ``dtype``
-    tensors, one a layer, ``n_layers`` None for an unstacked leaf) and must
+    A stacked leaf is drawn one unit at a time, the leaves of pattern
+    position 0 first.  ``leaf(path, draws, n_layers)`` builds each leaf
+    from its draws (an iterator of ``dtype`` tensors, one a unit,
+    ``n_layers`` the unit count, None for an unstacked leaf) and must
     consume them before it returns; the default stacks them into f32
-    masters.  ``core.store.build_trees`` casts and compresses each layer as
-    it comes instead, so a caller never holds more than one layer's f32
-    draw of a stacked leaf, and both see the same weights."""
+    masters.  ``core.store.build_trees`` casts and compresses each unit's
+    draw as it comes instead, so a caller never holds more than one unit's
+    f32 draw of a stacked leaf, and both see the same weights."""
     check_supported(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -132,23 +140,30 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
               "final_norm": top("final_norm", (d,))}
     if not cfg.tie_embeddings:
         params["unembed"] = top("unembed", (d, V), d ** -0.5)
-    new = _Draws(gen, dtype, leaf, cfg.n_layers, ("units", "pos0"))
-    layer = {"norm1": new("norm1", (d,)),
-             "attn": _attn_init(new.sub("attn"), cfg),
-             "norm2": new("norm2", (d,))}
-    if cfg.n_experts:
-        layer["moe"] = moe_init(new.sub("moe"), d, cfg.n_experts,
-                                cfg.moe_d_ff, cfg.n_shared_experts,
-                                cfg.moe_d_ff)
-    else:
-        layer["mlp"] = mlp_init(new.sub("mlp"), d, cfg.d_ff, cfg.mlp_type)
-    params["units"] = {"pos0": layer}
+    n_units = cfg.n_layers // cfg.unit
+    params["units"] = {}
+    for j in range(cfg.unit):
+        new = _Draws(gen, dtype, leaf, n_units, ("units", f"pos{j}"))
+        layer = {"norm1": new("norm1", (d,)),
+                 "attn": _attn_init(new.sub("attn"), cfg),
+                 "norm2": new("norm2", (d,))}
+        if cfg.n_experts:
+            layer["moe"] = moe_init(new.sub("moe"), d, cfg.n_experts,
+                                    cfg.moe_d_ff, cfg.n_shared_experts,
+                                    cfg.moe_d_ff)
+        else:
+            layer["mlp"] = mlp_init(new.sub("mlp"), d, cfg.d_ff,
+                                    cfg.mlp_type)
+        if cfg.post_norms:
+            layer["post_norm1"] = new("post_norm1", (d,))
+            layer["post_norm2"] = new("post_norm2", (d,))
+        params["units"][f"pos{j}"] = layer
     params["tail"] = {}
     return params
 
 
 def _layer(tree, u: int):
-    """Layer ``u`` of the stacked unit parameters (views)."""
+    """Unit ``u`` of stacked unit parameters or caches (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, u) for k, v in tree.items()}
     return tree.layer(u) if is_compressed(tree) else tree[u]
@@ -184,12 +199,18 @@ def _attn_out(p, o, dtype):
     return o @ mat(p["wo"], dtype)
 
 
-def _self_attention_full(p, x, cfg: ArchConfig, dtype):
-    """Full-sequence causal self attention (prefill): the flash kernel."""
+def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype):
+    """Full-sequence causal self attention (prefill): the flash kernel, or
+    for a ``local`` layer whose window is shorter than the prompt,
+    :func:`local_attention` (the reference's condition)."""
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
     q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype, positions))
-    o = ops.flash_attention(q, k, v, True, cfg.attn_softcap)
+    if kind == "local" and cfg.local_window < T:
+        o = local_attention(q, k, v, window=cfg.local_window,
+                            attn_softcap=cfg.attn_softcap)
+    else:
+        o = ops.flash_attention(q, k, v, True, cfg.attn_softcap)
     return _attn_out(p, o, dtype), (k, v)
 
 
@@ -219,21 +240,26 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
 
 
 def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, dtype, kc, vc,
-                                      cur_len):
-    """One-token decode through the contiguous (monolithic) cache: each
-    slot's new K/V is written in place at its own ``cur_len`` in ``kc`` /
-    ``vc`` (B, n_kv, max_len, hd), and the token attends over ``cur_len +
-    1`` positions.  The write position is clamped to ``max_len - 1`` as
-    the reference's ``dynamic_update_slice`` clamps it: a vacated slot
-    keeps stepping past the end of its row, and its outputs are never
-    read."""
-    B = x.shape[0]
+                                      cur_len, ring: bool = False):
+    """One-token decode through a contiguous cache row, ``kc`` / ``vc``
+    (B, n_kv, S, hd), written in place.
+
+    A global layer's row is the monolithic cache's: each slot's new K/V
+    lands at its own ``cur_len``, clamped to ``S - 1`` as the reference's
+    ``dynamic_update_slice`` clamps it (a vacated slot keeps stepping past
+    the end of its row, and its outputs are never read), and the token
+    attends over ``cur_len + 1`` positions.  A ``local`` layer's row is
+    its ring of ``W = S`` positions (``ring``): the write lands at
+    ``cur_len % W`` and the token attends over ``min(cur_len + 1, W)``
+    slots, every one of them once the ring has wrapped."""
+    B, S = x.shape[0], kc.shape[2]
     q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
-    pos = cur_len.clamp(max=kc.shape[2] - 1).long()
+    pos = (cur_len % S if ring else cur_len.clamp(max=S - 1)).long()
     rows = torch.arange(B, device=x.device)
     kc[rows, :, pos] = k[:, :, 0].to(kc.dtype)
     vc[rows, :, pos] = v[:, :, 0].to(vc.dtype)
-    o = decode_attention(q, kc, vc, kv_len=cur_len + 1,
+    kv_len = (cur_len + 1).clamp(max=S) if ring else cur_len + 1
+    o = decode_attention(q, kc, vc, kv_len=kv_len,
                          attn_softcap=cfg.attn_softcap)
     return _attn_out(p, o, dtype)
 
@@ -276,39 +302,54 @@ def _ffn(p, x, cfg: ArchConfig, dtype):
     return mlp_apply(p["mlp"], x, cfg.mlp_type, dtype)
 
 
-def _layer_apply_full(p, x, cfg: ArchConfig, dtype):
+def _residual(p, x, o, cfg: ArchConfig, dtype):
+    """The layer's two residual adds around the attention output ``o``:
+    ``x + post_norm1(o)``, then ``+ post_norm2(ffn(norm2(x)))``, the post
+    norms where the config has them (gemma2)."""
+    if cfg.post_norms:
+        o = rms_norm(o, p["post_norm1"])
+    x = x + o
+    o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype)
+    if cfg.post_norms:
+        o2 = rms_norm(o2, p["post_norm2"])
+    return x + o2
+
+
+def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype):
     """Full-sequence layer (prefill).  Returns (x, (k, v))."""
     h = rms_norm(x, p["norm1"])
-    o, kv = _self_attention_full(p["attn"], h, cfg, dtype)
-    x = x + o
-    h2 = rms_norm(x, p["norm2"])
-    return x + _ffn(p, h2, cfg, dtype), kv
+    o, kv = _self_attention_full(p["attn"], h, cfg, kind, dtype)
+    return _residual(p, x, o, cfg, dtype), kv
 
 
-def _layer_apply_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
-                        page_table):
-    """Decode layer; ``page_table`` None means ``pools`` is the contiguous
-    cache's (k, v) of this layer."""
+def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
+                        cur_len, page_table):
+    """Decode layer; ``page_table`` None means ``pools`` is this layer's
+    contiguous (k, v): the monolithic cache's row, or a ``local`` layer's
+    ring."""
     h = rms_norm(x, p["norm1"])
     if page_table is None:
         o = _self_attention_decode_contiguous(p["attn"], h, cfg, dtype,
-                                              *pools, cur_len)
+                                              *pools, cur_len,
+                                              ring=kind == "local")
     else:
         o = _self_attention_decode(p["attn"], h, cfg, dtype, pools, cur_len,
                                    page_table)
-    x = x + o
-    h2 = rms_norm(x, p["norm2"])
-    return x + _ffn(p, h2, cfg, dtype)
+    return _residual(p, x, o, cfg, dtype)
 
 
-def _layer_apply_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
-                       n_valid: int, path: str):
-    """Chunk-mode layer: the decode layer's residual structure at T = C."""
+def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
+                       start, n_valid: int, path: str):
+    """Chunk-mode layer: the decode layer's residual structure at T = C.
+    Pages only: a ``local`` layer is refused, as the reference refuses it
+    (the engine falls back to whole-prompt prefill for such stacks)."""
+    if kind not in paged_kv.PAGED_KINDS:
+        raise ValueError(
+            f"chunked prefill only pages 'attn'/'nope' layers, got {kind}")
     h = rms_norm(x, p["norm1"])
-    x = x + _self_attention_chunk(p["attn"], h, cfg, dtype, pools, row,
-                                  start, n_valid, path)
-    h2 = rms_norm(x, p["norm2"])
-    return x + _ffn(p, h2, cfg, dtype)
+    o = _self_attention_chunk(p["attn"], h, cfg, dtype, pools, row, start,
+                              n_valid, path)
+    return _residual(p, x, o, cfg, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -335,69 +376,99 @@ def _unembed(params, cfg: ArchConfig, x, dtype):
     return logits
 
 
+def _stack_layers(cfg: ArchConfig):
+    """(unit, cache/parameter key, kind) of every layer, in order."""
+    for u in range(cfg.n_layers // cfg.unit):
+        for j, kind in enumerate(cfg.pattern):
+            yield u, f"pos{j}", kind
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                device="cuda", per_slot: bool = False):
-    """Contiguous per-layer K/V: ``units/pos0/{k,v}`` is ``(n_layers,
-    batch, n_kv, max_len, hd)``.  ``per_slot=True`` makes ``cur_len`` a
-    (batch,) vector, every slot on its own timeline (the engine's
-    monolithic cache); else it is one shared 0-d length (a prefill's)."""
+    """Contiguous K/V of every pattern position: ``units/pos<j>/{k,v}`` is
+    ``(n_units, batch, n_kv, S, hd)``, with ``S = max_len`` for a global
+    position and the ring length ``min(local_window, max_len)`` for a
+    ``local`` one.  ``per_slot=True`` makes ``cur_len`` a (batch,) vector,
+    every slot on its own timeline (the engine's monolithic cache); else
+    it is one shared 0-d length (a prefill's)."""
     dev = resolve(device)
-    s = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    n_units = cfg.n_layers // cfg.unit
+    units = {}
+    for j, kind in enumerate(cfg.pattern):
+        S = paged_kv.ring_len(cfg, max_len) if kind == "local" else max_len
+        s = (n_units, batch, cfg.n_kv_heads, S, cfg.hd)
+        units[f"pos{j}"] = {"k": torch.zeros(s, dtype=dtype, device=dev),
+                            "v": torch.zeros(s, dtype=dtype, device=dev)}
     cur = (torch.zeros((batch,), dtype=torch.int32, device=dev) if per_slot
            else torch.zeros((), dtype=torch.int32, device=dev))
-    return {"units": {"pos0": {"k": torch.zeros(s, dtype=dtype, device=dev),
-                               "v": torch.zeros(s, dtype=dtype, device=dev)}},
-            "tail": {},
-            "cur_len": cur}
+    return {"units": units, "tail": {}, "cur_len": cur}
+
+
+def _fill(dst, got, kind: str):
+    """Write a prefill's K (or V), (B, n_kv, T, hd), into its cache row
+    ``dst`` (B, n_kv, S, hd), in place: from position 0, or for a ``local``
+    ring that the prompt fills (``T >= W``) its last ``W`` positions,
+    rolled by ``T % W`` so position ``t`` sits at ring slot ``t % W``."""
+    T, W = got.shape[2], dst.shape[2]
+    if kind == "local" and T >= W:
+        dst.copy_(torch.roll(got[:, :, T - W:], T % W, dims=2))
+    else:
+        dst[:, :, :T] = got
 
 
 def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
     """Process a prompt, build its cache -> (last-pos logits (B, 1, V),
-    cache with K/V zero-padded to ``max_len``)."""
+    cache with global K/V zero-padded to ``max_len`` and every ``local``
+    layer's ring of ``min(local_window, max_len)`` positions filled)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     max_len = max_len or T
     cache = init_cache(cfg, B, max_len, dtype, tokens.device)
     x = _embed(params, cfg, tokens, dtype)
-    units = params["units"]["pos0"]
-    kc, vc = cache["units"]["pos0"]["k"], cache["units"]["pos0"]["v"]
-    for u in range(cfg.n_layers):
-        x, (k, v) = _layer_apply_full(_layer(units, u), x, cfg, dtype)
-        kc[u, :, :, :T] = k
-        vc[u, :, :, :T] = v
+    for u, pos, kind in _stack_layers(cfg):
+        x, (k, v) = _layer_apply_full(_layer(params["units"][pos], u), x,
+                                      cfg, kind, dtype)
+        c = cache["units"][pos]
+        _fill(c["k"][u], k, kind)
+        _fill(c["v"][u], v, kind)
     logits = _unembed(params, cfg, x[:, -1:], dtype)
     cache["cur_len"] = torch.full((), T, dtype=torch.int32,
                                   device=tokens.device)
     return logits, cache
 
 
+def _layer_pools(leaves: dict, u: int):
+    """Unit ``u``'s cache of one pattern position: the page pools and cold
+    leaves (paged), else its contiguous (k, v) row or ring."""
+    if "k_pool" in leaves:
+        return (leaves["k_pool"][u], leaves["v_pool"][u],
+                paged_kv.cold_leaves(leaves, "k", u),
+                paged_kv.cold_leaves(leaves, "v", u))
+    return leaves["k"][u], leaves["v"][u]
+
+
 def _decode_step(params, cfg: ArchConfig, token, cache):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
     paged cache (``kvcache.paged.PagedKVCache.init_cache``) or a contiguous
     one (:func:`init_cache`, ``per_slot`` or a prefill's shared length);
-    its K/V is written in place and ``cur_len`` advances by one.  Cold-pool
-    leaves, where a paged cache carries them, are decoded in every layer
-    (the engine leaves them out while no page is cold)."""
+    its K/V is written in place and ``cur_len`` advances by one.  A paged
+    cache's ``local`` layers keep their rings beside the pools.  Cold-pool
+    leaves, where a paged cache carries them, are decoded in every paged
+    layer (the engine leaves them out while no page is cold)."""
     dtype = torch_dtype(cfg.dtype)
     B = token.shape[0]
     cur_len = cache["cur_len"]
     page_table = cache.get("page_table")
-    pools = cache["units"]["pos0"]
-    units = params["units"]["pos0"]
     lens = cur_len.expand(B) if cur_len.ndim == 0 else cur_len
     if page_table is not None:
         page_table = page_table.clamp(min=paged_kv.GARBAGE_PAGE)
     x = _embed(params, cfg, token, dtype)
-    for u in range(cfg.n_layers):
-        if page_table is None:
-            layer_pools = (pools["k"][u], pools["v"][u])
-        else:
-            layer_pools = (pools["k_pool"][u], pools["v_pool"][u],
-                           paged_kv.cold_leaves(pools, "k", u),
-                           paged_kv.cold_leaves(pools, "v", u))
-        x = _layer_apply_decode(_layer(units, u), x, cfg, dtype, layer_pools,
-                                lens, page_table)
+    for u, pos, kind in _stack_layers(cfg):
+        leaves = cache["units"][pos]
+        x = _layer_apply_decode(_layer(params["units"][pos], u), x, cfg,
+                                kind, dtype, _layer_pools(leaves, u), lens,
+                                page_table if "k_pool" in leaves else None)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache
@@ -412,14 +483,10 @@ def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
     cur_len = cache["cur_len"]
     start = cur_len[slot].clone()
     row = cache["page_table"][slot]
-    pools = cache["units"]["pos0"]
-    units = params["units"]["pos0"]
     x = _embed(params, cfg, tokens, dtype)
-    for u in range(cfg.n_layers):
-        x = _layer_apply_chunk(_layer(units, u), x, cfg, dtype,
-                               (pools["k_pool"][u], pools["v_pool"][u],
-                                paged_kv.cold_leaves(pools, "k", u),
-                                paged_kv.cold_leaves(pools, "v", u)),
+    for u, pos, kind in _stack_layers(cfg):
+        x = _layer_apply_chunk(_layer(params["units"][pos], u), x, cfg, kind,
+                               dtype, _layer_pools(cache["units"][pos], u),
                                row, start, n_valid, path)
     cur_len[slot] = start + n_valid
     return x

@@ -26,8 +26,10 @@ with requests continuously:
   * with ``compress_cold``, every slot's full pages are entropy-coded into
     the cold pool after each step and decoded where the step uses them;
   * with a swap store (``swap_bytes``), page pressure preempts whole
-    requests: the victim's pages go to the host losslessly, it is requeued
-    at the front of its priority class and resumes bit-identically;
+    requests: the victim's pages go to the host losslessly (and the rings
+    of its ``local`` layers, which hold no pages, with them), it is
+    requeued at the front of its priority class and resumes
+    bit-identically;
   * ``cache_mode="monolithic"`` keeps one contiguous ``max_len`` row a
     slot instead (``models.model.init_cache(per_slot=True)``): a prefill
     fragment is spliced into its row (:func:`splice_fragment`), and there
@@ -73,6 +75,7 @@ from ..core.store import torch_dtype
 from ..device import resolve
 from ..kernels import build
 from ..kvcache import OutOfPages, PagedKVCache, SwapExhausted, SwapStore
+from ..kvcache import paged as paged_kv
 from ..models import model as M
 from ..runtime.monitor import KVCacheMonitor, StragglerMonitor
 from . import spec as SPEC
@@ -406,14 +409,19 @@ class GenerationEngine:
 
     def _resume(self, slot: int, st: Preempted):
         """Re-splice a preempted request: reinstall its page list, fault
-        every page back (lossless restore) and rebuild the slot timeline —
-        the continuation is bit-identical to an unpreempted run.  A
+        every page back (lossless restore), reinstall its non-paged
+        per-slot state (the rings of ``local`` layers, which the slot's
+        requests in between overwrote) and rebuild the slot timeline — the
+        continuation is bit-identical to an unpreempted run.  A
         mid-prefill record re-enters the prefill phase at
         ``st.prefill_pos`` instead of rejoining the decode batch."""
         tel, t0 = self.tel, time.perf_counter()
         self.cache = self.paged.attach_slot(self.cache, slot, st.pages,
                                             st.skip)
         self.cache = self.paged.fault(self.cache, slot)
+        if st.state:
+            self.cache = self.paged.restore_slot_state(self.cache, slot,
+                                                       st.state)
         if self.spec_on and st.draft_state is not None:
             self._draft_restore(slot, st.draft_state)
         self.cache["cur_len"][slot] = st.host_len
@@ -861,13 +869,11 @@ class GenerationEngine:
     def _step_cache(self) -> dict:
         """The cache the decode step and the prefill chunk read: without
         the cold-pool leaves while no page is cold (decoding an empty pool
-        would be waste)."""
+        would be waste); every position's pools and rings stay."""
         if (self.paged is None or not self.paged.compress
                 or self.paged.has_cold):
             return self.cache
-        pools = self.cache["units"]["pos0"]
-        return {**self.cache, "units": {"pos0": {
-            kn: pools[kn] for kn in ("k_pool", "v_pool")}}}
+        return paged_kv.without_cold(self.cache)
 
     def _decoding(self) -> list:
         """Slots in the decode phase (occupied, not mid-prefill)."""

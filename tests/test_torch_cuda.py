@@ -778,3 +778,48 @@ def test_moe_layer_card_vs_cpu_and_repeatable(card):
     a, _ = moe.moe_apply(to(layer), xb, cfg, dtype=torch.bfloat16)
     b, _ = moe.moe_apply(to(layer), xb, cfg, dtype=torch.bfloat16)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
+@pytest.mark.parametrize("Tq,Tk,causal", [(13, 13, True), (130, 130, True),
+                                          (451, 451, True), (37, 53, False),
+                                          (130, 65, False)])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_flash_kernel_head_dim_256(card, dtype, tol, Tq, Tk, causal, cap):
+    """B4 at gemma2-9b's heads: 16 query and 8 KV heads of 256, every
+    output element against the plain version (a wrong swizzle offset of
+    the 512-byte rows gives wrong numbers, not a fault)."""
+    def rnd(h, t):
+        return torch.randn((1, h, t, 256), generator=card,
+                           device="cuda").to(dtype)
+
+    q, k, v = rnd(16, Tq), rnd(8, Tk), rnd(8, Tk)
+    before = flash_fwd.run.launches
+    got = ops.flash_attention(q, k, v, causal, cap)
+    assert flash_fwd.run.launches == before + 1
+    want = flash_fwd.plain(q, k, v, causal, cap)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_kv_page_decode_gemma2_page(card):
+    """B3 at gemma2-9b's page (8 KV heads x 16 positions x 256, bf16) and
+    its cold-slot stride budget: bit-exact, by the instance the wrapper
+    picks for that shape."""
+    from repro_torch.kvcache import codec, kernels as kv
+    n = 8 * 16 * 256
+    pages = [(torch.randn(n, generator=card, device="cuda") * s)
+             .to(torch.bfloat16) for s in (0.02, 1.0, 40.0)]
+    stride = -(-codec.sym_per_lane(n) * codec.plane_spec("bfloat16")[0]
+               // 8)
+    inst = kv.instance(stride, codec.sm_bytes("bfloat16", n))
+    args = _coded_pages(pages, stride)
+    before = kv.run.launches_by_instance[inst]
+    got = ops.decode_pages(*args, n_elem=n, dtype_name="bfloat16")
+    want = kv.plain(*args, n_elem=n, dtype_name="bfloat16")
+    assert kv.run.launches_by_instance[inst] == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    for i, p in enumerate(pages):
+        assert torch.equal(got[i].view(torch.int16), p.view(torch.int16))

@@ -102,17 +102,14 @@ _MATRIX = {
 }
 
 
-@pytest.mark.parametrize("row", sorted(_MATRIX))
-def test_matrix_resolves_and_warns_as_the_reference(arch, row):
-    """Every row of the matrix: the resolved fields and the lenient
-    warnings equal the reference's word for word, and ``strict=True``
-    raises where the reference raises, with the same text."""
-    cfg, ref_cfg = arch
-    kw, draft = _MATRIX[row]
+def _check_row(cfg, ref_cfg, kw, draft, ref_draft):
+    """One row: the resolved fields and the lenient warnings equal the
+    reference's word for word, and ``strict=True`` raises where the
+    reference raises, with the same text."""
     port_kw, ref_kw = dict(kw), dict(kw)
     if draft is not None:
-        port_kw.update(draft_cfg=_draft(True, **draft), draft_params=object())
-        ref_kw.update(draft_cfg=_draft(False, **draft), draft_params=object())
+        port_kw.update(draft_cfg=draft, draft_params=object())
+        ref_kw.update(draft_cfg=ref_draft, draft_params=object())
     got, got_w = _both(EngineConfig, cfg, **port_kw)
     want, want_w = _both(RefEngineConfig, ref_cfg, **ref_kw)
     assert got_w == want_w
@@ -129,6 +126,41 @@ def test_matrix_resolves_and_warns_as_the_reference(arch, row):
         assert str(e.value) == str(ref_e.value)
     else:
         assert EngineConfig(**port_kw).validate(cfg, strict=True) == got
+    return got_w
+
+
+@pytest.mark.parametrize("row", sorted(_MATRIX))
+def test_matrix_resolves_and_warns_as_the_reference(arch, row):
+    """Every row of the matrix, held against the reference (``_check_row``)."""
+    cfg, ref_cfg = arch
+    kw, draft = _MATRIX[row]
+    _check_row(cfg, ref_cfg, kw,
+               None if draft is None else _draft(True, **draft),
+               None if draft is None else _draft(False, **draft))
+
+
+# gemma2's ("local", "attn") stack: chunked prefill, prefix sharing and
+# speculation fall back as the reference's validate makes them (a 'local'
+# layer keeps a ring, not pages), the warnings word for word
+_GEMMA2_ROWS = {
+    "valid-paged": (dict(max_batch=4, max_len=64), False),
+    "monolithic": (dict(cache_mode="monolithic"), False),
+    "chunk": (dict(prefill_chunk=8), False),
+    "prefix": (dict(prefix_sharing=True, prefill_chunk=8), False),
+    "prefix-no-chunk": (dict(prefix_sharing=True), False),
+    "spec": (dict(spec_k=3), True),
+    "everything": (dict(prefix_sharing=True, prefill_chunk=8), True),
+}
+
+
+@pytest.mark.parametrize("row", sorted(_GEMMA2_ROWS))
+def test_gemma2_falls_back_as_the_reference(row):
+    cfg, ref_cfg = (smoke_variant(get("gemma2-9b")),
+                    ref_smoke(ref_get("gemma2-9b")))
+    kw, spec = _GEMMA2_ROWS[row]
+    warned = _check_row(cfg, ref_cfg, kw, cfg if spec else None,
+                        ref_cfg if spec else None)
+    assert bool(warned) == (row not in ("valid-paged", "monolithic"))
 
 
 def test_chunked_prefill_needs_paged_cache(arch):

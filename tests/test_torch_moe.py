@@ -25,6 +25,7 @@ from repro.core import store as ref_store  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402
 from repro.serving import EngineConfig as RefEngineConfig  # noqa: E402
+from repro.serving import EngineConfigError as RefEngineConfigError  # noqa: E402
 from repro.serving import GenerationEngine as RefEngine  # noqa: E402
 from repro.serving import Request as RefRequest  # noqa: E402
 
@@ -215,23 +216,32 @@ def test_combine_adds_in_ascending_expert_order():
 # the model and the store
 # --------------------------------------------------------------------------
 
-# the ('attn',) stacks without post-norms: every MLP type and the MoE
+# the ('attn',) stacks (every MLP type and the MoE) and gemma2's
+# ('local', 'attn') stack with post-norms
 SERVED = {"qwen3-8b", "granite-20b", "phi3-medium-14b", "nemotron-4-15b",
-          "chameleon-34b", ARCH}
+          "chameleon-34b", "gemma2-9b", ARCH}
 
 
 @pytest.mark.parametrize("arch", names())
 def test_engine_config_serves_the_moe_and_mlp_families(arch):
     """``validate`` (and through it ``convert`` and ``launch/serve.py``)
-    admits the MoE family and every dense MLP type, resolving as the
-    reference does; the other families are still refused."""
+    admits the MoE family, every dense MLP type and gemma2's stack,
+    resolving as the reference does (gemma2's local layers keep rings, so
+    a chunked prefill is refused in strict mode by both); the other
+    families are still refused."""
     cfg = smoke_variant(get(arch))
     if arch not in SERVED:
         with pytest.raises(EngineConfigError, match="not yet ported"):
             EngineConfig().validate(cfg)
         return
-    want = RefEngineConfig(prefill_chunk=8).validate(
-        ref_smoke(ref_get(arch)), strict=True)
+    ref_cfg = ref_smoke(ref_get(arch))
+    if "local" in ref_cfg.pattern:
+        with pytest.raises(RefEngineConfigError, match="prefill_chunk"):
+            RefEngineConfig(prefill_chunk=8).validate(ref_cfg, strict=True)
+        with pytest.raises(EngineConfigError, match="prefill_chunk"):
+            EngineConfig(prefill_chunk=8).validate(cfg, strict=True)
+        return
+    want = RefEngineConfig(prefill_chunk=8).validate(ref_cfg, strict=True)
     got = EngineConfig(prefill_chunk=8).validate(cfg, strict=True)
     assert (got.cache_mode, got.prefill_chunk) == (want.cache_mode,
                                                    want.prefill_chunk)

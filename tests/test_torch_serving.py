@@ -29,6 +29,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get, smoke_variant  # noqa: E402
 from repro_torch.core import store  # noqa: E402
 from repro_torch.kvcache import paged  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import EngineConfig, EngineConfigError, \
     GenerationEngine, Request  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
@@ -445,6 +446,42 @@ def test_midprefill_preempt_resume_matches_unpreempted_run(raw_weights):
     plain, _ = serve(False)
     resumed, eng = serve(True)
     assert resumed == plain and len(plain) == 8
+    assert eng.scheduler.n_resumed == 1 and len(eng.paged.swap) == 0
+
+
+def test_resume_reinstalls_the_local_rings():
+    """gemma2's smoke stack on one slot: a request whose local rings have
+    wrapped is preempted, a higher-priority request runs in its slot (its
+    prefill overwrites the slot's rings), and the first resumes with the
+    tokens of its unpreempted run: ``_resume`` reinstalls the rings that
+    ``_preempt`` stashed (``PagedKVCache.restore_slot_state``)."""
+    cfg = smoke_variant(get("gemma2-9b"))
+    params = M.init_params(cfg, 3, "cpu")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (40, 20)]
+
+    def serve(preempt):
+        eng = GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=1, max_len=64, page_size=8, swap_bytes=1 << 28),
+            device="cpu")
+        a = Request(prompt=prompts[0], max_new_tokens=16, id=13_000)
+        b = Request(prompt=prompts[1], max_new_tokens=6, priority=1,
+                    id=13_001)
+        eng.submit(a)
+        if preempt:
+            for _ in range(3):
+                eng.step()
+            assert eng._host_len[0] > cfg.local_window      # wrapped
+            assert eng._preempt(0)
+            assert eng.scheduler.head().state       # the stashed rings
+        eng.submit(b)
+        eng.run()
+        assert a.done and b.done
+        return a.out_tokens, b.out_tokens, eng
+
+    plain_a, plain_b, _ = serve(False)
+    got_a, got_b, eng = serve(True)
+    assert (got_a, got_b) == (plain_a, plain_b)
     assert eng.scheduler.n_resumed == 1 and len(eng.paged.swap) == 0
 
 
