@@ -17,8 +17,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      256 fp8 codes (NaNs compared by isnan); timed on the card (CUDA
      events): the bf16 instance beside the fp8-bits instance followed by
      ``.to(bf16)``; and at one layer's expert container of
-     moonshot-v1-16b-a3b, (64, 2048, 1408), and gemma2-9b's wi_gate and
-     embedding (3584 x 14336, 256000 x 3584);
+     moonshot-v1-16b-a3b, (64, 2048, 1408), gemma2-9b's wi_gate and
+     embedding (3584 x 14336, 256000 x 3584), recurrentgemma-2b's RG-LRU
+     w_a (2560 x 2560) and xlstm-350m's sLSTM r (4 x 256 x 1024);
   3. the flash-attention kernel (bf16 and fp16 on the tensor cores)
      against its plain version in bf16 (B=1, Hq=32, Hkv=8, D=128, causal,
      T in {13, 451, 512, 2048}) and fp16 (T=2048), with the time of
@@ -26,7 +27,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      factor against it printed; timed after L2 flushes); at moonshot's
      heads (Hq = Hkv = 16, group size 1, T in {451, 2048}); and at
      gemma2-9b's (Hq/Hkv 16/8, D = 256, softcap 50): bf16 at T in {13,
-     451, 4096, 6000} within 2e-2, f32 at T in {13, 451} within 1e-5;
+     451, 4096, 6000} within 2e-2, f32 at T in {13, 451} within 1e-5; and
+     at recurrentgemma-2b's (multi-query 10 / 1, D = 256, no softcap):
+     bf16 at T in {13, 451, 2048} within 2e-2, beside SDPA with
+     ``enable_gqa``;
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
@@ -62,9 +66,12 @@ Phases, each failing loudly (non-zero exit, no result line):
      (squared ReLU): prefill logits on the card against the CPU;
      gemma2-9b's (heads of 64, window 32): prefill at 37 tokens
      (local_attention, rolled rings) and paged-compressed decode steps
-     past the rings' wrap, the card against the CPU;
-  5. qwen3-8b at full width and depth (``--layers`` cuts it), ECF8-
-     compressed and served by the paged engine (8 requests of 64-512
+     past the rings' wrap, the card against the CPU; recurrentgemma-2b's
+     smoke stack at 8 layers (2 units + 2 tail RG-LRU layers) and
+     xlstm-350m's at 5 (a tail sLSTM), every recurrent matrix ECF8:
+     prefill and 6 decode steps, the card against the CPU;
+  5. qwen3-8b at full width, ``QWEN_LAYERS`` of its 36 layers
+     (``--layers``), ECF8-compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
      kernels' launch counts must be non-zero over that run, and every
      weight decode must write bf16 itself (launches counted by output
@@ -97,6 +104,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      a speculating request preempted with its draft row stashed and
      reinstalled, the store drained, the page-decode kernel launched from
      the verify over cold history (tokens compared with 10b's, counted);
+     10d a recurrent draft (one ("rglru", "rglru", "local") unit and two
+     tail RG-LRU layers at recurrentgemma-2b's widths, qwen3's vocabulary,
+     window 64, seed + 2, ECF8): rejected steps undone in its rings and
+     RG-LRU states (at least one rollback with the rings wrapped), tokens
+     IDENTICAL to 10b's;
   11. cross-request prefix sharing with the serving telemetry on a chat
      stream (``chat_stream``: two 256-token system prompts A and B from
      ``--seed``, 32-192-token suffixes, in the order A x 4, B x 4, A x 4;
@@ -111,8 +123,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      on: tokens IDENTICAL to 11a's, a prefix retired to swap and faulted
      back through the page-decode kernel, preemptions resumed, the pools
      drained to the prefix index's pages.
-  12. moonshot-v1-16b-a3b (64 experts top-6, 2 shared) at full width and
-     depth (48 layers), its trees streamed a layer at a
+  12. moonshot-v1-16b-a3b (64 experts top-6, 2 shared) at full width,
+     ``MOE_LAYERS`` of its 48 layers, its trees streamed a layer at a
      time by ``launch/serve.py::build_params``, phase 5's prompt rule:
      12a the ECF8 tree alone on the card, paged (the weight decode and
      flash prefill launched, every decode writing bf16); 12c the same
@@ -133,6 +145,24 @@ Phases, each failing loudly (non-zero exit, no result line):
      monolithic cache; 13b the fp8 tree alone: tokens of 13b-d IDENTICAL
      to 13a's; weights, step, tok/s, prefill, peak device memory and
      launches printed.
+  14. recurrentgemma-2b at full width and depth (26 layers = 8 ("rglru",
+     "rglru", "local") units + 2 tail RG-LRU layers, d_model 2560, 10 / 1
+     heads of 256, GeGLU 7680, vocab 256,000 tied, window 2048), 4
+     requests of ``RG_PROMPTS`` tokens, max_len 4096, 32 new tokens, the
+     cache resolved to the monolithic one: 14a the ECF8 tree alone (B1 at
+     9 a RG-LRU layer, 7 a local layer and 2 launches a pass, every one
+     bf16; B4 in every local layer of a prompt the window covers), 14b the
+     fp8 tree alone (tokens IDENTICAL to 14a's); one RG-LRU layer's prefill
+     timed alone at the longest prompt;
+  15. xlstm-350m at full width and depth (12 sLSTM + 12 mLSTM layers,
+     d_model 1024, 4 heads, vocab 50,304 untied, no MLP), 4 requests of
+     ``XLSTM_PROMPTS`` tokens, max_len 1024, 32 new tokens: 15a ECF8 (B1
+     at 6 an mLSTM layer, 2 bf16 and 1 f32 (``r``) an sLSTM layer and 2
+     launches a pass), 15b fp8 (tokens IDENTICAL to 15a's); one sLSTM
+     layer's prefill (the loop over T) timed alone at 512 tokens.
+Each phase logs the time since the start when it is done.  Phases 5-12
+run at a cut depth so that the whole script stays near half its time
+limit (the later phases at full depth); every gate is depth-independent.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -163,6 +193,8 @@ SPEC_K = 4              # phase 10's drafted tokens a round
 SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 MOE_ARCH = "moonshot-v1-16b-a3b"    # phase 12's model
+QWEN_LAYERS = 12        # phases 5-11's depth (qwen3-8b has 36)
+MOE_LAYERS = 24         # phase 12's depth (moonshot-v1-16b-a3b has 48)
 GEMMA_ARCH = "gemma2-9b"            # phase 13's model
 # phase 13's prompts: longer than the local window (4096) at prefill
 # (local_attention, a rolled ring), one that wraps its ring in decode, one
@@ -173,6 +205,16 @@ GEMMA_MAX_LEN = 8192
 # the first three prompts' pages and nothing more, so that the first page
 # one of them needs in decode preempts a slot whose ring has wrapped
 GEMMA_SWAP_N_PAGES = 946
+RG_ARCH = "recurrentgemma-2b"       # phase 14's model
+# phase 14's prompts: past the window (2048) at prefill (local_attention, a
+# rolled ring), one that wraps its ring in decode, two that never do
+RG_PROMPTS = (3000, 2030, 1024, 451)
+RG_MAX_LEN = 4096
+XLSTM_ARCH = "xlstm-350m"           # phase 15's model
+# phase 15's prompts: lengths the mLSTM's whole-prompt prefill takes (at
+# most 128 tokens, or a multiple of 128)
+XLSTM_PROMPTS = (512, 384, 128, 77)
+XLSTM_MAX_LEN = 1024
 
 
 def fail(msg: str):
@@ -320,13 +362,14 @@ def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
 
 
 def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
-                D=128, softcap=0.0, tol=FLASH_TOL):
+                D=128, softcap=0.0, tol=FLASH_TOL, gqa=False):
     """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal, ``heads``
     = (Hq, Hkv) of ``D``, qwen3-8b's by default, tanh ``softcap``), every
     output element within ``tol`` -> result dict.  Timed after L2 flushes:
     a window of back-to-back calls alone would time the host's issue of
     each call (~20 us) wherever the kernel is shorter.  SDPA, the
-    yardstick, has no softcap: it is timed without one."""
+    yardstick, has no softcap: it is timed without one, on K/V repeated to
+    the query heads, or with ``gqa`` on the KV heads (``enable_gqa``)."""
     B = 1
     Hq, Hkv = heads
     dev = "cuda"
@@ -350,11 +393,15 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
                                               softcap=softcap), 20, flush)
     plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True,
                                                       softcap), 5, flush)
-    k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
-    v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep, is_causal=True), 20,
-                     flush)
+    if gqa:
+        lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                                             enable_gqa=True), 20, flush)
+    else:
+        k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
+        v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
+        lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep,
+                                             is_causal=True), 20, flush)
     pairs = T * (T + 1) // 2
     flops = 4 * B * Hq * D * pairs
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
@@ -365,7 +412,8 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
     log(f"flash_fwd T={T} Hq={Hq} Hkv={Hkv} D={D} softcap {softcap:g} "
         f"{str(dtype).split('.')[-1]}: max_abs_err "
         f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (kernel / sdpa "
+        f"{plain_ms:.3f} ms, sdpa{' (enable_gqa)' if gqa else ''} "
+        f"{lib_ms:.4f} ms (kernel / sdpa "
         f"{ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
         f"({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
         f"{100 * bound_ms / ms:.1f} % of it), "
@@ -655,6 +703,42 @@ def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
             line += (f"; the MoE layer (B*T = {T}, capacity {cap}) "
                      f"bit-equal over two card runs in f32 and bf16")
         log(line + " (tol 1e-4)")
+
+
+def small_recurrent_checks(torch, M, store, smoke_variant, get, seed):
+    """Phase 4's recurrent models, f32, every recurrent matrix compressed
+    (``min_elems`` 256, so B1 decodes them): recurrentgemma's smoke stack at
+    8 layers (2 units + 2 tail RG-LRU layers; heads of 64, B4's smallest)
+    at prompts of 20 tokens (B4 in the local layers) and 45 (past the
+    window of 32: local_attention, a rolled ring), xlstm's at 5 layers (a
+    tail sLSTM) at 64 tokens (one mLSTM chunk): prefill logits and 6 decode
+    steps, the card against the CPU within 1e-4."""
+    for arch, n, lens in ((RG_ARCH, 8, (20, 45)), (XLSTM_ARCH, 5, (64,))):
+        cfg = dataclasses.replace(smoke_variant(get(arch)), n_layers=n,
+                                  head_dim=64 if arch == RG_ARCH else 0)
+        p_cpu, _ = store.compress_tree(M.init_params(cfg, seed, "cpu"),
+                                       min_elems=256, out_dtype="float32")
+        p_gpu = to_device(p_cpu, "cuda", store)
+        errs = []
+        for T in lens:
+            toks = torch.randint(0, cfg.vocab_size, (2, T),
+                                 generator=torch.Generator().manual_seed(T))
+            l_cpu, c_cpu = M.prefill(p_cpu, cfg, toks, max_len=64)
+            l_gpu, c_gpu = M.prefill(p_gpu, cfg, toks.cuda(), max_len=64)
+            err = float((l_gpu.cpu() - l_cpu).abs().max())
+            for _ in range(6):
+                tok = l_cpu[:, -1].argmax(-1, keepdim=True)
+                l_cpu, c_cpu = M.decode_step(p_cpu, cfg, tok, c_cpu)
+                l_gpu, c_gpu = M.decode_step(p_gpu, cfg, tok.cuda(), c_gpu)
+                err = max(err, float((l_gpu.cpu() - l_cpu).abs().max()))
+            if not bool(torch.isfinite(l_gpu).all()) or err > 1e-4:
+                fail(f"small f32 {arch}, T={T}: card vs CPU max |dlogit| = "
+                     f"{err}")
+            errs.append(err)
+        log(f"small f32 {arch} (pattern {cfg.pattern}, {cfg.n_layers} layers"
+            f" with a tail of {cfg.n_layers % cfg.unit}): prefill at "
+            f"{lens} tokens and 6 decode steps, card vs CPU max |dlogit| "
+            f"{max(errs):.2e} (tol 1e-4)")
 
 
 def to_device(tree, dev, store):
@@ -1195,10 +1279,158 @@ def gemma_phase(torch, np, serve, EngineConfig, kernels, cfg, seed):
             {"13a": l13a, "13b": l13b, "13c": l13c, "13d": l13d})
 
 
+def recurrent_phase(torch, np, serve, EngineConfig, kernels, cfg, seed,
+                    tag, prompt_lens, max_len, want, probe):
+    """Phase 14 or 15 (module docstring) on ``cfg`` -> (measurements,
+    launches of ``<tag>a`` and ``<tag>b``).  ``want``: B1 launches a pass
+    by output dtype and B4's launches over a run; ``probe``: (layer kind,
+    T) of the mixer timed alone on the ECF8 tree after the runs."""
+    from repro_torch.models import model as M, recurrent
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    gib = 2 ** 30
+    log(f"phase {tag}: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, pattern "
+        f"{cfg.pattern}, {cfg.n_layers} layers = {cfg.n_layers // cfg.unit}"
+        f" units + {cfg.n_layers % cfg.unit} tail, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, window "
+        f"{cfg.local_window}, {cfg.dtype}); prompts {prompt_lens}, "
+        f"max_batch 4, max_len {max_len}, 32 new tokens")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in prompt_lens]
+    base_mem = torch.cuda.memory_allocated()
+
+    def run(sub, params, compressed):
+        torch.cuda.reset_peak_memory_stats()
+        b1.launches = b3.launches = b2.launches = b4.launches = 0
+        b1.launches_by_dtype.clear()
+        eng = serve.GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=4, max_len=max_len), device="cuda")
+        if eng.cache_mode != "monolithic":
+            fail(f"phase {tag}{sub}: the cache resolved to "
+                 f"{eng.cache_mode}, not the monolithic one")
+        done = [serve.Request(prompt=p, max_new_tokens=32) for p in prompts]
+        for r in done:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(r.done and len(r.out_tokens) == 32 for r in done) or any(
+                not 0 <= x < cfg.vocab_size for r in done
+                for x in r.out_tokens):
+            fail(f"phase {tag}{sub}: unfinished requests or out-of-vocab "
+                 f"tokens")
+        by_dtype = {str(k).split(".")[-1]: v
+                    for k, v in b1.launches_by_dtype.items()}
+        launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                    "kv_page_decode": b3.launches,
+                    "fused_decode_matmul": b2.launches,
+                    "ecf8_decode_by_dtype": by_dtype}
+        n = sum(len(r.out_tokens) for r in done)
+        passes = len(prompts) + eng.steps
+        m = dict(step_ms=eng.decode_seconds / eng.steps * 1e3,
+                 steps=eng.steps, passes=passes, tok_s=n / dt, wall_s=dt,
+                 prefill_s=eng.prefill_seconds,
+                 resident_gib=(torch.cuda.memory_allocated() - base_mem)
+                 / gib, peak_gib=torch.cuda.max_memory_allocated() / gib)
+        log(f"phase {tag}{sub}: {n} tokens in {dt:.2f}s, {m['tok_s']:.1f} "
+            f"tok/s, {eng.steps} decode steps at {m['step_ms']:.1f} ms/step,"
+            f" prefill {eng.prefill_seconds:.2f}s, peak device memory "
+            f"{m['peak_gib']:.2f} GiB; launches {launches}")
+        for line in serve.cache_report(eng):
+            log(f"  {line}")
+        want_b1 = ({k: v * passes for k, v in want["b1"].items()}
+                   if compressed else {})
+        if by_dtype != want_b1:
+            fail(f"phase {tag}{sub}: ecf8_decode launches by dtype "
+                 f"{by_dtype}, expected {want_b1} ({want['b1']} a pass x "
+                 f"{passes} passes)")
+        if b4.launches != want["b4"] or b2.launches or b3.launches:
+            fail(f"phase {tag}{sub}: launches {launches}, expected "
+                 f"flash_fwd {want['b4']} and no other kernel than B1")
+        return done, eng, m, launches
+
+    # a: the ECF8 tree alone on the card
+    torch.cuda.reset_peak_memory_stats()
+    params_c, _, report, enc_s = serve.build_params(
+        cfg, seed, "tpu", device="cuda", baseline=False)
+    fp8_b, ecf8_b = report["fp8_bytes"], report["compressed_bytes"]
+    built = dict(encode_s=enc_s, fp8_mb=fp8_b / 1e6, ecf8_mb=ecf8_b / 1e6,
+                 saved_pct=100 * (1 - ecf8_b / fp8_b),
+                 n_compressed=report["n_compressed"],
+                 build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                 ecf8_resident_gib=(torch.cuda.memory_allocated()
+                                    - base_mem) / gib)
+    log(f"phase {tag} weights: {report['n_compressed']} tensors, fp8 "
+        f"{built['fp8_mb']:.1f} MB -> ECF8 {built['ecf8_mb']:.1f} MB "
+        f"({built['saved_pct']:.2f}% saved), streamed build and encode "
+        f"{enc_s:.1f}s, build peak {built['build_peak_gib']:.2f} GiB, ECF8 "
+        f"tree resident {built['ecf8_resident_gib']:.2f} GiB")
+    d_a, e_a, m_a, l_a = run("a (ECF8)", params_c, True)
+    log(f"phase {tag}a: ecf8_decode {want['b1']} a pass x {m_a['passes']} "
+        f"passes, flash_fwd {want['b4']}, as counted")
+    # the mixer alone on the card at the longest prompt, on the ECF8 tree
+    # (its weight decodes included), outside the counted run
+    kind, T = probe
+    j = cfg.pattern.index(kind)
+    layer = M._layer(params_c["units"][f"pos{j}"], 0)
+    x = torch.randn((1, T, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed)).to(torch.bfloat16)
+    fn = {"rglru": lambda: recurrent.rglru_apply(
+              layer["rglru"], x, dtype=torch.bfloat16),
+          "slstm": lambda: recurrent.slstm_apply(
+              layer["cell"], x, cfg.n_heads, dtype=torch.bfloat16)}[kind]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    n_kind = sum(cfg.layer_kind(i) == kind for i in range(cfg.n_layers))
+    m_a["probe"] = dict(kind=kind, T=T, layer_s=statistics.median(times),
+                        n_layers=n_kind)
+    log(f"phase {tag}a: one {kind} layer's prefill at T={T} on the card "
+        f"(host clock, median of 3, weight decodes included): "
+        f"{m_a['probe']['layer_s'] * 1e3:.1f} ms; x {n_kind} layers = "
+        f"{m_a['probe']['layer_s'] * n_kind:.2f} s")
+    del params_c, e_a, layer, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b: the fp8 baseline tree alone on the card
+    torch.cuda.reset_peak_memory_stats()
+    params_fp8, _, _, fp8_s = serve.build_params(cfg, seed, "none",
+                                                 device="cuda")
+    built["fp8_resident_gib"] = (torch.cuda.memory_allocated()
+                                 - base_mem) / gib
+    log(f"phase {tag}b: fp8 baseline tree built in {fp8_s:.1f}s, resident "
+        f"{built['fp8_resident_gib']:.2f} GiB")
+    d_b, e_b, m_b, l_b = run("b (fp8 baseline)", params_fp8, False)
+    _, bad = first_divergence(d_a, d_b)
+    if bad:
+        fail(f"phase {tag}b: ECF8 tokens differ from the fp8 baseline's "
+             f"(request, first token index): {bad}")
+    log(f"lossless: {cfg.name} ECF8 greedy tokens IDENTICAL to the fp8 "
+        f"baseline's; decode step {m_a['step_ms']:.1f} ms (ECF8) against "
+        f"{m_b['step_ms']:.1f} ms (fp8), prefill {m_a['prefill_s']:.2f} "
+        f"against {m_b['prefill_s']:.2f} s, peak device memory "
+        f"{m_a['peak_gib']:.2f} GiB with the ECF8 tree resident against "
+        f"{m_b['peak_gib']:.2f} GiB with the fp8 tree")
+    del params_fp8, e_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (dict(built=built, **{f"{tag}a": m_a, f"{tag}b": m_b}),
+            {f"{tag}a": l_a, f"{tag}b": l_b})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=36,
-                    help="qwen3-8b depth served in phases 5-8 (36 = full)")
+    ap.add_argument("--layers", type=int, default=QWEN_LAYERS,
+                    help="qwen3-8b depth served in phases 5-11 (36 = full)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1231,6 +1463,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"{what} done at {time.perf_counter() - t_start:.1f}s")
+
     card = gpu_line()
     log(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1257,6 +1493,7 @@ def main(argv=None):
     moe_full = get(MOE_ARCH)
     expert = (moe_full.n_experts, moe_full.d_model, moe_full.moe_d_ff)
     g2 = get(GEMMA_ARCH)
+    rg, xl = get(RG_ARCH), get(XLSTM_ARCH)
     for name, shape, fan_in in [("wq", (d, cfg_full.n_heads * cfg_full.hd), d),
                                 ("wi_gate", (d, ff), d),
                                 ("embed", (V, d), d),
@@ -1264,7 +1501,14 @@ def main(argv=None):
                                 ("g2_wi_gate", (g2.d_model, g2.d_ff),
                                  g2.d_model),
                                 ("g2_embed", (g2.vocab_size, g2.d_model),
-                                 g2.d_model)]:
+                                 g2.d_model),
+                                ("rg_w_a", (rg.d_model, rg.d_model),
+                                 rg.d_model),
+                                ("xl_slstm_r", (xl.n_heads, xl.d_model
+                                                // xl.n_heads,
+                                                4 * xl.d_model
+                                                // xl.n_heads),
+                                 xl.d_model)]:
         w = torch.randn(shape, generator=gen, device="cuda").mul_(
             fan_in ** -0.5)
         bits = fp8.cast_to_fp8_bits(w)
@@ -1301,6 +1545,13 @@ def main(argv=None):
         results[f"flash_g2_f32_T{T}"] = check_flash(
             torch, flash_fwd, T, gen, flush, torch.float32, tol=1e-5,
             **g2_heads)
+    # recurrentgemma-2b's local layers: multi-query 10 / 1 of 256, no
+    # softcap; 2048 fills the window, 451 is phase 14's shortest prompt
+    for T in (13, 451, 2048):
+        results[f"flash_rg_T{T}"] = check_flash(
+            torch, flash_fwd, T, gen, flush, heads=(rg.n_heads,
+                                                    rg.n_kv_heads),
+            D=rg.hd, gqa=True)
 
     # -- 3b. kernel 3: KV page decode ----------------------------------------
     n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
@@ -1482,6 +1733,9 @@ def main(argv=None):
     # GELU with one KV head, nemotron's squared ReLU
     small_moe_checks(torch, M, moe, paged, store, smoke_variant, get,
                      args.seed)
+    # the recurrent families at smoke size, ECF8 through B1
+    small_recurrent_checks(torch, M, store, smoke_variant, get, args.seed)
+    log(f"phases 1-4 done at {time.perf_counter() - t_start:.1f}s")
 
     # -- 5. serve qwen3-8b at full width -----------------------------------
     cfg = dataclasses.replace(cfg_full, n_layers=args.layers)
@@ -1533,6 +1787,7 @@ def main(argv=None):
     log(f"lossless: ECF8 greedy tokens IDENTICAL to the fp8 baseline "
         f"({dt2:.2f}s, {eng2.decode_seconds / eng2.steps * 1e3:.1f} "
         f"ms/step on fp8 weights)")
+    mark("phases 5-6")
 
     # -- 7. paged-compressed cache + swap tier, preempting -----------------
     ecfg_c = EngineConfig(max_batch=4, max_len=1024, compress_cold=True,
@@ -1581,6 +1836,7 @@ def main(argv=None):
              f"index): {bad}")
     log("lossless: paged-compressed + swap greedy tokens IDENTICAL to "
         "phase 5's paged run")
+    mark("phase 7")
 
     # -- 8. chunked, decode-interleaved prefill at full depth --------------
     chunked = dict(max_batch=4, max_len=1024, prefill_chunk=CHUNK,
@@ -1649,6 +1905,7 @@ def main(argv=None):
     log(f"lossless: chunked paged-compressed + swap greedy tokens IDENTICAL "
         f"to phase 8a's ({e8b.n_midprefill_preempted} of "
         f"{sched.n_preempted} preemptions mid-prefill)")
+    mark("phase 8")
 
     def reset_counts():
         ecf8_decode.run.launches = flash_fwd.run.launches = 0
@@ -1690,6 +1947,7 @@ def main(argv=None):
              f"{d9[r].out_tokens[i]} against {done[r].out_tokens[i]}")
     log("lossless: monolithic greedy tokens IDENTICAL to phase 5's paged "
         "run")
+    mark("phase 9")
 
     # -- 10. speculative decoding at full depth ----------------------------
     spec = dict(max_batch=4, max_len=1024, spec_k=SPEC_K)
@@ -1785,13 +2043,55 @@ def main(argv=None):
         f"pressure shrinks verify windows; counted, not gated), first "
         f"divergence (request, token) {bad}")
 
+    # 10d: a recurrent draft, one ("rglru", "rglru", "local") unit and two
+    # tail RG-LRU layers at recurrentgemma-2b's widths with the target's
+    # vocabulary and a window of 64, so that its rings wrap within a round
+    rdcfg = dataclasses.replace(rg, name="recurrentgemma-draft", n_layers=5,
+                                vocab_size=cfg.vocab_size, local_window=64)
+    rd_c, _, rd_report, rd_enc = serve.build_params(
+        rdcfg, args.seed + 2, "tpu", device="cuda", baseline=False)
+    log(f"recurrent draft: {rdcfg.n_layers} layers {rdcfg.pattern} + tail "
+        f"at d_model {rdcfg.d_model}, window {rdcfg.local_window}, vocab "
+        f"{rdcfg.vocab_size}, seed {args.seed + 2}, ECF8 "
+        f"{rd_report['compressed_bytes'] / 1e6:.1f} MB (fp8 "
+        f"{rd_report['fp8_bytes'] / 1e6:.1f} MB), encode {rd_enc:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    d10d, e10d, t10d = serve.serve(params_c, cfg, EngineConfig(
+        **spec, draft_cfg=rdcfg, draft_params=rd_c), prompts, 32)
+    serve_b2 += fused.run.launches
+    l10d = counts()
+    log(f"phase 10d: recurrent draft, k={SPEC_K}: "
+        f"{served('10d', d10d, e10d, t10d)}; {spec_line(e10d, d10d)}; "
+        f"{e10d.n_draft_state_rollbacks} rollbacks restored draft rings "
+        f"and RG-LRU states ({e10d.n_draft_ring_wraps} with rings wrapped "
+        f"past the window); launches {l10d}")
+    if not (l10d["ecf8_decode"] and l10d["flash_fwd"]):
+        fail(f"phase 10d: a kernel of the speculative path never launched: "
+             f"{l10d}")
+    if not (e10d.n_draft_state_rollbacks and e10d.n_draft_ring_wraps):
+        fail(f"phase 10d: no rollback restored a recurrent state and a "
+             f"wrapped ring: {e10d.n_draft_state_rollbacks} restores, "
+             f"{e10d.n_draft_ring_wraps} wrapped")
+    _, bad = first_divergence(d10b, d10d)
+    if bad:
+        fail(f"phase 10d tokens differ from 10b's (request, first token "
+             f"index): {bad}")
+    log("lossless: 10d greedy tokens IDENTICAL to 10b's (speculation "
+        "emits the target's tokens whatever the draft)")
+    del rd_c, e10d
+    mark("phase 10")
+
     # -- 11. prefix sharing and the serving telemetry at full depth --------
+    kernel_runs = {"ecf8_decode": ecf8_decode.run,
+                   "kv_page_decode": kv_page.run,
+                   "fused_decode_matmul": fused.run,
+                   "flash_fwd": flash_fwd.run}
     prefix_out, prefix_launches = prefix_phase(
         torch, np, serve, EngineConfig, telemetry, trace_export,
-        {"ecf8_decode": ecf8_decode.run, "kv_page_decode": kv_page.run,
-         "fused_decode_matmul": fused.run, "flash_fwd": flash_fwd.run},
-        cfg, params_c, args.seed)
+        kernel_runs, cfg, params_c, args.seed)
     log(f"phase 11 measurements: {json.dumps(prefix_out)}")
+    mark("phase 11")
 
     if serve_b2:
         fail(f"a serve path launched fused_decode_matmul {serve_b2} times")
@@ -1812,19 +2112,44 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     moe_out, moe_launches = moe_phase(
-        torch, serve, EngineConfig,
-        {"ecf8_decode": ecf8_decode.run, "kv_page_decode": kv_page.run,
-         "fused_decode_matmul": fused.run, "flash_fwd": flash_fwd.run},
-        moe_full, args.seed)
+        torch, serve, EngineConfig, kernel_runs,
+        dataclasses.replace(moe_full, n_layers=MOE_LAYERS), args.seed)
     log(f"phase 12 measurements: {json.dumps(moe_out)}")
+    mark("phase 12")
 
     # -- 13. gemma2-9b at full width and depth from ECF8 weights -----------
     gemma_out, gemma_launches = gemma_phase(
-        torch, np, serve, EngineConfig,
-        {"ecf8_decode": ecf8_decode.run, "kv_page_decode": kv_page.run,
-         "fused_decode_matmul": fused.run, "flash_fwd": flash_fwd.run},
-        g2, args.seed)
+        torch, np, serve, EngineConfig, kernel_runs, g2, args.seed)
     log(f"phase 13 measurements: {json.dumps(gemma_out)}")
+    mark("phase 13")
+
+    # -- 14. recurrentgemma-2b at full width and depth from ECF8 weights ---
+    # B1 a pass: 9 a RG-LRU layer (w_in, w_gate_in, conv_w, w_a, w_x, w_out
+    # and the GeGLU's three), 7 a local layer, the tied embedding twice
+    n_rg = sum(rg.layer_kind(i) == "rglru" for i in range(rg.n_layers))
+    n_loc = rg.n_layers - n_rg
+    rg_out, rg_launches = recurrent_phase(
+        torch, np, serve, EngineConfig, kernel_runs, rg, args.seed, "14",
+        RG_PROMPTS, RG_MAX_LEN,
+        want=dict(b1={"bfloat16": 9 * n_rg + 7 * n_loc + 2},
+                  b4=n_loc * sum(n <= rg.local_window for n in RG_PROMPTS)),
+        probe=("rglru", RG_PROMPTS[0]))
+    log(f"phase 14 measurements: {json.dumps(rg_out)}")
+    mark("phase 14")
+
+    # -- 15. xlstm-350m at full width and depth from ECF8 weights ----------
+    # B1 a pass: 6 an mLSTM layer (w_up, w_q, w_k, w_v, w_if, w_down), an
+    # sLSTM layer's w and w_out in bf16 and its r in f32 (the cell's
+    # recurrence runs in f32), the embedding and unembedding
+    n_sl = sum(xl.layer_kind(i) == "slstm" for i in range(xl.n_layers))
+    xl_out, xl_launches = recurrent_phase(
+        torch, np, serve, EngineConfig, kernel_runs, xl, args.seed, "15",
+        XLSTM_PROMPTS, XLSTM_MAX_LEN,
+        want=dict(b1={"bfloat16": 6 * (xl.n_layers - n_sl) + 2 * n_sl + 2,
+                      "float32": n_sl}, b4=0),
+        probe=("slstm", XLSTM_PROMPTS[0]))
+    log(f"phase 15 measurements: {json.dumps(xl_out)}")
+    mark("phase 15")
 
     def on_prefix_path(name):
         return {tag: prefix_launches[tag][name] for tag in ("11a", "11b")}
@@ -1836,6 +2161,13 @@ def main(argv=None):
         return {tag: gemma_launches[tag][name]
                 for tag in ("13a", "13b", "13c", "13d")}
 
+    def on_recurrent_paths(name):
+        return dict(
+            launches_recurrentgemma={t: rg_launches[t][name]
+                                     for t in ("14a", "14b")},
+            launches_xlstm={t: xl_launches[t][name] for t in ("15a", "15b")},
+            launches_recurrent_draft=l10d.get(name, 0))
+
     kernels = [
         dict(name="ecf8_decode", route="cuda",
              source="src/repro_torch/csrc/ecf8_decode.cu",
@@ -1844,8 +2176,11 @@ def main(argv=None):
              launches_prefix_sharing=on_prefix_path("ecf8_decode"),
              launches_moe=on_moe_path("ecf8_decode"),
              launches_gemma2=on_gemma_path("ecf8_decode"),
+             **on_recurrent_paths("ecf8_decode"),
              at_moe_shape=results["moe_wi_gate"],
-             at_gemma2_shape=results["g2_embed"], **results["wi_gate"]),
+             at_gemma2_shape=results["g2_embed"],
+             at_recurrentgemma_shape=results["rg_w_a"],
+             at_xlstm_shape=results["xl_slstm_r"], **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
@@ -1853,8 +2188,10 @@ def main(argv=None):
              launches_prefix_sharing=on_prefix_path("flash_fwd"),
              launches_moe=on_moe_path("flash_fwd"),
              launches_gemma2=on_gemma_path("flash_fwd"),
+             **on_recurrent_paths("flash_fwd"),
              at_moe_shape=results["flash_moe_T2048"],
              at_gemma2_shape=results["flash_g2_T4096"],
+             at_recurrentgemma_shape=results["flash_rg_T2048"],
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
@@ -1863,6 +2200,7 @@ def main(argv=None):
              launches_prefix_sharing=on_prefix_path("kv_page_decode"),
              launches_moe=on_moe_path("kv_page_decode"),
              launches_gemma2=on_gemma_path("kv_page_decode"),
+             **on_recurrent_paths("kv_page_decode"),
              at_moe_shape=results["kv_moe_bf16_48"],
              at_gemma2_shape=results["kv_g2_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
@@ -1872,6 +2210,7 @@ def main(argv=None):
              launches_prefix_sharing=on_prefix_path("fused_decode_matmul"),
              launches_moe=on_moe_path("fused_decode_matmul"),
              launches_gemma2=on_gemma_path("fused_decode_matmul"),
+             **on_recurrent_paths("fused_decode_matmul"),
              **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

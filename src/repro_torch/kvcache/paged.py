@@ -7,9 +7,11 @@ table maps logical page index -> physical page id, identically for every
 global attention layer (one allocation decision serves the whole stack).
 A short request only holds the pages it wrote.  A ``local`` (sliding-
 window) layer pages nothing: it keeps a per-slot ring of ``ring_len``
-positions beside the pools (the monolithic cache's leaf), which the
-prefill fragment splices in at admission and preemption carries to the
-host and back (``snapshot_slot_state`` / ``restore_slot_state``).
+positions beside the pools (the monolithic cache's leaf), and a recurrent
+layer (``rglru`` / ``slstm`` / ``mlstm``) its per-slot state, in the
+units and in the tail alike; the prefill fragment splices them in at
+admission and preemption carries them to the host and back
+(``snapshot_slot_state`` / ``restore_slot_state``).
 
 Physical id space (the reference's, on one device):
   * id 0 is the **garbage page** — inactive slots' table rows point at it
@@ -74,7 +76,8 @@ from .codec import LANES
 from .swap import SwapEntry, SwappedPage
 
 GARBAGE_PAGE = 0
-PAGED_KINDS = ("attn", "nope")   # "local" keeps its ring
+PAGED_KINDS = ("attn", "nope")   # "local" keeps its ring, recurrents a state
+_STATE_KINDS = ("local", "rglru", "slstm", "mlstm")
 _COLD = ("cpl", "csm", "ctab", "cperm")
 
 
@@ -237,8 +240,9 @@ class PagedKVCache:
                  n_pages: int | None = None, compress_cold: bool = False,
                  n_cold_slots: int | None = None):
         """Args:
-          cfg: architecture config: whole units of paged ('attn'/'nope')
-            and ``local`` layers (the latter keep rings, not pages).
+          cfg: architecture config: paged ('attn'/'nope'), ``local`` and
+            recurrent layers (the latter keep rings and states, not pages),
+            no paged layer in the tail.
           max_batch/max_len: static engine batch shape; every slot can hold
             at most ``max_len`` tokens (``pages_per_slot`` pages).
           dtype: cache storage dtype (fp8 / bf16 / f32: a page-codec type).
@@ -251,11 +255,16 @@ class PagedKVCache:
           n_cold_slots: cold pool size (default: worst case minus one tail
             page per slot).
         """
-        if (any(k not in PAGED_KINDS + ("local",) for k in cfg.pattern)
-                or cfg.n_layers % cfg.unit):
+        from ..models.model import cache_groups
+        # (section, key, kind) of every layer group: the pattern positions
+        # (stacked over the units), then the tail layers
+        self.groups = list(cache_groups(cfg))
+        if any(k not in PAGED_KINDS + _STATE_KINDS
+               or (sec == "tail" and k in PAGED_KINDS)
+               for sec, _, k in self.groups):
             raise NotImplementedError(
-                f"{cfg.name}: only whole units of 'attn'/'nope'/'local' "
-                f"layers are ported")
+                f"{cfg.name}: only 'attn'/'nope'/'local'/recurrent layers "
+                f"with no paged layer in the tail are ported")
         self.cfg = cfg
         self.device = resolve(device)
         self.max_batch, self.max_len = max_batch, max_len
@@ -273,11 +282,12 @@ class PagedKVCache:
         self.pages_per_slot = max_len // ps
         self.n_pages = n_pages or (1 + max_batch * self.pages_per_slot)
         self.n_units = cfg.n_layers // cfg.unit
-        # pattern positions whose layers page, and those that keep a ring
+        # pattern positions whose layers page, and the groups that keep
+        # per-slot state (rings, recurrent states) beside the pools
         self.paged_pos = [f"pos{j}" for j, k in enumerate(cfg.pattern)
                           if k in PAGED_KINDS]
-        self.ring_pos = [f"pos{j}" for j, k in enumerate(cfg.pattern)
-                         if k == "local"]
+        self.state_groups = [(sec, key) for sec, key, k in self.groups
+                             if k not in PAGED_KINDS]
         self.n_attn_layers = self.n_units * len(self.paged_pos)
         self.page_elems = cfg.n_kv_heads * ps * cfg.hd
         exp_bits, self.max_code_len, _ = codec.plane_spec(self.dtype_name)
@@ -344,21 +354,21 @@ class PagedKVCache:
 
     def init_cache(self) -> dict:
         """The paged cache: page pools (and cold-pool leaves) of every
-        paged pattern position, the rings of the ``local`` ones ((n_units,
-        max_batch, n_kv, ring_len, hd), as the monolithic cache's),
-        per-slot timelines and the shared page table."""
+        paged pattern position, the rings of the ``local`` layers and the
+        states of the recurrent ones (the monolithic cache's leaves,
+        ``models.model.group_cache``), per-slot timelines and the shared
+        page table."""
+        from ..models.model import group_cache
         cfg, dev = self.cfg, self.device
-        ring = (self.n_units, self.max_batch, cfg.n_kv_heads,
-                ring_len(cfg, self.max_len), cfg.hd)
-        units = {}
-        for j, kind in enumerate(cfg.pattern):
-            units[f"pos{j}"] = (self._pool_leaves() if kind in PAGED_KINDS
-                                else {kn: torch.zeros(ring, dtype=self.dtype,
-                                                      device=dev)
-                                      for kn in ("k", "v")})
+        cache = {"units": {}, "tail": {}}
+        for section, key, kind in self.groups:
+            cache[section][key] = (
+                self._pool_leaves() if kind in PAGED_KINDS
+                else group_cache(cfg, kind, (self.n_units,) if section ==
+                                 "units" else (), self.max_batch,
+                                 self.max_len, self.dtype, dev))
         return {
-            "units": units,
-            "tail": {},
+            **cache,
             "cur_len": torch.zeros((self.max_batch,), dtype=torch.int32,
                                    device=dev),
             "page_table": torch.zeros(
@@ -446,10 +456,11 @@ class PagedKVCache:
             for kn in ("k", "v"):
                 pages = self._frag_pages(src[kn])
                 dst[f"{kn}_pool"][:, ids] = pages[:, :need].to(self.dtype)
-        for name in self.ring_pos:
-            dst, src = cache["units"][name], frag["units"][name]
-            for kn in ("k", "v"):
-                dst[kn][:, slot] = src[kn][:, 0].to(self.dtype)
+        for section, key in self.state_groups:
+            axis = 1 if section == "units" else 0
+            for kn, leaf in cache[section][key].items():
+                leaf.select(axis, slot).copy_(
+                    frag[section][key][kn].select(axis, 0))
         return cache
 
     def admit_slot(self, cache: dict, slot: int, need: int):
@@ -759,21 +770,28 @@ class PagedKVCache:
 
     def snapshot_slot_state(self, cache: dict, slot: int) -> dict:
         """Host copies of the slot's non-paged per-slot cache state: the
-        rings of its ``local`` layers, which hold no page ids and would be
-        overwritten by the next request admitted to the slot.  Preemption
-        stashes them with this and reinstalls them with
-        :func:`restore_slot_state` on resume -> {(name, kn): (U, n_kv, W,
-        hd) host tensor}, empty for a stack that only pages."""
-        return {(name, kn): cache["units"][name][kn][:, slot].to(
-                    "cpu", copy=True)
-                for name in self.ring_pos for kn in ("k", "v")}
+        rings of its ``local`` layers and the states of its recurrent ones,
+        which hold no page ids and would be overwritten by the next request
+        admitted to the slot.  Preemption stashes them with this and
+        reinstalls them with :func:`restore_slot_state` on resume ->
+        {(group key, leaf name): the slot's row, a host tensor} (the key
+        is a pattern position ``pos<j>`` or a tail layer ``layer<t>``),
+        empty for a stack that only pages."""
+        return {(key, kn): leaf.select(
+                    1 if section == "units" else 0, slot).to("cpu",
+                                                             copy=True)
+                for section, key in self.state_groups
+                for kn, leaf in cache[section][key].items()}
 
     def restore_slot_state(self, cache: dict, slot: int,
                            snap: dict) -> dict:
         """Inverse of :func:`snapshot_slot_state`, in place (bit-exact: the
         state never leaves its dtype)."""
-        for (name, kn), host in snap.items():
-            cache["units"][name][kn][:, slot] = host.to(self.device)
+        section = {key: sec for sec, key in self.state_groups}
+        for (key, kn), host in snap.items():
+            sec = section[key]
+            cache[sec][key][kn].select(1 if sec == "units" else 0,
+                                       slot).copy_(host)
         return cache
 
     def detach_slot(self, slot: int):

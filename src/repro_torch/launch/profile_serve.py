@@ -8,7 +8,11 @@ and prints, for each window: wall time, device busy time (the sum of kernel
 times; one stream, so kernels do not overlap), the idle share, and device
 time by kernel.  With ``--cache paged-compressed`` the prompts' full pages
 are entropy-coded into the cold pool (host work, outside the traced
-windows) and every traced decode step decodes the cold pool.
+windows) and every traced decode step decodes the cold pool.  A stack
+without paged layers (recurrentgemma, xlstm) is served from the monolithic
+cache.  The recurrent mixers (``models.recurrent``'s ``*_apply`` and
+``*_step``, their weight decodes included) run inside profiler ranges, and
+their device time and share of the busy time are printed for each window.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 36
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
@@ -17,6 +21,10 @@ windows) and every traced decode step decodes the cold pool.
     # local window (local_attention at prefill, rings of 4096 in decode)
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch gemma2-9b --max-len 8192 --prompt 4500
+    # recurrentgemma-2b at chip_smoke.py phase 14's max_len, a prompt past
+    # the window of 2048 (the RG-LRU scan and local_attention at prefill)
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch recurrentgemma-2b --max-len 4096 --prompt 3000
 """
 from __future__ import annotations
 
@@ -29,15 +37,35 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get
+from ..models import recurrent
 from ..serving import EngineConfig, GenerationEngine, Request
 from .serve import build_params
 
+_MIXERS = ("rglru_apply", "rglru_step", "mlstm_apply", "mlstm_step",
+           "slstm_apply", "slstm_step")
+
+
+def _trace_mixers():
+    """Run each recurrent mixer inside a profiler range named
+    ``recurrent.<fn>`` (``models.model`` looks them up on the module at
+    every call)."""
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(f"recurrent.{name}"):
+                return fn(*a, **kw)
+        return call
+
+    for name in _MIXERS:
+        setattr(recurrent, name, ranged(name, getattr(recurrent, name)))
+
 
 def _kernel_times(prof) -> dict:
-    """Device microseconds by kernel name."""
+    """Device microseconds by kernel name (the device-side copies of the
+    ``recurrent.*`` ranges are spans, not kernels, and are left out)."""
     out: dict = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("recurrent.")):
             continue
         out[e.name] = out.get(e.name, 0.0) + e.device_time_total
     return out
@@ -55,6 +83,17 @@ def _report(title: str, prof, wall_s: float, top: int = 12):
     for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:top]:
         print(f"[profile]   {us / 1e3:9.3f} ms {us / 1e6 / busy:6.1%}  "
               f"{name[:110]}")
+    mixers: dict = {}       # the host-side ranges: their kernels' time
+    for e in prof.events():
+        if (e.name.startswith("recurrent.")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            mixers[e.name] = mixers.get(e.name, 0.0) + e.device_time_total
+    if mixers:
+        total = sum(mixers.values()) / 1e6
+        parts = ", ".join(f"{k[len('recurrent.'):]} {us / 1e3:.3f} ms"
+                          for k, us in sorted(mixers.items()))
+        print(f"[profile]   recurrent mixers: {total * 1e3:.3f} ms, "
+              f"{total / busy:.1%} of busy ({parts})")
 
 
 def main(argv=None):
@@ -73,6 +112,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    _trace_mixers()
     cfg = get(args.arch)
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     served, _, _, _ = build_params(cfg, args.seed, args.compress,
@@ -110,8 +150,11 @@ def main(argv=None):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"{args.steps} decode steps at batch {args.batch} ({args.cache}"
-            f", {len(eng.paged._cold_bytes)} cold pages)", prof, wall)
+    cold = (f", {len(eng.paged._cold_bytes)} cold pages"
+            if eng.paged is not None else "")
+    _report(f"{args.steps} decode steps at batch {args.batch} "
+            f"({eng.cache_mode if eng.paged is None else args.cache}{cold})",
+            prof, wall)
 
 
 if __name__ == "__main__":

@@ -32,10 +32,18 @@ Usage:
   # trees built a layer at a time
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --check-lossless
+  # the recurrent families (RG-LRU + local attention; sLSTM + mLSTM): no
+  # layer pages, so the cache resolves to the monolithic one
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-2b --check-lossless
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+      --check-lossless
   # on a machine without a card, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch \
       moonshot-v1-16b-a3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      recurrentgemma-2b --smoke --device cpu --check-lossless
 
 The helpers below are the same steps for a caller that brings its own
 ``ArchConfig`` or prompts (``chip_smoke.py`` serves a depth-cut qwen3-8b).
@@ -114,13 +122,25 @@ def serve(params, cfg, ecfg: EngineConfig, prompts, max_new: int,
 
 
 def cache_report(eng) -> list:
-    """Lines on the coded tiers of a finished run: pages compressed, their
-    ragged coded bytes and the bytes they take in cold slots against the
-    same pages raw, the cold pool's device memory, host seconds in the page
-    encoder, preemptions and swap traffic (none for the monolithic
-    cache)."""
+    """Lines on the cache of a finished run: the per-slot state beside the
+    KV rows or pages (recurrent states and local rings, where the stack has
+    them), then the coded tiers: pages compressed, their ragged coded bytes
+    and the bytes they take in cold slots against the same pages raw, the
+    cold pool's device memory, host seconds in the page encoder,
+    preemptions and swap traffic (none for the monolithic cache)."""
     pc = eng.paged
     lines = []
+    held = {"recurrent": 0, "local": 0}
+    for section, key, kind in M.cache_groups(eng.cfg):
+        if kind in M.REC_KINDS or kind == "local":
+            held["local" if kind == "local" else "recurrent"] += sum(
+                x.numel() * x.element_size()
+                for x in eng.cache[section][key].values())
+    if any(held.values()):
+        lines.append(
+            f"per-slot state ({eng.max_batch} slots, {eng.cache_mode} "
+            f"cache): recurrent states {held['recurrent'] / 1e6:.3f} MB, "
+            f"local rings {held['local'] / 1e6:.3f} MB")
     if pc is None:
         return lines
     if pc.compress:

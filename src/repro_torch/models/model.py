@@ -1,26 +1,44 @@
 """Decoder-only LM for the attention patterns ``("attn",)`` (the dense
 qwen3 family, the MLP types of granite and nemotron, the mixture-of-experts
 family) and ``("local", "attn")`` (gemma2: sliding-window layers between
-global ones, post-block norms, softcaps), built from ``ArchConfig``.  Plain
-functions over a nested-dict parameter tree laid out as the reference's:
+global ones, post-block norms, softcaps), and for the recurrent kinds
+``rglru`` (recurrentgemma: ``("rglru", "rglru", "local")``), ``slstm`` and
+``mlstm`` (xlstm: ``("slstm", "mlstm")``, no MLP), built from
+``ArchConfig``.  Plain functions over a nested-dict parameter tree laid out
+as the reference's:
 
     {"embed": (V, d), "final_norm": (d,), ["unembed": (d, V),]
-     "units": {"pos<j>": {"norm1", "attn": {wq, wk, wv, wo[, q_norm,
-               k_norm]}, "norm2", "mlp": {wi_gate, wi_up, wo} | {wi, wo}
-               | "moe": {gate, wi_gate, wi_up, wo[, shared: {wi_gate,
-               wi_up, wo}]}[, "post_norm1", "post_norm2"]}},
-     "tail": {}}
+     "units": {"pos<j>": LAYER},
+     "tail": {"layer<t>": LAYER}}
+
+    LAYER = {"norm1",
+             "attn": {wq, wk, wv, wo[, q_norm, k_norm]}      ('attn'/'local')
+             | "rglru": {w_in, w_gate_in, conv_w, conv_b, w_a, b_a, w_x,
+                         b_x, lam, w_out}                     ('rglru')
+             | "cell": {w_up, w_q, w_k, w_v, w_if, b_if, w_down}  ('mlstm')
+             | "cell": {w, r, b, w_out}                       ('slstm'),
+             ["norm2", "mlp": {wi_gate, wi_up, wo} | {wi, wo}
+              | "moe": {gate, wi_gate, wi_up, wo[, shared: {wi_gate,
+              wi_up, wo}]},] ["post_norm1", "post_norm2"]}
 
 with one ``pos<j>`` for each position ``j`` of the config's pattern: layer
-``i`` is unit ``i // unit``, position ``i % unit``, and every leaf under
-``"units"`` is stacked over the ``n_layers // unit`` units.  Each weight
+``i < n_units * unit`` is unit ``i // unit``, position ``i % unit``, and
+every leaf under ``"units"`` is stacked over the ``n_layers // unit``
+units.  The ``n_layers % unit`` layers left over are the tail, unstacked,
+of kind ``cfg.layer_kind(n_units * unit + t)``.  A layer has the FFN
+block (``norm2`` and the MLP or MoE) unless the config has ``d_ff = 0``
+and no experts (xlstm's cells carry their own projections).  Each weight
 keeps the ``(in, out)`` layout (``x @ W``), so that its ECF8 container
 bytes equal the reference's.  The unit loop replaces the reference's
-``lax.scan``; KV pools and rings are updated in place.
+``lax.scan``; KV pools, rings and recurrent states are updated in place.
 
-A ``local`` layer's cache is a ring of ``W = min(local_window, max_len)``
+The cache mirrors it: ``"units"/"pos<j>"`` stacked over the units (batch
+at axis 1), ``"tail"/"layer<t>"`` unstacked (batch at axis 0).  A
+``local`` layer's cache is a ring of ``W = min(local_window, max_len)``
 positions a slot (position ``t`` at ring slot ``t % W``), beside the page
-pools of the ``attn`` layers in a paged cache.
+pools of the ``attn`` layers in a paged cache; a recurrent layer's is its
+state (``models.recurrent``: RG-LRU ``h``, ``conv``; mLSTM ``C``, ``n``,
+``m``; sLSTM ``h``, ``c``, ``n``, ``m``, all f32).
 
 Entry points:
   prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
@@ -41,22 +59,41 @@ from ..core.store import is_compressed, torch_dtype
 from ..device import resolve
 from ..kernels import ops
 from ..kvcache import paged as paged_kv
+from . import recurrent as rec
 from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
                      local_attention, mat, mlp_apply, mlp_init, rms_norm)
 from .moe import moe_apply, moe_init
 
-SUPPORTED_KINDS = ("attn", "local")
+ATTN_KINDS = ("attn", "local")
+REC_KINDS = ("rglru", "slstm", "mlstm")
+SUPPORTED_KINDS = ATTN_KINDS + REC_KINDS
 MLP_TYPES = ("swiglu", "gelu", "geglu", "sqrelu")
+
+
+def _tail_kinds(cfg: ArchConfig) -> list:
+    """Kinds of the ``n_layers % unit`` tail layers, in order."""
+    first = (cfg.n_layers // cfg.unit) * cfg.unit
+    return [cfg.layer_kind(i) for i in range(first, cfg.n_layers)]
+
+
+def _has_ffn(cfg: ArchConfig, kind: str) -> bool:
+    """Whether a layer of ``kind`` has the FFN block (the reference's rule:
+    an MLP where ``d_ff > 0``, a MoE where there are experts, none in an
+    sLSTM / mLSTM layer without ``d_ff``)."""
+    if kind in ("slstm", "mlstm") and cfg.d_ff == 0:
+        return False
+    return cfg.d_ff > 0 or cfg.n_experts > 0
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for architectures this slice of the port does not serve."""
-    kinds = set(cfg.pattern)
-    if (not kinds <= set(SUPPORTED_KINDS) or cfg.n_layers % cfg.unit
-            or cfg.encoder_decoder or cfg.mlp_type not in MLP_TYPES):
+    if (not set(cfg.pattern) <= set(SUPPORTED_KINDS) or cfg.encoder_decoder
+            or cfg.mlp_type not in MLP_TYPES
+            or any(k in paged_kv.PAGED_KINDS for k in _tail_kinds(cfg))):
         raise NotImplementedError(
-            f"{cfg.name}: not yet ported (the port serves whole units of "
-            f"the 'attn' and 'local' kinds: dense MLPs {MLP_TYPES} and "
+            f"{cfg.name}: not yet ported (the port serves the 'attn', "
+            f"'local', 'rglru', 'slstm' and 'mlstm' kinds with no paged "
+            f"layer in the tail: dense MLPs {MLP_TYPES} and "
             f"mixture-of-experts)")
 
 
@@ -66,10 +103,11 @@ def check_supported(cfg: ArchConfig) -> None:
 
 class _Draws:
     """The leaf maker of :func:`init_params`: ``new(name, shape, scale)``
-    draws ``normal(shape) * scale`` (zeros when ``scale`` is None) once a
-    unit, ``n_layers`` times (the unit count; None: once, unstacked), from
-    the shared generator, and hands the draws to ``leaf``; ``sub(name)`` is
-    the maker of a sub-tree."""
+    draws ``normal(shape) * scale`` (zeros when ``scale`` is None;
+    ``uniform=(lo, hi)`` draws ``U(lo, hi)`` instead) once a unit,
+    ``n_layers`` times (the unit count; None: once, unstacked), from the
+    shared generator, and hands the draws to ``leaf``; ``sub(name)`` is the
+    maker of a sub-tree."""
 
     def __init__(self, gen, dtype, leaf, n_layers, path=()):
         self.gen, self.dtype, self.leaf = gen, dtype, leaf
@@ -79,12 +117,16 @@ class _Draws:
         return _Draws(self.gen, self.dtype, self.leaf, self.n_layers,
                       self.path + (name,))
 
-    def __call__(self, name: str, shape: tuple, scale=None):
+    def __call__(self, name: str, shape: tuple, scale=None, uniform=None):
         gen, dtype = self.gen, self.dtype
 
         def draws():
             for _ in range(self.n_layers or 1):
-                if scale is None:
+                if uniform is not None:
+                    lo, hi = uniform
+                    yield torch.rand(shape, generator=gen, dtype=dtype,
+                                     device=gen.device).mul_(hi - lo).add_(lo)
+                elif scale is None:
                     yield torch.zeros(shape, dtype=dtype, device=gen.device)
                 else:
                     yield torch.randn(shape, generator=gen, dtype=dtype,
@@ -141,12 +183,33 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         params["unembed"] = top("unembed", (d, V), d ** -0.5)
     n_units = cfg.n_layers // cfg.unit
-    params["units"] = {}
-    for j in range(cfg.unit):
-        new = _Draws(gen, dtype, leaf, n_units, ("units", f"pos{j}"))
-        layer = {"norm1": new("norm1", (d,)),
-                 "attn": _attn_init(new.sub("attn"), cfg),
-                 "norm2": new("norm2", (d,))}
+    params["units"] = {
+        f"pos{j}": _layer_init(_Draws(gen, dtype, leaf, n_units,
+                                      ("units", f"pos{j}")), cfg, kind)
+        for j, kind in enumerate(cfg.pattern)}
+    params["tail"] = {
+        f"layer{t}": _layer_init(_Draws(gen, dtype, leaf, None,
+                                        ("tail", f"layer{t}")), cfg, kind)
+        for t, kind in enumerate(_tail_kinds(cfg))}
+    return params
+
+
+def _layer_init(new, cfg: ArchConfig, kind: str):
+    """One layer's (or one pattern position's stacked) leaves, drawn in the
+    order norm1, the mixer, norm2, the FFN, the post norms."""
+    d = cfg.d_model
+    layer = {"norm1": new("norm1", (d,))}
+    if kind in ATTN_KINDS:
+        layer["attn"] = _attn_init(new.sub("attn"), cfg)
+    elif kind == "rglru":
+        layer["rglru"] = rec.rglru_init(new.sub("rglru"), d, d)
+    elif kind == "slstm":
+        layer["cell"] = rec.slstm_init(new.sub("cell"), d, cfg.n_heads)
+    else:
+        layer["cell"] = rec.mlstm_init(new.sub("cell"), d, cfg.n_heads)
+    ffn = _has_ffn(cfg, kind)
+    if ffn:
+        layer["norm2"] = new("norm2", (d,))
         if cfg.n_experts:
             layer["moe"] = moe_init(new.sub("moe"), d, cfg.n_experts,
                                     cfg.moe_d_ff, cfg.n_shared_experts,
@@ -154,12 +217,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
         else:
             layer["mlp"] = mlp_init(new.sub("mlp"), d, cfg.d_ff,
                                     cfg.mlp_type)
-        if cfg.post_norms:
-            layer["post_norm1"] = new("post_norm1", (d,))
+    if cfg.post_norms:
+        layer["post_norm1"] = new("post_norm1", (d,))
+        if ffn:
             layer["post_norm2"] = new("post_norm2", (d,))
-        params["units"][f"pos{j}"] = layer
-    params["tail"] = {}
-    return params
+    return layer
 
 
 def _layer(tree, u: int):
@@ -303,12 +365,14 @@ def _ffn(p, x, cfg: ArchConfig, dtype):
 
 
 def _residual(p, x, o, cfg: ArchConfig, dtype):
-    """The layer's two residual adds around the attention output ``o``:
-    ``x + post_norm1(o)``, then ``+ post_norm2(ffn(norm2(x)))``, the post
-    norms where the config has them (gemma2)."""
+    """The layer's two residual adds around the mixer output ``o``:
+    ``x + post_norm1(o)``, then ``+ post_norm2(ffn(norm2(x)))`` where the
+    layer has an FFN, the post norms where the config has them (gemma2)."""
     if cfg.post_norms:
         o = rms_norm(o, p["post_norm1"])
     x = x + o
+    if "mlp" not in p and "moe" not in p:
+        return x
     o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype)
     if cfg.post_norms:
         o2 = rms_norm(o2, p["post_norm2"])
@@ -316,10 +380,38 @@ def _residual(p, x, o, cfg: ArchConfig, dtype):
 
 
 def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype):
-    """Full-sequence layer (prefill).  Returns (x, (k, v))."""
+    """Full-sequence layer (prefill).  Returns (x, (k, v)) for an attention
+    layer, (x, final state) for a recurrent one; an mLSTM runs at the
+    reference's ``chunk = min(128, T)``, so ``T`` must be at most 128 or a
+    multiple of it."""
     h = rms_norm(x, p["norm1"])
-    o, kv = _self_attention_full(p["attn"], h, cfg, kind, dtype)
-    return _residual(p, x, o, cfg, dtype), kv
+    if kind in ATTN_KINDS:
+        o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype)
+    elif kind == "rglru":
+        o, st = rec.rglru_apply(p["rglru"], h, dtype=dtype)
+    elif kind == "slstm":
+        o, st = rec.slstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype)
+    else:
+        o, st = rec.mlstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype,
+                                chunk=min(128, h.shape[1]))
+    return _residual(p, x, o, cfg, dtype), st
+
+
+def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state):
+    """One-token decode through a recurrent layer; ``state`` (views of the
+    layer's cache leaves) is advanced in place."""
+    h = rms_norm(x, p["norm1"])[:, 0]
+    if kind == "rglru":
+        o, new = rec.rglru_step(p["rglru"], h, state, dtype=dtype)
+    elif kind == "slstm":
+        o, new = rec.slstm_step(p["cell"], h, state, cfg.n_heads,
+                                dtype=dtype)
+    else:
+        o, new = rec.mlstm_step(p["cell"], h, state, cfg.n_heads,
+                                dtype=dtype)
+    for name, leaf in state.items():
+        leaf.copy_(new[name])
+    return _residual(p, x, o[:, None], cfg, dtype)
 
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
@@ -377,31 +469,71 @@ def _unembed(params, cfg: ArchConfig, x, dtype):
 
 
 def _stack_layers(cfg: ArchConfig):
-    """(unit, cache/parameter key, kind) of every layer, in order."""
-    for u in range(cfg.n_layers // cfg.unit):
+    """(section, key, unit or None, kind) of every layer, in order: each
+    unit's pattern positions, then the tail layers (unstacked)."""
+    n_units = cfg.n_layers // cfg.unit
+    for u in range(n_units):
         for j, kind in enumerate(cfg.pattern):
-            yield u, f"pos{j}", kind
+            yield "units", f"pos{j}", u, kind
+    for t, kind in enumerate(_tail_kinds(cfg)):
+        yield "tail", f"layer{t}", None, kind
+
+
+def cache_groups(cfg: ArchConfig):
+    """(section, key, kind) of every cache group: the pattern positions
+    (stacked over the units), then the tail layers."""
+    for j, kind in enumerate(cfg.pattern):
+        yield "units", f"pos{j}", kind
+    for t, kind in enumerate(_tail_kinds(cfg)):
+        yield "tail", f"layer{t}", kind
+
+
+def _at(tree: dict, section: str, key: str, u):
+    """A layer's parameters or cache leaves: unit ``u`` of a stacked group
+    (views), or a tail layer's own."""
+    sub = tree[section][key]
+    return sub if u is None else _layer(sub, u)
+
+
+def group_cache(cfg: ArchConfig, kind: str, lead: tuple, batch: int,
+                max_len: int, dtype, device) -> dict:
+    """The contiguous cache leaves of one group, ``lead`` dims first
+    (``(n_units,)`` for a pattern position, ``()`` for a tail layer):
+    ``{k, v}`` of ``(batch, n_kv, S, hd)`` with ``S = max_len`` for a
+    global layer and the ring length for a ``local`` one, or a recurrent
+    layer's zero state (``models.recurrent``)."""
+    if kind in ATTN_KINDS:
+        S = paged_kv.ring_len(cfg, max_len) if kind == "local" else max_len
+        s = lead + (batch, cfg.n_kv_heads, S, cfg.hd)
+        return {"k": torch.zeros(s, dtype=dtype, device=device),
+                "v": torch.zeros(s, dtype=dtype, device=device)}
+    if kind == "rglru":
+        st = rec.rglru_init_state(batch, cfg.d_model, device)
+    elif kind == "slstm":
+        st = rec.slstm_init_state(batch, cfg.n_heads, cfg.d_model, device)
+    else:
+        st = rec.mlstm_init_state(batch, cfg.n_heads, cfg.d_model, device)
+    return {n: x.expand(lead + x.shape).clone() for n, x in st.items()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                device="cuda", per_slot: bool = False):
-    """Contiguous K/V of every pattern position: ``units/pos<j>/{k,v}`` is
-    ``(n_units, batch, n_kv, S, hd)``, with ``S = max_len`` for a global
-    position and the ring length ``min(local_window, max_len)`` for a
-    ``local`` one.  ``per_slot=True`` makes ``cur_len`` a (batch,) vector,
-    every slot on its own timeline (the engine's monolithic cache); else
-    it is one shared 0-d length (a prefill's)."""
+    """The contiguous cache (:func:`group_cache` for every group):
+    ``units/pos<j>/...`` with a leading unit axis, ``tail/layer<t>/...``
+    without.  ``per_slot=True`` makes ``cur_len`` a (batch,) vector, every
+    slot on its own timeline (the engine's monolithic cache); else it is
+    one shared 0-d length (a prefill's)."""
     dev = resolve(device)
     n_units = cfg.n_layers // cfg.unit
-    units = {}
-    for j, kind in enumerate(cfg.pattern):
-        S = paged_kv.ring_len(cfg, max_len) if kind == "local" else max_len
-        s = (n_units, batch, cfg.n_kv_heads, S, cfg.hd)
-        units[f"pos{j}"] = {"k": torch.zeros(s, dtype=dtype, device=dev),
-                            "v": torch.zeros(s, dtype=dtype, device=dev)}
-    cur = (torch.zeros((batch,), dtype=torch.int32, device=dev) if per_slot
-           else torch.zeros((), dtype=torch.int32, device=dev))
-    return {"units": units, "tail": {}, "cur_len": cur}
+    cache = {"units": {}, "tail": {}}
+    for section, key, kind in cache_groups(cfg):
+        lead = (n_units,) if section == "units" else ()
+        cache[section][key] = group_cache(cfg, kind, lead, batch, max_len,
+                                          dtype, dev)
+    cache["cur_len"] = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+                        if per_slot
+                        else torch.zeros((), dtype=torch.int32, device=dev))
+    return cache
 
 
 def _fill(dst, got, kind: str):
@@ -418,33 +550,41 @@ def _fill(dst, got, kind: str):
 
 def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
     """Process a prompt, build its cache -> (last-pos logits (B, 1, V),
-    cache with global K/V zero-padded to ``max_len`` and every ``local``
-    layer's ring of ``min(local_window, max_len)`` positions filled)."""
+    cache with global K/V zero-padded to ``max_len``, every ``local``
+    layer's ring of ``min(local_window, max_len)`` positions filled and
+    every recurrent layer's final state)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     max_len = max_len or T
     cache = init_cache(cfg, B, max_len, dtype, tokens.device)
     x = _embed(params, cfg, tokens, dtype)
-    for u, pos, kind in _stack_layers(cfg):
-        x, (k, v) = _layer_apply_full(_layer(params["units"][pos], u), x,
-                                      cfg, kind, dtype)
-        c = cache["units"][pos]
-        _fill(c["k"][u], k, kind)
-        _fill(c["v"][u], v, kind)
+    for section, key, u, kind in _stack_layers(cfg):
+        x, st = _layer_apply_full(_at(params, section, key, u), x, cfg, kind,
+                                  dtype)
+        c = _at(cache, section, key, u)
+        if kind in ATTN_KINDS:
+            _fill(c["k"], st[0], kind)
+            _fill(c["v"], st[1], kind)
+        else:
+            for name, leaf in c.items():
+                leaf.copy_(st[name])
     logits = _unembed(params, cfg, x[:, -1:], dtype)
     cache["cur_len"] = torch.full((), T, dtype=torch.int32,
                                   device=tokens.device)
     return logits, cache
 
 
-def _layer_pools(leaves: dict, u: int):
-    """Unit ``u``'s cache of one pattern position: the page pools and cold
-    leaves (paged), else its contiguous (k, v) row or ring."""
+def _layer_pools(leaves: dict, u):
+    """A layer's attention cache: the page pools and cold leaves of unit
+    ``u`` (paged), else its contiguous (k, v) row or ring (of unit ``u``,
+    or a tail layer's own when ``u`` is None)."""
     if "k_pool" in leaves:
         return (leaves["k_pool"][u], leaves["v_pool"][u],
                 paged_kv.cold_leaves(leaves, "k", u),
                 paged_kv.cold_leaves(leaves, "v", u))
+    if u is None:
+        return leaves["k"], leaves["v"]
     return leaves["k"][u], leaves["v"][u]
 
 
@@ -452,10 +592,11 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
     paged cache (``kvcache.paged.PagedKVCache.init_cache``) or a contiguous
     one (:func:`init_cache`, ``per_slot`` or a prefill's shared length);
-    its K/V is written in place and ``cur_len`` advances by one.  A paged
-    cache's ``local`` layers keep their rings beside the pools.  Cold-pool
-    leaves, where a paged cache carries them, are decoded in every paged
-    layer (the engine leaves them out while no page is cold)."""
+    its K/V and recurrent states are written in place and ``cur_len``
+    advances by one.  A paged cache's ``local`` and recurrent layers keep
+    their rings and states beside the pools.  Cold-pool leaves, where a
+    paged cache carries them, are decoded in every paged layer (the engine
+    leaves them out while no page is cold)."""
     dtype = torch_dtype(cfg.dtype)
     B = token.shape[0]
     cur_len = cache["cur_len"]
@@ -464,14 +605,60 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     if page_table is not None:
         page_table = page_table.clamp(min=paged_kv.GARBAGE_PAGE)
     x = _embed(params, cfg, token, dtype)
-    for u, pos, kind in _stack_layers(cfg):
-        leaves = cache["units"][pos]
-        x = _layer_apply_decode(_layer(params["units"][pos], u), x, cfg,
-                                kind, dtype, _layer_pools(leaves, u), lens,
-                                page_table if "k_pool" in leaves else None)
+    for section, key, u, kind in _stack_layers(cfg):
+        p = _at(params, section, key, u)
+        leaves = cache[section][key]
+        if kind in REC_KINDS:
+            x = _layer_apply_step(p, x, cfg, kind, dtype,
+                                  _at(cache, section, key, u))
+        else:
+            x = _layer_apply_decode(p, x, cfg, kind, dtype,
+                                    _layer_pools(leaves, u), lens,
+                                    page_table if "k_pool" in leaves
+                                    else None)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache
+
+
+def step_overwrites(cfg: ArchConfig, cache) -> list:
+    """What the next :func:`decode_step` on the contiguous, per-slot
+    ``cache`` overwrites that rolling its timeline back does not restore:
+    the ring slot ``cur_len % W`` of every ``local`` layer (it held the
+    position ``W`` back, still inside the window) and the whole state of
+    every recurrent layer.  A global layer needs nothing: its write lands
+    at or past ``cur_len``, which ``kv_len`` masks until the next write
+    there.  -> [(leaf, copy, ring slots (B,) or None, batch axis)], empty
+    for an attention-only stack; :func:`undo_step` puts a slot's row back.
+    """
+    out = []
+    for section, key, kind in cache_groups(cfg):
+        if kind in paged_kv.PAGED_KINDS:
+            continue
+        axis = 1 if section == "units" else 0
+        for leaf in cache[section][key].values():
+            if kind != "local":
+                out.append((leaf, leaf.clone(), None, axis))
+                continue
+            pos = (cache["cur_len"] % leaf.shape[-2]).long()
+            rows = torch.arange(pos.shape[0], device=pos.device)
+            # (B, [U,] n_kv, hd): each row's slot, batch first
+            copy = leaf[:, rows, :, pos] if axis else leaf[rows, :, pos]
+            out.append((leaf, copy, pos, axis))
+    return out
+
+
+def undo_step(saved: list, slot: int) -> None:
+    """Put ``slot``'s row of a :func:`step_overwrites` record back, in
+    place.  Undoing the steps of a window newest first restores the cache
+    as it was before the oldest of them."""
+    for leaf, copy, pos, axis in saved:
+        row = leaf.select(axis, slot)
+        if pos is None:
+            row.copy_(copy.select(axis, slot))
+        else:
+            row.index_copy_(row.ndim - 2, pos[slot:slot + 1],
+                            copy[slot].unsqueeze(-2))
 
 
 def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
@@ -484,10 +671,11 @@ def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
     start = cur_len[slot].clone()
     row = cache["page_table"][slot]
     x = _embed(params, cfg, tokens, dtype)
-    for u, pos, kind in _stack_layers(cfg):
-        x = _layer_apply_chunk(_layer(params["units"][pos], u), x, cfg, kind,
-                               dtype, _layer_pools(cache["units"][pos], u),
-                               row, start, n_valid, path)
+    for section, key, u, kind in _stack_layers(cfg):
+        leaves = cache[section][key]
+        pools = _layer_pools(leaves, u) if "k_pool" in leaves else None
+        x = _layer_apply_chunk(_at(params, section, key, u), x, cfg, kind,
+                               dtype, pools, row, start, n_valid, path)
     cur_len[slot] = start + n_valid
     return x
 

@@ -27,11 +27,16 @@ speculative decoding      the paged cache, an all-'attn'/'nope' target,
 ========================  =================================================
 
 ``validate(cfg)`` resolves a config against an architecture.  Arch-driven
-resolution (a stack with nothing to page resolves to the monolithic cache)
-is silent.  A user-requested feature that cannot be served is a fallback:
+resolution (a stack with nothing to page, as recurrentgemma's RG-LRU and
+local layers or xlstm's cells, resolves to the monolithic cache) is silent.
+A draft may be of any kind the port serves, recurrent or with local rings,
+as in the reference: the engine rolls back its states as well as its
+timeline.  A user-requested feature that cannot be served is a fallback:
 lenient ``validate`` warns and disables it, ``strict=True`` raises one
 ``EngineConfigError`` listing every problem.  An architecture the port does
-not serve yet (``models.model.check_supported``) is refused in both modes.
+not serve yet (``models.model.check_supported``: the port serves the
+'attn', 'local', 'rglru', 'slstm' and 'mlstm' kinds, and no paged layer in
+a tail) is refused in both modes.
 """
 from __future__ import annotations
 

@@ -27,7 +27,8 @@ with requests continuously:
     the cold pool after each step and decoded where the step uses them;
   * with a swap store (``swap_bytes``), page pressure preempts whole
     requests: the victim's pages go to the host losslessly (and the rings
-    of its ``local`` layers, which hold no pages, with them), it is
+    of its ``local`` layers and the states of its recurrent ones, which
+    hold no pages, with them), it is
     requeued at the front of its priority class and resumes
     bit-identically;
   * ``cache_mode="monolithic"`` keeps one contiguous ``max_len`` row a
@@ -47,7 +48,7 @@ with requests continuously:
     the target scores them in one verify forward
     (``models.model.verify_chunk``) and ``serving.spec.verify`` keeps an
     exact rejection-sampled prefix; the rejected suffix is rolled back in
-    both caches.
+    both caches (in the draft's, its rings and recurrent states too).
 
 With ``telemetry`` (``serving.telemetry.Telemetry``) the engine publishes
 the reference's metrics, request-lifecycle spans and engine-phase spans;
@@ -182,10 +183,19 @@ class GenerationEngine:
                 self.draft_cfg, max_batch, config.max_len,
                 torch_dtype(self.draft_cfg.dtype), self.device,
                 per_slot=True)
+            # the draft's ring length, when it has local layers: a step at
+            # a position past it overwrote one still in the window
+            self._draft_ring = (paged_kv.ring_len(self.draft_cfg,
+                                                  config.max_len)
+                                if "local" in self.draft_cfg.pattern
+                                else float("inf"))
         self.n_spec_rounds = self.n_spec_drafted = self.n_spec_accepted = 0
-        # verify windows whose rejected suffix was rolled back, and draft
-        # rows reinstalled from a preemption's host stash
+        # verify windows whose rejected suffix was rolled back, draft rows
+        # reinstalled from a preemption's host stash, rollbacks that undid
+        # draft steps in rings or recurrent states, and those of them whose
+        # undone ring slots held positions of the window (a wrapped ring)
         self.n_spec_rollbacks = self.n_draft_restores = 0
+        self.n_draft_state_rollbacks = self.n_draft_ring_wraps = 0
         self.prefill_chunk = config.prefill_chunk
         self.prefill_budget = config.prefill_budget
         self.prefix_sharing = config.prefix_sharing
@@ -410,8 +420,9 @@ class GenerationEngine:
     def _resume(self, slot: int, st: Preempted):
         """Re-splice a preempted request: reinstall its page list, fault
         every page back (lossless restore), reinstall its non-paged
-        per-slot state (the rings of ``local`` layers, which the slot's
-        requests in between overwrote) and rebuild the slot timeline — the
+        per-slot state (the rings of ``local`` layers and the recurrent
+        states, which the slot's requests in between overwrote) and rebuild
+        the slot timeline — the
         continuation is bit-identical to an unpreempted run.  A
         mid-prefill record re-enters the prefill phase at
         ``st.prefill_pos`` instead of rejoining the decode batch."""
@@ -610,12 +621,19 @@ class GenerationEngine:
         the draft consumes first in the next round).  The reference keeps
         the whole draft cache of each step, since its caches are immutable
         values; here they are written in place, and a copy of a full-width
-        draft cache each draft step would swamp the round.  For the
-        attention-only drafts served here the timeline alone is exact:
-        every position at or past the restored ``cur_len`` is rewritten by
-        the draft's next step there before any step reads it, and
-        ``kv_len = cur_len + 1`` masks it until then.  A recurrent draft
-        would need its per-slot state snapshotted instead."""
+        draft cache each draft step would swamp the round.  A global
+        layer's row needs the timeline alone: every position at or past
+        the restored ``cur_len`` is rewritten by the draft's next step there
+        before any step reads it, and ``kv_len = cur_len + 1`` masks it
+        until then.  A ``local`` layer's ring does not: a step's write at
+        ``cur_len % W`` replaced the position ``W`` back, which the next
+        step still attends to; nor does a recurrent layer's state, which
+        every step replaces.  So before each draft step the engine keeps
+        copies of just what the step overwrites there
+        (``models.model.step_overwrites``: the ring slot a layer, the whole
+        small state of a recurrent layer), and a rejection puts the
+        undone steps' copies back, newest first (``undo_step``).  For an
+        attention-only draft the record is empty."""
         k, tel = self.spec_k, self.tel
         t0 = time.perf_counter()
         # grow every slot's pages to cover its whole verify window before
@@ -645,11 +663,13 @@ class GenerationEngine:
         if not active:
             return
         snaps = [self.draft_cache["cur_len"].clone()]
+        undo = []                       # what each draft step overwrote
         q_rows = []                     # draft logits per proposal (B, 1, V)
         props = np.zeros((self.max_batch, k), np.int64)
         tok = torch.tensor(self._last_tok, dtype=torch.int64,
                            device=self.device)[:, None]
         for j in range(1, k + 2):
+            undo.append(M.step_overwrites(self.draft_cfg, self.draft_cache))
             logits, self.draft_cache = M.decode_step(
                 self.draft_params, self.draft_cfg, tok, self.draft_cache)
             snaps.append(self.draft_cache["cur_len"].clone())
@@ -694,6 +714,13 @@ class GenerationEngine:
             self.cache = self.paged.rollback(self.cache, s, new_len)
             self._host_len[s] = new_len
             self.draft_cache["cur_len"][s] = snaps[len(emit)][s]
+            if undo[0] and len(emit) <= k:
+                # undo draft steps len(emit) + 1 .. k + 1, newest first
+                for saved in undo[:len(emit) - 1:-1]:
+                    M.undo_step(saved, s)
+                self.n_draft_state_rollbacks += 1
+                # the newest undone step wrote position n_cache + k
+                self.n_draft_ring_wraps += n_cache + k >= self._draft_ring
             req.out_tokens.extend(emit)
             self._last_tok[s] = emit[-1]
             self.n_spec_rounds += 1

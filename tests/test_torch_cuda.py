@@ -823,3 +823,72 @@ def test_kv_page_decode_gemma2_page(card):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     for i, p in enumerate(pages):
         assert torch.equal(got[i].view(torch.int16), p.view(torch.int16))
+
+
+# --------------------------------------------------------------------------
+# the recurrent families (recurrentgemma-2b's and xlstm-350m's shapes)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T", [13, 451, 2048])
+def test_flash_kernel_multi_query_head_dim_256(card, T):
+    """B4 at recurrentgemma-2b's local layers: 10 query heads on one KV
+    head of 256, no softcap, bf16; T = 2048 is a prompt that fills the
+    window."""
+    def rnd(h):
+        return torch.randn((1, h, T, 256), generator=card,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(10), rnd(1), rnd(1)
+    before = flash_fwd.run.launches
+    got = ops.flash_attention(q, k, v, True, 0.0)
+    assert flash_fwd.run.launches == before + 1
+    want = flash_fwd.plain(q, k, v, True, 0.0)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("shape", [(4, 2560), (4, 256, 1024)])
+def test_decode_kernel_on_recurrent_leaves(card, shape):
+    """B1 on RG-LRU's ``conv_w`` (4, 2560) and sLSTM's 3-D ``r`` (heads,
+    dh, 4 dh), each one layer of a stacked container: fp8 bits bit-exact,
+    and ``materialize`` writes bf16 and f32 (the sLSTM cell's ``r``) in the
+    leaf's shape."""
+    from repro_torch.core import store
+    w = torch.randn(shape, generator=card, device="cuda") * 0.1
+    bits = fp8.cast_to_fp8_bits(w)
+    ct = store.compress_stacked(bits[None])
+    a = ct.layer(0).arrays
+    args = (a["payload"], a["signmant"], a["lj_limit"], a["first_lj"],
+            a["offset"], a["perm"])
+    kw = dict(sym_per_lane=ct.meta.sym_per_lane, n_elem=ct.meta.n_elem)
+    got = ops.decode_ecf8(*args, **kw)
+    assert torch.equal(got, ecf8_decode.plain(*args, **kw))
+    assert torch.equal(got, bits.reshape(-1))
+    for dt in ("bfloat16", "float32"):
+        m = store.materialize(ct.layer(0), dt)
+        assert m.shape == shape
+        assert torch.equal(m, bits.view(fp8.FP8_DTYPE).to(m.dtype))
+
+
+def test_recurrentgemma_two_units_ecf8_tokens_equal_fp8(card):
+    """recurrentgemma-2b at full width over 2 units (6 layers, ring of
+    2048): the engine's greedy tokens from the ECF8 tree equal the fp8
+    tree's, through B1 (every weight use) and B4 (the local layers'
+    prefill of a prompt the window covers)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.serving import EngineConfig
+    cfg = dataclasses.replace(get("recurrentgemma-2b"), n_layers=6)
+    prompts = serve.make_prompts(cfg, 3, 0, lo=300, hi=700)
+    runs = []
+    for fmt in ("tpu", "none"):
+        params, _, _, _ = serve.build_params(cfg, 0, fmt, baseline=False)
+        b1, b4 = ecf8_decode.run.launches, flash_fwd.run.launches
+        done, eng, _ = serve.serve(params, cfg, EngineConfig(
+            max_batch=2, max_len=1024), prompts, 8)
+        assert eng.cache_mode == "monolithic"
+        assert flash_fwd.run.launches - b4 == 2 * len(prompts)
+        assert (ecf8_decode.run.launches > b1) == (fmt == "tpu")
+        runs.append([r.out_tokens for r in done])
+        del params, eng
+    assert runs[0] == runs[1]

@@ -218,17 +218,18 @@ def test_valid_config_resolves_unchanged(arch):
 
 
 def test_arch_driven_resolution_is_silent():
-    """A stack with nothing to page resolves to the monolithic cache with
-    no warning in the reference; the port does not serve such a stack yet
-    and refuses it, in both modes, without a warning either."""
-    xl, ref_xl = smoke_variant(get("xlstm-350m")), \
-        ref_smoke(ref_get("xlstm-350m"))
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert RefEngineConfig().validate(ref_xl).cache_mode == "monolithic"
-        for strict in (False, True):
-            with pytest.raises(EngineConfigError, match="not yet ported"):
-                EngineConfig().validate(xl, strict=strict)
+    """A stack with nothing to page (xlstm's recurrent cells,
+    recurrentgemma's RG-LRU and local layers) resolves to the monolithic
+    cache with no warning, in both modes, as in the reference."""
+    for arch in ("xlstm-350m", "recurrentgemma-2b"):
+        cfg, ref_cfg = smoke_variant(get(arch)), ref_smoke(ref_get(arch))
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert RefEngineConfig().validate(
+                ref_cfg).cache_mode == "monolithic"
+            for strict in (False, True):
+                assert EngineConfig().validate(
+                    cfg, strict=strict).cache_mode == "monolithic"
 
 
 @pytest.mark.parametrize("field,value", [

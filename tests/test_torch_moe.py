@@ -216,35 +216,43 @@ def test_combine_adds_in_ascending_expert_order():
 # the model and the store
 # --------------------------------------------------------------------------
 
-# the ('attn',) stacks (every MLP type and the MoE) and gemma2's
-# ('local', 'attn') stack with post-norms
+# the ('attn',) stacks (every MLP type and the MoE), gemma2's ('local',
+# 'attn') stack with post-norms and the recurrent families
 SERVED = {"qwen3-8b", "granite-20b", "phi3-medium-14b", "nemotron-4-15b",
-          "chameleon-34b", "gemma2-9b", ARCH}
+          "chameleon-34b", "gemma2-9b", "recurrentgemma-2b", "xlstm-350m",
+          ARCH}
 
 
 @pytest.mark.parametrize("arch", names())
 def test_engine_config_serves_the_moe_and_mlp_families(arch):
     """``validate`` (and through it ``convert`` and ``launch/serve.py``)
-    admits the MoE family, every dense MLP type and gemma2's stack,
-    resolving as the reference does (gemma2's local layers keep rings, so
-    a chunked prefill is refused in strict mode by both); the other
-    families are still refused."""
+    admits the MoE family, every dense MLP type, gemma2's stack and the
+    recurrent families, resolving as the reference does (a stack with
+    rings or recurrent states cannot chunk its prefill, so strict mode
+    refuses ``prefill_chunk`` in both; lenient mode resolves the cache
+    alike); the other families are still refused."""
     cfg = smoke_variant(get(arch))
     if arch not in SERVED:
         with pytest.raises(EngineConfigError, match="not yet ported"):
             EngineConfig().validate(cfg)
         return
     ref_cfg = ref_smoke(ref_get(arch))
-    if "local" in ref_cfg.pattern:
+    if set(ref_cfg.pattern) - {"attn"}:
         with pytest.raises(RefEngineConfigError, match="prefill_chunk"):
             RefEngineConfig(prefill_chunk=8).validate(ref_cfg, strict=True)
         with pytest.raises(EngineConfigError, match="prefill_chunk"):
             EngineConfig(prefill_chunk=8).validate(cfg, strict=True)
-        return
-    want = RefEngineConfig(prefill_chunk=8).validate(ref_cfg, strict=True)
-    got = EngineConfig(prefill_chunk=8).validate(cfg, strict=True)
+        with pytest.warns(UserWarning, match="prefill_chunk"):
+            got = EngineConfig(prefill_chunk=8).validate(cfg)
+        with pytest.warns(UserWarning, match="prefill_chunk"):
+            want = RefEngineConfig(prefill_chunk=8).validate(ref_cfg)
+    else:
+        want = RefEngineConfig(prefill_chunk=8).validate(ref_cfg,
+                                                         strict=True)
+        got = EngineConfig(prefill_chunk=8).validate(cfg, strict=True)
     assert (got.cache_mode, got.prefill_chunk) == (want.cache_mode,
                                                    want.prefill_chunk)
+
 
 @pytest.fixture(scope="module")
 def moe_model():

@@ -281,6 +281,95 @@ def test_draft_timeline_rollback_is_exact(trees):
         assert torch.equal(la, lb)
 
 
+def _state_leaves(cfg, cache):
+    """(path, leaf) of every ring and recurrent-state leaf of a draft cache:
+    what its rollback must restore beyond the timeline."""
+    for section, key, kind in M.cache_groups(cfg):
+        if kind in paged.PAGED_KINDS:
+            continue
+        for name, leaf in cache[section][key].items():
+            yield (section, key, name), leaf
+
+
+def _lockstep_draft_states(cfg, ref_cfg, p, ref_p, dcfg, ref_dcfg, d, ref_d,
+                           prompts, max_new, max_len, atol=1e-5):
+    """Serve ``prompts`` on the port's engine and the reference's in
+    lockstep (``spec_k`` 4, greedy, f32) and, after every round, hold each
+    active slot's draft rings and recurrent states within ``atol`` of the
+    reference's and its draft timeline equal to it.  -> (port tokens,
+    reference tokens, port engine)."""
+    kw = dict(max_batch=3, max_len=max_len, spec_k=4)
+    eng = GenerationEngine(p, cfg, config=EngineConfig(
+        draft_params=d, draft_cfg=dcfg, **kw), device="cpu")
+    ref_eng = RefEngine(ref_p, ref_cfg, config=RefEngineConfig(
+        draft_params=ref_d, draft_cfg=ref_dcfg, **kw))
+    reqs, ref_reqs = ([Req(prompt=list(q), max_new_tokens=max_new,
+                           id=47_000 + i) for i, q in enumerate(prompts)]
+                      for Req in (Request, RefRequest))
+    for r, rr in zip(reqs, ref_reqs):
+        eng.submit(r)
+        ref_eng.submit(rr)
+    n_compared = 0
+    for rnd in range(200):
+        busy, ref_busy = eng.step(), ref_eng.step()
+        assert busy == ref_busy
+        ref_dc = jax.tree_util.tree_map(np.asarray, ref_eng.draft_cache)
+        for s in range(eng.max_batch):
+            assert (eng.slots[s] is None) == (ref_eng.slots[s] is None)
+            if eng.slots[s] is None:
+                continue
+            assert int(eng.draft_cache["cur_len"][s]) == int(
+                ref_dc["cur_len"][s])
+            for (section, key, name), leaf in _state_leaves(
+                    dcfg, eng.draft_cache):
+                axis = 1 if section == "units" else 0
+                want = np.take(ref_dc[section][key][name], s, axis=axis)
+                np.testing.assert_allclose(
+                    leaf.select(axis, s).numpy(), want, atol=atol,
+                    err_msg=f"round {rnd}, slot {s}, {section}/{key}/{name}")
+                n_compared += 1
+        if not busy and all(x is None for x in eng.slots):
+            break
+    assert n_compared and all(r.done for r in reqs)
+    return ([r.out_tokens for r in reqs], [r.out_tokens for r in ref_reqs],
+            eng)
+
+
+def _target_only(p, cfg, prompts, max_new, max_len):
+    eng = GenerationEngine(p, cfg, config=EngineConfig(
+        max_batch=3, max_len=max_len), device="cpu")
+    reqs = [Request(prompt=list(q), max_new_tokens=max_new) for q in prompts]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return [r.out_tokens for r in reqs]
+
+
+def test_ring_draft_rollback_matches_reference_every_round(trees):
+    """A draft with ``local`` layers (gemma2's smoke stack, window 32)
+    beside the qwen3 target, on 40-60-token prompts: every draft step
+    writes ring slot ``cur_len % 32``, overwriting the position 32 back,
+    which stays inside the next step's window.  A rejected proposal must
+    therefore be undone in the ring as well as in the timeline: after every
+    round each active slot's draft rings equal the reference engine's,
+    which re-splices whole draft rows from per-step snapshots."""
+    cfg, ref_cfg, t = trees
+    ref_p, p = t["target"]
+    dcfg, ref_dcfg = smoke_variant(get("gemma2-9b")), ref_smoke(
+        ref_get("gemma2-9b"))
+    ref_d = RM.init_params(jax.random.PRNGKey(2), ref_dcfg)
+    d = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, ref_d),
+                                  dcfg, "cpu")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in rng.integers(40, 61, size=3)]
+    got, want, eng = _lockstep_draft_states(
+        cfg, ref_cfg, p, ref_p, dcfg, ref_dcfg, d, ref_d, prompts, 20, 96)
+    assert got == want == _target_only(p, cfg, prompts, 20, 96)
+    assert eng.n_spec_rollbacks > 0
+    assert eng.n_draft_ring_wraps == eng.n_draft_state_rollbacks > 0
+
+
 # --------------------------------------------------------------------------
 # exact rejection sampling
 # --------------------------------------------------------------------------
