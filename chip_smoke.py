@@ -19,7 +19,13 @@ Phases, each failing loudly (non-zero exit, no result line):
      ``.to(bf16)``; and at one layer's expert container of
      moonshot-v1-16b-a3b, (64, 2048, 1408), gemma2-9b's wi_gate and
      embedding (3584 x 14336, 256000 x 3584), recurrentgemma-2b's RG-LRU
-     w_a (2560 x 2560) and xlstm-350m's sLSTM r (4 x 256 x 1024);
+     w_a (2560 x 2560), xlstm-350m's sLSTM r (4 x 256 x 1024) and one
+     layer's expert container of llama4-scout-17b-a16e (16, 5120, 8192);
+     at qwen3-8b's wq, wi_gate and embedding, the ECF8-FR container
+     (``core/fixedrate.py``, encoded on the card) decoded by its plain
+     PyTorch decode on the card: fp8 bits equal to the kernel's output
+     and to the host oracle ``decode_ref``, its bf16 output equal to the
+     kernel's, timed beside the kernel with its transient device memory;
   3. the flash-attention kernel (bf16 and fp16 on the tensor cores)
      against its plain version in bf16 (B=1, Hq=32, Hkv=8, D=128, causal,
      T in {13, 451, 512, 2048}) and fp16 (T=2048), with the time of
@@ -30,7 +36,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      451, 4096, 6000} within 2e-2, f32 at T in {13, 451} within 1e-5; and
      at recurrentgemma-2b's (multi-query 10 / 1, D = 256, no softcap):
      bf16 at T in {13, 451, 2048} within 2e-2, beside SDPA with
-     ``enable_gqa``;
+     ``enable_gqa``; and at llama4-scout's (40 / 8 heads of 128, no
+     softcap, a group of 5): bf16 at T in {451, 2048, 8192} within 2e-2,
+     beside SDPA with ``enable_gqa``;
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
@@ -70,6 +78,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      smoke stack at 8 layers (2 units + 2 tail RG-LRU layers) and
      xlstm-350m's at 5 (a tail sLSTM), every recurrent matrix ECF8:
      prefill and 6 decode steps, the card against the CPU;
+     llama4-scout's (8 layers: two ("local", "local", "local", "nope")
+     units, window 32, 8 experts top-1 + 1 shared, heads of 64): prefill
+     at 37 tokens and paged-compressed decode steps past the rings' wrap,
+     the card against the CPU, from an ECF8-TPU tree and from an ECF8-FR
+     tree (no kernel decode launched for the latter);
   5. qwen3-8b at full width, ``QWEN_LAYERS`` of its 36 layers
      (``--layers``), ECF8-compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
@@ -160,9 +173,30 @@ Phases, each failing loudly (non-zero exit, no result line):
      at 6 an mLSTM layer, 2 bf16 and 1 f32 (``r``) an sLSTM layer and 2
      launches a pass), 15b fp8 (tokens IDENTICAL to 15a's); one sLSTM
      layer's prefill (the loop over T) timed alone at 512 tokens.
-Each phase logs the time since the start when it is done.  Phases 5-12
-run at a cut depth so that the whole script stays near half its time
-limit (the later phases at full depth); every gate is depth-independent.
+  16. qwen3-8b at phase 5's depth, prompts and engine settings, served
+     from ECF8-FR weights (``fmt="fixedrate"``, decoded on the card by
+     plain PyTorch): tokens IDENTICAL to phases 5 (ECF8-TPU) and 6 (fp8),
+     no ECF8 decode kernel launched; weights (FR, TPU, fp8), step, tok/s,
+     prefill and peak device memory printed; and the container report,
+     the paper's Table 1 at qwen3-8b's full width on layer 0's seven
+     matrices and the embedding: bytes an element for ECF8-TPU and
+     ECF8-FR, for the paper's own container (``core/paper_format.py``,
+     host numpy) on the four attention matrices, each decoded back
+     bit-exactly by its block-parallel oracle; the exponent entropy H(E),
+     the fitted alpha and the limit of ``core/theory.py`` per matrix.
+  17. llama4-scout-17b-a16e at full width (d_model 5120, 40 / 8 heads of
+     128, qk-norm, 16 experts top-1 of width 8192 + 1 shared, vocab
+     202,048 tied, window 8192), ``LLAMA_LAYERS`` of its 48 layers, 4
+     requests of ``LLAMA_PROMPTS`` tokens, max_len 8704, page 16, 32 new
+     tokens: 17a the ECF8 tree alone, paged (B1 at 11 a layer and 2
+     launches a pass, every one bf16; B4 in every layer of a prompt the
+     window covers and in the NoPE layers alone past it); 17d the
+     monolithic cache; 17b the fp8 tree alone (tokens of 17b and 17d
+     IDENTICAL to 17a's); weights, step, tok/s, prefill, peak device
+     memory and launches printed.
+Each phase logs the time since the start when it is done.  Phases 5-12,
+16 and 17 run at a cut depth so that the whole script stays near half its
+time limit (13-15 at full depth); every gate is depth-independent.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -215,6 +249,13 @@ XLSTM_ARCH = "xlstm-350m"           # phase 15's model
 # most 128 tokens, or a multiple of 128)
 XLSTM_PROMPTS = (512, 384, 128, 77)
 XLSTM_MAX_LEN = 1024
+LLAMA_ARCH = "llama4-scout-17b-a16e"    # phase 17's model
+LLAMA_LAYERS = 8        # phase 17's depth: 2 of its 12 units (48 layers)
+# phase 17's prompts: past the window (8192) at prefill (local_attention,
+# a rolled ring; B4 in the NoPE layers only), one that wraps its rings in
+# decode, two that never do; submitted in this order
+LLAMA_PROMPTS = (8500, 8180, 2048, 451)
+LLAMA_MAX_LEN = 8704
 
 
 def fail(msg: str):
@@ -286,13 +327,16 @@ def same_values(torch, got, want) -> bool:
 
 
 def check_decode(torch, ecf8_decode, fp8, tpu_format, name, bits, flush,
-                 reps):
+                 reps, fixedrate=None):
     """Kernel 1 vs its plain version on one container: fp8 bits bit-exact
     and lossless; the bf16, fp16 and f32 instances bit-identical to plain
     decode + cast; the time of the bf16 instance beside the fp8-bits
     instance followed by a cast -> result dict of the serve path's instance
-    (bf16).  ``launch/bench_decode.py`` times the decode path of another
-    checkout against this one."""
+    (bf16).  With ``fixedrate`` (the module), the same weight's ECF8-FR
+    container is held against the kernel's output (:func:`check_fixedrate`)
+    and its result is the dict's ``"fixedrate"`` entry.
+    ``launch/bench_decode.py`` times the decode path of another checkout
+    against this one."""
     t0 = time.perf_counter()
     c = tpu_format.encode(bits.reshape(-1).contiguous())
     torch.cuda.synchronize()
@@ -307,6 +351,8 @@ def check_decode(torch, ecf8_decode, fp8, tpu_format, name, bits, flush,
              f"{int((got != want).sum())} of {c.n_elem} bytes")
     if not torch.equal(got, bits.reshape(-1)):
         fail(f"ecf8_decode {name}: decode is not lossless")
+    fr = (check_fixedrate(torch, fixedrate, fp8, name, bits, got, flush,
+                          reps) if fixedrate is not None else None)
     del got
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         out = ecf8_decode.run(*args, **kw, out_dtype=dt)
@@ -336,9 +382,74 @@ def check_decode(torch, ecf8_decode, fp8, tpu_format, name, bits, flush,
         f"path's shape before the decode wrote bf16) {old_ms:.4f} ms "
         f"({old_ms / ms:.2f}x the bf16 instance), fp8 bits alone "
         f"{fp8_ms:.4f} ms (bound {bound_fp8:.4f} ms)")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                old_ms=old_ms, fp8_ms=fp8_ms)
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+               old_ms=old_ms, fp8_ms=fp8_ms,
+               bytes_per_elem=in_bytes / c.n_elem)
+    if fr is not None:
+        fr["b1_ms"] = ms
+        fr["fr_over_b1"] = fr["ms"] / ms
+        log(f"fixedrate {name}: plain decode to bf16 {fr['ms']:.4f} ms "
+            f"against the ECF8 decode kernel's {ms:.4f} ms "
+            f"({fr['fr_over_b1']:.2f}x); {fr['bytes_per_elem']:.4f} against "
+            f"{out['bytes_per_elem']:.4f} bytes an element")
+        out["fixedrate"] = fr
+    return out
+
+
+def check_fixedrate(torch, fixedrate, fp8, name, bits, b1_bits, flush, reps):
+    """The ECF8-FR container of ``bits``, encoded on the card, decoded by
+    its plain PyTorch decode on the card: fp8 bits equal to kernel 1's
+    output ``b1_bits`` and to the host oracle ``decode_ref``, the bf16
+    output equal to plain decode + cast; timed (bf16 out) with the device
+    memory its slices take beyond their output -> result dict."""
+    flat = bits.reshape(-1)
+    t0 = time.perf_counter()
+    c = fixedrate.encode(flat)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    args = (c.codes, c.escapes, c.table, c.signmant)
+    got = fixedrate.decode_plain(*args, n_elem=c.n_elem)
+    if got.device.type != "cuda" or not torch.equal(got, b1_bits):
+        fail(f"fixedrate {name}: the decode on the card differs from the "
+             f"ECF8 decode kernel's bits")
+    t0 = time.perf_counter()
+    host = fixedrate.decode_ref(c)
+    host_s = time.perf_counter() - t0
+    if not torch.equal(host.reshape(-1), got.cpu()):
+        fail(f"fixedrate {name}: the decode on the card differs from the "
+             f"host oracle")
+    del got, host
+    bf16 = torch.bfloat16
+    out = fixedrate.decode_plain(*args, n_elem=c.n_elem, out_dtype=bf16)
+    if not same_values(torch, out, flat.view(fp8.FP8_DTYPE).to(bf16)):
+        fail(f"fixedrate {name}: the bf16 output differs from plain decode "
+             f"+ cast")
+    del out
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fixedrate.decode_plain(*args, n_elem=c.n_elem, out_dtype=bf16)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - before - 2 * c.n_elem
+    del out
+    ms = cuda_ms(torch, lambda: fixedrate.decode_plain(
+        *args, n_elem=c.n_elem, out_dtype=bf16), reps, flush)
+    in_bytes = sum(t.numel() for t in args)
+    bound_ms = (in_bytes + 2 * c.n_elem) / H100_BYTES_PER_S * 1e3
+    log(f"fixedrate {name} {tuple(bits.shape)}: fp8 bits on the card equal "
+        f"to the ECF8 decode kernel's and to the host oracle ({host_s:.2f}s "
+        f"on the host), bf16 equal to plain decode + cast; table "
+        f"{c.table.tolist()}, {c.esc_count} escapes "
+        f"({100 * c.esc_count / c.n_elem:.4f} %), {c.ratio:.4f} bytes an "
+        f"element, encode on the card "
+        f"{enc_s:.2f}s; decode to bf16 {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({100 * bound_ms / ms:.1f} % of it), transient device memory "
+        f"{transient / 1e6:.1f} MB beyond its {2 * c.n_elem / 1e6:.1f} MB "
+        f"output")
+    return dict(ms=ms, bound_ms=bound_ms, bytes_per_elem=c.ratio,
+                esc_count=c.esc_count, transient_bytes=transient,
+                encode_s=enc_s, host_oracle_s=host_s)
 
 
 def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
@@ -636,12 +747,14 @@ def small_serving(torch, serving, small, params, dparams):
     return runs, eng
 
 
-def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
-    """Phase 4's MoE, MLP-type and gemma2 models (ECF8 at the smoke
-    threshold, f32): the card's logits against the CPU's, the MoE layer
-    bit-equal over two runs on the card, and gemma2's local rings (window
-    32) at a prompt longer than the window and over decode steps past
-    their wrap."""
+def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed,
+                     ecf8_decode):
+    """Phase 4's MoE, MLP-type, gemma2 and llama4 models (ECF8 at the
+    smoke threshold, f32): the card's logits against the CPU's, the MoE
+    layer bit-equal over two runs on the card, and gemma2's and llama4's
+    local rings (window 32) at a prompt longer than the window and over
+    decode steps past their wrap; then llama4's from an ECF8-FR tree, with
+    no launch of the ECF8 decode kernel."""
     toks = torch.randint(0, 512, (2, 37), generator=torch.Generator()
                          .manual_seed(seed))
 
@@ -653,7 +766,8 @@ def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
     for arch, cfg in ((MOE_ARCH, small(MOE_ARCH, capacity_factor=1.25)),
                       ("granite-20b", small("granite-20b")),
                       ("nemotron-4-15b", small("nemotron-4-15b")),
-                      (GEMMA_ARCH, small(GEMMA_ARCH))):
+                      (GEMMA_ARCH, small(GEMMA_ARCH)),
+                      (LLAMA_ARCH, small(LLAMA_ARCH))):
         p_cpu, _ = store.compress_tree(M.init_params(cfg, seed, "cpu"),
                                        min_elems=4096, out_dtype="float32")
         p_gpu = to_device(p_cpu, "cuda", store)
@@ -703,6 +817,27 @@ def small_moe_checks(torch, M, moe, paged, store, smoke_variant, get, seed):
             line += (f"; the MoE layer (B*T = {T}, capacity {cap}) "
                      f"bit-equal over two card runs in f32 and bf16")
         log(line + " (tol 1e-4)")
+    # llama4's stack from ECF8-FR weights: decoded on the card by plain
+    # PyTorch, so the ECF8 decode kernel must not launch
+    cfg = small(LLAMA_ARCH)
+    p_cpu, _ = store.compress_tree(M.init_params(cfg, seed, "cpu"),
+                                   fmt="fixedrate", min_elems=4096,
+                                   out_dtype="float32")
+    p_gpu = to_device(p_cpu, "cuda", store)
+    before = ecf8_decode.run.launches
+    l_cpu, _ = M.prefill(p_cpu, cfg, toks, max_len=64)
+    l_gpu, _ = M.prefill(p_gpu, cfg, toks.cuda(), max_len=64)
+    err = float((l_gpu.cpu() - l_cpu).abs().max())
+    err_d = check_small_paged(torch, M, paged, cfg, p_cpu, p_gpu, seed,
+                              steps=16)
+    if (not bool(torch.isfinite(l_gpu).all()) or max(err, err_d) > 1e-4
+            or ecf8_decode.run.launches != before):
+        fail(f"small f32 {LLAMA_ARCH} from ECF8-FR: prefill card vs CPU max "
+             f"|dlogit| = {err}, decode past the wrap {err_d}, ECF8 decode "
+             f"launches {ecf8_decode.run.launches - before}")
+    log(f"small f32 {LLAMA_ARCH} from ECF8-FR weights: prefill logits card "
+        f"vs CPU max |diff| {err:.2e}, paged-compressed decode past the "
+        f"ring's wrap {err_d:.2e} (tol 1e-4), 0 ECF8 decode launches")
 
 
 def small_recurrent_checks(torch, M, store, smoke_variant, get, seed):
@@ -1427,6 +1562,261 @@ def recurrent_phase(torch, np, serve, EngineConfig, kernels, cfg, seed,
             {f"{tag}a": l_a, f"{tag}b": l_b})
 
 
+def container_report(torch, np, fixedrate, tpu_format, paper_format, stats,
+                     theory, params_fr):
+    """Phase 16's container report (the paper's Table 1 at full width) on
+    layer 0's seven matrices and the embedding of an ECF8-FR tree -> rows.
+    Each matrix's fp8 bits are its FR leaf decoded on the card; bytes an
+    element of the ECF8-TPU container (encoded on the card) and of the FR
+    one (each matrix encoded alone: no stack padding), of the paper's
+    container (host numpy) on the four attention matrices alone, each
+    decoded back by its block-parallel oracle; H(E), the fitted alpha and
+    ``theory.compression_limit_bits`` per matrix, with the paper's one
+    mantissa bit (its FP4.67 form) and with e4m3's three."""
+    layer = params_fr["units"]["pos0"]
+    leaves = [(f"attn.{k}", layer["attn"][k].layer(0))
+              for k in ("wq", "wk", "wv", "wo")]
+    leaves += [(f"mlp.{k}", layer["mlp"][k].layer(0))
+               for k in ("wi_gate", "wi_up", "wo")]
+    leaves.append(("embed", params_fr["embed"]))
+    rows = []
+    for name, ct in leaves:
+        a, m = ct.arrays, ct.meta
+        bits = fixedrate.decode_plain(a["codes"], a["escapes"], a["table"],
+                                      a["signmant"], n_elem=m.n_elem)
+        tpu = tpu_format.encode(bits)
+        tpu_b = sum(t.numel() * t.element_size() for t in (
+            tpu.payload, tpu.signmant, tpu.lj_limit, tpu.first_lj,
+            tpu.offset, tpu.perm))
+        fr = fixedrate.encode(bits)
+        if not torch.equal(fr.codes, a["codes"][:fr.codes.numel()]):
+            fail(f"phase 16: {name}'s FR container is not re-encoded alike")
+        del tpu
+        host = bits.cpu().numpy()
+        hist = stats.exponent_histogram(host)
+        alpha = theory.geometric_fit_alpha(hist)
+        row = dict(name=name, shape=list(m.shape), n=m.n_elem,
+                   tpu=tpu_b / m.n_elem,
+                   fixedrate=fr.ratio, esc_count=fr.esc_count,
+                   entropy_bits=stats.shannon_entropy(hist), alpha=alpha,
+                   limit_bits=theory.compression_limit_bits(alpha),
+                   limit_bits_e4m3=theory.compression_limit_bits(alpha, 3),
+                   paper=None, paper_encode_s=None, paper_decode_s=None)
+        if name.startswith("attn."):
+            t0 = time.perf_counter()
+            c = paper_format.encode(host)
+            row["paper_encode_s"] = time.perf_counter() - t0
+            row["paper"] = c.ratio
+            t0 = time.perf_counter()
+            back = paper_format.decode_blockparallel(c)
+            row["paper_decode_s"] = time.perf_counter() - t0
+            if not np.array_equal(back.reshape(-1), host):
+                fail(f"phase 16: the paper container of {name} does not "
+                     f"decode back bit-exactly")
+        rows.append(row)
+        del bits, host, fr
+    return rows
+
+
+def fixedrate_phase(torch, serve, EngineConfig, kernels, cfg, seed, prompts,
+                    want_tokens, sizes):
+    """Phase 16's serve run (module docstring) on ``cfg`` with phase 5's
+    ``prompts``: ``want_tokens`` are phases 5's and 6's token lists (by
+    name), ``sizes`` their trees' megabytes -> (measurements, launches,
+    the FR tree)."""
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    gib = 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params_fr, _, report, enc_s = serve.build_params(
+        cfg, seed, "fixedrate", device="cuda", baseline=False)
+    fp8_b, fr_b = report["fp8_bytes"], report["compressed_bytes"]
+    built = dict(encode_s=enc_s, fr_mb=fr_b / 1e6, fp8_mb=fp8_b / 1e6,
+                 saved_pct=100 * (1 - fr_b / fp8_b),
+                 build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                 fr_resident_gib=(torch.cuda.memory_allocated() - base_mem)
+                 / gib, tpu_mb=sizes["tpu_mb"])
+    if fp8_b / 1e6 != sizes["fp8_mb"]:
+        fail(f"phase 16: the FR tree's fp8 bytes {fp8_b} are not phase 5's "
+             f"({sizes['fp8_mb']} MB): other weights")
+    log(f"phase 16 weights: {report['n_compressed']} tensors, fp8 "
+        f"{fp8_b / 1e6:.1f} MB -> ECF8-FR {fr_b / 1e6:.1f} MB "
+        f"({built['saved_pct']:.2f}% saved; ECF8-TPU {sizes['tpu_mb']:.1f} "
+        f"MB, {100 * (1 - sizes['tpu_mb'] / sizes['fp8_mb']):.2f}% saved), "
+        f"streamed build and encode {enc_s:.1f}s, FR tree resident "
+        f"{built['fr_resident_gib']:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    b1.launches = b3.launches = b2.launches = b4.launches = 0
+    b1.launches_by_dtype.clear()
+    done, eng, dt = serve.serve(params_fr, cfg, EngineConfig(
+        max_batch=4, max_len=1024), prompts, 32)
+    launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                "kv_page_decode": b3.launches,
+                "fused_decode_matmul": b2.launches}
+    n = sum(len(r.out_tokens) for r in done)
+    m = dict(step_ms=eng.decode_seconds / eng.steps * 1e3, steps=eng.steps,
+             tok_s=n / dt, wall_s=dt, prefill_s=eng.prefill_seconds,
+             peak_gib=torch.cuda.max_memory_allocated() / gib)
+    log(f"phase 16 (ECF8-FR, paged): {n} tokens in {dt:.2f}s, "
+        f"{m['tok_s']:.1f} tok/s, {eng.steps} decode steps at "
+        f"{m['step_ms']:.1f} ms/step, prefill {eng.prefill_seconds:.2f}s, "
+        f"peak device memory {m['peak_gib']:.2f} GiB; launches {launches}")
+    if not all(r.done and len(r.out_tokens) == 32 for r in done):
+        fail("phase 16: unfinished requests")
+    if b1.launches or b2.launches or b3.launches or not b4.launches:
+        fail(f"phase 16: launches {launches}; expected flash_fwd alone (an "
+             f"ECF8-FR weight decodes without a kernel)")
+    got = [r.out_tokens for r in done]
+    for tag, want in want_tokens.items():
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if bad:
+            fail(f"phase 16: ECF8-FR tokens differ from {tag}'s in requests "
+                 f"{bad}")
+    log(f"lossless: ECF8-FR greedy tokens IDENTICAL to "
+        f"{' and '.join(want_tokens)}; decode step {m['step_ms']:.1f} ms")
+    del eng
+    return dict(built=built, **{"16": m}), launches, params_fr
+
+
+def llama_phase(torch, np, serve, EngineConfig, kernels, cfg, seed):
+    """Phase 17 (module docstring) on ``cfg`` -> (measurements, launches
+    of 17a, 17b and 17d).  ``kernels`` maps name -> wrapper (``run``)
+    whose launch counts the phase reads."""
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    gib = 2 ** 30
+    n_nope = sum(cfg.layer_kind(i) == "nope" for i in range(cfg.n_layers))
+    # 4 attention, the router, 3 expert and 3 shared-expert weights a
+    # layer, the tied embedding twice
+    per_pass = 11 * cfg.n_layers + 2
+    # flash in every layer of a prompt the window covers, in the NoPE
+    # layers alone (local_attention in the local ones) past it
+    want_b4 = sum(cfg.n_layers if n <= cfg.local_window else n_nope
+                  for n in LLAMA_PROMPTS)
+    log(f"phase 17: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, qk-norm "
+        f"{cfg.qk_norm}, pattern {cfg.pattern}, window {cfg.local_window}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of width {cfg.moe_d_ff} + "
+        f"{cfg.n_shared_experts} shared, capacity factor "
+        f"{cfg.capacity_factor}, vocab {cfg.vocab_size}, tied "
+        f"{cfg.tie_embeddings}, {cfg.dtype}), {cfg.n_layers} layers "
+        f"({n_nope} NoPE); prompts {LLAMA_PROMPTS}, max_batch 4, max_len "
+        f"{LLAMA_MAX_LEN}, page 16, 32 new tokens")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LLAMA_PROMPTS]
+    base_mem = torch.cuda.memory_allocated()
+
+    def run(tag, params, compressed, **extra):
+        torch.cuda.reset_peak_memory_stats()
+        b1.launches = b3.launches = b2.launches = b4.launches = 0
+        b1.launches_by_dtype.clear()
+        b3.launches_by_path.clear()
+        eng = serve.GenerationEngine(params, cfg, config=EngineConfig(
+            max_batch=4, max_len=LLAMA_MAX_LEN, page_size=16, **extra),
+            device="cuda")
+        done = [serve.Request(prompt=p, max_new_tokens=32) for p in prompts]
+        for r in done:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(r.done and len(r.out_tokens) == 32 for r in done) or any(
+                not 0 <= x < cfg.vocab_size for r in done
+                for x in r.out_tokens):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+        launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                    "kv_page_decode": b3.launches,
+                    "fused_decode_matmul": b2.launches,
+                    "ecf8_decode_by_dtype": {str(k): v for k, v in
+                                             b1.launches_by_dtype.items()}}
+        n = sum(len(r.out_tokens) for r in done)
+        passes = len(prompts) + eng.steps
+        m = dict(step_ms=eng.decode_seconds / eng.steps * 1e3,
+                 steps=eng.steps, passes=passes, tok_s=n / dt, wall_s=dt,
+                 prefill_s=eng.prefill_seconds, cache_mode=eng.cache_mode,
+                 resident_gib=(torch.cuda.memory_allocated() - base_mem)
+                 / gib, peak_gib=torch.cuda.max_memory_allocated() / gib)
+        log(f"phase {tag}: {n} tokens in {dt:.2f}s, {m['tok_s']:.1f} tok/s, "
+            f"{eng.steps} decode steps at {m['step_ms']:.1f} ms/step, "
+            f"prefill {eng.prefill_seconds:.2f}s, peak device memory "
+            f"{m['peak_gib']:.2f} GiB; launches {launches}")
+        for line in serve.cache_report(eng):
+            log(f"  {line}")
+        want_b1 = per_pass * passes if compressed else 0
+        if (b1.launches != want_b1 or b4.launches != want_b4
+                or b2.launches or b3.launches
+                or set(b1.launches_by_dtype) - {torch.bfloat16}):
+            fail(f"phase {tag}: launches {launches}, expected ecf8_decode "
+                 f"{want_b1} (all bf16) and flash_fwd {want_b4}")
+        return done, eng, m, launches
+
+    # 17a: the ECF8 tree alone on the card, built a unit at a time
+    torch.cuda.reset_peak_memory_stats()
+    params_c, _, report, enc_s = serve.build_params(
+        cfg, seed, "tpu", device="cuda", baseline=False)
+    fp8_b, ecf8_b = report["fp8_bytes"], report["compressed_bytes"]
+    built = dict(encode_s=enc_s, fp8_mb=fp8_b / 1e6, ecf8_mb=ecf8_b / 1e6,
+                 saved_pct=100 * (1 - ecf8_b / fp8_b),
+                 n_compressed=report["n_compressed"],
+                 build_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                 ecf8_resident_gib=(torch.cuda.memory_allocated()
+                                    - base_mem) / gib)
+    log(f"phase 17 weights: {report['n_compressed']} tensors, fp8 "
+        f"{built['fp8_mb']:.1f} MB -> ECF8 {built['ecf8_mb']:.1f} MB "
+        f"({built['saved_pct']:.2f}% saved), streamed build and encode "
+        f"{enc_s:.1f}s, build peak {built['build_peak_gib']:.2f} GiB, ECF8 "
+        f"tree resident {built['ecf8_resident_gib']:.2f} GiB")
+    d17a, e17a, m17a, l17a = run("17a (ECF8, paged)", params_c, True)
+    if e17a.cache_mode != "paged":
+        fail(f"phase 17a: the cache resolved to {e17a.cache_mode}")
+    log(f"phase 17a: ecf8_decode {per_pass} launches a pass (11 x "
+        f"{cfg.n_layers} + 2) x {m17a['passes']} passes; flash_fwd "
+        f"{want_b4} ({cfg.n_layers} a prompt the window covers, {n_nope} "
+        f"past it)")
+    del e17a
+
+    # 17d: the monolithic cache, the same tree
+    d17d, e17d, m17d, l17d = run("17d (ECF8, monolithic)", params_c, True,
+                                 cache_mode="monolithic")
+    _, bad = first_divergence(d17a, d17d)
+    if bad:
+        fail(f"phase 17d tokens differ from 17a's (request, first token "
+             f"index): {bad}")
+    log("lossless: 17d monolithic greedy tokens IDENTICAL to 17a's")
+    del params_c, e17d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17b: the fp8 baseline tree alone on the card
+    torch.cuda.reset_peak_memory_stats()
+    params_fp8, _, _, fp8_s = serve.build_params(cfg, seed, "none",
+                                                 device="cuda")
+    built["fp8_resident_gib"] = (torch.cuda.memory_allocated()
+                                 - base_mem) / gib
+    log(f"phase 17b: fp8 baseline tree built in {fp8_s:.1f}s, resident "
+        f"{built['fp8_resident_gib']:.2f} GiB")
+    d17b, e17b, m17b, l17b = run("17b (fp8 baseline, paged)", params_fp8,
+                                 False)
+    _, bad = first_divergence(d17a, d17b)
+    if bad:
+        fail(f"phase 17b: ECF8 tokens differ from the fp8 baseline's "
+             f"(request, first token index): {bad}")
+    log(f"lossless: llama4 ECF8 greedy tokens IDENTICAL to the fp8 "
+        f"baseline's; decode step {m17a['step_ms']:.1f} ms (ECF8) against "
+        f"{m17b['step_ms']:.1f} ms (fp8), prefill {m17a['prefill_s']:.2f} "
+        f"against {m17b['prefill_s']:.2f} s, peak device memory "
+        f"{m17a['peak_gib']:.2f} GiB with the ECF8 tree resident against "
+        f"{m17b['peak_gib']:.2f} GiB with the fp8 tree")
+    del params_fp8, e17b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (dict(built=built, **{"17a": m17a, "17b": m17b, "17d": m17d}),
+            {"17a": l17a, "17b": l17b, "17d": l17d})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=QWEN_LAYERS,
@@ -1445,7 +1835,8 @@ def main(argv=None):
              f"checkout")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get, smoke_variant
-    from repro_torch.core import fp8, store, tpu_format
+    from repro_torch.core import fixedrate, fp8, paper_format, stats, store
+    from repro_torch.core import theory, tpu_format
     from repro_torch.kernels import build, ecf8_decode, flash_fwd, ops
     from repro_torch.kernels import fused_decode_matmul as fused
     from repro_torch.kvcache import codec, paged
@@ -1494,6 +1885,7 @@ def main(argv=None):
     expert = (moe_full.n_experts, moe_full.d_model, moe_full.moe_d_ff)
     g2 = get(GEMMA_ARCH)
     rg, xl = get(RG_ARCH), get(XLSTM_ARCH)
+    ll = get(LLAMA_ARCH)
     for name, shape, fan_in in [("wq", (d, cfg_full.n_heads * cfg_full.hd), d),
                                 ("wi_gate", (d, ff), d),
                                 ("embed", (V, d), d),
@@ -1508,14 +1900,22 @@ def main(argv=None):
                                                 // xl.n_heads,
                                                 4 * xl.d_model
                                                 // xl.n_heads),
-                                 xl.d_model)]:
+                                 xl.d_model),
+                                ("llama4_expert", (ll.n_experts, ll.d_model,
+                                                   ll.moe_d_ff),
+                                 ll.d_model)]:
         w = torch.randn(shape, generator=gen, device="cuda").mul_(
             fan_in ** -0.5)
         bits = fp8.cast_to_fp8_bits(w)
         del w
-        results[name] = check_decode(torch, ecf8_decode, fp8, tpu_format,
-                                     name, bits, flush, reps=20)
+        # the ECF8-FR container beside the kernel at qwen3-8b's weights
+        results[name] = check_decode(
+            torch, ecf8_decode, fp8, tpu_format, name, bits, flush, reps=20,
+            fixedrate=fixedrate if name in ("wq", "wi_gate", "embed")
+            else None)
         del bits
+    fr_results = {name: results[name].pop("fixedrate")
+                  for name in ("wq", "wi_gate", "embed")}
     for name, bits in [
             ("one-symbol codebook", torch.full(
                 (128 * 64,), 0b0_0111_010, dtype=torch.uint8, device="cuda")),
@@ -1552,6 +1952,14 @@ def main(argv=None):
             torch, flash_fwd, T, gen, flush, heads=(rg.n_heads,
                                                     rg.n_kv_heads),
             D=rg.hd, gqa=True)
+    # llama4-scout's heads: 40 / 8 of 128 (a group of 5), no softcap; 451
+    # and 2048 are phase 17's short prompts, 8192 its longest flash
+    # prefill in a local layer
+    for T in (451, 2048, 8192):
+        results[f"flash_llama_T{T}"] = check_flash(
+            torch, flash_fwd, T, gen, flush, heads=(ll.n_heads,
+                                                    ll.n_kv_heads),
+            D=ll.hd, gqa=True)
 
     # -- 3b. kernel 3: KV page decode ----------------------------------------
     n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
@@ -1732,7 +2140,7 @@ def main(argv=None):
     # smoke variant at capacity factor 1.25 (tokens dropped), granite's
     # GELU with one KV head, nemotron's squared ReLU
     small_moe_checks(torch, M, moe, paged, store, smoke_variant, get,
-                     args.seed)
+                     args.seed, ecf8_decode)
     # the recurrent families at smoke size, ECF8 through B1
     small_recurrent_checks(torch, M, store, smoke_variant, get, args.seed)
     log(f"phases 1-4 done at {time.perf_counter() - t_start:.1f}s")
@@ -1748,6 +2156,8 @@ def main(argv=None):
     params_c, params_fp8, report, enc_s = serve.build_params(
         cfg, args.seed, "tpu", device="cuda")
     fp8_b = report["fp8_bytes"]
+    qwen_sizes = dict(tpu_mb=report["compressed_bytes"] / 1e6,
+                      fp8_mb=fp8_b / 1e6)
     log(f"ECF8 encode {enc_s:.1f}s: {report['n_compressed']} tensors, fp8 "
         f"{fp8_b / 1e6:.1f} MB -> {report['compressed_bytes'] / 1e6:.1f} MB "
         f"({100 * (1 - report['compressed_bytes'] / fp8_b):.2f}% saved)")
@@ -2151,6 +2561,45 @@ def main(argv=None):
     log(f"phase 15 measurements: {json.dumps(xl_out)}")
     mark("phase 15")
 
+    # -- 16. qwen3-8b from ECF8-FR weights, and the container report ------
+    fr_out, fr_launches, params_fr = fixedrate_phase(
+        torch, serve, EngineConfig, kernel_runs, cfg, args.seed, prompts,
+        {"phase 5 (ECF8-TPU)": [r.out_tokens for r in done],
+         "phase 6 (fp8)": [r.out_tokens for r in done2]}, qwen_sizes)
+    t0 = time.perf_counter()
+    rows = container_report(torch, np, fixedrate, tpu_format, paper_format,
+                            stats, theory, params_fr)
+    fr_out["containers"] = rows
+    fr_out["report_s"] = time.perf_counter() - t0
+    del params_fr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16 container report (bytes an element; the paper's "
+        f"container on the four attention matrices alone, "
+        f"{sum(r['n'] for r in rows if r['paper'])} elements, each decoded "
+        f"back bit-exactly by decode_blockparallel; "
+        f"{fr_out['report_s']:.1f}s):")
+    for r in rows:
+        paper = (f"{r['paper']:.4f} (host encode {r['paper_encode_s']:.1f}s,"
+                 f" decode {r['paper_decode_s']:.1f}s)" if r["paper"]
+                 else "not run")
+        log(f"  {r['name']:12s} {tuple(r['shape'])}: ECF8-TPU "
+            f"{r['tpu']:.4f}, ECF8-FR {r['fixedrate']:.4f}, paper {paper}; "
+            f"H(E) {r['entropy_bits']:.4f} bits -> (4 + H) / 8 = "
+            f"{(4 + r['entropy_bits']) / 8:.4f}; alpha {r['alpha']:.3f}, "
+            f"limit (1 mantissa bit) {r['limit_bits']:.3f} bits, (e4m3's 3) "
+            f"{r['limit_bits_e4m3']:.3f} bits = "
+            f"{r['limit_bits_e4m3'] / 8:.4f} bytes")
+    log(f"phase 16 measurements: {json.dumps(fr_out)}")
+    mark("phase 16")
+
+    # -- 17. llama4-scout-17b-a16e at full width from ECF8 weights --------
+    llama_out, llama_launches = llama_phase(
+        torch, np, serve, EngineConfig, kernel_runs,
+        dataclasses.replace(ll, n_layers=LLAMA_LAYERS), args.seed)
+    log(f"phase 17 measurements: {json.dumps(llama_out)}")
+    mark("phase 17")
+
     def on_prefix_path(name):
         return {tag: prefix_launches[tag][name] for tag in ("11a", "11b")}
 
@@ -2160,6 +2609,11 @@ def main(argv=None):
     def on_gemma_path(name):
         return {tag: gemma_launches[tag][name]
                 for tag in ("13a", "13b", "13c", "13d")}
+
+    def on_llama_paths(name):
+        return dict(launches_llama4={t: llama_launches[t][name]
+                                     for t in ("17a", "17b", "17d")},
+                    launches_fixedrate=fr_launches[name])
 
     def on_recurrent_paths(name):
         return dict(
@@ -2177,10 +2631,13 @@ def main(argv=None):
              launches_moe=on_moe_path("ecf8_decode"),
              launches_gemma2=on_gemma_path("ecf8_decode"),
              **on_recurrent_paths("ecf8_decode"),
+             **on_llama_paths("ecf8_decode"),
              at_moe_shape=results["moe_wi_gate"],
              at_gemma2_shape=results["g2_embed"],
              at_recurrentgemma_shape=results["rg_w_a"],
-             at_xlstm_shape=results["xl_slstm_r"], **results["wi_gate"]),
+             at_xlstm_shape=results["xl_slstm_r"],
+             at_llama4_shape=results["llama4_expert"],
+             fixedrate_decode=fr_results, **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
@@ -2189,9 +2646,11 @@ def main(argv=None):
              launches_moe=on_moe_path("flash_fwd"),
              launches_gemma2=on_gemma_path("flash_fwd"),
              **on_recurrent_paths("flash_fwd"),
+             **on_llama_paths("flash_fwd"),
              at_moe_shape=results["flash_moe_T2048"],
              at_gemma2_shape=results["flash_g2_T4096"],
              at_recurrentgemma_shape=results["flash_rg_T2048"],
+             at_llama4_shape=results["flash_llama_T8192"],
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
@@ -2201,6 +2660,7 @@ def main(argv=None):
              launches_moe=on_moe_path("kv_page_decode"),
              launches_gemma2=on_gemma_path("kv_page_decode"),
              **on_recurrent_paths("kv_page_decode"),
+             **on_llama_paths("kv_page_decode"), at_llama4_shape=None,
              at_moe_shape=results["kv_moe_bf16_48"],
              at_gemma2_shape=results["kv_g2_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
@@ -2211,6 +2671,7 @@ def main(argv=None):
              launches_moe=on_moe_path("fused_decode_matmul"),
              launches_gemma2=on_gemma_path("fused_decode_matmul"),
              **on_recurrent_paths("fused_decode_matmul"),
+             **on_llama_paths("fused_decode_matmul"), at_llama4_shape=None,
              **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -1,8 +1,9 @@
 """Architecture configuration (a copy of the reference's ``ArchConfig``).
 
 Every architecture is a frozen ``ArchConfig``; ``registry.get(name)``
-resolves ``--arch`` ids.  The port serves the ``("attn",)`` and
-``("local", "attn")`` patterns so far.
+resolves ``--arch`` ids.  The port serves every decoder-only pattern of
+the registry (``models.model.check_supported``); the encoder-decoder
+(whisper-base) is refused.
 """
 from __future__ import annotations
 

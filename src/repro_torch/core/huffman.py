@@ -2,7 +2,8 @@
 
 Length-limited code lengths come from the *package-merge* algorithm
 (optimal among length-limited prefix codes); the TPU container format
-(``tpu_format.py``) caps lengths at 8 so decode is a single 8-bit peek.
+(``tpu_format.py``) caps lengths at 8 so decode is a single 8-bit peek,
+the paper's own container (``paper_format.py``) at 16.
 
 Codes are *canonical*: symbols sorted by (length, symbol) receive
 lexicographically increasing codes, which enables the gather-free
@@ -12,9 +13,33 @@ the container bytes) come out identical.
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, field
 
 import numpy as np
+
+N_SYMBOLS = 16
+
+
+def huffman_lengths(freqs: np.ndarray) -> np.ndarray:
+    """Unrestricted Huffman code lengths (0 for zero-frequency symbols)."""
+    freqs = np.asarray(freqs, dtype=np.int64)
+    active = [int(s) for s in np.nonzero(freqs)[0]]
+    lengths = np.zeros(len(freqs), dtype=np.int32)
+    if not active:
+        return lengths
+    if len(active) == 1:
+        lengths[active[0]] = 1
+        return lengths
+    heap = [(int(freqs[s]), (s,)) for s in active]
+    heapq.heapify(heap)
+    while len(heap) > 1:
+        w1, s1 = heapq.heappop(heap)
+        w2, s2 = heapq.heappop(heap)
+        for s in s1 + s2:
+            lengths[s] += 1
+        heapq.heappush(heap, (w1 + w2, s1 + s2))
+    return lengths
 
 
 def package_merge_lengths(freqs: np.ndarray, max_len: int) -> np.ndarray:
@@ -62,6 +87,20 @@ def canonical_codes(lengths: np.ndarray) -> np.ndarray:
         codes[s] = code
         prev_len = l
     return codes
+
+
+def kraft_sum(lengths: np.ndarray) -> float:
+    lengths = np.asarray(lengths)
+    ls = lengths[lengths > 0]
+    return float(np.sum(2.0 ** (-ls.astype(np.float64))))
+
+
+def expected_length(freqs: np.ndarray, lengths: np.ndarray) -> float:
+    freqs = np.asarray(freqs, dtype=np.float64)
+    total = freqs.sum()
+    if total == 0:
+        return 0.0
+    return float((freqs * lengths).sum() / total)
 
 
 @dataclass
@@ -128,6 +167,54 @@ class Codebook:
                 )
                 return int(self.sorted_syms[sym_idx]), l
         raise ValueError(f"invalid peek {peek:0{L}b}")
+
+    def encode_symbols(self, symbols: np.ndarray) -> tuple[np.ndarray, int]:
+        """Encode a symbol sequence into a byte array (MSB-first bitstream)
+        -> (bytes, total_bits).
+
+        A code of at most 16 bits starting at bit ``start`` lies within
+        bytes ``start // 8`` to ``start // 8 + 2``; codes occupy disjoint
+        bits, so summing each code's three byte parts into the stream is
+        the bitwise OR of the reference's bit-by-bit blit (the same
+        bytes), at three scatter-adds a symbol instead of one a bit."""
+        symbols = np.asarray(symbols, dtype=np.int64)
+        if self.max_len > 16:
+            raise ValueError(f"max_len={self.max_len}: codes of at most 16 "
+                             f"bits only")
+        lens = self.lengths[symbols].astype(np.int64)
+        total_bits = int(lens.sum())
+        nbytes = (total_bits + 7) // 8
+        if not total_bits:
+            return np.zeros(nbytes, dtype=np.uint8), 0
+        starts = np.cumsum(lens) - lens
+        window = (self.codes[symbols].astype(np.int64)
+                  << (24 - (starts & 7) - lens))          # 24-bit window
+        byte0 = starts >> 3
+        out = np.zeros(nbytes + 2, dtype=np.int64)
+        for j, part in enumerate(((window >> 16) & 0xFF,
+                                  (window >> 8) & 0xFF, window & 0xFF)):
+            out += np.bincount(byte0 + j, weights=part,
+                               minlength=nbytes + 2).astype(np.int64)
+        return out[:nbytes].astype(np.uint8), total_bits
+
+    def decode_bitstream(self, data: np.ndarray, n_symbols: int,
+                         start_bit: int = 0) -> np.ndarray:
+        """Sequential oracle decoder (numpy, slow)."""
+        out = np.empty(n_symbols, dtype=np.uint8)
+        bitpos = start_bit
+        data = np.asarray(data, dtype=np.uint8)
+        L = self.max_len
+        for i in range(n_symbols):
+            peek = 0
+            for b in range(L):
+                byte = bitpos + b
+                bit = (int(data[byte // 8]) >> (7 - byte % 8)) & 1 \
+                    if byte // 8 < len(data) else 0
+                peek = (peek << 1) | bit
+            sym, l = self.decode_peek(peek)
+            out[i] = sym
+            bitpos += l
+        return out
 
 
 def _concat_aranges(lens: np.ndarray) -> np.ndarray:

@@ -1,11 +1,14 @@
 """Compressed parameter store (the paper's §3.3 tensor manager).
 
 Parameters are a nested dict in which large weights are
-``CompressedTensor`` leaves; model code calls :func:`materialize` at the
-point of use (``models/layers.py::mat``), so only one decoded weight is
-alive at a time.  Stacked layer weights (``params["units"]``) carry a
-leading layer dim in every child tensor; :meth:`CompressedTensor.layer`
-slices one layer's container out (views, no copy).
+``CompressedTensor`` leaves, in ECF8-TPU (``fmt="tpu"``, decoded by the
+ECF8 decode kernel) or ECF8-FR (``fmt="fixedrate"``, decoded by
+``fixedrate.decode_plain`` on the container's device); model code calls
+:func:`materialize` at the point of use (``models/layers.py::mat``), so
+only one decoded weight is alive at a time.  Stacked layer weights
+(``params["units"]``) carry a leading layer dim in every child tensor;
+:meth:`CompressedTensor.layer` slices one layer's container out (views,
+no copy).
 """
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ from typing import Any
 
 import torch
 
-from . import fp8, tpu_format
+from . import fixedrate, fp8, tpu_format
 from ..kernels import ops
 
 FORMAT_TPU = "tpu"          # ECF8-TPU interleaved Huffman (uniform layout)
+FORMAT_FIXEDRATE = "fixedrate"  # ECF8-FR 2-bit codes + escapes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -35,6 +39,7 @@ class CompressedMeta:
     shape: tuple
     n_elem: int
     sym_per_lane: int = 0
+    esc_capacity: int = 0
     out_dtype: str = "bfloat16"
 
 
@@ -72,14 +77,21 @@ def materialize(x, dtype=None):
         return x if dtype is None else x.to(torch_dtype(dtype))
     m = x.meta
     a = x.arrays
-    if m.fmt != FORMAT_TPU:
-        raise ValueError(f"unknown format {m.fmt}")
+    out_dtype = torch_dtype(dtype if dtype is not None else m.out_dtype)
     # the decode writes the dtype itself: no cast follows it
-    w = ops.decode_ecf8(a["payload"], a["signmant"], a["lj_limit"],
-                        a["first_lj"], a["offset"], a["perm"],
-                        sym_per_lane=m.sym_per_lane, n_elem=m.n_elem,
-                        out_dtype=torch_dtype(dtype if dtype is not None
-                                              else m.out_dtype))
+    if m.fmt == FORMAT_TPU:
+        w = ops.decode_ecf8(a["payload"], a["signmant"], a["lj_limit"],
+                            a["first_lj"], a["offset"], a["perm"],
+                            sym_per_lane=m.sym_per_lane, n_elem=m.n_elem,
+                            out_dtype=out_dtype)
+    elif m.fmt == FORMAT_FIXEDRATE:
+        # plain PyTorch on the container's device, as the reference's
+        # decode is jnp (no kernel of its own)
+        w = fixedrate.decode_plain(a["codes"], a["escapes"], a["table"],
+                                   a["signmant"], n_elem=m.n_elem,
+                                   out_dtype=out_dtype)
+    else:
+        raise ValueError(f"unknown format {m.fmt}")
     return w.reshape(m.shape)
 
 
@@ -92,14 +104,23 @@ def compress_array(w8_bits: torch.Tensor, fmt: str = FORMAT_TPU,
                    sym_per_lane: int = tpu_format.DEFAULT_SYM_PER_LANE,
                    ) -> CompressedTensor:
     """Compress one fp8 tensor (uint8 bit view, any shape)."""
-    if fmt != FORMAT_TPU:
-        raise ValueError(f"format {fmt!r}: not yet ported (only 'tpu')")
-    c = tpu_format.encode(w8_bits, sym_per_lane=sym_per_lane)
-    arrays = {"payload": c.payload, "signmant": c.signmant,
-              "lj_limit": c.lj_limit, "first_lj": c.first_lj,
-              "offset": c.offset, "perm": c.perm}
-    meta = CompressedMeta(fmt=fmt, shape=tuple(c.shape), n_elem=c.n_elem,
-                          sym_per_lane=c.sym_per_lane, out_dtype=out_dtype)
+    if fmt == FORMAT_TPU:
+        c = tpu_format.encode(w8_bits, sym_per_lane=sym_per_lane)
+        arrays = {"payload": c.payload, "signmant": c.signmant,
+                  "lj_limit": c.lj_limit, "first_lj": c.first_lj,
+                  "offset": c.offset, "perm": c.perm}
+        meta = CompressedMeta(fmt=fmt, shape=tuple(c.shape),
+                              n_elem=c.n_elem, sym_per_lane=c.sym_per_lane,
+                              out_dtype=out_dtype)
+    elif fmt == FORMAT_FIXEDRATE:
+        c = fixedrate.encode(w8_bits)
+        arrays = {"codes": c.codes, "escapes": c.escapes, "table": c.table,
+                  "signmant": c.signmant}
+        meta = CompressedMeta(fmt=fmt, shape=tuple(c.shape),
+                              n_elem=c.n_elem, esc_capacity=c.esc_capacity,
+                              out_dtype=out_dtype)
+    else:
+        raise ValueError(f"unknown format {fmt}")
     return CompressedTensor(arrays=arrays, meta=meta)
 
 
@@ -109,19 +130,21 @@ def compress_stacked(w8_bits_stack: torch.Tensor, fmt: str = FORMAT_TPU,
                      ) -> CompressedTensor:
     """Compress a (layers, ...) stacked fp8 tensor layer-by-layer.
 
-    Per-layer codebooks are kept; payload strides are padded to the
-    per-stack max so the stack is rectangular (the padded bytes count in
-    the report, as in the reference)."""
+    Per-layer codebooks (tables) are kept; payload strides (escape
+    arrays) are padded to the per-stack max so the stack is rectangular
+    (the padded bytes count in the report, and ``meta`` is layer 0's, as
+    in the reference)."""
     per_layer = [compress_array(w8_bits_stack[i], fmt=fmt,
                                 out_dtype=out_dtype,
                                 sym_per_lane=sym_per_lane)
                  for i in range(w8_bits_stack.shape[0])]
-    stride = max(ct.arrays["payload"].shape[1] for ct in per_layer)
+    name, axis = (("payload", 1) if fmt == FORMAT_TPU else ("escapes", 0))
+    width = max(ct.arrays[name].shape[axis] for ct in per_layer)
     for ct in per_layer:
-        p = ct.arrays["payload"]
-        if p.shape[1] < stride:
-            ct.arrays["payload"] = torch.nn.functional.pad(
-                p, (0, 0, 0, stride - p.shape[1]))
+        a = ct.arrays[name]
+        if a.shape[axis] < width:
+            pad = [0, 0] * (a.ndim - 1 - axis) + [0, width - a.shape[axis]]
+            ct.arrays[name] = torch.nn.functional.pad(a, pad)
     arrays = {k: torch.stack([ct.arrays[k] for ct in per_layer])
               for k in per_layer[0].arrays}
     return CompressedTensor(arrays=arrays, meta=per_layer[0].meta)

@@ -1,15 +1,21 @@
-"""Oracles of the port's kernels that are not their plain versions.
+"""Oracles of the port's decode paths that are not their plain versions.
 
 ``fused_decode_matmul_ref`` is the reference's own oracle
 (``src/repro/kernels/ref.py``): ``x @ upcast(fp8(W))`` in one product with
 f32 accumulation, for the tolerance the reference's fused-GEMM test uses.
+``decode_fixedrate_ref`` is the host oracle of the ECF8-FR decode.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core import fp8
+from ..core import fixedrate, fp8
+
+
+def decode_fixedrate_ref(container: fixedrate.FixedRateECF8) -> torch.Tensor:
+    """Oracle for the fixed-rate decode path (numpy, on the host)."""
+    return fixedrate.decode_ref(container)
 
 
 def fused_decode_matmul_ref(x: np.ndarray, w_bits: np.ndarray,

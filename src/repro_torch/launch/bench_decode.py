@@ -1,6 +1,9 @@
 """Time the serve path's weight decode, ``store.materialize(w, "bfloat16")``,
 on the card at qwen3-8b's wq, wi_gate and embed shapes, and list the device
-kernels one call launches.
+kernels one call launches: the ECF8-TPU container (the decode kernel) and,
+beside it on the same weights, the ECF8-FR one (its plain PyTorch decode;
+timed where the package on ``PYTHONPATH`` has the format), as the
+reference's ``benchmarks/decode_microbench.py`` compares the two.
 
 Run it as a file so that it times the ``repro_torch`` found on
 ``PYTHONPATH``; pointing that at two checkouts in one call compares their
@@ -8,9 +11,9 @@ decode paths on one card (the kernels are built from each checkout):
 
     PYTHONPATH=src python src/repro_torch/launch/bench_decode.py [--seed S]
 
-Prints the card's name and power limit, then one line a shape (CUDA events
-around 20 back-to-back calls, each after a 256 MB L2 flush, less the
-flushes alone; median of three windows; kernel names from
+Prints the card's name and power limit, then a line a shape and container
+(CUDA events around 20 back-to-back calls, each after a 256 MB L2 flush,
+less the flushes alone; median of three windows; kernel names from
 ``torch.profiler``) and a last line of JSON.
 """
 from __future__ import annotations
@@ -81,18 +84,28 @@ def main(argv=None):
                         ("wi_gate", (d, cfg.d_ff)),
                         ("embed", (cfg.vocab_size, d))]:
         w = torch.randn(shape, generator=gen, device="cuda").mul_(d ** -0.5)
-        ct = store.compress_array(fp8.cast_to_fp8_bits(w))
+        bits = fp8.cast_to_fp8_bits(w)
         want = fp8.cast_to_fp8(w).to(torch.bfloat16)
         del w
-        got = store.materialize(ct, "bfloat16")
-        if not torch.equal(got, want):
-            raise SystemExit(f"bench_decode {name}: decode is not lossless")
-        del got, want
-        ms = _ms(lambda: store.materialize(ct, "bfloat16"), flush)
-        names = _kernels(lambda: store.materialize(ct, "bfloat16"))
-        out[name] = {"ms": ms, "kernels": names}
-        print(f"[bench_decode] {name} {shape}: {ms:.4f} ms, kernels "
-              f"{names}", flush=True)
+        fmts = ["tpu"] + (["fixedrate"] if hasattr(store, "FORMAT_FIXEDRATE")
+                          else [])
+        for fmt in fmts:
+            ct = store.compress_array(bits, fmt=fmt)
+            got = store.materialize(ct, "bfloat16")
+            if not torch.equal(got, want):
+                raise SystemExit(f"bench_decode {name} {fmt}: decode is not "
+                                 f"lossless")
+            del got
+            ms = _ms(lambda: store.materialize(ct, "bfloat16"), flush)
+            names = _kernels(lambda: store.materialize(ct, "bfloat16"))
+            key = name if fmt == "tpu" else f"{name}_fixedrate"
+            out[key] = {"ms": ms, "kernels": names, "bytes_per_elem":
+                        ct.nbytes_compressed() / bits.numel()}
+            print(f"[bench_decode] {name} {shape} {fmt}: {ms:.4f} ms, "
+                  f"{out[key]['bytes_per_elem']:.4f} bytes an element, "
+                  f"{len(names)} kernels {names}", flush=True)
+            del ct
+        del bits, want
     print(json.dumps({"card": card, "materialize_bf16": out}), flush=True)
 
 

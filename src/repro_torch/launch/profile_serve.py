@@ -25,6 +25,14 @@ their device time and share of the busy time are printed for each window.
     # the window of 2048 (the RG-LRU scan and local_attention at prefill)
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch recurrentgemma-2b --max-len 4096 --prompt 3000
+    # qwen3-8b at chip_smoke.py phase 16's depth from ECF8-FR weights
+    # (every weight decoded by plain PyTorch on the card)
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 12 \
+        --compress fixedrate
+    # llama4-scout at phase 17's depth and max_len, a prompt the window
+    # (8192) covers
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch llama4-scout-17b-a16e --layers 8 --max-len 8704 --prompt 8180
 """
 from __future__ import annotations
 
@@ -105,7 +113,8 @@ def main(argv=None):
     ap.add_argument("--prompt", type=int, default=256)
     ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=4)
-    ap.add_argument("--compress", default="tpu", choices=["none", "tpu"])
+    ap.add_argument("--compress", default="tpu",
+                    choices=["none", "tpu", "fixedrate"])
     ap.add_argument("--cache", default="paged",
                     choices=["paged", "paged-compressed"])
     ap.add_argument("--seed", type=int, default=0)

@@ -2,9 +2,11 @@
 
 Synthesizes weights from ``--seed`` (no checkpoint is read), casts the
 large ones to fp8 (the baseline the paper compresses), compresses them to
-ECF8, and serves a batch of requests through the continuous-batching
-engine; ``--check-lossless`` replays the prompts on the fp8 baseline and
-exits 1 unless every greedy token is identical.
+ECF8 (``--compress tpu``, the Huffman container, or ``fixedrate``,
+ECF8-FR's 2-bit codes with escapes), and serves a batch of requests
+through the continuous-batching engine; ``--check-lossless`` replays the
+prompts on the fp8 baseline and exits 1 unless every greedy token is
+identical.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
@@ -32,6 +34,13 @@ Usage:
   # trees built a layer at a time
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --check-lossless
+  # weights in ECF8-FR (decoded by plain PyTorch on the card)
+  PYTHONPATH=src python -m repro_torch.launch.serve --compress fixedrate \
+      --check-lossless
+  # llama4-scout's stack: three local layers, then a global one without
+  # RoPE ('nope'), 16 experts top-1 + a shared expert
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --check-lossless
   # the recurrent families (RG-LRU + local attention; sLSTM + mLSTM): no
   # layer pages, so the cache resolves to the monolithic one
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -44,6 +53,10 @@ Usage:
       moonshot-v1-16b-a3b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch \
       recurrentgemma-2b --smoke --device cpu --check-lossless
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --compress fixedrate --check-lossless
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      llama4-scout-17b-a16e --smoke --device cpu --check-lossless
 
 The helpers below are the same steps for a caller that brings its own
 ``ArchConfig`` or prompts (``chip_smoke.py`` serves a depth-cut qwen3-8b).
@@ -77,9 +90,9 @@ def build_params(cfg, seed: int, fmt: str = "tpu", device="cuda",
 
     Returns ``(served, baseline, report, encode_seconds)``: ``baseline`` is
     the fp8 cast of the large weights (None unless ``baseline``),
-    ``served`` their ECF8 compression (``fmt="tpu"``) or the baseline
-    itself (``fmt="none"``).  The trees are streamed from the draws of
-    ``models.model.init_params`` one layer at a time
+    ``served`` their ECF8 compression (``fmt="tpu"`` or ``"fixedrate"``)
+    or the baseline itself (``fmt="none"``).  The trees are streamed from
+    the draws of ``models.model.init_params`` one layer at a time
     (``core.store.build_trees``): no f32 master of a stacked leaf is ever
     whole, and the weights are those of ``init_params(cfg, seed)``."""
     t0 = time.perf_counter()
@@ -243,7 +256,8 @@ def main(argv=None, cfg=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--compress", default="tpu", choices=["none", "tpu"])
+    ap.add_argument("--compress", default="tpu",
+                    choices=["none", "tpu", "fixedrate"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

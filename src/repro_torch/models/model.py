@@ -1,18 +1,19 @@
 """Decoder-only LM for the attention patterns ``("attn",)`` (the dense
 qwen3 family, the MLP types of granite and nemotron, the mixture-of-experts
-family) and ``("local", "attn")`` (gemma2: sliding-window layers between
-global ones, post-block norms, softcaps), and for the recurrent kinds
-``rglru`` (recurrentgemma: ``("rglru", "rglru", "local")``), ``slstm`` and
-``mlstm`` (xlstm: ``("slstm", "mlstm")``, no MLP), built from
-``ArchConfig``.  Plain functions over a nested-dict parameter tree laid out
-as the reference's:
+family), ``("local", "attn")`` (gemma2: sliding-window layers between
+global ones, post-block norms, softcaps) and ``("local", "local", "local",
+"nope")`` (llama4: local layers between global ones that skip RoPE, the
+``nope`` kind), and for the recurrent kinds ``rglru`` (recurrentgemma:
+``("rglru", "rglru", "local")``), ``slstm`` and ``mlstm`` (xlstm:
+``("slstm", "mlstm")``, no MLP), built from ``ArchConfig``.  Plain
+functions over a nested-dict parameter tree laid out as the reference's:
 
     {"embed": (V, d), "final_norm": (d,), ["unembed": (d, V),]
      "units": {"pos<j>": LAYER},
      "tail": {"layer<t>": LAYER}}
 
     LAYER = {"norm1",
-             "attn": {wq, wk, wv, wo[, q_norm, k_norm]}      ('attn'/'local')
+             "attn": {wq, wk, wv, wo[, q_norm, k_norm]}  (attention kinds)
              | "rglru": {w_in, w_gate_in, conv_w, conv_b, w_a, b_a, w_x,
                          b_x, lam, w_out}                     ('rglru')
              | "cell": {w_up, w_q, w_k, w_v, w_if, b_if, w_down}  ('mlstm')
@@ -36,9 +37,11 @@ The cache mirrors it: ``"units"/"pos<j>"`` stacked over the units (batch
 at axis 1), ``"tail"/"layer<t>"`` unstacked (batch at axis 0).  A
 ``local`` layer's cache is a ring of ``W = min(local_window, max_len)``
 positions a slot (position ``t`` at ring slot ``t % W``), beside the page
-pools of the ``attn`` layers in a paged cache; a recurrent layer's is its
-state (``models.recurrent``: RG-LRU ``h``, ``conv``; mLSTM ``C``, ``n``,
-``m``; sLSTM ``h``, ``c``, ``n``, ``m``, all f32).
+pools of the ``attn`` and ``nope`` layers in a paged cache (a ``nope``
+layer is an ``attn`` layer without RoPE: it caches and pages the same);
+a recurrent layer's is its state (``models.recurrent``: RG-LRU ``h``,
+``conv``; mLSTM ``C``, ``n``, ``m``; sLSTM ``h``, ``c``, ``n``, ``m``,
+all f32).
 
 Entry points:
   prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
@@ -64,7 +67,7 @@ from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
                      local_attention, mat, mlp_apply, mlp_init, rms_norm)
 from .moe import moe_apply, moe_init
 
-ATTN_KINDS = ("attn", "local")
+ATTN_KINDS = ("attn", "local", "nope")
 REC_KINDS = ("rglru", "slstm", "mlstm")
 SUPPORTED_KINDS = ATTN_KINDS + REC_KINDS
 MLP_TYPES = ("swiglu", "gelu", "geglu", "sqrelu")
@@ -92,9 +95,9 @@ def check_supported(cfg: ArchConfig) -> None:
             or any(k in paged_kv.PAGED_KINDS for k in _tail_kinds(cfg))):
         raise NotImplementedError(
             f"{cfg.name}: not yet ported (the port serves the 'attn', "
-            f"'local', 'rglru', 'slstm' and 'mlstm' kinds with no paged "
-            f"layer in the tail: dense MLPs {MLP_TYPES} and "
-            f"mixture-of-experts)")
+            f"'local', 'nope', 'rglru', 'slstm' and 'mlstm' kinds with no "
+            f"paged layer in the tail, no encoder-decoder: dense MLPs "
+            f"{MLP_TYPES} and mixture-of-experts)")
 
 
 # --------------------------------------------------------------------------
@@ -235,8 +238,9 @@ def _layer(tree, u: int):
 # sub-blocks
 # --------------------------------------------------------------------------
 
-def _qkv(p, x, cfg: ArchConfig, dtype, positions):
-    """positions: (T,) shared, or (B, T) per-slot (serving engine)."""
+def _qkv(p, x, cfg: ArchConfig, dtype, rope: bool, positions):
+    """positions: (T,) shared, or (B, T) per-slot (serving engine); RoPE
+    is applied unless ``rope`` is False (a ``nope`` layer)."""
     B, T, _ = x.shape
     hd = cfg.hd
     q = (x @ mat(p["wq"], dtype)).reshape(B, T, cfg.n_heads, hd)
@@ -248,10 +252,11 @@ def _qkv(p, x, cfg: ArchConfig, dtype, positions):
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    pos_b = (positions[None, None, :] if positions.ndim == 1
-             else positions[:, None, :])
-    q = apply_rope(q, pos_b, cfg.rope_theta)
-    k = apply_rope(k, pos_b, cfg.rope_theta)
+    if rope:
+        pos_b = (positions[None, None, :] if positions.ndim == 1
+                 else positions[:, None, :])
+        q = apply_rope(q, pos_b, cfg.rope_theta)
+        k = apply_rope(k, pos_b, cfg.rope_theta)
     return q, k, v
 
 
@@ -267,7 +272,8 @@ def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype):
     :func:`local_attention` (the reference's condition)."""
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
-    q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype, positions))
+    q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype,
+                                            kind != "nope", positions))
     if kind == "local" and cfg.local_window < T:
         o = local_attention(q, k, v, window=cfg.local_window,
                             attn_softcap=cfg.attn_softcap)
@@ -276,8 +282,8 @@ def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype):
     return _attn_out(p, o, dtype), (k, v)
 
 
-def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
-                           page_table):
+def _self_attention_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
+                           cur_len, page_table):
     """One-token decode through the paged cache: the new K/V is written
     into each slot's tail page (in place), each slot's history gathered
     back, and the token attends over ``cur_len + 1`` positions.
@@ -290,7 +296,7 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
     whose write lands on the garbage page as the reference's does.  Such a
     row's output is never read by its slot, but a mixture-of-experts layer
     routes it with the live rows, so it must be the reference's own."""
-    q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
+    q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", cur_len[:, None])
     k_pool, v_pool, k_cold, v_cold = pools
     paged_kv.page_write(k_pool, page_table, cur_len, k)
     paged_kv.page_write(v_pool, page_table, cur_len, v)
@@ -301,8 +307,8 @@ def _self_attention_decode(p, x, cfg: ArchConfig, dtype, pools, cur_len,
     return _attn_out(p, o, dtype)
 
 
-def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, dtype, kc, vc,
-                                      cur_len, ring: bool = False):
+def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, kind: str,
+                                      dtype, kc, vc, cur_len):
     """One-token decode through a contiguous cache row, ``kc`` / ``vc``
     (B, n_kv, S, hd), written in place.
 
@@ -311,11 +317,12 @@ def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, dtype, kc, vc,
     ``dynamic_update_slice`` clamps it (a vacated slot keeps stepping past
     the end of its row, and its outputs are never read), and the token
     attends over ``cur_len + 1`` positions.  A ``local`` layer's row is
-    its ring of ``W = S`` positions (``ring``): the write lands at
+    its ring of ``W = S`` positions: the write lands at
     ``cur_len % W`` and the token attends over ``min(cur_len + 1, W)``
     slots, every one of them once the ring has wrapped."""
     B, S = x.shape[0], kc.shape[2]
-    q, k, v = _qkv(p, x, cfg, dtype, cur_len[:, None])
+    ring = kind == "local"
+    q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", cur_len[:, None])
     pos = (cur_len % S if ring else cur_len.clamp(max=S - 1)).long()
     rows = torch.arange(B, device=x.device)
     kc[rows, :, pos] = k[:, :, 0].to(kc.dtype)
@@ -326,8 +333,8 @@ def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, dtype, kc, vc,
     return _attn_out(p, o, dtype)
 
 
-def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
-                          n_valid: int, path: str = "gather"):
+def _self_attention_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools,
+                          row, start, n_valid: int, path: str = "gather"):
     """One prefill chunk of a single slot through the paged cache.
 
     x: (1, C, d), a chunk of the slot's prompt padded to the engine's chunk
@@ -341,7 +348,7 @@ def _self_attention_chunk(p, x, cfg: ArchConfig, dtype, pools, row, start,
     of its cold pages (``kvcache.kernels.run``)."""
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
-    q, k, v = _qkv(p, x, cfg, dtype, positions)
+    q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", positions)
     k_pool, v_pool, k_cold, v_cold = pools
     paged_kv.page_write_chunk(k_pool, row, positions, k, n_valid)
     paged_kv.page_write_chunk(v_pool, row, positions, v, n_valid)
@@ -421,12 +428,11 @@ def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
     ring."""
     h = rms_norm(x, p["norm1"])
     if page_table is None:
-        o = _self_attention_decode_contiguous(p["attn"], h, cfg, dtype,
-                                              *pools, cur_len,
-                                              ring=kind == "local")
+        o = _self_attention_decode_contiguous(p["attn"], h, cfg, kind,
+                                              dtype, *pools, cur_len)
     else:
-        o = _self_attention_decode(p["attn"], h, cfg, dtype, pools, cur_len,
-                                   page_table)
+        o = _self_attention_decode(p["attn"], h, cfg, kind, dtype, pools,
+                                   cur_len, page_table)
     return _residual(p, x, o, cfg, dtype)
 
 
@@ -439,8 +445,8 @@ def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
         raise ValueError(
             f"chunked prefill only pages 'attn'/'nope' layers, got {kind}")
     h = rms_norm(x, p["norm1"])
-    o = _self_attention_chunk(p["attn"], h, cfg, dtype, pools, row, start,
-                              n_valid, path)
+    o = _self_attention_chunk(p["attn"], h, cfg, kind, dtype, pools, row,
+                              start, n_valid, path)
     return _residual(p, x, o, cfg, dtype)
 
 

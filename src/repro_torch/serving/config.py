@@ -29,14 +29,17 @@ speculative decoding      the paged cache, an all-'attn'/'nope' target,
 ``validate(cfg)`` resolves a config against an architecture.  Arch-driven
 resolution (a stack with nothing to page, as recurrentgemma's RG-LRU and
 local layers or xlstm's cells, resolves to the monolithic cache) is silent.
+A stack that pages some layers and rings others (gemma2's, llama4's local
+layers beside their 'attn' / 'nope' ones) is served paged, without chunks,
+prefix sharing or speculation.
 A draft may be of any kind the port serves, recurrent or with local rings,
 as in the reference: the engine rolls back its states as well as its
 timeline.  A user-requested feature that cannot be served is a fallback:
 lenient ``validate`` warns and disables it, ``strict=True`` raises one
 ``EngineConfigError`` listing every problem.  An architecture the port does
 not serve yet (``models.model.check_supported``: the port serves the
-'attn', 'local', 'rglru', 'slstm' and 'mlstm' kinds, and no paged layer in
-a tail) is refused in both modes.
+'attn', 'local', 'nope', 'rglru', 'slstm' and 'mlstm' kinds, no paged
+layer in a tail and no encoder-decoder) is refused in both modes.
 """
 from __future__ import annotations
 

@@ -892,3 +892,91 @@ def test_recurrentgemma_two_units_ecf8_tokens_equal_fp8(card):
         runs.append([r.out_tokens for r in done])
         del params, eng
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("shape,scale", [((4096,), 0.02), ((300, 517), 1.0),
+                                         ((64, 4096), 4096 ** -0.5),
+                                         ((5,), 0.3)])
+def test_fixedrate_decode_on_card_equals_cpu(card, shape, scale,
+                                             monkeypatch):
+    """An ECF8-FR container encoded on the card is byte-equal to the CPU's,
+    and its plain decode on the card (slices carrying the escape count;
+    no kernel, no host copy) gives the CPU's bits and bf16 values."""
+    from repro_torch.core import fixedrate, store
+    w = torch.randn(shape, generator=card, device="cuda") * scale
+    bits = fp8.cast_to_fp8_bits(w)
+    c = fixedrate.encode(bits)
+    h = fixedrate.encode(bits.cpu())
+    for f in ("codes", "escapes", "table", "signmant"):
+        assert getattr(c, f).is_cuda
+        assert torch.equal(getattr(c, f).cpu(), getattr(h, f)), f
+    before = ecf8_decode.run.launches
+    for slice_elems in (fixedrate.SLICE_ELEMS, 1000):
+        monkeypatch.setattr(fixedrate, "SLICE_ELEMS", slice_elems)
+        got = fixedrate.decode_plain(c.codes, c.escapes, c.table, c.signmant,
+                                     n_elem=c.n_elem)
+        assert got.is_cuda and torch.equal(got, bits.reshape(-1))
+    ct = store.compress_array(bits, fmt="fixedrate")
+    m = store.materialize(ct, "bfloat16")
+    assert m.is_cuda and m.shape == shape
+    assert torch.equal(m.cpu(), store.materialize(
+        store.CompressedTensor({k: a.cpu() for k, a in ct.arrays.items()},
+                               ct.meta), "bfloat16"))
+    assert ecf8_decode.run.launches == before
+
+
+@pytest.mark.parametrize("T", [13, 451, 2048])
+def test_flash_kernel_llama4_heads(card, T):
+    """B4 at llama4-scout's heads: 40 query heads on 8 KV heads of 128 (a
+    group of 5), causal, no softcap, bf16."""
+    def rnd(h):
+        return torch.randn((1, h, T, 128), generator=card,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(40), rnd(8), rnd(8)
+    before = flash_fwd.run.launches
+    got = ops.flash_attention(q, k, v, True, 0.0)
+    assert flash_fwd.run.launches == before + 1
+    want = flash_fwd.plain(q, k, v, True, 0.0)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("fmt", ["tpu", "fixedrate"])
+def test_llama4_smoke_card_vs_cpu(card, fmt):
+    """llama4-scout's smoke stack (two ("local", "local", "local", "nope")
+    units, window 32, heads of 64 for B4) from an ECF8-TPU or ECF8-FR tree:
+    prefill at 37 tokens and 12 decode steps past the rings' wrap, the
+    card's logits within 1e-4 of the CPU's; B1 launched for the TPU tree
+    alone, B4 in the prefill."""
+    import dataclasses
+    from repro_torch.configs import get, smoke_variant
+    from repro_torch.core import store
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(smoke_variant(get("llama4-scout-17b-a16e")),
+                              head_dim=64)
+    p_cpu, _ = store.compress_tree(M.init_params(cfg, 0, "cpu"), fmt=fmt,
+                                   min_elems=4096, out_dtype="float32")
+
+    def to_card(t):
+        if isinstance(t, dict):
+            return {k: to_card(v) for k, v in t.items()}
+        if store.is_compressed(t):
+            return store.CompressedTensor(
+                {k: a.cuda() for k, a in t.arrays.items()}, t.meta)
+        return t.cuda()
+
+    p_gpu = to_card(p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37),
+                         generator=torch.Generator().manual_seed(0))
+    b1, b4 = ecf8_decode.run.launches, flash_fwd.run.launches
+    l_cpu, c_cpu = M.prefill(p_cpu, cfg, toks, max_len=64)
+    l_gpu, c_gpu = M.prefill(p_gpu, cfg, toks.cuda(), max_len=64)
+    assert flash_fwd.run.launches - b4 == cfg.n_layers // cfg.unit
+    err = float((l_gpu.cpu() - l_cpu).abs().max())
+    for _ in range(12):
+        tok = l_cpu[:, -1].argmax(-1, keepdim=True)
+        l_cpu, c_cpu = M.decode_step(p_cpu, cfg, tok, c_cpu)
+        l_gpu, c_gpu = M.decode_step(p_gpu, cfg, tok.cuda(), c_gpu)
+        err = max(err, float((l_gpu.cpu() - l_cpu).abs().max()))
+    assert err <= 1e-4
+    assert (ecf8_decode.run.launches > b1) == (fmt == "tpu")

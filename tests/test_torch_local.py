@@ -114,15 +114,19 @@ def test_smoke_config_matches_reference():
 
 
 def test_check_supported_admits_gemma2_and_refuses_the_rest():
-    """gemma2 and, since the recurrent layers were ported, recurrentgemma
-    and xlstm are served; encoder-decoders, 'nope' layers and a paged
-    layer in the tail are still refused."""
-    for arch in (ARCH, "recurrentgemma-2b", "xlstm-350m"):
+    """gemma2 and, since the recurrent layers and the 'nope' kind were
+    ported, recurrentgemma, xlstm and llama4-scout are served; the
+    encoder-decoder and a paged layer in the tail are still refused."""
+    for arch in (ARCH, "recurrentgemma-2b", "xlstm-350m",
+                 "llama4-scout-17b-a16e"):
         M.check_supported(get(arch))
         M.check_supported(smoke_variant(get(arch)))
-    for cfg in (get("whisper-base"), get("llama4-scout-17b-a16e"),
+    for cfg in (get("whisper-base"),
                 dataclasses.replace(get(ARCH), pattern=("attn", "local"),
-                                    n_layers=43)):
+                                    n_layers=43),
+                dataclasses.replace(get("llama4-scout-17b-a16e"),
+                                    pattern=("nope", "local", "local",
+                                             "local"), n_layers=45)):
         with pytest.raises(NotImplementedError):
             M.check_supported(cfg)
 

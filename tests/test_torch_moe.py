@@ -220,17 +220,17 @@ def test_combine_adds_in_ascending_expert_order():
 # 'attn') stack with post-norms and the recurrent families
 SERVED = {"qwen3-8b", "granite-20b", "phi3-medium-14b", "nemotron-4-15b",
           "chameleon-34b", "gemma2-9b", "recurrentgemma-2b", "xlstm-350m",
-          ARCH}
+          "llama4-scout-17b-a16e", ARCH}
 
 
 @pytest.mark.parametrize("arch", names())
 def test_engine_config_serves_the_moe_and_mlp_families(arch):
     """``validate`` (and through it ``convert`` and ``launch/serve.py``)
-    admits the MoE family, every dense MLP type, gemma2's stack and the
-    recurrent families, resolving as the reference does (a stack with
-    rings or recurrent states cannot chunk its prefill, so strict mode
-    refuses ``prefill_chunk`` in both; lenient mode resolves the cache
-    alike); the other families are still refused."""
+    admits the MoE family, every dense MLP type, gemma2's and llama4's
+    stacks and the recurrent families, resolving as the reference does (a
+    stack with rings or recurrent states cannot chunk its prefill, so
+    strict mode refuses ``prefill_chunk`` in both; lenient mode resolves
+    the cache alike); the other families are still refused."""
     cfg = smoke_variant(get(arch))
     if arch not in SERVED:
         with pytest.raises(EngineConfigError, match="not yet ported"):
