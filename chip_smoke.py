@@ -19,8 +19,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      ``.to(bf16)``; and at one layer's expert container of
      moonshot-v1-16b-a3b, (64, 2048, 1408), gemma2-9b's wi_gate and
      embedding (3584 x 14336, 256000 x 3584), recurrentgemma-2b's RG-LRU
-     w_a (2560 x 2560), xlstm-350m's sLSTM r (4 x 256 x 1024) and one
-     layer's expert container of llama4-scout-17b-a16e (16, 5120, 8192);
+     w_a (2560 x 2560), xlstm-350m's sLSTM r (4 x 256 x 1024), one
+     layer's expert container of llama4-scout-17b-a16e (16, 5120, 8192)
+     and whisper-base's unembedding (512 x 51865);
      at qwen3-8b's wq, wi_gate and embedding, the ECF8-FR container
      (``core/fixedrate.py``, encoded on the card) decoded by its plain
      PyTorch decode on the card: fp8 bits equal to the kernel's output
@@ -38,7 +39,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      bf16 at T in {13, 451, 2048} within 2e-2, beside SDPA with
      ``enable_gqa``; and at llama4-scout's (40 / 8 heads of 128, no
      softcap, a group of 5): bf16 at T in {451, 2048, 8192} within 2e-2,
-     beside SDPA with ``enable_gqa``;
+     beside SDPA with ``enable_gqa``; and non-causal at whisper-base's
+     (B = 4, 8 / 8 heads of 64, 1500 keys): the encoder's 1500 queries and
+     the prefill cross attention's 224, bf16 within 2e-2, beside SDPA at
+     ``is_causal=False``;
   3b. the KV page-decode kernel against its plain version, bit-exact:
      252 bf16 pages at the qwen3-8b page shape (8 x 16 x 128, the default
      cold pool of the serve shape), the 48 bf16 pages of phase 7's cold
@@ -82,7 +86,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      units, window 32, 8 experts top-1 + 1 shared, heads of 64): prefill
      at 37 tokens and paged-compressed decode steps past the rings' wrap,
      the card against the CPU, from an ECF8-TPU tree and from an ECF8-FR
-     tree (no kernel decode launched for the latter);
+     tree (no kernel decode launched for the latter); whisper-base's
+     (2 + 2 layers, heads of 64, 64 frames, every matrix ECF8): the
+     encoder output, prefill logits and 6 decode steps over the cached
+     cross K/V, the card against the CPU;
   5. qwen3-8b at full width, ``QWEN_LAYERS`` of its 36 layers
      (``--layers``), ECF8-compressed and served by the paged engine (8 requests of 64-512
      prompt tokens, max_batch 4, 32 new tokens, max_len 1024); both
@@ -194,9 +201,34 @@ Phases, each failing loudly (non-zero exit, no result line):
      monolithic cache; 17b the fp8 tree alone (tokens of 17b and 17d
      IDENTICAL to 17a's); weights, step, tok/s, prefill, peak device
      memory and launches printed.
+  18. whisper-base, the encoder-decoder, at full width and depth (6 + 6
+     layers, d_model 512, 8 heads of 64, GELU 2048, vocab 51,865 untied,
+     1500 frames), its ECF8 and fp8 trees built from ``--seed``, frames
+     (4, 1500, 512) drawn from it: for prompts of each of
+     ``WHISPER_PROMPTS`` tokens (4 rows), ``prefill(frames=...)`` then
+     ``WHISPER_NEW`` greedy decode steps on the contiguous cache at
+     max_len 448: 18a from ECF8, 18b from fp8, tokens IDENTICAL; B1 and
+     B4 launches equal to what a CPU rehearsal counts (B1 99 a prefill and
+     50 a step, all bf16, 0 from fp8; B4 18 a prefill: 6 non-causal
+     encoder, 6 causal self, 6 non-causal cross); weights, the encoder's
+     ms, prefill s, step ms, tok/s, the cross cache and peak device memory
+     printed.
+  19. the async front end and router (``launch/load_replay.py``): the
+     reference's seeded bursty trace (24 requests, a burst over ticks
+     8-12, token ids below the smoke vocabulary) replayed through
+     ``AsyncServingFrontend`` over two engine replicas of phase 5's model
+     sharing its ECF8 tree and one ``Telemetry`` (max_batch 3, max_len 64,
+     chunk 8, prefix sharing, max_pending 6, ``reject``); each completed
+     stream IDENTICAL to a synchronous single-engine run of the accepted
+     set; two replays with the same placements and shed set, equal to the
+     same replay on the CPU at smoke size (placement reads loads and
+     prefix indices, never weights); TTFT p50 / p95, tok/s, shed rate,
+     prefix hits and the placements printed.  It runs after phase 11, on
+     phase 11's tree.
 Each phase logs the time since the start when it is done.  Phases 5-12,
-16 and 17 run at a cut depth so that the whole script stays near half its
-time limit (13-15 at full depth); every gate is depth-independent.
+16, 17 and 19 run at a cut depth so that the whole script stays near half
+its time limit (13-15 and 18 at full depth); every gate is
+depth-independent.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -218,6 +250,11 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16, SXM data sheet
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores, SXM
 FLASH_TOL = 2e-2
+# B4 non-causal at whisper's shapes: unit-normal q / k / v over 1500 keys
+# average ~550 keys each, so outputs have an RMS near 0.043 and FLASH_TOL
+# would sit at half a typical value; measured 9.8e-4 on the H100 (about one
+# bf16 ulp of the largest output)
+WHISPER_FLASH_TOL = 4e-3
 FUSED_TOL = 1e-4        # relative to max |plain|: f32 sums in another order
 # phase 7's undersized pools: raw pages (id 0 is the garbage page) and cold
 # slots, against a worst case of 1 + 4 * 1024 / 16 = 257 pages
@@ -256,6 +293,13 @@ LLAMA_LAYERS = 8        # phase 17's depth: 2 of its 12 units (48 layers)
 # decode, two that never do; submitted in this order
 LLAMA_PROMPTS = (8500, 8180, 2048, 451)
 LLAMA_MAX_LEN = 8704
+WHISPER_ARCH = "whisper-base"       # phase 18's model
+WHISPER_BATCH = 4
+# phase 18's prompts: the start-of-transcript prefix (4 tokens) and the
+# prompt-conditioning limit (224); max_len is whisper's n_text_ctx
+WHISPER_PROMPTS = (4, 224)
+WHISPER_MAX_LEN = 448
+WHISPER_NEW = 64        # decode steps after each prefill
 
 
 def fail(msg: str):
@@ -473,54 +517,59 @@ def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
 
 
 def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
-                D=128, softcap=0.0, tol=FLASH_TOL, gqa=False):
-    """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal, ``heads``
-    = (Hq, Hkv) of ``D``, qwen3-8b's by default, tanh ``softcap``), every
-    output element within ``tol`` -> result dict.  Timed after L2 flushes:
-    a window of back-to-back calls alone would time the host's issue of
-    each call (~20 us) wherever the kernel is shorter.  SDPA, the
-    yardstick, has no softcap: it is timed without one, on K/V repeated to
-    the query heads, or with ``gqa`` on the KV heads (``enable_gqa``)."""
-    B = 1
+                D=128, softcap=0.0, tol=FLASH_TOL, gqa=False, causal=True,
+                B=1, Tk=None):
+    """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal unless
+    ``causal`` is False, ``B`` rows of ``T`` queries over ``Tk`` keys (T by
+    default), ``heads`` = (Hq, Hkv) of ``D``, qwen3-8b's by default, tanh
+    ``softcap``), every output element within ``tol`` -> result dict.
+    Timed after L2 flushes: a window of back-to-back calls alone would time
+    the host's issue of each call (~20 us) wherever the kernel is shorter.
+    SDPA, the yardstick, has no softcap: it is timed without one, on K/V
+    repeated to the query heads, or with ``gqa`` on the KV heads
+    (``enable_gqa``)."""
     Hq, Hkv = heads
+    Tk = Tk or T
     dev = "cuda"
     dtype = dtype or torch.bfloat16
 
-    def rnd(h):
-        return torch.randn((B, h, T, D), generator=gen, device=dev,
+    def rnd(h, n):
+        return torch.randn((B, h, n, D), generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
-    got = flash_fwd.run(q, k, v, causal=True, softcap=softcap)
-    want = flash_fwd.plain(q, k, v, True, softcap)
+    q, k, v = rnd(Hq, T), rnd(Hkv, Tk), rnd(Hkv, Tk)
+    got = flash_fwd.run(q, k, v, causal=causal, softcap=softcap)
+    want = flash_fwd.plain(q, k, v, causal, softcap)
     torch.cuda.synchronize()
+    what = f"T={T}{'' if Tk == T else f' Tk={Tk}'} D={D}"
     if not bool(torch.isfinite(got.float()).all()):
-        fail(f"flash_fwd T={T} D={D}: non-finite output")
+        fail(f"flash_fwd {what}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
     if err > tol:
-        fail(f"flash_fwd T={T} D={D} {dtype}: max |kernel - plain| = {err} "
+        fail(f"flash_fwd {what} {dtype}: max |kernel - plain| = {err} "
              f"> {tol}")
-    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=True,
+    ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=causal,
                                               softcap=softcap), 20, flush)
-    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, True,
+    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, causal,
                                                       softcap), 5, flush)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if gqa:
-        lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+        lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
                                              enable_gqa=True), 20, flush)
     else:
         k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
         v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
         lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep,
-                                             is_causal=True), 20, flush)
-    pairs = T * (T + 1) // 2
+                                             is_causal=causal), 20, flush)
+    pairs = T * (T + 1) // 2 if causal else T * Tk
     flops = 4 * B * Hq * D * pairs
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
     peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
     bound_ops = flops / peak * 1e3
     bound_bytes = moved / H100_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
-    log(f"flash_fwd T={T} Hq={Hq} Hkv={Hkv} D={D} softcap {softcap:g} "
+    log(f"flash_fwd B={B} {what} Hq={Hq} Hkv={Hkv} softcap {softcap:g} "
+        f"{'causal' if causal else 'non-causal'} "
         f"{str(dtype).split('.')[-1]}: max_abs_err "
         f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, sdpa{' (enable_gqa)' if gqa else ''} "
@@ -874,6 +923,247 @@ def small_recurrent_checks(torch, M, store, smoke_variant, get, seed):
             f" with a tail of {cfg.n_layers % cfg.unit}): prefill at "
             f"{lens} tokens and 6 decode steps, card vs CPU max |dlogit| "
             f"{max(errs):.2e} (tol 1e-4)")
+
+
+def small_whisper_check(torch, M, store, smoke_variant, get, seed):
+    """Phase 4's encoder-decoder: whisper's smoke variant with heads of 64
+    (B4's smallest) and 64 frames, f32, every matrix compressed
+    (``min_elems`` 256): the encoder output, the prefill logits (B4
+    non-causal in the encoder and the cross attention, causal in the
+    decoder) and 6 decode steps over the cached cross K/V, the card against
+    the CPU within 1e-4."""
+    cfg = dataclasses.replace(smoke_variant(get(WHISPER_ARCH)), head_dim=64,
+                              encoder_frames=64)
+    p_cpu, _ = store.compress_tree(M.init_params(cfg, seed, "cpu"),
+                                   min_elems=256, out_dtype="float32")
+    p_gpu = to_device(p_cpu, "cuda", store)
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen)
+    e_cpu = M.encode_frames(p_cpu, cfg, frames, torch.float32)
+    e_gpu = M.encode_frames(p_gpu, cfg, frames.cuda(), torch.float32)
+    err_enc = float((e_gpu.cpu() - e_cpu).abs().max())
+    l_cpu, c_cpu = M.prefill(p_cpu, cfg, toks, max_len=32, frames=frames)
+    l_gpu, c_gpu = M.prefill(p_gpu, cfg, toks.cuda(), max_len=32,
+                             frames=frames.cuda())
+    err = float((l_gpu.cpu() - l_cpu).abs().max())
+    for _ in range(6):
+        tok = l_cpu[:, -1].argmax(-1, keepdim=True)
+        l_cpu, c_cpu = M.decode_step(p_cpu, cfg, tok, c_cpu)
+        l_gpu, c_gpu = M.decode_step(p_gpu, cfg, tok.cuda(), c_gpu)
+        err = max(err, float((l_gpu.cpu() - l_cpu).abs().max()))
+    if not bool(torch.isfinite(l_gpu).all()) or max(err, err_enc) > 1e-4:
+        fail(f"small f32 {WHISPER_ARCH}: card vs CPU max |d encoder| = "
+             f"{err_enc}, max |dlogit| = {err}")
+    log(f"small f32 {WHISPER_ARCH} ({cfg.n_encoder_layers} + {cfg.n_layers}"
+        f" layers, {cfg.n_heads} heads of {cfg.hd}, {cfg.encoder_frames} "
+        f"frames): encoder output card vs CPU max |diff| {err_enc:.2e}, "
+        f"prefill logits and 6 decode steps max |dlogit| {err:.2e} (tol "
+        f"1e-4)")
+
+
+def whisper_phase(torch, np, serve, M, kernels, cfg, seed):
+    """Phase 18 (module docstring) on ``cfg`` -> (measurements, launches
+    by run).  ``kernels`` maps name -> wrapper (``run``) whose launch
+    counts the phase reads."""
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    gib = 2 ** 30
+    # B1 from ECF8 weights (every matrix is compressed at serve.MIN_ELEMS):
+    # a prefill decodes pos_embed, the encoder layers' six matrices, the
+    # decoder layers' self attention (4), cross attention (4: the K/V
+    # projections once, for the layer and the cache) and MLP (2), the
+    # embedding and the unembedding; a decode step uses no encoder weight
+    # and no cross wk / wv
+    b1_prefill = 1 + 6 * cfg.n_encoder_layers + 10 * cfg.n_layers + 2
+    b1_step = 8 * cfg.n_layers + 2
+    # B4 a prefill: each encoder layer (non-causal), each decoder layer's
+    # self attention (causal) and cross attention (non-causal); none a step
+    b4_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    log(f"phase 18: {cfg.name} at full width ({cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.mlp_type} d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, untied, {cfg.encoder_frames} "
+        f"frames, {cfg.dtype}); batch {WHISPER_BATCH}, prompts "
+        f"{WHISPER_PROMPTS}, max_len {WHISPER_MAX_LEN}, {WHISPER_NEW} "
+        f"decode steps; B1 {b1_prefill} a prefill and {b1_step} a step, B4 "
+        f"{b4_prefill} a prefill")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params_c, params_fp8, report, enc_s = serve.build_params(cfg, seed, "tpu",
+                                                             device="cuda")
+    fp8_b, ecf8_b = report["fp8_bytes"], report["compressed_bytes"]
+    built = dict(encode_s=enc_s, fp8_mb=fp8_b / 1e6, ecf8_mb=ecf8_b / 1e6,
+                 saved_pct=100 * (1 - ecf8_b / fp8_b),
+                 n_compressed=report["n_compressed"],
+                 params_m=report["raw_bytes"] / 4e6,
+                 resident_gib=(torch.cuda.memory_allocated() - base_mem)
+                 / gib)
+    log(f"phase 18 weights: {built['params_m']:.1f} M parameters, "
+        f"{report['n_compressed']} tensors, fp8 {built['fp8_mb']:.1f} MB -> "
+        f"ECF8 {built['ecf8_mb']:.1f} MB ({built['saved_pct']:.2f}% saved), "
+        f"built and encoded in {enc_s:.1f}s; both trees resident "
+        f"{built['resident_gib']:.3f} GiB")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn((WHISPER_BATCH, cfg.encoder_frames, cfg.d_model),
+                         generator=gen, device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = {T: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, T))).cuda()
+        for T in WHISPER_PROMPTS}
+    dtype = getattr(torch, cfg.dtype)
+
+    # the encoder alone, timed (its launches are outside the counted runs)
+    def encode(params):
+        return M.encode_frames(params, cfg, frames, dtype)
+
+    enc_ms = {}
+    for tag, params in (("ecf8", params_c), ("fp8", params_fp8)):
+        encode(params)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            encode(params)
+        b.record()
+        b.synchronize()
+        enc_ms[tag] = a.elapsed_time(b) / 3
+
+    def run(tag, params, T, compressed):
+        torch.cuda.reset_peak_memory_stats()
+        b1.launches = b3.launches = b2.launches = b4.launches = 0
+        b1.launches_by_dtype.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(params, cfg, prompts[T],
+                                  max_len=WHISPER_MAX_LEN, frames=frames)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        for _ in range(WHISPER_NEW):
+            logits, cache = M.decode_step(params, cfg, tok, cache)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        toks = torch.cat(out, 1).cpu()
+        cross_b = sum(x.numel() * x.element_size()
+                      for x in cache["units"]["cross"].values())
+        launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                    "kv_page_decode": b3.launches,
+                    "fused_decode_matmul": b2.launches,
+                    "ecf8_decode_by_dtype": {str(k): v for k, v in
+                                             b1.launches_by_dtype.items()}}
+        want_b1 = (b1_prefill + WHISPER_NEW * b1_step) if compressed else 0
+        if (b1.launches != want_b1 or b4.launches != b4_prefill
+                or b2.launches or b3.launches
+                or set(b1.launches_by_dtype) - {torch.bfloat16}):
+            fail(f"phase {tag}: launches {launches}, expected ecf8_decode "
+                 f"{want_b1} (all bf16) and flash_fwd {b4_prefill}")
+        if (int(cache["cur_len"]) != T + WHISPER_NEW
+                or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+            fail(f"phase {tag}: cur_len {int(cache['cur_len'])} or "
+                 f"out-of-vocab tokens")
+        n = toks.numel()
+        m = dict(prefill_s=t1 - t0, step_ms=(t2 - t1) / WHISPER_NEW * 1e3,
+                 tok_s=n / (t2 - t0), cross_cache_mb=cross_b / 1e6,
+                 peak_gib=torch.cuda.max_memory_allocated() / gib)
+        log(f"phase {tag}, T={T}: prefill (encoder included) "
+            f"{m['prefill_s']:.3f}s, {WHISPER_NEW} decode steps at "
+            f"{m['step_ms']:.2f} ms/step, {m['tok_s']:.1f} tok/s; cross "
+            f"cache {m['cross_cache_mb']:.1f} MB; peak device memory "
+            f"{m['peak_gib']:.3f} GiB; launches {launches}")
+        return toks, m, launches
+
+    out, launches = {"built": built, "encoder_ms": enc_ms}, {}
+    for T in WHISPER_PROMPTS:
+        toks = {}
+        for tag, params, compressed in (("18a", params_c, True),
+                                        ("18b", params_fp8, False)):
+            key = f"{tag}_T{T}"
+            toks[tag], out[key], launches[key] = run(
+                f"{tag} ({'ECF8' if compressed else 'fp8'})", params, T,
+                compressed)
+        if not torch.equal(toks["18a"], toks["18b"]):
+            bad = (toks["18a"] != toks["18b"]).nonzero()[0].tolist()
+            fail(f"phase 18, T={T}: ECF8 tokens differ from the fp8 tree's "
+                 f"(row, token) {bad}")
+        log(f"lossless: whisper ECF8 greedy tokens IDENTICAL to the fp8 "
+            f"tree's at T={T} ({toks['18a'].numel()} tokens)")
+    log(f"phase 18: encoder {enc_ms['ecf8']:.2f} ms from ECF8 against "
+        f"{enc_ms['fp8']:.2f} ms from fp8 (batch {WHISPER_BATCH}, "
+        f"{cfg.encoder_frames} frames)")
+    del params_c, params_fp8, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def frontend_phase(torch, serve, load_replay, smoke_variant, get, kernels,
+                   cfg, params, seed):
+    """Phase 19 (module docstring): the reference's load replay over two
+    engine replicas of ``cfg`` sharing ``params`` on the card, replayed
+    twice, and once at smoke size on the CPU -> (measurements, launches of
+    the first card replay)."""
+    b1, b3, b2, b4 = (kernels[k] for k in (
+        "ecf8_decode", "kv_page_decode", "fused_decode_matmul", "flash_fwd"))
+    # the CPU run: the smoke model's fp8 tree (placement reads loads and
+    # prefix indices, never weights)
+    t0 = time.perf_counter()
+    small = smoke_variant(get(cfg.name))
+    p_small, _, _, _ = serve.build_params(small, seed, "none", device="cpu")
+    cpu = load_replay.run(device="cpu", smoke=True, seed=seed,
+                          params=p_small)
+    load_replay.check_streams(cpu)
+    cpu_s = time.perf_counter() - t0
+    # the counts cover the first card replay alone: the synchronous engine
+    # that checks its streams runs after they are read
+    b1.launches = b3.launches = b2.launches = b4.launches = 0
+    card = load_replay.run(device="cuda", arch=cfg.name,
+                           layers=cfg.n_layers, seed=seed, params=params)
+    launches = {"ecf8_decode": b1.launches, "flash_fwd": b4.launches,
+                "kv_page_decode": b3.launches,
+                "fused_decode_matmul": b2.launches}
+    load_replay.check_streams(card)
+    again = load_replay.run(device="cuda", arch=cfg.name,
+                            layers=cfg.n_layers, seed=seed, params=params)
+    load_replay.check_streams(again)
+    for tag, r in (("card", card), ("replay 2", again), ("CPU", cpu)):
+        log(f"phase 19 {tag} ({r['arch']}, {r['n_layers']} layers, "
+            f"{r['device']}): {r['n_completed']}/{r['n_requests']} completed,"
+            f" {r['n_shed']} shed ({100 * r['shed_rate']:.1f} %), "
+            f"{r['n_tokens']} tokens in {r['wall_s']:.2f}s, "
+            f"{r['tok_per_s']:.1f} tok/s streamed, TTFT p50 / p95 "
+            f"{r['ttft_p50_s'] * 1e3:.1f} / {r['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"{r['prefix_hits']} prefix hits; streams identical to the "
+            f"synchronous engine")
+    log(f"phase 19 placements (request, replica, reason): "
+        f"{json.dumps(card['placements'])}; shed trace indices "
+        f"{card['shed']}; launches {launches}")
+    if (card["placements"], card["shed"]) != (again["placements"],
+                                              again["shed"]):
+        fail("phase 19: two replays of the same seed placed or shed apart")
+    if (card["placements"], card["shed"]) != (cpu["placements"],
+                                              cpu["shed"]):
+        fail(f"phase 19: the card's placements / sheds differ from the CPU "
+             f"smoke run's: {cpu['placements']}, {cpu['shed']}")
+    if not (launches["ecf8_decode"] and not launches["fused_decode_matmul"]
+            and not launches["kv_page_decode"]):
+        fail(f"phase 19: launches {launches}")
+    if not (card["n_shed"] and card["prefix_hits"]
+            and {r for _, _, r in card["placements"]}
+            == {"least-loaded", "prefix-affinity"}):
+        fail("phase 19: the burst shed nothing, or no placement followed "
+             "a prefix")
+    keep = ("n_completed", "n_shed", "shed_rate", "n_tokens", "wall_s",
+            "tok_per_s", "ttft_p50_s", "ttft_p95_s", "prefix_hits")
+    return (dict(card={k: card[k] for k in keep},
+                 replay2={k: again[k] for k in keep},
+                 cpu={k: cpu[k] for k in keep}, cpu_s=cpu_s,
+                 placements=card["placements"], shed=card["shed"]),
+            launches)
 
 
 def to_device(tree, dev, store):
@@ -1841,7 +2131,7 @@ def main(argv=None):
     from repro_torch.kernels import fused_decode_matmul as fused
     from repro_torch.kvcache import codec, paged
     from repro_torch.kvcache import kernels as kv_page
-    from repro_torch.launch import serve
+    from repro_torch.launch import load_replay, serve
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch import serving
@@ -1886,6 +2176,7 @@ def main(argv=None):
     g2 = get(GEMMA_ARCH)
     rg, xl = get(RG_ARCH), get(XLSTM_ARCH)
     ll = get(LLAMA_ARCH)
+    wh = get(WHISPER_ARCH)
     for name, shape, fan_in in [("wq", (d, cfg_full.n_heads * cfg_full.hd), d),
                                 ("wi_gate", (d, ff), d),
                                 ("embed", (V, d), d),
@@ -1903,7 +2194,10 @@ def main(argv=None):
                                  xl.d_model),
                                 ("llama4_expert", (ll.n_experts, ll.d_model,
                                                    ll.moe_d_ff),
-                                 ll.d_model)]:
+                                 ll.d_model),
+                                ("whisper_unembed", (wh.d_model,
+                                                     wh.vocab_size),
+                                 wh.d_model)]:
         w = torch.randn(shape, generator=gen, device="cuda").mul_(
             fan_in ** -0.5)
         bits = fp8.cast_to_fp8_bits(w)
@@ -1960,6 +2254,15 @@ def main(argv=None):
             torch, flash_fwd, T, gen, flush, heads=(ll.n_heads,
                                                     ll.n_kv_heads),
             D=ll.hd, gqa=True)
+    # whisper-base's non-causal attention (8 / 8 heads of 64) at phase 18's
+    # batch: the encoder's (1500 frames over 1500) and the prefill's cross
+    # attention at its longest prompt (224 queries over the 1500 frames)
+    for tag, Tq in (("enc", wh.encoder_frames), ("cross", WHISPER_PROMPTS[1])):
+        results[f"flash_whisper_{tag}"] = check_flash(
+            torch, flash_fwd, Tq, gen, flush, heads=(wh.n_heads,
+                                                     wh.n_kv_heads),
+            D=wh.hd, causal=False, B=WHISPER_BATCH, Tk=wh.encoder_frames,
+            tol=WHISPER_FLASH_TOL)
 
     # -- 3b. kernel 3: KV page decode ----------------------------------------
     n_elem = cfg_full.n_kv_heads * 16 * cfg_full.hd     # one page, one layer
@@ -2143,6 +2446,8 @@ def main(argv=None):
                      args.seed, ecf8_decode)
     # the recurrent families at smoke size, ECF8 through B1
     small_recurrent_checks(torch, M, store, smoke_variant, get, args.seed)
+    # the encoder-decoder at smoke size: B4 non-causal, the cross cache
+    small_whisper_check(torch, M, store, smoke_variant, get, args.seed)
     log(f"phases 1-4 done at {time.perf_counter() - t_start:.1f}s")
 
     # -- 5. serve qwen3-8b at full width -----------------------------------
@@ -2515,6 +2820,14 @@ def main(argv=None):
     log("fused_decode_matmul: 0 launches on every serve path (phases 5, 7, "
         "8a, 8b, 9, 10a-c, 11a-b), as in the reference")
 
+    # -- 19. the async front end and router over two replicas --------------
+    # phase 5's model and ECF8 tree, shared by the replicas
+    frontend_out, frontend_launches = frontend_phase(
+        torch, serve, load_replay, smoke_variant, get, kernel_runs, cfg,
+        params_c, args.seed)
+    log(f"phase 19 measurements: {json.dumps(frontend_out)}")
+    mark("phase 19")
+
     # -- 12. moonshot-v1-16b-a3b at full width from ECF8 weights ----------
     # the qwen3-8b trees and the engines holding their caches go first
     del (params_c, d_c, eng, eng2, eng3, runs, e8, e8b, e9, e10a, e10b,
@@ -2600,6 +2913,17 @@ def main(argv=None):
     log(f"phase 17 measurements: {json.dumps(llama_out)}")
     mark("phase 17")
 
+    # -- 18. whisper-base, the encoder-decoder, at full width -------------
+    whisper_out, wh_launches = whisper_phase(torch, np, serve, M,
+                                             kernel_runs, wh, args.seed)
+    log(f"phase 18 measurements: {json.dumps(whisper_out)}")
+    mark("phase 18")
+
+    def on_frontend_and_whisper(name):
+        return dict(launches_whisper={t: wh_launches[t][name]
+                                      for t in wh_launches},
+                    launches_frontend=frontend_launches[name])
+
     def on_prefix_path(name):
         return {tag: prefix_launches[tag][name] for tag in ("11a", "11b")}
 
@@ -2637,6 +2961,8 @@ def main(argv=None):
              at_recurrentgemma_shape=results["rg_w_a"],
              at_xlstm_shape=results["xl_slstm_r"],
              at_llama4_shape=results["llama4_expert"],
+             **on_frontend_and_whisper("ecf8_decode"),
+             at_whisper_shape=results["whisper_unembed"],
              fixedrate_decode=fr_results, **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
@@ -2651,6 +2977,9 @@ def main(argv=None):
              at_gemma2_shape=results["flash_g2_T4096"],
              at_recurrentgemma_shape=results["flash_rg_T2048"],
              at_llama4_shape=results["flash_llama_T8192"],
+             **on_frontend_and_whisper("flash_fwd"),
+             at_whisper_shape=results["flash_whisper_enc"],
+             at_whisper_cross_shape=results["flash_whisper_cross"],
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
@@ -2661,6 +2990,8 @@ def main(argv=None):
              launches_gemma2=on_gemma_path("kv_page_decode"),
              **on_recurrent_paths("kv_page_decode"),
              **on_llama_paths("kv_page_decode"), at_llama4_shape=None,
+             **on_frontend_and_whisper("kv_page_decode"),
+             at_whisper_shape=None,
              at_moe_shape=results["kv_moe_bf16_48"],
              at_gemma2_shape=results["kv_g2_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
@@ -2672,6 +3003,8 @@ def main(argv=None):
              launches_gemma2=on_gemma_path("fused_decode_matmul"),
              **on_recurrent_paths("fused_decode_matmul"),
              **on_llama_paths("fused_decode_matmul"), at_llama4_shape=None,
+             **on_frontend_and_whisper("fused_decode_matmul"),
+             at_whisper_shape=None,
              **results["b2_wi_gate_M4"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

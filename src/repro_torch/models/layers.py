@@ -1,4 +1,5 @@
-"""Core transformer layers: norms, RoPE, GQA attention (blockwise / local
+"""Core transformer layers: norms (RMS, and the layer norm no path calls,
+as in the reference), RoPE, GQA attention (blockwise / local
 window / decode), the MLPs (SwiGLU, GELU, GeGLU, squared ReLU).  Plain
 PyTorch functions on tensors.
 
@@ -34,6 +35,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """The reference's ``layer_norm``: mean and (population) variance in
+    f32, ``y * scale + bias`` in f32, rounded to ``x``'s dtype."""
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(F32) + bias.to(F32)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

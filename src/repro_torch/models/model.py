@@ -5,12 +5,16 @@ global ones, post-block norms, softcaps) and ``("local", "local", "local",
 "nope")`` (llama4: local layers between global ones that skip RoPE, the
 ``nope`` kind), and for the recurrent kinds ``rglru`` (recurrentgemma:
 ``("rglru", "rglru", "local")``), ``slstm`` and ``mlstm`` (xlstm:
-``("slstm", "mlstm")``, no MLP), built from ``ArchConfig``.  Plain
-functions over a nested-dict parameter tree laid out as the reference's:
+``("slstm", "mlstm")``, no MLP), and for the encoder-decoder (whisper: an
+encoder over precomputed frame embeddings, ``("attn",)`` decoder layers
+with cross attention), built from ``ArchConfig``.  Plain functions over a
+nested-dict parameter tree laid out as the reference's:
 
     {"embed": (V, d), "final_norm": (d,), ["unembed": (d, V),]
      "units": {"pos<j>": LAYER},
-     "tail": {"layer<t>": LAYER}}
+     "tail": {"layer<t>": LAYER},
+     ["encoder": {"layers": {norm1, attn, norm2, mlp}  (stacked),
+                  "final_norm": (d,), "pos_embed": (F, d)}]}
 
     LAYER = {"norm1",
              "attn": {wq, wk, wv, wo[, q_norm, k_norm]}  (attention kinds)
@@ -20,7 +24,8 @@ functions over a nested-dict parameter tree laid out as the reference's:
              | "cell": {w, r, b, w_out}                       ('slstm'),
              ["norm2", "mlp": {wi_gate, wi_up, wo} | {wi, wo}
               | "moe": {gate, wi_gate, wi_up, wo[, shared: {wi_gate,
-              wi_up, wo}]},] ["post_norm1", "post_norm2"]}
+              wi_up, wo}]},] ["post_norm1", "post_norm2"],
+             ["norm_x", "cross": {wq, wk, wv, wo}]  (encoder-decoder)}
 
 with one ``pos<j>`` for each position ``j`` of the config's pattern: layer
 ``i < n_units * unit`` is unit ``i // unit``, position ``i % unit``, and
@@ -41,10 +46,16 @@ pools of the ``attn`` and ``nope`` layers in a paged cache (a ``nope``
 layer is an ``attn`` layer without RoPE: it caches and pages the same);
 a recurrent layer's is its state (``models.recurrent``: RG-LRU ``h``,
 ``conv``; mLSTM ``C``, ``n``, ``m``; sLSTM ``h``, ``c``, ``n``, ``m``,
-all f32).
+all f32).  An encoder-decoder's cache also holds ``"units"/"cross"``:
+each decoder layer's cross-attention ``{k, v}`` of ``(batch, n_kv, F,
+hd)`` over the encoder's ``F`` frames, stacked over the units and
+written once, at prefill.
 
 Entry points:
-  prefill(params, cfg, tokens, max_len)   -> (last-pos logits, cache)
+  forward(params, cfg, tokens[, frames])  -> (logits, aux)  [inference]
+  encode_frames(params, cfg, frames, dtype) -> encoder output (B, F, d)
+  prefill(params, cfg, tokens, max_len[, frames])
+                                          -> (last-pos logits, cache)
   prefill_chunk(params, cfg, tokens, cache, slot, n_valid)
                                           -> (logits, cache)   [paged cache]
   verify_chunk(params, cfg, tokens, cache, slot, n_valid)
@@ -89,15 +100,19 @@ def _has_ffn(cfg: ArchConfig, kind: str) -> bool:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for architectures this slice of the port does not serve."""
-    if (not set(cfg.pattern) <= set(SUPPORTED_KINDS) or cfg.encoder_decoder
+    """Raise for architectures the port's model functions do not run (the
+    serving engine refuses an encoder-decoder besides:
+    ``serving.config.EngineConfig.validate``)."""
+    if (not set(cfg.pattern) <= set(SUPPORTED_KINDS)
+            or (cfg.encoder_decoder and cfg.pattern != ("attn",))
             or cfg.mlp_type not in MLP_TYPES
             or any(k in paged_kv.PAGED_KINDS for k in _tail_kinds(cfg))):
         raise NotImplementedError(
-            f"{cfg.name}: not yet ported (the port serves the 'attn', "
+            f"{cfg.name}: not yet ported (the port runs the 'attn', "
             f"'local', 'nope', 'rglru', 'slstm' and 'mlstm' kinds with no "
-            f"paged layer in the tail, no encoder-decoder: dense MLPs "
-            f"{MLP_TYPES} and mixture-of-experts)")
+            f"paged layer in the tail, an encoder-decoder over ('attn',) "
+            f"decoder layers: dense MLPs {MLP_TYPES} and "
+            f"mixture-of-experts)")
 
 
 # --------------------------------------------------------------------------
@@ -194,12 +209,25 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
         f"layer{t}": _layer_init(_Draws(gen, dtype, leaf, None,
                                         ("tail", f"layer{t}")), cfg, kind)
         for t, kind in enumerate(_tail_kinds(cfg))}
+    if cfg.encoder_decoder:
+        enc = top.sub("encoder")
+        layers = _Draws(gen, dtype, leaf, cfg.n_encoder_layers,
+                        ("encoder", "layers"))
+        params["encoder"] = {
+            "layers": {"norm1": layers("norm1", (d,)),
+                       "attn": _attn_init(layers.sub("attn"), cfg),
+                       "norm2": layers("norm2", (d,)),
+                       "mlp": mlp_init(layers.sub("mlp"), d, cfg.d_ff,
+                                       cfg.mlp_type)},
+            "final_norm": enc("final_norm", (d,)),
+            "pos_embed": enc("pos_embed", (cfg.encoder_frames, d), 0.02)}
     return params
 
 
 def _layer_init(new, cfg: ArchConfig, kind: str):
     """One layer's (or one pattern position's stacked) leaves, drawn in the
-    order norm1, the mixer, norm2, the FFN, the post norms."""
+    order norm1, the mixer, norm2, the FFN, the post norms, and in an
+    encoder-decoder's decoder the cross attention's norm and weights."""
     d = cfg.d_model
     layer = {"norm1": new("norm1", (d,))}
     if kind in ATTN_KINDS:
@@ -224,6 +252,9 @@ def _layer_init(new, cfg: ArchConfig, kind: str):
         layer["post_norm1"] = new("post_norm1", (d,))
         if ffn:
             layer["post_norm2"] = new("post_norm2", (d,))
+    if cfg.encoder_decoder:
+        layer["norm_x"] = new("norm_x", (d,))
+        layer["cross"] = _attn_init(new.sub("cross"), cfg)
     return layer
 
 
@@ -361,36 +392,84 @@ def _self_attention_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools,
     return _attn_out(p, o, dtype)
 
 
-def _ffn(p, x, cfg: ArchConfig, dtype):
+def _cross_q(p, x, cfg: ArchConfig, dtype):
+    """Cross-attention queries of ``x`` (B, T, d) -> (B, Hq, T, hd)."""
+    B, T, _ = x.shape
+    q = (x @ mat(p["wq"], dtype)).reshape(B, T, cfg.n_heads, cfg.hd)
+    return q.transpose(1, 2)
+
+
+def _cross_kv(p, ctx, cfg: ArchConfig, dtype):
+    """Cross-attention K and V of the encoder output ``ctx`` (B, F, d) ->
+    two contiguous (B, n_kv, F, hd): the reference's ``_make_cross_kv`` of
+    one decoder layer, which its ``_cross_attention`` also computes."""
+    B = ctx.shape[0]
+
+    def proj(name):
+        y = (ctx @ mat(p[name], dtype)).reshape(B, -1, cfg.n_kv_heads,
+                                                 cfg.hd)
+        return y.transpose(1, 2).contiguous()
+
+    return proj("wk"), proj("wv")
+
+
+def _cross_attention(p, x, kv, cfg: ArchConfig, dtype):
+    """Full-sequence cross attention of ``x`` (B, T, d) over the encoder's
+    K/V: the flash kernel, non-causal (the reference runs the flash
+    forward's jnp twin, ``blockwise_attention(causal=False)``)."""
+    q = _cross_q(p, x, cfg, dtype).contiguous()
+    return _attn_out(p, ops.flash_attention(q, kv[0], kv[1], False, 0.0),
+                     dtype)
+
+
+def _cross_attention_decode(p, x, kv, cfg: ArchConfig, dtype):
+    """One-token cross attention over the cached encoder K/V (the
+    reference's ``decode_attention`` over all ``F`` frames).  The K/V
+    projections are not run: the cache holds them."""
+    o = decode_attention(_cross_q(p, x, cfg, dtype), kv[0], kv[1],
+                         kv_len=kv[0].shape[2])
+    return _attn_out(p, o, dtype)
+
+
+def _ffn(p, x, cfg: ArchConfig, dtype, aux=None):
     """The layer's feed-forward block: the MoE layer or the dense MLP.  The
-    MoE's load-balancing loss is computed and dropped, as the reference's
+    MoE's load-balancing loss is appended to ``aux`` (a list) where the
+    caller keeps one (:func:`forward`), else dropped, as the reference's
     serve path drops it."""
     if "moe" in p:
-        y, _ = moe_apply(p["moe"], x, cfg, dtype=dtype)
+        y, a = moe_apply(p["moe"], x, cfg, dtype=dtype)
+        if aux is not None:
+            aux.append(a)
         return y
     return mlp_apply(p["mlp"], x, cfg.mlp_type, dtype)
 
 
-def _residual(p, x, o, cfg: ArchConfig, dtype):
-    """The layer's two residual adds around the mixer output ``o``:
-    ``x + post_norm1(o)``, then ``+ post_norm2(ffn(norm2(x)))`` where the
-    layer has an FFN, the post norms where the config has them (gemma2)."""
+def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None):
+    """The layer's residual adds around the mixer output ``o``: ``x +
+    post_norm1(o)``, then, in an encoder-decoder's decoder, ``+
+    cross(norm_x(x))`` (``cross`` the layer's cross attention), then ``+
+    post_norm2(ffn(norm2(x)))`` where the layer has an FFN, the post norms
+    where the config has them (gemma2)."""
     if cfg.post_norms:
         o = rms_norm(o, p["post_norm1"])
     x = x + o
+    if cross is not None:
+        x = x + cross(rms_norm(x, p["norm_x"]))
     if "mlp" not in p and "moe" not in p:
         return x
-    o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype)
+    o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype, aux)
     if cfg.post_norms:
         o2 = rms_norm(o2, p["post_norm2"])
     return x + o2
 
 
-def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype):
-    """Full-sequence layer (prefill).  Returns (x, (k, v)) for an attention
-    layer, (x, final state) for a recurrent one; an mLSTM runs at the
-    reference's ``chunk = min(128, T)``, so ``T`` must be at most 128 or a
-    multiple of it."""
+def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
+                      cross_kv=None, aux=None):
+    """Full-sequence layer (prefill, forward).  Returns (x, (k, v)) for an
+    attention layer, (x, final state) for a recurrent one; an mLSTM runs
+    at the reference's ``chunk = min(128, T)``, so ``T`` must be at most
+    128 or a multiple of it.  ``cross_kv``: the layer's cross-attention
+    K/V (:func:`_cross_kv`) in an encoder-decoder's decoder."""
     h = rms_norm(x, p["norm1"])
     if kind in ATTN_KINDS:
         o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype)
@@ -401,7 +480,11 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype):
     else:
         o, st = rec.mlstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype,
                                 chunk=min(128, h.shape[1]))
-    return _residual(p, x, o, cfg, dtype), st
+    cross = None
+    if cross_kv is not None:
+        def cross(hx):
+            return _cross_attention(p["cross"], hx, cross_kv, cfg, dtype)
+    return _residual(p, x, o, cfg, dtype, cross, aux), st
 
 
 def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state):
@@ -422,10 +505,11 @@ def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state):
 
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
-                        cur_len, page_table):
+                        cur_len, page_table, cross_kv=None):
     """Decode layer; ``page_table`` None means ``pools`` is this layer's
     contiguous (k, v): the monolithic cache's row, or a ``local`` layer's
-    ring."""
+    ring.  ``cross_kv``: the layer's cached cross-attention K/V in an
+    encoder-decoder's decoder."""
     h = rms_norm(x, p["norm1"])
     if page_table is None:
         o = _self_attention_decode_contiguous(p["attn"], h, cfg, kind,
@@ -433,7 +517,12 @@ def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
     else:
         o = _self_attention_decode(p["attn"], h, cfg, kind, dtype, pools,
                                    cur_len, page_table)
-    return _residual(p, x, o, cfg, dtype)
+    cross = None
+    if cross_kv is not None:
+        def cross(hx):
+            return _cross_attention_decode(p["cross"], hx, cross_kv, cfg,
+                                           dtype)
+    return _residual(p, x, o, cfg, dtype, cross)
 
 
 def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
@@ -448,6 +537,40 @@ def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
     o = _self_attention_chunk(p["attn"], h, cfg, kind, dtype, pools, row,
                               start, n_valid, path)
     return _residual(p, x, o, cfg, dtype)
+
+
+# --------------------------------------------------------------------------
+# encoder (whisper)
+# --------------------------------------------------------------------------
+
+def encode_frames(params, cfg: ArchConfig, frames, dtype):
+    """frames: (B, F, d) precomputed frontend embeddings (the reference's
+    stub frontend) -> the encoder output (B, F, d): ``frames +
+    pos_embed``, then each encoder layer's non-causal self attention (no
+    RoPE; the flash kernel, where the reference runs its jnp twin) and
+    MLP, then the final RMS norm."""
+    enc = params["encoder"]
+    x = frames.to(dtype) + mat(enc["pos_embed"], dtype)[None]
+    for u in range(cfg.n_encoder_layers):
+        p = _layer(enc["layers"], u)
+        q, k, v = (t.contiguous() for t in _qkv(
+            p["attn"], rms_norm(x, p["norm1"]), cfg, dtype, False, None))
+        x = x + _attn_out(p["attn"], ops.flash_attention(q, k, v, False,
+                                                         0.0), dtype)
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"]), cfg.mlp_type,
+                          dtype)
+    return rms_norm(x, enc["final_norm"])
+
+
+def _context(params, cfg: ArchConfig, frames, dtype):
+    """The encoder output an encoder-decoder's decoder attends to (None for
+    a decoder-only model)."""
+    if not cfg.encoder_decoder:
+        return None
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass frames "
+                         f"(B, {cfg.encoder_frames}, {cfg.d_model})")
+    return encode_frames(params, cfg, frames, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -487,7 +610,8 @@ def _stack_layers(cfg: ArchConfig):
 
 def cache_groups(cfg: ArchConfig):
     """(section, key, kind) of every cache group: the pattern positions
-    (stacked over the units), then the tail layers."""
+    (stacked over the units), then the tail layers (an encoder-decoder's
+    ``units/cross`` leaves are not a group: only a prefill writes them)."""
     for j, kind in enumerate(cfg.pattern):
         yield "units", f"pos{j}", kind
     for t, kind in enumerate(_tail_kinds(cfg)):
@@ -526,9 +650,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                device="cuda", per_slot: bool = False):
     """The contiguous cache (:func:`group_cache` for every group):
     ``units/pos<j>/...`` with a leading unit axis, ``tail/layer<t>/...``
-    without.  ``per_slot=True`` makes ``cur_len`` a (batch,) vector, every
-    slot on its own timeline (the engine's monolithic cache); else it is
-    one shared 0-d length (a prefill's)."""
+    without, and an encoder-decoder's ``units/cross/{k, v}`` of ``(n_units,
+    batch, n_kv, encoder_frames, hd)``.  ``per_slot=True`` makes
+    ``cur_len`` a (batch,) vector, every slot on its own timeline (the
+    engine's monolithic cache); else it is one shared 0-d length (a
+    prefill's)."""
     dev = resolve(device)
     n_units = cfg.n_layers // cfg.unit
     cache = {"units": {}, "tail": {}}
@@ -536,6 +662,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
         lead = (n_units,) if section == "units" else ()
         cache[section][key] = group_cache(cfg, kind, lead, batch, max_len,
                                           dtype, dev)
+    if cfg.encoder_decoder:
+        s = (n_units, batch, cfg.n_kv_heads, cfg.encoder_frames, cfg.hd)
+        cache["units"]["cross"] = {
+            "k": torch.zeros(s, dtype=dtype, device=dev),
+            "v": torch.zeros(s, dtype=dtype, device=dev)}
     cache["cur_len"] = (torch.zeros((batch,), dtype=torch.int32, device=dev)
                         if per_slot
                         else torch.zeros((), dtype=torch.int32, device=dev))
@@ -554,20 +685,29 @@ def _fill(dst, got, kind: str):
         dst[:, :, :T] = got
 
 
-def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
+def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None,
+             frames=None):
     """Process a prompt, build its cache -> (last-pos logits (B, 1, V),
     cache with global K/V zero-padded to ``max_len``, every ``local``
     layer's ring of ``min(local_window, max_len)`` positions filled and
-    every recurrent layer's final state)."""
+    every recurrent layer's final state).  An encoder-decoder takes
+    ``frames`` (B, F, d): it encodes them, and each decoder layer's cross
+    K/V, computed once, serves its cross attention here and is kept in
+    the cache's ``units/cross`` leaves for the decode steps."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     max_len = max_len or T
     cache = init_cache(cfg, B, max_len, dtype, tokens.device)
     x = _embed(params, cfg, tokens, dtype)
+    ctx = _context(params, cfg, frames, dtype)
     for section, key, u, kind in _stack_layers(cfg):
-        x, st = _layer_apply_full(_at(params, section, key, u), x, cfg, kind,
-                                  dtype)
+        p = _at(params, section, key, u)
+        kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
+        x, st = _layer_apply_full(p, x, cfg, kind, dtype, kv)
+        if kv is not None:
+            cache["units"]["cross"]["k"][u] = kv[0]
+            cache["units"]["cross"]["v"][u] = kv[1]
         c = _at(cache, section, key, u)
         if kind in ATTN_KINDS:
             _fill(c["k"], st[0], kind)
@@ -579,6 +719,26 @@ def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None):
     cache["cur_len"] = torch.full((), T, dtype=torch.int32,
                                   device=tokens.device)
     return logits, cache
+
+
+def forward(params, cfg: ArchConfig, tokens, frames=None):
+    """The full-sequence forward, inference only (the reference's training
+    forward, without gradients) -> (logits (B, T, V) f32, aux): ``aux`` the
+    summed load-balancing loss of the MoE layers (0 without experts).  An
+    encoder-decoder takes ``frames`` (B, F, d)."""
+    check_supported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    x = _embed(params, cfg, tokens, dtype)
+    ctx = _context(params, cfg, frames, dtype)
+    aux = []
+    for section, key, u, kind in _stack_layers(cfg):
+        p = _at(params, section, key, u)
+        kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
+        x, _ = _layer_apply_full(p, x, cfg, kind, dtype, kv, aux)
+    total = torch.zeros((), dtype=F32, device=x.device)
+    for a in aux:
+        total = total + a
+    return _unembed(params, cfg, x, dtype), total
 
 
 def _layer_pools(leaves: dict, u):
@@ -597,7 +757,8 @@ def _layer_pools(leaves: dict, u):
 def _decode_step(params, cfg: ArchConfig, token, cache):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
     paged cache (``kvcache.paged.PagedKVCache.init_cache``) or a contiguous
-    one (:func:`init_cache`, ``per_slot`` or a prefill's shared length);
+    one (:func:`init_cache`, ``per_slot`` or a prefill's shared length,
+    with an encoder-decoder's cross K/V, which the step reads);
     its K/V and recurrent states are written in place and ``cur_len``
     advances by one.  A paged cache's ``local`` and recurrent layers keep
     their rings and states beside the pools.  Cold-pool leaves, where a
@@ -610,6 +771,7 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     lens = cur_len.expand(B) if cur_len.ndim == 0 else cur_len
     if page_table is not None:
         page_table = page_table.clamp(min=paged_kv.GARBAGE_PAGE)
+    cross = cache["units"].get("cross")
     x = _embed(params, cfg, token, dtype)
     for section, key, u, kind in _stack_layers(cfg):
         p = _at(params, section, key, u)
@@ -618,10 +780,10 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
             x = _layer_apply_step(p, x, cfg, kind, dtype,
                                   _at(cache, section, key, u))
         else:
-            x = _layer_apply_decode(p, x, cfg, kind, dtype,
-                                    _layer_pools(leaves, u), lens,
-                                    page_table if "k_pool" in leaves
-                                    else None)
+            x = _layer_apply_decode(
+                p, x, cfg, kind, dtype, _layer_pools(leaves, u), lens,
+                page_table if "k_pool" in leaves else None,
+                None if cross is None else (cross["k"][u], cross["v"][u]))
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache

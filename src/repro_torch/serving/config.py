@@ -17,8 +17,7 @@ The gating matrix (the reference's ``serving/config.py``):
 ========================  =================================================
 feature                   requires
 ========================  =================================================
-paged cache               a pageable decoder stack (an 'attn'/'nope' layer,
-                          no encoder-decoder)
+paged cache               a pageable decoder stack (an 'attn'/'nope' layer)
 chunked prefill           the paged cache and an all-'attn'/'nope' stack
 prefix sharing            chunked prefill (and one batch shard, which the
                           port's cache always is)
@@ -37,9 +36,13 @@ as in the reference: the engine rolls back its states as well as its
 timeline.  A user-requested feature that cannot be served is a fallback:
 lenient ``validate`` warns and disables it, ``strict=True`` raises one
 ``EngineConfigError`` listing every problem.  An architecture the port does
-not serve yet (``models.model.check_supported``: the port serves the
-'attn', 'local', 'nope', 'rglru', 'slstm' and 'mlstm' kinds, no paged
-layer in a tail and no encoder-decoder) is refused in both modes.
+not serve (``models.model.check_supported``: the port serves the 'attn',
+'local', 'nope', 'rglru', 'slstm' and 'mlstm' kinds, no paged layer in a
+tail) is refused in both modes, and so is an encoder-decoder, whose model
+functions the port runs (``prefill(..., frames=...)``) but whose frames
+no engine request carries: the reference's engine resolves it to the
+monolithic cache and then fails in its prefill, which calls the encoder
+without frames.
 """
 from __future__ import annotations
 
@@ -128,19 +131,23 @@ class EngineConfig:
                 check_supported(arch)
             except NotImplementedError as e:
                 raise EngineConfigError(str(e)) from None
+            if arch.encoder_decoder:
+                raise EngineConfigError(
+                    f"{arch.name}: the engine does not serve an "
+                    f"encoder-decoder (a request carries no frames); run "
+                    f"models.model.prefill(..., frames=...) and "
+                    f"decode_step directly")
         problems: list[str] = []
         cache_mode = self.cache_mode
         # arch-driven: nothing to page is a silent resolve, never an error
-        if cache_mode == "paged" and (
-                cfg.encoder_decoder
-                or not any(cfg.layer_kind(i) in ("attn", "nope")
-                           for i in range(cfg.n_layers))):
+        if cache_mode == "paged" and not any(
+                cfg.layer_kind(i) in ("attn", "nope")
+                for i in range(cfg.n_layers)):
             cache_mode = "monolithic"
         all_paged = all(cfg.layer_kind(i) in PAGED_KINDS
                         for i in range(cfg.n_layers))
         chunk = min(max(self.prefill_chunk, 0), self.max_len)
-        if chunk and (cache_mode != "paged" or not all_paged
-                      or cfg.encoder_decoder):
+        if chunk and (cache_mode != "paged" or not all_paged):
             problems.append(
                 f"prefill_chunk={self.prefill_chunk} needs the paged "
                 f"cache, an all-'attn'/'nope' layer stack and no model "
@@ -157,7 +164,6 @@ class EngineConfig:
         draft_params, draft_cfg = self.draft_params, self.draft_cfg
         if draft_cfg is not None and (
                 cache_mode != "paged" or not all_paged
-                or cfg.encoder_decoder or draft_cfg.encoder_decoder
                 or chunk or draft_cfg.vocab_size != cfg.vocab_size):
             problems.append(
                 "speculative decoding needs the paged cache, an "

@@ -312,6 +312,13 @@ class GenerationEngine:
 
     # -- scheduling --------------------------------------------------------
 
+    def load(self) -> int:
+        """Requests this engine currently owns: occupied slots plus the
+        scheduler backlog (queued + preempted).  The router's
+        least-loaded placement signal."""
+        return (sum(1 for s in self.slots if s is not None)
+                + self.scheduler.waiting)
+
     def prefix_match_tokens(self, prompt) -> int:
         """Longest index-resident prefix of ``prompt`` this engine could
         adopt by reference (0 without prefix sharing).  Advisory: reading

@@ -39,7 +39,8 @@ from repro_torch.kvcache import paged  # noqa: E402
 from repro_torch.models import flash_attention as fa  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.serving import EngineConfig, GenerationEngine, Request  # noqa: E402
+from repro_torch.serving import EngineConfig, EngineConfigError, \
+    GenerationEngine, Request  # noqa: E402
 
 ATOL = 1e-5
 ARCH = "gemma2-9b"
@@ -115,14 +116,16 @@ def test_smoke_config_matches_reference():
 
 def test_check_supported_admits_gemma2_and_refuses_the_rest():
     """gemma2 and, since the recurrent layers and the 'nope' kind were
-    ported, recurrentgemma, xlstm and llama4-scout are served; the
-    encoder-decoder and a paged layer in the tail are still refused."""
+    ported, recurrentgemma, xlstm and llama4-scout are served; the model
+    functions admit the encoder-decoder (whisper) and the engine refuses
+    it; a paged layer in the tail is still refused."""
     for arch in (ARCH, "recurrentgemma-2b", "xlstm-350m",
-                 "llama4-scout-17b-a16e"):
+                 "llama4-scout-17b-a16e", "whisper-base"):
         M.check_supported(get(arch))
         M.check_supported(smoke_variant(get(arch)))
-    for cfg in (get("whisper-base"),
-                dataclasses.replace(get(ARCH), pattern=("attn", "local"),
+    with pytest.raises(EngineConfigError, match="encoder-decoder"):
+        EngineConfig().validate(get("whisper-base"))
+    for cfg in (dataclasses.replace(get(ARCH), pattern=("attn", "local"),
                                     n_layers=43),
                 dataclasses.replace(get("llama4-scout-17b-a16e"),
                                     pattern=("nope", "local", "local",
