@@ -7,7 +7,7 @@ toolkit:
     python3 chip_smoke.py [--layers N] [--seed S]
 
 Phases, each failing loudly (non-zero exit, no result line):
-  1. the card's name and power limit; the four CUDA kernels built with
+  1. the card's name and power limit; the five CUDA kernels built with
      nvcc for sm_90a from ``src/repro_torch/csrc``, all started together;
   2. the ECF8 decode kernel against its plain PyTorch version at the
      qwen3-8b embed / wi_gate / wq shapes: fp8 bits bit-exact, and its
@@ -63,6 +63,17 @@ Phases, each failing loudly (non-zero exit, no result line):
      timed beside what the serve path pays for the same product (the
      weight decode writing bf16, as ``store.materialize`` asks it, then
      torch.matmul), the decode alone and torch.matmul alone;
+  3d. training's attention kernels: the flash forward with its row
+     statistics (B4, ``stats=True``) and the flash backward (B5,
+     ``csrc/flash_bwd.cu``) against their plain versions at qwen3-8b's
+     heads (B 2, 32 / 8 of 128, causal, T 2048), gemma2-9b's (16 / 8 of
+     256, softcap 50, T 2048) and whisper-base's non-causal (B 4, 8 / 8
+     of 64, 1500 queries over 1500 keys): bf16, o bit-identical with and
+     without the statistics, m and l within 1e-5 (relative to their
+     largest magnitude), dq / dk / dv within 2e-2 x the plain gradient's
+     largest magnitude; f32 at T 451 within 1e-5; timed on the card beside
+     the backward alone of ``F.scaled_dot_product_attention`` at the same
+     shape (no softcap), a yardstick;
   4. a small f32 model whose prefill logits on the card (both kernels)
      agree with the CPU run (plain versions), whose paged-compressed
      decode-step logits, with cold pages, agree too, and whose chunked-
@@ -225,9 +236,37 @@ Phases, each failing loudly (non-zero exit, no result line):
      prefix indices, never weights); TTFT p50 / p95, tok/s, shed rate,
      prefix hits and the placements printed.  It runs after phase 11, on
      phase 11's tree.
+  20. training qwen3-8b at full width (d 4096, 32 / 8 heads of 128, d_ff
+     12288, vocab 151,936, untied as the published model), ``TRAIN_LAYERS``
+     of its 36 layers, bf16 weights, f32 AdamW moments: the reference's
+     synthetic stream at batch 4 x seq 2048, ``grad_accum`` 2, remat, lr
+     3e-4, ``TRAIN_STEPS`` steps of ``runtime.steps.make_train_step``
+     (B4 with statistics forward, again in the remat recompute, B5
+     backward); every loss and gradient norm finite; step 0 repeated from
+     the same weights and a fresh optimizer state with the attention
+     patched by this script to the plain versions: loss within 5e-3 and
+     gradient norm within 2e-2 (relative), and unit 0's wq / wk / wv
+     gradients on micro-batch 0 within ``TRAIN_GRAD_TOL`` of their
+     largest magnitude (so that B5's dq, dk and dv each reach a weight the
+     gate reads); launches equal to what a CPU
+     rehearsal counts (a step: B4 2 x layers x grad_accum, B5 layers x
+     grad_accum, B1 / B2 / B3 none); step ms, tokens/s, the share of the
+     card's 989 TFLOP/s the step's model FLOPs reach, peak device memory;
+     one step traced with ``torch.profiler`` (B4's, B5's and the
+     backward's share of the device time, the idle share);
+  20b. the checkpoint drill at full width and ``CKPT_LAYERS`` layers: the
+     free disk printed first (too little fails); 3 steps, ``save_async`` +
+     ``wait`` after step 2, restore into a fresh tree on the card (every
+     leaf bit-identical to the live state, CRCs verified), step 3 from
+     the restored and from the live state (losses within 1e-3 relative,
+     bitwise equality printed); the model's fp8 serving tree saved with
+     ``compress="ecf8"`` and restored onto the card through B1 (launches
+     counted): bits identical, bytes against raw fp8 printed; save and
+     restore seconds printed.
 Each phase logs the time since the start when it is done.  Phases 5-12,
 16, 17 and 19 run at a cut depth so that the whole script stays near half
-its time limit (13-15 and 18 at full depth); every gate is
+its time limit (13-15 and 18 at full depth), 20 and 20b at a depth whose
+parameters, gradients and moments fit the card; every gate is
 depth-independent.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -239,6 +278,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -300,6 +340,16 @@ WHISPER_BATCH = 4
 WHISPER_PROMPTS = (4, 224)
 WHISPER_MAX_LEN = 448
 WHISPER_NEW = 64        # decode steps after each prefill
+# phase 20: bf16 weights, their f32 gradient sums and AdamW moments take
+# ~12 bytes a parameter; qwen3-8b's 36 layers would need ~98 GB
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_LR = 4, 2048, 2, 3e-4
+CKPT_LAYERS = 2         # phase 20b: ~16 GB of bf16 weights + f32 moments
+# phase 20: unit 0's wq / wk / wv gradients against the plain attention's,
+# relative to their largest magnitude
+TRAIN_GRAD_TOL = 1e-2
+FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 
 
 def fail(msg: str):
@@ -581,6 +631,391 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                 library_ms=lib_ms)
+
+
+def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
+                    softcap=0.0, causal=True, B=1, Tk=None, dtype=None,
+                    tol=FLASH_TOL):
+    """Phase 3d at one shape (module docstring) -> result dict.  B4 with
+    its row statistics against B4 without them (o bit-identical) and
+    against its plain version (m, l); B5 against its plain version on the
+    same residuals, every gradient element within ``tol`` x the plain
+    gradient's largest magnitude.  Timed after L2 flushes, beside the
+    backward alone of SDPA (no softcap: SDPA has none) on the same
+    inputs."""
+    Hq, Hkv = heads
+    Tk = Tk or T
+    dtype = dtype or torch.bfloat16
+
+    def rnd(h, n):
+        return torch.randn((B, h, n, D), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    q, k, v, do = rnd(Hq, T), rnd(Hkv, Tk), rnd(Hkv, Tk), rnd(Hq, T)
+    what = (f"B={B} T={T}{'' if Tk == T else f' Tk={Tk}'} Hq={Hq} Hkv={Hkv} "
+            f"D={D} softcap {softcap:g} "
+            f"{'causal' if causal else 'non-causal'} "
+            f"{str(dtype).split('.')[-1]}")
+    o0 = flash_fwd.run(q, k, v, causal=causal, softcap=softcap)
+    o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=softcap,
+                            stats=True)
+    _, m_p, l_p = flash_fwd.plain_stats(q, k, v, causal, softcap)
+    torch.cuda.synchronize()
+    if not torch.equal(o.view(torch.uint8), o0.view(torch.uint8)):
+        fail(f"flash_fwd {what}: o with statistics differs from o without")
+    stats_err = max(float((got - want).abs().max()) / float(want.abs().max())
+                    for got, want in ((m, m_p), (l, l_p)))
+    if not stats_err <= FLASH_STATS_TOL:
+        fail(f"flash_fwd {what}: m / l off their plain version by "
+             f"{stats_err} (relative) > {FLASH_STATS_TOL}")
+    grads = flash_bwd.run(q, k, v, o, m, l, do, causal=causal,
+                          softcap=softcap)
+    want = flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap)
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        if not bool(torch.isfinite(g.float()).all()):
+            fail(f"flash_bwd {what}: non-finite {name}")
+        e = float((g.float() - w.float()).abs().max())
+        r = e / float(w.float().abs().max())
+        if not r <= tol:
+            fail(f"flash_bwd {what}: max |{name} kernel - plain| = {e}, "
+                 f"{r} of its largest magnitude > {tol}")
+        err, rel = max(err, e), max(rel, r)
+    ms = cuda_ms(torch, lambda: flash_bwd.run(
+        q, k, v, o, m, l, do, causal=causal, softcap=softcap), 10, flush)
+    plain_ms = cuda_ms(torch, lambda: flash_bwd.plain(
+        q, k, v, o, m, l, do, causal, softcap), 2, flush)
+    fwd_ms = cuda_ms(torch, lambda: flash_fwd.run(
+        q, k, v, causal=causal, softcap=softcap), 10, flush)
+    stats_ms = cuda_ms(torch, lambda: flash_fwd.run(
+        q, k, v, causal=causal, softcap=softcap, stats=True), 10, flush)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal, enable_gqa=Hq != Hkv)
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10, flush)
+    del out, leaves
+    pairs = T * (T + 1) // 2 if causal else T * Tk
+    flops = 10 * B * Hq * D * pairs          # five products, 2.5x forward
+    moved = sum(t.numel() * t.element_size()
+                for t in (q, k, v, o, m, l, do, *grads))
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    bound_ops = flops / peak * 1e3
+    bound_bytes = moved / H100_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops, bound_bytes)
+    log(f"flash_bwd {what}: o with stats bit-identical, m / l within "
+        f"{stats_err:.2e} (tol {FLASH_STATS_TOL}); dq / dk / dv max_abs_err "
+        f"{err:.3e} ({rel:.2e} of the largest, tol {tol}); kernel {ms:.4f}"
+        f" ms, plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.4f} ms "
+        f"(kernel / sdpa {ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
+        f"({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
+        f"{100 * bound_ms / ms:.1f} % of it), {flops / ms / 1e9:.2f} "
+        f"TFLOP/s; B4 forward {fwd_ms:.4f} ms, with stats {stats_ms:.4f} ms")
+    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                library_ms=lib_ms, stats_err=stats_err, fwd_ms=fwd_ms,
+                fwd_stats_ms=stats_ms)
+
+
+def _profile_step(torch, run_step, wall_s):
+    """Device time of one training step traced by ``torch.profiler`` ->
+    busy, B4, B5 and backward ms, the kernel count, the idle share of the
+    untraced step's ``wall_s`` and the eight costliest kernels: the
+    backward is every kernel under the autograd engine's top-level
+    ``evaluate_function`` events (the remat recompute included)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    busy = b4 = b5 = bwd = 0.0
+    n = 0
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            n += 1
+            b4 += us if "flash_fwd" in e.name else 0.0
+            b5 += us if "flash_bwd" in e.name else 0.0
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
+        elif (e.name.startswith("autograd::engine::evaluate_function")
+              and e.cpu_parent is None):
+            bwd += float(e.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(busy_ms=busy / 1e3, b4_ms=b4 / 1e3, b5_ms=b5 / 1e3,
+                backward_ms=bwd / 1e3, kernels=n,
+                idle_share=max(0.0, 1.0 - busy / 1e3 / (wall_s * 1e3)),
+                top_kernels_ms={k: v / 1e3 for k, v in top})
+
+
+def train_phase(torch, M, kernels, cfg, seed):
+    """Phase 20 (module docstring) on ``cfg`` -> (measurements, launches).
+    ``kernels`` maps name -> wrapper (``run``) whose launch counts the
+    phase reads; the flash wrappers are patched to their plain versions,
+    and put back, for the reference step."""
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_bwd, flash_fwd
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         iter_leaves, map_tree)
+    from repro_torch.runtime.steps import make_train_step
+    gib = 2 ** 30
+    L, A = cfg.n_layers, TRAIN_ACCUM
+    want = {"ecf8_decode": 0, "fused_decode_matmul": 0, "kv_page_decode": 0,
+            "flash_fwd": 2 * L * A, "flash_bwd": L * A}
+    log(f"phase 20: training {cfg.name} at full width (d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.dtype}), "
+        f"{L} layers; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, grad_accum {A},"
+        f" remat, lr {TRAIN_LR}, {TRAIN_STEPS} steps; launches a step "
+        f"expected {want}")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed, device="cuda",
+                           dtype=torch_dtype(cfg.dtype))
+    n_params = sum(p.numel() for _, p in iter_leaves(params))
+    p0 = map_tree(torch.clone, params)       # step 0's weights, kept
+    opt = adamw_init(params)
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH, seed))
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+                              grad_accum=A, remat=True, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+    for run in kernels.values():
+        run.launches = 0
+    steps, secs = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        steps.append({k: float(v) for k, v in m.items()})
+        log(f"train step {i}: loss {steps[-1]['loss']:.5f} grad_norm "
+            f"{steps[-1]['grad_norm']:.4f} lr {steps[-1]['lr']:.3e} "
+            f"{secs[-1] * 1e3:.1f} ms")
+    launches = {name: run.launches for name, run in kernels.items()}
+    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
+    if per_step != want:
+        fail(f"phase 20 launches a step {per_step}, expected {want}")
+    bad = [s for s in steps
+           if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+    if bad:
+        fail(f"phase 20: non-finite loss or gradient norm {bad}")
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / gib
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_matmul = n_params - (0 if cfg.tie_embeddings
+                           else cfg.vocab_size * cfg.d_model)
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    model_flops = (6 * n_matmul * tokens
+                   + 12 * TRAIN_BATCH * cfg.n_heads * cfg.hd * pairs * L)
+    share = model_flops / step_s / H100_BF16_FLOPS
+    # one more step traced (its launches outside the counts above)
+    batch = data.batch(TRAIN_STEPS, "cuda")
+    t0 = time.perf_counter()
+    state = {}
+
+    def traced():
+        state["out"] = step_fn(params, opt, batch, TRAIN_STEPS)
+
+    torch.cuda.synchronize()
+    trace = _profile_step(torch, traced, step_s)
+    params, opt, _ = state.pop("out")
+    log(f"phase 20 traced step ({time.perf_counter() - t0:.1f} s under the "
+        f"profiler): {trace}")
+    del params, opt, batch
+    # the reference: the attention patched to the plain versions, for unit
+    # 0's attention gradients on micro-batch 0 and for step 0 from the same
+    # weights and a fresh optimizer state
+    runs = flash_fwd.run, flash_bwd.run
+
+    def plain_fwd(q, k, v, causal=True, softcap=0.0, stats=False):
+        f = flash_fwd.plain_stats if stats else flash_fwd.plain
+        return f(q, k, v, causal, softcap)
+
+    def plain_bwd(q, k, v, o, m, l, do, causal=True, softcap=0.0):
+        return flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap)
+
+    batch0 = data.batch(0, "cuda")
+    attn = p0["units"]["pos0"]["attn"]
+    names = ("wq", "wk", "wv")
+
+    def attn_grads():       # unit 0's, on micro-batch 0, f32
+        rows = slice(0, TRAIN_BATCH // A)
+        for n in names:
+            attn[n].requires_grad_(True)
+        loss, _ = M.loss_fn(p0, cfg, batch0["tokens"][rows],
+                            batch0["labels"][rows], remat=True)
+        grads = torch.autograd.grad(loss, [attn[n] for n in names])
+        return {n: g[0].float() for n, g in zip(names, grads)}
+
+    g_kern = attn_grads()
+    flash_fwd.run, flash_bwd.run = plain_fwd, plain_bwd
+    try:
+        g_plain = attn_grads()
+        t0 = time.perf_counter()
+        _, _, m_ref = step_fn(p0, adamw_init(p0), data.batch(0, "cuda"), 0)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    finally:
+        flash_fwd.run, flash_bwd.run = runs
+    del p0
+    gaps = {k: abs(steps[0][k] - float(m_ref[k])) / abs(float(m_ref[k]))
+            for k in ("loss", "grad_norm")}
+    grad_gaps = {n: float((g_kern[n] - g_plain[n]).abs().max()
+                          / g_plain[n].abs().max()) for n in names}
+    del g_kern, g_plain
+    log(f"phase 20 unit 0's attention gradients on micro-batch 0 against "
+        f"the plain attention: max |diff| / max |plain| "
+        f"{ {n: f'{v:.2e}' for n, v in grad_gaps.items()} } (tol "
+        f"{TRAIN_GRAD_TOL})")
+    if not all(v <= TRAIN_GRAD_TOL for v in grad_gaps.values()):
+        fail(f"phase 20: unit 0's attention gradients off the plain "
+             f"attention's: {grad_gaps}")
+    log(f"phase 20 step 0 against the plain attention: loss "
+        f"{steps[0]['loss']:.6f} vs {float(m_ref['loss']):.6f} (gap "
+        f"{gaps['loss']:.2e}, tol 5e-3), grad_norm "
+        f"{steps[0]['grad_norm']:.5f} vs "
+        f"{float(m_ref['grad_norm']):.5f} (gap {gaps['grad_norm']:.2e}, tol "
+        f"2e-2); the plain step took {ref_s:.1f} s")
+    if not (gaps["loss"] <= 5e-3 and gaps["grad_norm"] <= 2e-2):
+        fail(f"phase 20: step 0 off the plain attention's: {gaps}")
+    out = dict(layers=L, params_b=n_params / 1e9, steps=steps,
+               step_ms=[s * 1e3 for s in secs], median_step_ms=step_s * 1e3,
+               tokens_per_s=tokens / step_s, model_tflop=model_flops / 1e12,
+               flop_share=share, peak_gib=peak, gaps=gaps,
+               attn_grad_gaps=grad_gaps,
+               launches_per_step=per_step, trace=trace)
+    log(f"phase 20: {n_params / 1e9:.3f} B parameters; step (median of steps"
+        f" 1-{TRAIN_STEPS - 1}) {step_s * 1e3:.1f} ms, {tokens / step_s:.0f} "
+        f"tokens/s, model FLOPs {model_flops / 1e12:.1f} T a step = "
+        f"{100 * share:.1f} % of 989 TFLOP/s; peak device memory {peak:.2f} "
+        f"GiB; launches {launches}")
+    return out, launches
+
+
+def ckpt_phase(torch, M, serve, kernels, cfg, seed):
+    """Phase 20b (module docstring) on ``cfg`` -> (measurements, B1
+    launches of the ECF8 restore)."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager, restore_tree
+    from repro_torch.checkpoint import save_tree
+    from repro_torch.core import fp8 as fp8_mod
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, iter_leaves
+    from repro_torch.runtime.steps import make_train_step
+    b1 = kernels["ecf8_decode"]
+    root = ROOT / "build" / "ckpt_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    params = M.init_params(cfg, seed, device="cuda",
+                           dtype=torch_dtype(cfg.dtype))
+    n_params = sum(p.numel() for _, p in iter_leaves(params))
+    need = n_params * (2 + 4 + 4) + n_params       # state + fp8 tree
+    free = shutil.disk_usage(root).free
+    log(f"phase 20b: {cfg.name} at {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters; free disk under {root}: "
+        f"{free / 1e9:.1f} GB, the drill writes up to {need / 1e9:.1f} GB")
+    if free < 1.1 * need:
+        fail(f"phase 20b: {free / 1e9:.1f} GB free under {root}, the "
+             f"checkpoints need {need / 1e9:.1f} GB")
+    opt = adamw_init(params)
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH, seed))
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+                              grad_accum=TRAIN_ACCUM, remat=True,
+                              warmup_steps=1, total_steps=4)
+    for i in range(3):
+        params, opt, m = step_fn(params, opt, data.batch(i, "cuda"), i)
+    live = {"params": params, "opt": opt,
+            "step": torch.tensor(2, dtype=torch.int32)}
+    mgr = CheckpointManager(str(root / "train"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_async(2, live)
+    snap_s = time.perf_counter() - t0
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    mgr.close()
+    disk = sum(f.stat().st_size for f in (root / "train").rglob("*")
+               if f.is_file())
+    t0 = time.perf_counter()
+    restored, at = restore_tree(str(root / "train"), live, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if at != 2:
+        fail(f"phase 20b: restored step {at}, expected 2")
+    flat_live, flat_got = dict(iter_leaves(live)), dict(iter_leaves(restored))
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    for path, want in flat_live.items():
+        got = flat_got[path]
+        if (got.dtype != want.dtype or got.shape != want.shape
+                or not torch.equal(got.cpu().view(ints[got.element_size()]),
+                                   want.cpu().view(
+                                       ints[want.element_size()]))):
+            fail(f"phase 20b: restored leaf {'/'.join(path)} differs")
+    batch = data.batch(3, "cuda")
+    _, _, m_live = step_fn(params, opt, batch, 3)
+    _, _, m_back = step_fn(restored["params"], restored["opt"], batch, 3)
+    l_live, l_back = float(m_live["loss"]), float(m_back["loss"])
+    gap = abs(l_back - l_live) / abs(l_live)
+    bitwise = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        iter_leaves(params), iter_leaves(restored["params"])))
+    log(f"phase 20b: {len(flat_live)} leaves restored bit-identical (CRCs "
+        f"verified); step 3 loss live {l_live:.6f}, restored {l_back:.6f} "
+        f"(gap {gap:.2e}, tol 1e-3); weights after step 3 bitwise equal: "
+        f"{bitwise}; save {save_s:.1f} s (snapshot {snap_s:.1f} s), "
+        f"{disk / 1e9:.2f} GB on disk, restore {restore_s:.1f} s")
+    if not gap <= 1e-3:
+        fail(f"phase 20b: step 3 from the restored state off by {gap}")
+    del params, opt, live, restored, flat_live, flat_got, m_live, m_back
+    # the fp8 serving tree, ECF8 on disk, restored through B1
+    _, base, _, _ = serve.build_params(cfg, seed, "none", device="cuda")
+    fp8_leaves = [t for _, t in iter_leaves(base)
+                  if t.dtype == fp8_mod.FP8_DTYPE]
+    fp8_bytes = sum(t.numel() for t in fp8_leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_tree(base, str(root / "ecf8"), 0, compress="ecf8")
+    ecf8_save_s = time.perf_counter() - t0
+    ecf8_disk = sum(f.stat().st_size for f in (root / "ecf8").rglob(
+        "ecf8_*.npz"))
+    b1.launches = 0
+    t0 = time.perf_counter()
+    back, _ = restore_tree(str(root / "ecf8"), base, device="cuda")
+    torch.cuda.synchronize()
+    ecf8_restore_s = time.perf_counter() - t0
+    launches_b1 = b1.launches
+    if launches_b1 != len(fp8_leaves):
+        fail(f"phase 20b: {launches_b1} B1 launches restoring "
+             f"{len(fp8_leaves)} ECF8 leaves")
+    for (path, want), (_, got) in zip(iter_leaves(base), iter_leaves(back)):
+        same = got.dtype == want.dtype and torch.equal(
+            got.view(torch.uint8), want.view(torch.uint8)) \
+            if want.dtype == fp8_mod.FP8_DTYPE else torch.equal(got, want)
+        if not same:
+            fail(f"phase 20b: ECF8-restored leaf {'/'.join(path)} differs")
+    log(f"phase 20b: fp8 tree ({len(fp8_leaves)} fp8 leaves, "
+        f"{fp8_bytes / 1e9:.3f} GB) saved ECF8 in {ecf8_save_s:.1f} s: "
+        f"{ecf8_disk / 1e9:.3f} GB of containers "
+        f"({100 * ecf8_disk / fp8_bytes:.2f} % of raw fp8), restored "
+        f"through B1 ({launches_b1} launches) in {ecf8_restore_s:.1f} s, "
+        f"bits identical")
+    del base, back
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(params_b=n_params / 1e9, free_gb=free / 1e9,
+                save_s=save_s, snapshot_s=snap_s, restore_s=restore_s,
+                disk_gb=disk / 1e9, loss_gap=gap, bitwise_step3=bitwise,
+                ecf8_save_s=ecf8_save_s, ecf8_restore_s=ecf8_restore_s,
+                ecf8_gb=ecf8_disk / 1e9, fp8_gb=fp8_bytes / 1e9,
+                ecf8_pct_of_fp8=100 * ecf8_disk / fp8_bytes), launches_b1
 
 
 def check_kv_pages(torch, ops, kv, codec, name, pages, stride, flush, reps,
@@ -2127,7 +2562,8 @@ def main(argv=None):
     from repro_torch.configs import get, smoke_variant
     from repro_torch.core import fixedrate, fp8, paper_format, stats, store
     from repro_torch.core import theory, tpu_format
-    from repro_torch.kernels import build, ecf8_decode, flash_fwd, ops
+    from repro_torch.kernels import build, ecf8_decode, flash_bwd, flash_fwd
+    from repro_torch.kernels import ops
     from repro_torch.kernels import fused_decode_matmul as fused
     from repro_torch.kvcache import codec, paged
     from repro_torch.kvcache import kernels as kv_page
@@ -2382,7 +2818,29 @@ def main(argv=None):
     log(f"fused_decode_matmul wq: {-(-tiled.k // fused.MAX_ROWS)} launches of "
         f"{fused.MAX_ROWS} one-hot rows read back decode(W) bit for bit; "
         f"the op's path launched the kernel {launches_b2} times")
-    del weights, eye, rows, flush
+    del weights, eye, rows
+
+    # -- 3d. training's attention: B4 with its statistics, B5 ----------------
+    # qwen3-8b's heads at phase 20's micro-batch and length, gemma2-9b's
+    # (D = 256, softcap), whisper-base's encoder (non-causal, D = 64); f32
+    # at T 451 with each
+    bwd_shapes = {
+        "qwen3": dict(heads=(cfg_full.n_heads, cfg_full.n_kv_heads),
+                      D=cfg_full.hd, B=TRAIN_BATCH // TRAIN_ACCUM),
+        "gemma2": dict(heads=(g2.n_heads, g2.n_kv_heads), D=g2.hd,
+                       softcap=g2.attn_softcap, B=TRAIN_BATCH // TRAIN_ACCUM),
+        "whisper": dict(heads=(wh.n_heads, wh.n_kv_heads), D=wh.hd,
+                        causal=False, B=WHISPER_BATCH)}
+    bwd_T = {"qwen3": TRAIN_SEQ, "gemma2": TRAIN_SEQ,
+             "whisper": wh.encoder_frames}
+    for tag, kw in bwd_shapes.items():
+        results[f"bwd_{tag}"] = check_flash_bwd(
+            torch, flash_fwd, flash_bwd, gen, flush, bwd_T[tag], **kw)
+        results[f"bwd_{tag}_f32"] = check_flash_bwd(
+            torch, flash_fwd, flash_bwd, gen, flush, 451,
+            dtype=torch.float32, tol=1e-5, **kw)
+    del flush
+    flash_bwd.run.launches = 0     # no serve phase below may launch B5
 
     # -- 4. small input: the card agrees with the CPU (plain versions) -------
     small = dataclasses.replace(
@@ -2919,6 +3377,29 @@ def main(argv=None):
     log(f"phase 18 measurements: {json.dumps(whisper_out)}")
     mark("phase 18")
 
+    # -- 20. training qwen3-8b at full width ------------------------------
+    def cfg_train(layers):
+        # the published Qwen3-8B unembeds with its own matrix
+        # (tie_word_embeddings false); the registry's serving config ties
+        return dataclasses.replace(cfg_full, n_layers=layers,
+                                   tie_embeddings=False)
+
+    if flash_bwd.run.launches:
+        fail(f"a serve phase launched B5 {flash_bwd.run.launches} times")
+    train_runs = {**kernel_runs, "flash_bwd": flash_bwd.run}
+    train_out, train_launches = train_phase(
+        torch, M, train_runs,
+        cfg_train(TRAIN_LAYERS), args.seed)
+    log(f"phase 20 measurements: {json.dumps(train_out)}")
+    mark("phase 20")
+
+    # -- 20b. the checkpoint drill -----------------------------------------
+    ckpt_out, ckpt_b1 = ckpt_phase(
+        torch, M, serve, train_runs,
+        cfg_train(CKPT_LAYERS), args.seed)
+    log(f"phase 20b measurements: {json.dumps(ckpt_out)}")
+    mark("phase 20b")
+
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
                                       for t in wh_launches},
@@ -2963,6 +3444,8 @@ def main(argv=None):
              at_llama4_shape=results["llama4_expert"],
              **on_frontend_and_whisper("ecf8_decode"),
              at_whisper_shape=results["whisper_unembed"],
+             launches_train=train_launches["ecf8_decode"],
+             launches_ckpt_restore=ckpt_b1,
              fixedrate_decode=fr_results, **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
@@ -2980,6 +3463,10 @@ def main(argv=None):
              **on_frontend_and_whisper("flash_fwd"),
              at_whisper_shape=results["flash_whisper_enc"],
              at_whisper_cross_shape=results["flash_whisper_cross"],
+             launches_train=train_launches["flash_fwd"],
+             with_stats_at_train_shape={
+                 k: results["bwd_qwen3"][k]
+                 for k in ("fwd_ms", "fwd_stats_ms", "stats_err")},
              **results["flash_T512"]),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
@@ -2992,6 +3479,7 @@ def main(argv=None):
              **on_llama_paths("kv_page_decode"), at_llama4_shape=None,
              **on_frontend_and_whisper("kv_page_decode"),
              at_whisper_shape=None,
+             launches_train=train_launches["kv_page_decode"],
              at_moe_shape=results["kv_moe_bf16_48"],
              at_gemma2_shape=results["kv_g2_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",
@@ -3005,7 +3493,22 @@ def main(argv=None):
              **on_llama_paths("fused_decode_matmul"), at_llama4_shape=None,
              **on_frontend_and_whisper("fused_decode_matmul"),
              at_whisper_shape=None,
+             launches_train=train_launches["fused_decode_matmul"],
              **results["b2_wi_gate_M4"]),
+        dict(name="flash_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/models/flash_attention.py:142",
+             replaces_note="the port's counterpart of the reference's jnp "
+                           "backward _flash_bwd, not a TPU kernel",
+             launches=train_launches["flash_bwd"],
+             launches_per_train_step=train_out["launches_per_step"][
+                 "flash_bwd"],
+             library="scaled_dot_product_attention backward, no softcap",
+             at_gemma2_shape=results["bwd_gemma2"],
+             at_whisper_shape=results["bwd_whisper"],
+             f32_at_T451={tag: results[f"bwd_{tag}_f32"]
+                          for tag in bwd_shapes},
+             **results["bwd_qwen3"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(gpu_line(), flush=True)

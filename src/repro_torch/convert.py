@@ -5,7 +5,9 @@ tree with every leaf already turned into a numpy array (``np.asarray`` on
 the JAX side; this module imports no JAX) and returns the same nested dict
 of torch tensors on ``device``.  The layouts are the same by construction
 (``(in, out)`` weights, stacked ``units``), so the port and the reference
-run on identical weights in every parity test.
+run on identical weights in every parity test.  ``opt_state_from_numpy``
+does the same for the reference's AdamW state (``{mu, nu, count}``), so
+that one optimizer step is compared on identical states.
 """
 from __future__ import annotations
 
@@ -26,9 +28,16 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
         raise ValueError(f"embed {embed.shape} does not match {cfg.name} "
                          f"({cfg.vocab_size}, {cfg.d_model})")
 
-    def convert(x):
-        if isinstance(x, dict):
-            return {k: convert(v) for k, v in x.items()}
-        return torch.from_numpy(np.array(x)).to(dev)
+    return _convert(tree, dev)
 
-    return convert(tree)
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The reference's ``adamw_init`` / ``adamw`` state with numpy leaves
+    ({mu, nu: trees like the params, f32; count: int32}) -> the port's."""
+    return _convert(state, resolve(device))
+
+
+def _convert(x, dev):
+    if isinstance(x, dict):
+        return {k: _convert(v, dev) for k, v in x.items()}
+    return torch.from_numpy(np.array(x)).to(dev)

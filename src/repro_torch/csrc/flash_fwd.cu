@@ -9,7 +9,12 @@
 //   * online softmax in f32 (running max m, denominator l of the unrounded
 //     p), while p is rounded to v's dtype before the p.v product, which
 //     accumulates in f32;
-//   * o = acc / max(l, 1e-30), stored in v's dtype.
+//   * o = acc / max(l, 1e-30), stored in v's dtype;
+//   * given m_out / l_out (training), each row's final running max m and
+//     denominator l, f32 (B, Hq, Tq): the residuals the reference's
+//     _flash_fwd keeps for the backward (csrc/flash_bwd.cu).  Null on the
+//     serve path; the stores are the only difference, so o is the same bits
+//     with or without them.
 // (The Pallas kernel keeps p in f32 for p.v; at f32 the two agree.)
 //
 // One CTA per (b*Hq + h, 64-row q block); GQA head h reads kv head
@@ -331,9 +336,10 @@ __host__ __device__ constexpr size_t tc_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(128 * tc_groups<D>())
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int Hq,
-                    int Hkv, int Tq, int Tk, float scale, float softcap,
-                    int causal) {
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    int Hq, int Hkv, int Tq, int Tk, float scale,
+                    float softcap, int causal) {
   constexpr int NTH = 128 * tc_groups<D>();
   constexpr int DV = D / tc_groups<D>();  // O columns of one warpgroup
   constexpr int CH = D / 8;   // 16-byte chunks a row
@@ -518,6 +524,12 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float l = l_run[hf];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = q0 + r0 + g + 8 * hf;
+    if (m_out != nullptr && tid < 128 && t == 0 && row < Tq) {
+      const size_t at = (size_t(b) * Hq + h) * Tq + row;
+      m_out[at] = m_run[hf];
+      l_out[at] = l;
+    }
     l_run[hf] = fmaxf(l, 1e-30f);
   }
 #pragma unroll
@@ -546,8 +558,10 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-                 int Tq, int Tk, float scale, float softcap, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int Hq,
+                 int Hkv, int Tq, int Tk, float scale, float softcap,
+                 int causal) {
   constexpr int LD = D + 1;   // padded row stride of the Q and K tiles
   constexpr int LP = BK + 1;  // padded row stride of the score tile
   constexpr int CPT = D / 32; // output columns per thread
@@ -692,20 +706,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ob[size_t(q0 + row) * D + lane + 32 * j] = Elem<T>::store(acc[i][j] / l);
     }
   }
+  // the statistics were last written before the loop's last barrier
+  if (m_out != nullptr && tid < BQ && q0 + tid < Tq) {
+    const size_t at = (size_t(b) * Hq + h) * Tq + q0 + tid;
+    m_out[at] = sM[tid];
+    l_out[at] = sL[tid];
+  }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Tq, int Tk, float scale, float softcap,
-           int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* m,
+           float* l, int B, int Hq, int Hkv, int Tq, int Tk, float scale,
+           float softcap, int causal, cudaStream_t stream) {
   const auto go = [&](auto kernel, size_t smem, int threads, int rows) {
     const dim3 grid(B * Hq, (Tq + rows - 1) / rows);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
     kernel<<<grid, threads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Tq, Tk,
-        scale, softcap, causal);
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, m, l, Hq, Hkv, Tq,
+        Tk, scale, softcap, causal);
     return int(cudaGetLastError());
   };
   if constexpr (std::is_same<T, float>::value) {
@@ -717,19 +737,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Tq, int Tk, int D, float scale,
-             float softcap, int causal, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* m,
+             float* l, int B, int Hq, int Hkv, int Tq, int Tk, int D,
+             float scale, float softcap, int causal, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, softcap,
-                           causal, stream);
+      return launch<T, 64>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, scale,
+                           softcap, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, softcap,
-                            causal, stream);
+      return launch<T, 128>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, scale,
+                            softcap, causal, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, softcap,
-                            causal, stream);
+      return launch<T, 256>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, scale,
+                            softcap, causal, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -737,22 +757,25 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; m / l: null, or f32
+// (B, Hq, Tq) outputs of the row statistics
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         int B, int Hq, int Hkv, int Tq, int Tk, int D,
-                         int dtype, int causal, float softcap, float scale,
-                         void* stream) {
+                         void* m, void* l, int B, int Hq, int Hkv, int Tq,
+                         int Tk, int D, int dtype, int causal, float softcap,
+                         float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale,
-                             softcap, causal, s);
+      return launch_d<float>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk, D,
+                             scale, softcap, causal, s);
     case 1:
-      return launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D,
-                                     scale, softcap, causal, s);
+      return launch_d<__nv_bfloat16>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk,
+                                     D, scale, softcap, causal, s);
     case 2:
-      return launch_d<__half>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale,
-                              softcap, causal, s);
+      return launch_d<__half>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk, D,
+                              scale, softcap, causal, s);
     default:
       return int(cudaErrorInvalidValue);
   }

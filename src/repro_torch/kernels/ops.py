@@ -3,14 +3,15 @@
 A tensor on the CPU goes to the kernel's plain PyTorch version; any other
 tensor goes to the hand-written CUDA kernel, which launches or raises.
 There is no fallback from the card to the CPU or from a kernel to its
-plain version.
+plain version.  Attention is differentiable: :class:`FlashAttention` runs
+the flash forward with its row statistics and the flash backward.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kvcache import kernels as kv_page_decode
-from . import ecf8_decode, flash_fwd
+from . import ecf8_decode, flash_bwd, flash_fwd
 from . import fused_decode_matmul as _fused
 
 
@@ -25,9 +26,47 @@ def decode_ecf8(payload, signmant, lj_limit, first_lj, offset, perm, *,
               sym_per_lane=sym_per_lane, n_elem=n_elem, out_dtype=out_dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with the reference's flash custom VJP
+    (``models/flash_attention.py::flash_attention``): the forward is the
+    flash kernel with its row statistics (on the CPU the plain
+    ``flash_attention_fwd_stats``), and only (q, k, v, o, m, l) are saved:
+    no probability tensor.  The backward recomputes the probabilities in
+    the flash backward kernel (on the CPU the plain
+    ``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, softcap: float):
+        if q.device.type == "cpu":
+            o, m, l = flash_fwd.plain_stats(q, k, v, causal, softcap)
+        else:
+            o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=softcap,
+                                    stats=True)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.causal, ctx.softcap = causal, softcap
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            grads = flash_bwd.plain(q, k, v, o, m, l, do, ctx.causal,
+                                    ctx.softcap)
+        else:
+            grads = flash_bwd.run(q, k, v, o, m, l, do, causal=ctx.causal,
+                                  softcap=ctx.softcap)
+        return (*grads, None, None)
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     attn_softcap: float = 0.0) -> torch.Tensor:
-    """Full-sequence attention forward, q (B, Hq, Tq, D) -> (B, Hq, Tq, D)."""
+    """Full-sequence attention, q (B, Hq, Tq, D) -> (B, Hq, Tq, D): through
+    :class:`FlashAttention` when an input requires a gradient, else one
+    forward launch without statistics (every serve path: its weights
+    require no gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, attn_softcap)
     if q.device.type == "cpu":
         return flash_fwd.plain(q, k, v, causal, attn_softcap)
     return flash_fwd.run(q, k, v, causal=causal, softcap=attn_softcap)

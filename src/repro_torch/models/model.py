@@ -52,7 +52,10 @@ hd)`` over the encoder's ``F`` frames, stacked over the units and
 written once, at prefill.
 
 Entry points:
-  forward(params, cfg, tokens[, frames])  -> (logits, aux)  [inference]
+  forward(params, cfg, tokens[, frames, remat])
+                                          -> (logits, aux)  [differentiable]
+  loss_fn(params, cfg, tokens, labels[, frames, remat, aux_weight])
+                                          -> (loss, {"nll", "aux"})
   encode_frames(params, cfg, frames, dtype) -> encoder output (B, F, d)
   prefill(params, cfg, tokens, max_len[, frames])
                                           -> (last-pos logits, cache)
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.store import is_compressed, torch_dtype
@@ -721,24 +725,81 @@ def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None,
     return logits, cache
 
 
-def forward(params, cfg: ArchConfig, tokens, frames=None):
-    """The full-sequence forward, inference only (the reference's training
-    forward, without gradients) -> (logits (B, T, V) f32, aux): ``aux`` the
-    summed load-balancing loss of the MoE layers (0 without experts).  An
+def forward(params, cfg: ArchConfig, tokens, frames=None, remat: bool = False):
+    """The full-sequence forward (the reference's training forward) ->
+    (logits (B, T, V) f32, aux): ``aux`` the summed load-balancing loss of
+    the MoE layers (0 without experts), summed a unit at a time as the
+    reference's scan sums it.  Differentiable: the attention goes through
+    ``ops.flash_attention``'s custom backward wherever an input requires a
+    gradient.  ``remat`` recomputes each unit's activations in the
+    backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its scan body: the unit is the remat boundary;
+    the tail layers and the encoder are not checkpointed, as there).  An
     encoder-decoder takes ``frames`` (B, F, d)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = _embed(params, cfg, tokens, dtype)
     ctx = _context(params, cfg, frames, dtype)
-    aux = []
-    for section, key, u, kind in _stack_layers(cfg):
-        p = _at(params, section, key, u)
+
+    def layer(p, x, kind, aux):
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
-        x, _ = _layer_apply_full(p, x, cfg, kind, dtype, kv, aux)
+        return _layer_apply_full(p, x, cfg, kind, dtype, kv, aux)[0]
+
+    def unit_body(x, u):
+        aux = []
+        for j, kind in enumerate(cfg.pattern):
+            x = layer(_layer(params["units"][f"pos{j}"], u), x, kind, aux)
+        return x, _total(aux, x.device)
+
     total = torch.zeros((), dtype=F32, device=x.device)
+    for u in range(cfg.n_layers // cfg.unit):
+        if remat:
+            x, a = checkpoint(unit_body, x, u, use_reentrant=False)
+        else:
+            x, a = unit_body(x, u)
+        total = total + a
+    for t, kind in enumerate(_tail_kinds(cfg)):
+        aux = []
+        x = layer(params["tail"][f"layer{t}"], x, kind, aux)
+        total = total + _total(aux, x.device)
+    return _unembed(params, cfg, x, dtype), total
+
+
+def _total(aux: list, device):
+    """The f32 sum of a list of MoE losses, in order (0 for none)."""
+    total = torch.zeros((), dtype=F32, device=device)
     for a in aux:
         total = total + a
-    return _unembed(params, cfg, x, dtype), total
+    return total
+
+
+def _check_trainable(params) -> None:
+    """Raise for a tree that holds a ``CompressedTensor``: training runs on
+    dense weights (the reference does not train from ECF8 either)."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif is_compressed(tree):
+            raise TypeError(
+                f"cannot train from a compressed weight ({'/'.join(path)}, "
+                f"{tree.meta.fmt}): pass dense tensors (core.store."
+                f"materialize decodes one)")
+
+    walk(params, ())
+
+
+def _loss_fn(params, cfg: ArchConfig, tokens, labels, frames=None,
+             remat: bool = False, aux_weight: float = 0.01):
+    """The reference's ``loss_fn``: the mean next-token NLL of the f32
+    logits' log-softmax plus ``aux_weight`` x the MoE loss -> (loss,
+    {"nll", "aux"}).  A tree holding compressed weights is refused."""
+    _check_trainable(params)
+    logits, aux = forward(params, cfg, tokens, frames=frames, remat=remat)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
+    loss = nll.mean() + aux_weight * aux
+    return loss, {"nll": nll.mean(), "aux": aux}
 
 
 def _layer_pools(leaves: dict, u):
@@ -890,8 +951,10 @@ def _verify_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
 # ones: tools/lint's jit-discipline pass resolves a called name across
 # files only when a single file under src/ defines it, and the reference's
 # jitted serve steps reach their model through ``M.prefill`` /
-# ``M.decode_step`` / ``M.prefill_chunk`` / ``M.verify_chunk``.
+# ``M.decode_step`` / ``M.prefill_chunk`` / ``M.verify_chunk``, its train
+# step through ``M.loss_fn``.
 prefill = _prefill
 prefill_chunk = _prefill_chunk
 verify_chunk = _verify_chunk
 decode_step = _decode_step
+loss_fn = _loss_fn

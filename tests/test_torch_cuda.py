@@ -1048,3 +1048,85 @@ def test_whisper_smoke_card_vs_cpu(card):
     assert err <= 1e-4
     assert flash_fwd.run.launches - b4 == 6
     assert ecf8_decode.run.launches > b1
+
+
+# -- training: B4 with its row statistics, B5 (the flash backward) ----------
+
+def _attn_inputs(card, B, Hq, Hkv, Tq, Tk, D, dtype):
+    def rnd(h, t):
+        return torch.randn((B, h, t, D), generator=card,
+                           device="cuda").to(dtype)
+
+    return rnd(Hq, Tq), rnd(Hkv, Tk), rnd(Hkv, Tk), rnd(Hq, Tq)
+
+
+_TRAIN_SHAPES = [(4, 4, 48, 48, 64, True), (8, 2, 37, 37, 128, True),
+                 (4, 2, 37, 53, 64, False), (16, 8, 130, 130, 256, True),
+                 (32, 8, 200, 200, 128, True), (8, 8, 97, 300, 64, False),
+                 (10, 1, 65, 65, 256, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,Tq,Tk,D,causal", _TRAIN_SHAPES)
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_flash_fwd_stats_match_plain(card, dtype, Hq, Hkv, Tq, Tk, D,
+                                     causal, cap):
+    """o with the statistics is the same bits as o without them; m and l
+    within 1e-5 of the plain version's, relative to their largest
+    magnitude (f32 sums in another order)."""
+    q, k, v, _ = _attn_inputs(card, 2, Hq, Hkv, Tq, Tk, D, dtype)
+    o0 = flash_fwd.run(q, k, v, causal=causal, softcap=cap)
+    o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=cap, stats=True)
+    assert torch.equal(o.view(torch.uint8), o0.view(torch.uint8))
+    _, m_p, l_p = flash_fwd.plain_stats(q, k, v, causal, cap)
+    for got, want in ((m, m_p), (l, l_p)):
+        assert got.dtype == torch.float32 and got.shape == (2, Hq, Tq)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Hq,Hkv,Tq,Tk,D,causal", _TRAIN_SHAPES)
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_flash_bwd_matches_plain(card, dtype, tol, Hq, Hkv, Tq, Tk, D,
+                                 causal, cap):
+    """B5 against its plain version on the same residuals: dq, dk, dv
+    within ``tol`` x the plain gradient's largest magnitude (f32 sums in
+    another order; bf16 also rounds p and ds at the same points, from
+    scores summed in another order)."""
+    from repro_torch.kernels import flash_bwd
+    q, k, v, do = _attn_inputs(card, 2, Hq, Hkv, Tq, Tk, D, dtype)
+    o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=cap, stats=True)
+    before = flash_bwd.run.launches
+    got = flash_bwd.run(q, k, v, o, m, l, do, causal=causal, softcap=cap)
+    assert flash_bwd.run.launches == before + 1
+    want = flash_bwd.plain(q, k, v, o, m, l, do, causal, cap)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+
+
+def test_flash_autograd_on_card_matches_cpu(card):
+    """``ops.flash_attention`` under autograd: one B4 launch with stats and
+    one B5 launch on the card, the gradients within 1e-5 (relative) of the
+    CPU's plain path at f32; without gradients one B4 launch and no B5."""
+    from repro_torch.kernels import flash_bwd
+    q, k, v, do = _attn_inputs(card, 2, 8, 2, 77, 77, 64, torch.float32)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+        b4, b5 = flash_fwd.run.launches, flash_bwd.run.launches
+        o = ops.flash_attention(*leaves, True, 20.0)
+        (o * do.to(dev)).sum().backward()
+        if dev == "cuda":
+            assert (flash_fwd.run.launches - b4,
+                    flash_bwd.run.launches - b5) == (1, 1)
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, w in zip(*grads):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    b4, b5 = flash_fwd.run.launches, flash_bwd.run.launches
+    ops.flash_attention(q, k, v, True, 20.0)
+    assert (flash_fwd.run.launches - b4, flash_bwd.run.launches - b5) == (1, 0)
