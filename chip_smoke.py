@@ -4,7 +4,11 @@ NVIDIA H100.
 Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py [--layers N] [--seed S]
+    python3 chip_smoke.py [--layers N] [--seed S] [--only 1,21]
+
+``--only 1,21`` runs the build and phase 21 alone: on a host with four or
+more cards, ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full
+depth on four NCCL ranks.
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the five CUDA kernels built with
@@ -263,6 +267,37 @@ Phases, each failing loudly (non-zero exit, no result line):
      ``compress="ecf8"`` and restored onto the card through B1 (launches
      counted): bits identical, bytes against raw fp8 printed; save and
      restore seconds printed.
+  21. serving on a mesh of ranks (``launch/mesh.py``: one process a
+     rank, ``torch.distributed``): two ranks sharing the one visible card
+     over gloo at ``QWEN_LAYERS`` with phase 5's 8 requests at max_batch 4,
+     or, with four or more cards, four NCCL ranks (one a card) at
+     ``MESH_LAYERS`` (36) with 16 requests at max_batch 8, 32 new tokens,
+     greedy; before the ranks start, B4 with ``q_base`` (a model rank's
+     rows of a sharded prefill) against its plain version and, four
+     256-row shards, bit for bit against the unsharded launch; which bf16
+     products keep a row's bits at 2 rows and at max_batch rows.  Each rank
+     builds the ECF8 and fp8 trees on its card from the seed (checksums
+     compared) and serves: 21a ``--mesh D`` (D the rank count) on the
+     paged-compressed cache with ``MESH_SHARD_PAGES`` raw pages and
+     ``MESH_SHARD_COLD`` cold slots a batch shard and swap unbounded, a
+     quarter of the requests arriving 8 steps in at priority 1 (they
+     preempt); 21b ``--mesh (D/2)x2`` paged (the model axis: the decode
+     step's page split and stat merge, the prefill's rows over B4 with
+     ``q_base``); 21c ``--mesh D`` with chunk 128; 21d 21a on the fp8
+     tree; rank 0 also serves 21a's requests alone.  Gates: every rank's
+     tokens, free lists and drained pools alike; 21a's tokens IDENTICAL to
+     21d's (the lossless claim on the mesh); B1 and B3 (the sharded cold
+     decode) launched on every rank in 21a, B4 with ``q_base`` in 21b; the
+     cold pool and the swap tier used; phase 4's small f32 model on
+     ``--mesh D`` under page pressure IDENTICAL to one rank (``(D/2)x2``
+     reported); ``decode_pages_sharded`` on each rank's share of a 48-page
+     cold pool, gathered, bit-exact against the whole pool's decode; 21e
+     ``compressed_all_gather`` of qwen3-8b's wi_gate (4096 x 12288 fp8)
+     over the ranks bit-exact, its wire bytes and ms beside a raw fp8
+     gather (``all_gather_into_tensor`` on NCCL).  Per rank: step ms,
+     token-gather ms, launches a step, peak memory, per-shard peak pages
+     and swap bytes; aggregate tok/s; the stat merge's ms; tokens against
+     rank 0 alone, counted (bf16: reported, not gated).
 Each phase logs the time since the start when it is done.  Phases 5-12,
 16, 17 and 19 run at a cut depth so that the whole script stays near half
 its time limit (13-15 and 18 at full depth), 20 and 20b at a depth whose
@@ -350,6 +385,12 @@ CKPT_LAYERS = 2         # phase 20b: ~16 GB of bf16 weights + f32 moments
 # relative to their largest magnitude
 TRAIN_GRAD_TOL = 1e-2
 FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
+# phase 21 on four or more cards: qwen3-8b at full depth, 16 requests at
+# max_batch 8 (two slots a batch shard); on one card two ranks share it at
+# QWEN_LAYERS with phase 5's 8 requests at max_batch 4
+MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
+MESH_PHASES = ("1", "21")   # what --only may name
+MESH_SHARD_PAGES, MESH_SHARD_COLD = 32, 2   # 21a's pools a batch shard
 
 
 def fail(msg: str):
@@ -568,11 +609,14 @@ def check_decode_codes(torch, ecf8_decode, fp8, tpu_format, name, bits,
 
 def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
                 D=128, softcap=0.0, tol=FLASH_TOL, gqa=False, causal=True,
-                B=1, Tk=None):
+                B=1, Tk=None, q_base=0):
     """Kernel 4 vs its plain version (bf16 unless ``dtype``, causal unless
     ``causal`` is False, ``B`` rows of ``T`` queries over ``Tk`` keys (T by
     default), ``heads`` = (Hq, Hkv) of ``D``, qwen3-8b's by default, tanh
-    ``softcap``), every output element within ``tol`` -> result dict.
+    ``softcap``; ``q_base`` the global position of query row 0, a model
+    rank's rows of a sharded prefill, where SDPA takes the causal mask
+    as an explicit boolean mask), every output element within ``tol`` ->
+    result dict.
     Timed after L2 flushes: a window of back-to-back calls alone would time
     the host's issue of each call (~20 us) wherever the kernel is shorter.
     SDPA, the yardstick, has no softcap: it is timed without one, on K/V
@@ -588,10 +632,12 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
                            dtype=torch.float32).to(dtype)
 
     q, k, v = rnd(Hq, T), rnd(Hkv, Tk), rnd(Hkv, Tk)
-    got = flash_fwd.run(q, k, v, causal=causal, softcap=softcap)
-    want = flash_fwd.plain(q, k, v, causal, softcap)
+    got = flash_fwd.run(q, k, v, causal=causal, softcap=softcap,
+                        q_base=q_base)
+    want = flash_fwd.plain(q, k, v, causal, softcap, q_base=q_base)
     torch.cuda.synchronize()
-    what = f"T={T}{'' if Tk == T else f' Tk={Tk}'} D={D}"
+    what = (f"T={T}{'' if Tk == T else f' Tk={Tk}'}"
+            f"{f' q_base={q_base}' if q_base else ''} D={D}")
     if not bool(torch.isfinite(got.float()).all()):
         fail(f"flash_fwd {what}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
@@ -599,11 +645,19 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
         fail(f"flash_fwd {what} {dtype}: max |kernel - plain| = {err} "
              f"> {tol}")
     ms = cuda_ms(torch, lambda: flash_fwd.run(q, k, v, causal=causal,
-                                              softcap=softcap), 20, flush)
-    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(q, k, v, causal,
-                                                      softcap), 5, flush)
+                                              softcap=softcap,
+                                              q_base=q_base), 20, flush)
+    plain_ms = cuda_ms(torch, lambda: flash_fwd.plain(
+        q, k, v, causal, softcap, q_base=q_base), 5, flush)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if gqa:
+    if q_base:
+        mask = (torch.arange(Tk, device=dev)[None, :]
+                <= q_base + torch.arange(T, device=dev)[:, None])
+        k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
+        v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
+        lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep,
+                                             attn_mask=mask), 20, flush)
+    elif gqa:
         lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
                                              enable_gqa=True), 20, flush)
     else:
@@ -611,7 +665,8 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
         v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
         lib_ms = cuda_ms(torch, lambda: sdpa(q, k_rep, v_rep,
                                              is_causal=causal), 20, flush)
-    pairs = T * (T + 1) // 2 if causal else T * Tk
+    pairs = (sum(min(Tk, q_base + r + 1) for r in range(T)) if causal
+             else T * Tk)
     flops = 4 * B * Hq * D * pairs
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
     peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
@@ -835,9 +890,10 @@ def train_phase(torch, M, kernels, cfg, seed):
     # weights and a fresh optimizer state
     runs = flash_fwd.run, flash_bwd.run
 
-    def plain_fwd(q, k, v, causal=True, softcap=0.0, stats=False):
+    def plain_fwd(q, k, v, causal=True, softcap=0.0, stats=False,
+                  q_base=0):
         f = flash_fwd.plain_stats if stats else flash_fwd.plain
-        return f(q, k, v, causal, softcap)
+        return f(q, k, v, causal, softcap, q_base=q_base)
 
     def plain_bwd(q, k, v, o, m, l, do, causal=True, softcap=0.0):
         return flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap)
@@ -2542,12 +2598,593 @@ def llama_phase(torch, np, serve, EngineConfig, kernels, cfg, seed):
             {"17a": l17a, "17b": l17b, "17d": l17d})
 
 
+# --------------------------------------------------------------------------
+# 21. serving on a mesh of ranks
+# --------------------------------------------------------------------------
+
+def _counts(ecf8_decode, flash_fwd, kv_page):
+    """This process's launch counters of B1, B3 (by path) and B4 (with its
+    q_base launches)."""
+    return dict(ecf8_decode=ecf8_decode.run.launches,
+                flash_fwd=flash_fwd.run.launches,
+                flash_fwd_q_base=flash_fwd.run.launches_q_base,
+                kv_page_decode=kv_page.run.launches,
+                kv_page_decode_by_path=dict(kv_page.run.launches_by_path))
+
+
+def _zero(ecf8_decode, flash_fwd, kv_page):
+    ecf8_decode.run.launches = flash_fwd.run.launches = 0
+    flash_fwd.run.launches_q_base = kv_page.run.launches = 0
+    kv_page.run.launches_by_path.clear()
+
+
+def serve_late(serving, params, cfg, ecfg, prompts, new: int, dev,
+               late: int, after: int):
+    """Serve ``prompts`` greedily as ``serve.serve`` does, but submit the
+    last ``late`` of them ``after`` engine steps into the run at priority 1
+    (the rest at 0): their admission preempts a running request when its
+    shard's pages cannot hold them (the reference scheduler's priority
+    preemption) -> (requests in prompt order, engine, seconds)."""
+    import torch
+    eng = serving.GenerationEngine(params, cfg, config=ecfg, device=dev)
+    reqs = [serving.Request(prompt=p, max_new_tokens=new,
+                            priority=int(i >= len(prompts) - late))
+            for i, p in enumerate(prompts)]
+    for r in reqs[:len(reqs) - late]:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    for _ in range(after):
+        eng.step()
+    for r in reqs[len(reqs) - late:]:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize(dev)
+    return reqs, eng, time.perf_counter() - t0
+
+
+def mesh_rank(rank, world, dev, spec):
+    """One rank of phase 21 (a process of its own, started by
+    ``launch.mesh.spawn``): qwen3-8b's ECF8 and fp8 trees built on this
+    rank's card from the seed, served on the mesh runs of ``spec["runs"]``
+    with every rank's counts and timings, rank 0 also alone; the small
+    f32 model on ``--mesh D`` and alone; B3 on this rank's share of a cold
+    pool; the compressed all-gather of qwen3's wi_gate beside a raw fp8
+    gather; the stat merge timed -> a dict of plain values."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get
+    from repro_torch.core import fp8, store
+    from repro_torch.kernels import ecf8_decode, flash_fwd
+    from repro_torch.kvcache import codec
+    from repro_torch.kvcache import kernels as kv_page
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_sharded as DS
+    from repro_torch.models import model as M
+    from repro_torch.runtime import collectives
+    from repro_torch import serving
+    from repro_torch.runtime.monitor import KVCacheMonitor
+    from repro_torch.serving import EngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = dist.get_backend() == "nccl"
+    dtype_mesh = "cuda" if nccl else "cpu"
+    # every rank makes the meshes in the same order (each is a collective)
+    meshes = {dims: MESH.make_mesh(*dims, dtype_mesh)
+              for dims in sorted({tuple(r["mesh"]) for r in spec["runs"]}
+                                 | {(world, 1), (world // 2, 2)})}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    out = dict(rank=rank, device=torch.cuda.get_device_name(dev),
+               backend=dist.get_backend(), runs={})
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=spec["layers"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    trees = {}
+    trees["ecf8"], trees["fp8"], report, enc_s = serve.build_params(
+        cfg, spec["seed"], "tpu", device=dev)
+    out["encode_s"] = enc_s
+    out["tree_mb"] = dict(ecf8=report["compressed_bytes"] / 1e6,
+                          fp8=report["fp8_bytes"] / 1e6)
+    prompts = spec["prompts"]
+    base = dict(max_batch=spec["max_batch"], max_len=spec["max_len"])
+    for tag, run in [(r["tag"], r) for r in spec["runs"]]:
+        mesh = meshes[tuple(run["mesh"])]
+        mon = KVCacheMonitor()
+        ecfg = EngineConfig(**base, **run["engine"], mesh=mesh,
+                            kv_monitor=mon)
+        _zero(ecf8_decode, flash_fwd, kv_page)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        if run.get("late"):
+            done, eng, dt = serve_late(serving, trees[run["tree"]], cfg,
+                                       ecfg, prompts, spec["new"], dev,
+                                       *run["late"])
+        else:
+            done, eng, dt = serve.serve(trees[run["tree"]], cfg, ecfg,
+                                        prompts, spec["new"], device=dev)
+        dist.barrier()
+        pc = eng.paged
+        sw = pc.swap.stats() if pc is not None and pc.swap is not None \
+            else {}
+        out["runs"][tag] = dict(
+            tokens=[r.out_tokens for r in done], wall_s=dt,
+            steps=eng.steps, decode_s=eng.decode_seconds,
+            prefill_s=eng.prefill_seconds, gather_s=eng.gather_seconds,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            launches=_counts(ecf8_decode, flash_fwd, kv_page),
+            checksum=list(eng.weights_checksum),
+            preempted=eng.scheduler.n_preempted,
+            resumed=eng.scheduler.n_resumed,
+            cold_compressed=pc.n_compressed if pc is not None else 0,
+            peak_pages_per_shard=mon.peak_per_shard(),
+            peak_swap_bytes_per_shard=mon.peak_per_shard(
+                "swap_bytes_per_shard"),
+            swap_out_bytes=sw.get("swap_out_bytes_total", 0),
+            pages_per_shard=pc.pages_per_shard if pc is not None else None,
+            cold_per_shard=pc.cold_per_shard if pc is not None else None,
+            n_chunks=eng.n_chunks, free_lists=(pc._free if pc else None),
+            drained=(pc is None or (not pc._slot_pages
+                                    and not pc._cold_bytes
+                                    and (pc.swap is None
+                                         or not len(pc.swap)))))
+        if rank == 0:
+            log(f"rank 0: {tag} served in {dt:.1f}s ({eng.steps} steps)")
+        del eng, done
+        torch.cuda.empty_cache()
+    # the one-rank run of 21a's requests (rank 0 alone), the comparison
+    solo = spec["solo"]
+    if rank == 0:
+        ecfg = EngineConfig(**base, **solo["engine"])
+        done, eng, dt = serve_late(serving, trees["ecf8"], cfg, ecfg,
+                                   prompts, spec["new"], dev, *solo["late"])
+        out["solo"] = dict(tokens=[r.out_tokens for r in done], wall_s=dt,
+                           steps=eng.steps, decode_s=eng.decode_seconds)
+        del eng, done
+    dist.barrier()
+    del trees
+    torch.cuda.empty_cache()
+
+    # the small f32 model: --mesh D (paged-compressed under pressure) and
+    # the same requests on one rank; and --mesh 1x2
+    small = dataclasses.replace(
+        get("qwen3-8b"), name="qwen3-small", n_layers=2, d_model=256,
+        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+        dtype="float32")
+    p_small, _ = store.compress_tree(
+        M.init_params(small, spec["seed"], "cpu"), min_elems=4096,
+        out_dtype="float32")
+    p_small = to_device(p_small, dev, store)
+    sp = serve.make_prompts(small, 8, spec["seed"], lo=4, hi=40)
+    # two slots a batch shard on 8 raw pages (shard 0's 7 hold the longest
+    # request) and 2 cold slots: the runs preempt and go cold
+    skw = dict(max_batch=2 * world, max_len=64, page_size=8,
+               compress_cold=True, n_pages=8 * world, n_cold_slots=2 * world,
+               swap_bytes=-1)
+    small_runs = {}
+    for dims in ((world, 1), (world // 2, 2)):
+        done, eng, _ = serve.serve(p_small, small, EngineConfig(
+            **skw, mesh=meshes[dims]), sp, 12, device=dev)
+        small_runs[f"{dims[0]}x{dims[1]}"] = dict(
+            tokens=[r.out_tokens for r in done],
+            preempted=eng.scheduler.n_preempted,
+            cold=eng.paged.n_compressed)
+    if rank == 0:
+        done, eng, _ = serve.serve(p_small, small, EngineConfig(**skw), sp,
+                                   12, device=dev)
+        small_runs["one"] = dict(tokens=[r.out_tokens for r in done],
+                                 preempted=eng.scheduler.n_preempted,
+                                 cold=eng.paged.n_compressed)
+    out["small_f32"] = small_runs
+    dist.barrier()
+
+    # B3 on this rank's share of a cold pool: 48 bf16 pages at qwen3-8b's
+    # page shape, split over the ranks, each decoded where it lies
+    gen = torch.Generator().manual_seed(spec["seed"] + 5)
+    n_elem = cfg.n_kv_heads * 16 * cfg.hd
+    n_pages = 48 // world * world
+    pages = [(torch.randn(n_elem, generator=gen) * float(10 ** (i % 5 - 2)))
+             .to(torch.bfloat16) for i in range(n_pages)]
+    cps = [codec.encode_page(p) for p in pages]
+    stride = -(-codec.sym_per_lane(n_elem) * codec.plane_spec(
+        "bfloat16")[0] // 8)
+    pay = torch.zeros((n_pages, stride, codec.LANES), dtype=torch.uint8)
+    for i, c in enumerate(cps):
+        pay[i, : c.stride] = torch.from_numpy(c.payload)
+    whole = [t.to(dev) for t in (
+        pay, torch.from_numpy(np.stack([c.signmant for c in cps])),
+        torch.from_numpy(np.stack([c.tables() for c in cps])),
+        torch.from_numpy(np.stack([c.perm for c in cps])))]
+    per = n_pages // world
+    mine = [t[rank * per:(rank + 1) * per].contiguous() for t in whole]
+    before = kv_page.run.launches_by_path["sharded"]
+    got = kv_page.decode_pages_sharded(*mine, meshes[(world, 1)],
+                                       n_elem=n_elem, dtype_name="bfloat16")
+    rows = collectives.gather_rows(got.view(torch.uint8),
+                                   meshes[(world, 1)], "data")
+    want = kv_page.run(*whole, n_elem=n_elem, dtype_name="bfloat16")
+    sync()
+    out["b3_sharded"] = dict(
+        bit_exact=bool(torch.equal(rows.reshape(n_pages, -1),
+                                   want.view(torch.uint8))),
+        launches=kv_page.run.launches_by_path["sharded"] - before,
+        pages_a_rank=per,
+        ms=cuda_ms(torch, lambda: kv_page.decode_pages_sharded(
+            *mine, None, n_elem=n_elem, dtype_name="bfloat16"), 20),
+        plain_ms=cuda_ms(torch, lambda: kv_page.plain(
+            *mine, n_elem=n_elem, dtype_name="bfloat16"), 3),
+        bound_ms=(sum(t.numel() * t.element_size() for t in mine)
+                  + got.numel() * 2) / H100_BYTES_PER_S * 1e3)
+
+    # the stat merge of one decode layer at a data group's rows, timed on
+    # the model axis of the largest mesh that has one
+    mm = [dims for dims in meshes if dims[1] > 1]
+    if mm:
+        mesh = meshes[max(mm)]
+        b_loc = spec["max_batch"] // mesh.mesh.shape[0]
+        acc = torch.randn((b_loc, cfg.n_heads, 1, cfg.hd), device=dev)
+        m = torch.randn((b_loc, cfg.n_heads, 1), device=dev)
+        l = torch.rand((b_loc, cfg.n_heads, 1), device=dev) + 1
+        DS._merge_stats(acc, m, l, mesh)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            DS._merge_stats(acc, m, l, mesh)
+        sync()
+        out["stat_merge_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        out["stat_merge_mesh"] = list(mesh.mesh.shape)
+
+    # the ECF8-FR compressed all-gather of qwen3-8b's wi_gate (4096 x
+    # 12288 fp8) over the ranks, beside a raw fp8 gather of the same rows
+    mesh = meshes[(world, 1)]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 7)
+    w = torch.randn((cfg.d_model, cfg.d_ff), generator=g, device=dev)
+    bits = fp8.cast_to_fp8_bits(w.mul_(cfg.d_model ** -0.5))
+    del w
+    table, cap = collectives.calibrate(bits, margin=1.3)
+    cap_shard = max(2, math.ceil(cap / world * 1.5))
+    cap_shard += cap_shard % 2
+    rows_a = bits.shape[0] // world
+    local = bits[rank * rows_a:(rank + 1) * rows_a].contiguous()
+    gather = collectives.compressed_all_gather(mesh, "data")
+    full, overflow = gather(local, table, cap_shard)
+    sync()
+    exact = bool(torch.equal(full, bits)) and not overflow
+
+    def timed(fn, reps=5):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    fr_ms = timed(lambda: gather(local, table, cap_shard))
+    raw_out = [torch.empty_like(local) for _ in range(world)]
+    group = mesh.get_group("data")
+    if nccl:
+        raw_buf = torch.empty_like(bits)
+        raw_ms = timed(lambda: dist.all_gather_into_tensor(raw_buf, local,
+                                                           group=group))
+    else:
+        raw_ms = timed(lambda: collectives.gather_rows(local, mesh, "data"))
+    esc = int((~torch.isin(fp8.exponent_field(local).to(torch.int64),
+                           table.to(torch.int64))).sum())
+    n_loc = local.numel()
+    wire = (n_loc // 4 + cap_shard // 2 + n_loc // 2) / n_loc
+    out["fr_gather"] = dict(
+        bit_exact=exact, overflow=overflow, shape=list(bits.shape),
+        escape_share=esc / n_loc, cap_shard=cap_shard,
+        wire_bytes_per_elem=wire,
+        analytic_bytes_per_elem=collectives.wire_bytes_per_elem(
+            esc / n_loc), raw_bytes_per_elem=1.0, fr_ms=fr_ms,
+        raw_ms=raw_ms, raw_call=("all_gather_into_tensor" if nccl
+                                 else "all_gather over gloo"))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del raw_out
+    return out
+
+
+def mesh_phase(torch, np, MESH, serve, get, n_ranks: int, layers: int,
+               seed: int, flash_fwd, gen, flush):
+    """Phase 21 on ``n_ranks`` ranks (NCCL, one a card, or gloo ranks
+    sharing one card) -> (measurements, per-rank launches of the mesh
+    runs).  Fails on any gate."""
+    nccl = torch.cuda.device_count() >= n_ranks and n_ranks > 1 \
+        and torch.cuda.device_count() > 1
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=layers)
+    n_req = MESH_REQUESTS if nccl else 8
+    max_batch = MESH_BATCH if nccl else 4
+    prompts = serve.make_prompts(cfg, n_req, seed, lo=64, hi=513)
+    # a shard's two slots on 32 raw pages (shard 0's 31 hold the longest
+    # request, 31 pages) and 2 cold slots: two long requests preempt
+    pools = dict(compress_cold=True, n_pages=MESH_SHARD_PAGES * n_ranks,
+                 n_cold_slots=MESH_SHARD_COLD * n_ranks, swap_bytes=-1)
+    d_model = (n_ranks // 2, 2)
+    # 21a / 21d: a quarter of the requests arrive 8 steps in at priority 1
+    late = (n_req // 4, 8)
+    runs = [dict(tag="21a", mesh=(n_ranks, 1), tree="ecf8", engine=pools,
+                 late=late),
+            dict(tag="21b", mesh=d_model, tree="ecf8", engine={}),
+            dict(tag="21c", mesh=(n_ranks, 1), tree="ecf8",
+                 engine=dict(prefill_chunk=CHUNK, prefill_budget=CHUNK)),
+            dict(tag="21d", mesh=(n_ranks, 1), tree="fp8", engine=pools,
+                 late=late)]
+    spec = dict(layers=layers, seed=seed, prompts=prompts,
+                max_batch=max_batch, max_len=1024, new=32, runs=runs,
+                solo=dict(engine=pools, late=late))
+    log(f"phase 21: {n_ranks} ranks over "
+        f"{'NCCL, one card each' if nccl else 'gloo on one card'}; "
+        f"qwen3-8b at full width, {layers} layers, {n_req} requests "
+        f"(prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"tokens), max_batch {max_batch}, 32 new tokens; runs "
+        f"{[(r['tag'], r['mesh'], r['tree'], r['engine']) for r in runs]}")
+
+    # B4 with q_base: one model rank's rows of a sharded prefill at
+    # qwen3-8b's heads (rows [T/2, T) and [3T/4, T) over T keys), against
+    # the plain version and, bit for bit, against the same rows of the
+    # unsharded launch
+    qb = {}
+    for T, part in ((1024, 2), (1024, 4), (452, 2)):
+        base = T - T // part
+        qb[f"T{T}_base{base}"] = check_flash(
+            torch, flash_fwd, T // part, gen, flush, q_base=base, Tk=T)
+    q = torch.randn((1, 32, 1024, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn((1, 8, 1024, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((1, 8, 1024, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    full = flash_fwd.run(q, k, v)
+    shards = torch.cat([flash_fwd.run(q[:, :, i:i + 256].contiguous(), k, v,
+                                      q_base=i) for i in range(0, 1024, 256)],
+                       dim=2)
+    if not torch.equal(full, shards):
+        fail("flash_fwd: four q_base shards differ from the unsharded "
+             "launch")
+    log("flash_fwd q_base: the four 256-row shards of T = 1024 (q_base 0, "
+        "256, 512, 768) concatenate to the unsharded output bit for bit")
+    del q, k, v, full, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # which products give a row other bits at 2 rows than at max_batch
+    # rows (a data group's batch against one card's): the weight products
+    # at qwen3-8b's shapes and the decode attention over a slot's gathered
+    # history (max_len 1024 positions, 300-1000 of them live)
+    from repro_torch.models.layers import decode_attention
+    split = {}
+    x = torch.randn((max_batch, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for name, (K, N) in (("wq", (cfg.d_model, cfg.n_heads * cfg.hd)),
+                         ("wk", (cfg.d_model, cfg.n_kv_heads * cfg.hd)),
+                         ("wi_gate", (cfg.d_model, cfg.d_ff)),
+                         ("unembed", (cfg.d_model, cfg.vocab_size))):
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             * K ** -0.5).to(torch.bfloat16)
+        split[name] = bool(torch.equal((x @ w)[:2], x[:2] @ w))
+    wo = (torch.randn((cfg.d_ff, cfg.d_model), generator=gen, device="cuda")
+          * cfg.d_ff ** -0.5).to(torch.bfloat16)
+    h = torch.randn((max_batch, 1, cfg.d_ff), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    split["wo_mlp"] = bool(torch.equal((h @ wo)[:2], h[:2] @ wo))
+    q = torch.randn((max_batch, cfg.n_heads, 1, cfg.hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kv = torch.randn((max_batch, cfg.n_kv_heads, 1024, cfg.hd),
+                     generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.arange(max_batch, device="cuda") * 97 % 700 + 300
+    split["decode_attention"] = bool(torch.equal(
+        decode_attention(q, kv, kv, kv_len=lens)[:2],
+        decode_attention(q[:2], kv[:2], kv[:2], kv_len=lens[:2])))
+    log(f"bf16 products whose first 2 rows keep their bits at {max_batch} "
+        f"rows (True) or not: {split}")
+    del x, w, wo, h, q, kv
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = MESH.spawn(mesh_rank, n_ranks, spec, device="cuda",
+                     backend="nccl" if nccl else "gloo", timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"phase 21 ranks: {n_ranks} x {r0['device']} over "
+        f"{r0['backend']}, spawn + build + runs {wall:.1f}s; trees ECF8 "
+        f"{r0['tree_mb']['ecf8']:.1f} MB, fp8 {r0['tree_mb']['fp8']:.1f} MB "
+        f"a rank, encoded in {r0['encode_s']:.1f}s")
+    sums = {tuple(r["runs"]["21a"]["checksum"]) for r in res}
+    if len(sums) != 1:
+        fail(f"phase 21: the ranks' ECF8 trees differ: {sums}")
+    log(f"every rank's ECF8 tree checksum equal: {sums.pop()}")
+    for tag in ("21a", "21b", "21c", "21d"):
+        toks = [r["runs"][tag]["tokens"] for r in res]
+        if any(t != toks[0] for t in toks):
+            fail(f"phase {tag}: the ranks' tokens differ")
+        if any(r["runs"][tag]["free_lists"] != res[0]["runs"][tag][
+                "free_lists"] for r in res):
+            fail(f"phase {tag}: the ranks' free lists differ")
+        if not all(r["runs"][tag]["drained"] for r in res):
+            fail(f"phase {tag}: a rank's pools or swap did not drain")
+        if not all(len(t) == 32 and all(0 <= x < cfg.vocab_size for x in t)
+                   for t in toks[0]):
+            fail(f"phase {tag}: unfinished requests or out-of-vocab tokens")
+    runs_out = {}
+    for tag in ("21a", "21b", "21c", "21d"):
+        per = [r["runs"][tag] for r in res]
+        steps = per[0]["steps"]
+        n_tok = sum(len(t) for t in per[0]["tokens"])
+        runs_out[tag] = dict(
+            mesh=[r for r in runs if r["tag"] == tag][0]["mesh"],
+            steps=steps, tok_s=n_tok / per[0]["wall_s"],
+            step_ms=[p["decode_s"] / max(steps, 1) * 1e3 for p in per],
+            token_gather_ms=[p["gather_s"] / max(steps, 1) * 1e3
+                             for p in per],
+            prefill_s=[p["prefill_s"] for p in per],
+            peak_gib=[p["peak_gib"] for p in per],
+            launches_a_step={k: [p["launches"][k] / max(steps, 1)
+                                 for p in per]
+                             for k in ("ecf8_decode", "flash_fwd",
+                                       "kv_page_decode")},
+            launches=[p["launches"] for p in per],
+            preempted=per[0]["preempted"], resumed=per[0]["resumed"],
+            cold_compressed=per[0]["cold_compressed"],
+            peak_pages_per_shard=per[0]["peak_pages_per_shard"],
+            peak_swap_bytes_per_shard=per[0]["peak_swap_bytes_per_shard"],
+            swap_out_bytes=per[0]["swap_out_bytes"],
+            pages_per_shard=per[0]["pages_per_shard"],
+            cold_per_shard=per[0]["cold_per_shard"],
+            n_chunks=per[0]["n_chunks"])
+        log(f"{tag} mesh {runs_out[tag]['mesh']}: "
+            f"{json.dumps(runs_out[tag])}")
+    a = runs_out["21a"]
+    if res[0]["runs"]["21a"]["tokens"] != res[0]["runs"]["21d"]["tokens"]:
+        fail("phase 21: ECF8 tokens differ from the fp8 tree's on the mesh")
+    log("lossless on the mesh: 21a's ECF8 greedy tokens IDENTICAL to 21d's "
+        "(fp8 tree, same mesh and pools)")
+    b3 = [p["launches"]["kv_page_decode_by_path"].get("sharded", 0)
+          for p in (r["runs"]["21a"] for r in res)]
+    if not all(b3):
+        fail(f"phase 21a: B3 not launched on the sharded path on every "
+             f"rank: {b3}")
+    if not all(x for x in a["launches_a_step"]["ecf8_decode"]):
+        fail("phase 21a: B1 not launched on every rank")
+    q_base = [p["launches"]["flash_fwd_q_base"]
+              for p in (r["runs"]["21b"] for r in res)]
+    if not any(q_base):
+        fail(f"phase 21b: no B4 launch with q_base != 0: {q_base}")
+    if not (a["cold_compressed"] and (a["preempted"] or a["swap_out_bytes"])):
+        fail(f"phase 21a: the cold pool or the swap tier went unused: {a}")
+    solo = r0["solo"]["tokens"]
+    same = {tag: sum(x == y for x, y in zip(res[0]["runs"][tag]["tokens"],
+                                            solo))
+            for tag in ("21a", "21b", "21c")}
+    one_ms = r0["solo"]["decode_s"] / max(r0["solo"]["steps"], 1) * 1e3
+    log(f"tokens on the mesh against rank 0 alone (same requests and "
+        f"pools, bf16; reported, not gated): requests identical {same} of "
+        f"{len(solo)}; one rank {one_ms:.1f} ms/step at batch {max_batch}")
+    sm = r0["small_f32"]
+    key, key_m = f"{n_ranks}x1", f"{n_ranks // 2}x2"
+    if sm[key]["tokens"] != sm["one"]["tokens"]:
+        fail(f"small f32 model on --mesh {n_ranks}: tokens differ from one "
+             f"rank's")
+    if not (sm[key]["preempted"] and sm[key]["cold"]):
+        fail(f"small f32 mesh run did not preempt or go cold: {sm[key]}")
+    same_m = sm[key_m]["tokens"] == sm["one"]["tokens"]
+    log(f"small f32 model (2 layers, d 256) on --mesh {n_ranks}, "
+        f"paged-compressed under pressure ({sm[key]['preempted']} "
+        f"preemptions, {sm[key]['cold']} pages cold): tokens IDENTICAL to "
+        f"one rank's; --mesh {key_m} "
+        f"{'IDENTICAL' if same_m else 'differs (reported, not gated)'}")
+    b3s = [r["b3_sharded"] for r in res]
+    if not all(b["bit_exact"] and b["launches"] for b in b3s):
+        fail(f"decode_pages_sharded: {b3s}")
+    log(f"decode_pages_sharded: {b3s[0]['pages_a_rank']} pages a rank, "
+        f"gathered rows bit-exact against the whole pool's decode; "
+        f"{json.dumps(b3s[0])}")
+    fr = [r["fr_gather"] for r in res]
+    if not all(f["bit_exact"] for f in fr):
+        fail(f"compressed_all_gather not bit-exact: {fr}")
+    log(f"21e compressed_all_gather of wi_gate {fr[0]['shape']} over "
+        f"{n_ranks} ranks: bit-exact, escape share "
+        f"{fr[0]['escape_share']:.4f}, wire {fr[0]['wire_bytes_per_elem']:.4f}"
+        f" bytes an element (analytic {fr[0]['analytic_bytes_per_elem']:.4f};"
+        f" raw fp8 1.0), {fr[0]['fr_ms']:.3f} ms (encode + gather + decode) "
+        f"vs raw {fr[0]['raw_call']} {fr[0]['raw_ms']:.3f} ms")
+    if "stat_merge_ms" in r0:
+        log(f"stat merge (one decode layer, mesh {r0['stat_merge_mesh']}): "
+            f"{r0['stat_merge_ms']:.3f} ms a call")
+    out = dict(ranks=n_ranks, backend=r0["backend"], layers=layers,
+               runs=runs_out, same_as_one_rank=same,
+               one_rank_step_ms=one_ms,
+               b3_sharded=b3s[0], fr_gather=fr[0],
+               stat_merge_ms=r0.get("stat_merge_ms"),
+               q_base_checks=qb, rows_keep_bits=split,
+               peak_gib=[r["peak_gib"] for r in res],
+               wall_s=wall)
+    return out
+
+
+def only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page, ecf8_decode,
+                seed: int, t_start: float):
+    """``--only 1,21``: after the build, phase 21 alone (four NCCL ranks at
+    ``MESH_LAYERS`` when four cards are visible, else two gloo ranks on one
+    card at ``QWEN_LAYERS``), then the kernels line of what ran (B1, B2
+    and B5 were not timed: their time keys are null) and the last line."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
+    out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
+                     MESH_LAYERS if n_ranks == 4 else QWEN_LAYERS, seed,
+                     flash_fwd, gen, flush)
+    del flush
+    log(f"phase 21 measurements: {json.dumps(out)}")
+    log(f"phase 21 done at {time.perf_counter() - t_start:.1f}s")
+
+    def mesh_l(name):
+        return {tag: [ln[name] for ln in run["launches"]]
+                for tag, run in out["runs"].items()}
+
+    untimed = dict(max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+                   bound_by=None, library_ms=None)
+    b4 = out["q_base_checks"]["T1024_base512"]
+    b3 = out["b3_sharded"]
+    kernels = [
+        dict(name="ecf8_decode", route="cuda",
+             source="src/repro_torch/csrc/ecf8_decode.cu",
+             replaces="src/repro/kernels/ecf8_decode.py:36",
+             launches=sum(mesh_l("ecf8_decode")["21a"]),
+             launches_mesh=mesh_l("ecf8_decode"), **untimed),
+        dict(name="flash_fwd", route="cuda",
+             source="src/repro_torch/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash_fwd.py:37",
+             launches=sum(mesh_l("flash_fwd")["21b"]),
+             launches_mesh=mesh_l("flash_fwd"),
+             launches_mesh_q_base=mesh_l("flash_fwd_q_base"),
+             q_base_at_shard_shape=out["q_base_checks"], **b4),
+        dict(name="kv_page_decode", route="cuda",
+             source="src/repro_torch/csrc/kv_page_decode.cu",
+             replaces="src/repro/kvcache/kernels.py:34",
+             launches=sum(mesh_l("kv_page_decode")["21a"]),
+             launches_mesh=mesh_l("kv_page_decode"),
+             max_abs_err=0.0 if b3["bit_exact"] else None, ms=b3["ms"],
+             plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
+             bound_by="bytes", library_ms=None),
+        dict(name="fused_decode_matmul", route="cuda",
+             source="src/repro_torch/csrc/fused_decode_matmul.cu",
+             replaces="src/repro/kernels/fused_decode_matmul.py:80",
+             launches=0, **untimed),
+        dict(name="flash_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/models/flash_attention.py:142",
+             launches=0, **untimed)]
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(gpu_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=QWEN_LAYERS,
                     help="qwen3-8b depth served in phases 5-11 (36 = full)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help="run only these phases, e.g. '1,21' (the build and "
+                         "the mesh; on four cards the 4-rank run): "
+                         f"{', '.join(MESH_PHASES)}")
     args = ap.parse_args(argv)
+    only = None
+    if args.only is not None:
+        only = set(args.only.split(","))
+        if not only <= set(MESH_PHASES) or "1" not in only:
+            ap.error(f"--only {args.only}: phase 1 (the build) and any of "
+                     f"{', '.join(MESH_PHASES[1:])}")
 
     try:
         import torch
@@ -2568,6 +3205,7 @@ def main(argv=None):
     from repro_torch.kvcache import codec, paged
     from repro_torch.kvcache import kernels as kv_page
     from repro_torch.launch import load_replay, serve
+    from repro_torch.launch import mesh as MESH
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch import serving
@@ -2600,6 +3238,9 @@ def main(argv=None):
                 log(f"  ptxas: {line.strip()}")
     log(f"build phase {time.perf_counter() - t0:.1f}s "
         f"({len(built)} of {len(build.SOURCES)} sources compiled)")
+    if only is not None:
+        return only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page,
+                           ecf8_decode, args.seed, t_start)
 
     # -- 2. kernel 1: ECF8 decode -------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -3400,6 +4041,20 @@ def main(argv=None):
     log(f"phase 20b measurements: {json.dumps(ckpt_out)}")
     mark("phase 20b")
 
+    # -- 21. serving on a mesh of ranks ------------------------------------
+    # one visible card: two ranks share it over gloo at QWEN_LAYERS; four or
+    # more: four NCCL ranks at MESH_LAYERS
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
+    mesh_out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
+                          MESH_LAYERS if n_ranks == 4 else args.layers,
+                          args.seed, flash_fwd, gen, flush)
+    del flush
+    log(f"phase 21 measurements: {json.dumps(mesh_out)}")
+    mark("phase 21")
+
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
                                       for t in wh_launches},
@@ -3419,6 +4074,11 @@ def main(argv=None):
         return dict(launches_llama4={t: llama_launches[t][name]
                                      for t in ("17a", "17b", "17d")},
                     launches_fixedrate=fr_launches[name])
+
+    def on_mesh(name):
+        """Each rank's launches in each phase-21 run."""
+        return {tag: [ln[name] for ln in run["launches"]]
+                for tag, run in mesh_out["runs"].items()}
 
     def on_recurrent_paths(name):
         return dict(
@@ -3446,6 +4106,7 @@ def main(argv=None):
              at_whisper_shape=results["whisper_unembed"],
              launches_train=train_launches["ecf8_decode"],
              launches_ckpt_restore=ckpt_b1,
+             launches_mesh=on_mesh("ecf8_decode"),
              fixedrate_decode=fr_results, **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
@@ -3464,6 +4125,9 @@ def main(argv=None):
              at_whisper_shape=results["flash_whisper_enc"],
              at_whisper_cross_shape=results["flash_whisper_cross"],
              launches_train=train_launches["flash_fwd"],
+             launches_mesh=on_mesh("flash_fwd"),
+             launches_mesh_q_base=on_mesh("flash_fwd_q_base"),
+             q_base_at_shard_shape=mesh_out["q_base_checks"],
              with_stats_at_train_shape={
                  k: results["bwd_qwen3"][k]
                  for k in ("fwd_ms", "fwd_stats_ms", "stats_err")},
@@ -3480,6 +4144,12 @@ def main(argv=None):
              **on_frontend_and_whisper("kv_page_decode"),
              at_whisper_shape=None,
              launches_train=train_launches["kv_page_decode"],
+             launches_mesh=on_mesh("kv_page_decode"),
+             launches_mesh_sharded={
+                 tag: [ln["kv_page_decode_by_path"].get("sharded", 0)
+                       for ln in run["launches"]]
+                 for tag, run in mesh_out["runs"].items()},
+             sharded_at_mesh_shape=mesh_out["b3_sharded"],
              at_moe_shape=results["kv_moe_bf16_48"],
              at_gemma2_shape=results["kv_g2_bf16_48"], **results["kv_bf16"]),
         dict(name="fused_decode_matmul", route="cuda",

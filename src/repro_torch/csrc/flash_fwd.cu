@@ -5,7 +5,10 @@
 // reference's serve path runs (models/flash_attention.py::_flash_fwd_impl):
 //   * q is scaled in its own dtype: round(q * round(D^-0.5));
 //   * scores are f32 sums of q.k, optional tanh softcap, -1e30 mask for
-//     kv_pos >= Tk and (causal) kv_pos > q_pos;
+//     kv_pos >= Tk and (causal) kv_pos > q_pos, where q_pos = q_base + row:
+//     q_base is the global position of query row 0 (the TPU kernel's
+//     q_base), non-zero when the rows are one model rank's share of a
+//     sequence (models/flash_attention.py::flash_attention_sharded);
 //   * online softmax in f32 (running max m, denominator l of the unrounded
 //     p), while p is rounded to v's dtype before the p.v product, which
 //     accumulates in f32;
@@ -338,8 +341,8 @@ __global__ void __launch_bounds__(128 * tc_groups<D>())
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ m_out, float* __restrict__ l_out,
-                    int Hq, int Hkv, int Tq, int Tk, float scale,
-                    float softcap, int causal) {
+                    int Hq, int Hkv, int Tq, int Tk, int q_base,
+                    float scale, float softcap, int causal) {
   constexpr int NTH = 128 * tc_groups<D>();
   constexpr int DV = D / tc_groups<D>();  // O columns of one warpgroup
   constexpr int CH = D / 8;   // 16-byte chunks a row
@@ -360,13 +363,15 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
   const int hk = h / (Hq / Hkv);
   // the longest causal rows first: block y runs q block gridDim.y - 1 - y
+  // (rows see keys up to q_base + their row, so the order holds for any
+  // q_base)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const T* qb = q + (size_t(b) * Hq + h) * Tq * D;
   const T* kb = k + (size_t(b) * Hkv + hk) * Tk * D;
   const T* vb = v + (size_t(b) * Hkv + hk) * Tk * D;
   T* ob = o + (size_t(b) * Hq + h) * Tq * D;
 
-  const int kv_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int kv_end = causal ? min(Tk, q_base + q0 + BQ) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   auto load_kv = [&](int tile, int stage) {
@@ -438,7 +443,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // softcap and mask; element e of s[j] is row g + 8 * (e >> 1), key
     // 8j + 2t + (e & 1)
-    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + r0);
+    const bool edge =
+        k0 + BK > Tk || (causal && k0 + BK - 1 > q_base + q0 + r0);
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
@@ -447,7 +453,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         if (edge) {
           const int kv_pos = k0 + 8 * j + 2 * t + (e & 1);
-          const int q_pos = q0 + r0 + g + 8 * (e >> 1);
+          const int q_pos = q_base + q0 + r0 + g + 8 * (e >> 1);
           if (!(kv_pos < Tk && (!causal || kv_pos <= q_pos))) x = NEG;
         }
         s[4 * j + e] = x;
@@ -466,7 +472,12 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_run[hf], mx);
       const float mb = m_new * kLog2e;
-      corr[hf] = exp2f(m_run[hf] * kLog2e - mb);
+      // a tile with no key the row can see changes nothing: corr is 1, not
+      // the contracted fma(m, log2e, -mb)'s rounding residue.  Only a
+      // q_base that does not fall on a 64-row block gives a row such a
+      // tile (past its own last key), so a sharded prefill's rows get the
+      // unsharded launch's bits and the q_base = 0 launch is unchanged
+      corr[hf] = mx == NEG ? 1.f : exp2f(m_run[hf] * kLog2e - mb);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
@@ -560,8 +571,8 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ m_out, float* __restrict__ l_out, int Hq,
-                 int Hkv, int Tq, int Tk, float scale, float softcap,
-                 int causal) {
+                 int Hkv, int Tq, int Tk, int q_base, float scale,
+                 float softcap, int causal) {
   constexpr int LD = D + 1;   // padded row stride of the Q and K tiles
   constexpr int LP = BK + 1;  // padded row stride of the score tile
   constexpr int CPT = D / 32; // output columns per thread
@@ -611,7 +622,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // softmax ownership: 4 neighbouring threads per row
   const int pr = tid / 4, pp = tid % 4;
 
-  const int kv_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int kv_end = causal ? min(Tk, q_base + q0 + BQ) : Tk;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BK * D; i += NT) {
@@ -643,7 +654,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = sr + 16 * i, c = sc + 16 * j;
-        const int kv_pos = k0 + c, q_pos = q0 + r;
+        const int kv_pos = k0 + c, q_pos = q_base + q0 + r;
         float x = s[i][j];
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         const bool keep = kv_pos < Tk && (!causal || kv_pos <= q_pos);
@@ -716,8 +727,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* m,
-           float* l, int B, int Hq, int Hkv, int Tq, int Tk, float scale,
-           float softcap, int causal, cudaStream_t stream) {
+           float* l, int B, int Hq, int Hkv, int Tq, int Tk, int q_base,
+           float scale, float softcap, int causal, cudaStream_t stream) {
   const auto go = [&](auto kernel, size_t smem, int threads, int rows) {
     const dim3 grid(B * Hq, (Tq + rows - 1) / rows);
     cudaError_t err = cudaFuncSetAttribute(
@@ -725,7 +736,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
     if (err != cudaSuccess) return int(err);
     kernel<<<grid, threads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, m, l, Hq, Hkv, Tq,
-        Tk, scale, softcap, causal);
+        Tk, q_base, scale, softcap, causal);
     return int(cudaGetLastError());
   };
   if constexpr (std::is_same<T, float>::value) {
@@ -738,18 +749,19 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* m,
-             float* l, int B, int Hq, int Hkv, int Tq, int Tk, int D,
-             float scale, float softcap, int causal, cudaStream_t stream) {
+             float* l, int B, int Hq, int Hkv, int Tq, int Tk, int q_base,
+             int D, float scale, float softcap, int causal,
+             cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, scale,
-                           softcap, causal, stream);
+      return launch<T, 64>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, q_base,
+                           scale, softcap, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, scale,
-                            softcap, causal, stream);
+      return launch<T, 128>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, q_base,
+                            scale, softcap, causal, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, scale,
-                            softcap, causal, stream);
+      return launch<T, 256>(q, k, v, o, m, l, B, Hq, Hkv, Tq, Tk, q_base,
+                            scale, softcap, causal, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -758,24 +770,25 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* m,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; m / l: null, or f32
-// (B, Hq, Tq) outputs of the row statistics
+// (B, Hq, Tq) outputs of the row statistics; q_base: the global position of
+// query row 0 (causal masking), 0 unless the rows are a shard of a sequence
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* m, void* l, int B, int Hq, int Hkv, int Tq,
                          int Tk, int D, int dtype, int causal, float softcap,
-                         float scale, void* stream) {
+                         float scale, int q_base, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk, D,
-                             scale, softcap, causal, s);
+      return launch_d<float>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk, q_base,
+                             D, scale, softcap, causal, s);
     case 1:
       return launch_d<__nv_bfloat16>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk,
-                                     D, scale, softcap, causal, s);
+                                     q_base, D, scale, softcap, causal, s);
     case 2:
-      return launch_d<__half>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk, D,
-                              scale, softcap, causal, s);
+      return launch_d<__half>(q, k, v, o, mf, lf, B, Hq, Hkv, Tq, Tk, q_base,
+                              D, scale, softcap, causal, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -44,15 +44,18 @@ from ..models.flash_attention import flash_attention_fwd_stats as plain_stats
 from . import build
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128, 256)
 
 
 def run(q, k, v, causal: bool = True, softcap: float = 0.0,
-        stats: bool = False):
+        stats: bool = False, q_base: int = 0):
     """q: (B, Hq, Tq, D), k/v: (B, Hkv, Tk, D) on the card -> o (B, Hq, Tq, D)
-    in v's dtype, or with ``stats`` (o, m, l), m and l f32 (B, Hq, Tq)."""
+    in v's dtype, or with ``stats`` (o, m, l), m and l f32 (B, Hq, Tq).
+    ``q_base`` is the global position of query row 0 for the causal mask
+    (a model rank's share of the rows, ``flash_attention_sharded``);
+    ``run.launches_q_base`` counts the launches with ``q_base != 0``."""
     if not all(t.is_cuda and t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_fwd: q, k, v must be contiguous CUDA tensors")
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODES:
@@ -67,6 +70,8 @@ def run(q, k, v, causal: bool = True, softcap: float = 0.0,
         raise ValueError("flash_fwd: q, k, v must be 16-byte aligned")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_fwd: head_dim {D} not in {_HEAD_DIMS}")
+    if q_base < 0:
+        raise ValueError(f"flash_fwd: q_base {q_base} < 0")
     o = torch.empty_like(q)
     m = l = None
     if stats:
@@ -77,12 +82,14 @@ def run(q, k, v, causal: bool = True, softcap: float = 0.0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         m.data_ptr() if stats else None, l.data_ptr() if stats else None,
         B, Hq, Hkv, Tq, Tk, D, _DTYPE_CODES[q.dtype], int(causal),
-        float(softcap), D ** -0.5,
+        float(softcap), D ** -0.5, int(q_base),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
     run.launches += 1
+    run.launches_q_base += bool(q_base)
     return (o, m, l) if stats else o
 
 
 run.launches = 0
+run.launches_q_base = 0

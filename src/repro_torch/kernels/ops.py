@@ -36,14 +36,15 @@ class FlashAttention(torch.autograd.Function):
     ``flash_attention_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, softcap: float):
+    def forward(ctx, q, k, v, causal: bool, softcap: float, q_base: int = 0):
         if q.device.type == "cpu":
-            o, m, l = flash_fwd.plain_stats(q, k, v, causal, softcap)
+            o, m, l = flash_fwd.plain_stats(q, k, v, causal, softcap,
+                                            q_base=q_base)
         else:
             o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=softcap,
-                                    stats=True)
+                                    stats=True, q_base=q_base)
         ctx.save_for_backward(q, k, v, o, m, l)
-        ctx.causal, ctx.softcap = causal, softcap
+        ctx.causal, ctx.softcap, ctx.q_base = causal, softcap, q_base
         return o
 
     @staticmethod
@@ -52,24 +53,31 @@ class FlashAttention(torch.autograd.Function):
         do = do.contiguous()
         if q.device.type == "cpu":
             grads = flash_bwd.plain(q, k, v, o, m, l, do, ctx.causal,
-                                    ctx.softcap)
+                                    ctx.softcap, q_base=ctx.q_base)
         else:
+            if ctx.q_base:
+                # the backward kernel masks from row 0: a sharded
+                # training step is the training-mesh slice's
+                raise NotImplementedError(
+                    "flash_bwd: q_base != 0 has no backward kernel yet")
             grads = flash_bwd.run(q, k, v, o, m, l, do, causal=ctx.causal,
                                   softcap=ctx.softcap)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    attn_softcap: float = 0.0) -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, attn_softcap: float = 0.0,
+                    q_base: int = 0) -> torch.Tensor:
     """Full-sequence attention, q (B, Hq, Tq, D) -> (B, Hq, Tq, D): through
     :class:`FlashAttention` when an input requires a gradient, else one
     forward launch without statistics (every serve path: its weights
-    require no gradient)."""
+    require no gradient).  ``q_base``: the global position of query row 0
+    for the causal mask (a model rank's rows of a sharded prefill)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, attn_softcap)
+        return FlashAttention.apply(q, k, v, causal, attn_softcap, q_base)
     if q.device.type == "cpu":
-        return flash_fwd.plain(q, k, v, causal, attn_softcap)
-    return flash_fwd.run(q, k, v, causal=causal, softcap=attn_softcap)
+        return flash_fwd.plain(q, k, v, causal, attn_softcap, q_base=q_base)
+    return flash_fwd.run(q, k, v, causal=causal, softcap=attn_softcap,
+                         q_base=q_base)
 
 
 def decode_pages(payload, signmant, tables, perm, *, n_elem: int,

@@ -111,3 +111,21 @@ def run(payload, signmant, tables, perm, *, n_elem: int, dtype_name: str,
 run.launches = 0
 run.launches_by_path = collections.Counter()
 run.launches_by_instance = collections.Counter()
+
+
+def decode_pages_sharded(payload, signmant, tables, perm, mesh, *,
+                         n_elem: int, dtype_name: str) -> torch.Tensor:
+    """Decode this rank's share of a cold pool whose page dim shards over
+    the mesh's batch axes (the reference's ``decode_pages_sharded``): the
+    inputs are the rank's own cold slots (``kvcache.paged.PagedKVCache(
+    shard=...)`` holds no other), so no page crosses a rank to be decoded,
+    and the output is that shard's rows of a whole-pool decode, bit for
+    bit.  On the card the kernel launches with ``path="sharded"``; on the
+    CPU the plain version runs.  ``mesh`` names the layout (a rank of any
+    mesh decodes its local rows alone: there is nothing to exchange)."""
+    del mesh
+    if payload.device.type == "cpu":
+        return plain(payload, signmant, tables, perm, n_elem=n_elem,
+                     dtype_name=dtype_name)
+    return run(payload, signmant, tables, perm, n_elem=n_elem,
+               dtype_name=dtype_name, path="sharded")

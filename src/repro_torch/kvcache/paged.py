@@ -51,6 +51,20 @@ write could land in it (``make_writable``); an index-only page is retired
 to the swap store's unpinned LRU cache when the pool runs short
 (``_reclaim_prefix``) and faults back bit-exactly on a later match.
 
+Mesh sharding (``n_shards > 1``, the reference's layout): batch shard ``k``
+owns slots ``[k*B/n, (k+1)*B/n)``, raw page ids ``[k*n_pages/n,
+(k+1)*n_pages/n)`` (shard 0 loses the garbage page) and the matching
+cold-slot range, each with its own free list, so every slot's history lies
+in its own shard and the sharded decode step gathers no page across ranks
+(``models.decode_sharded``).  The allocator's bookkeeping is global and
+identical on every rank; a rank built with ``shard=k`` holds only shard
+``k``'s pool rows (``pages_per_shard``, plus one park row that takes the
+dropped writes of the sharded scatter) and cold slots (``cold_per_shard``),
+with the page table in global ids.  Only the ranks of a slot's shard touch
+its pages; a host decision that reads page content (an encoded page's byte
+count, whether it fits the cold stride budget) is made there and handed to
+every rank by ``share`` before any rank acts on it.
+
 ``page_write`` / ``page_write_chunk`` / ``page_gather`` are the tensor ops
 of the decode step and the prefill chunk (``models.model``); the writes
 update the pool in place, where the reference returns a new pool, and so do
@@ -95,7 +109,7 @@ class OutOfPages(RuntimeError):
 # tensor ops of the decode step
 # --------------------------------------------------------------------------
 
-def page_write(pool, page_table, cur_len, kv):
+def page_write(pool, page_table, cur_len, kv, park: int = GARBAGE_PAGE):
     """Scatter one new token's K (or V) into each slot's tail page, in place.
 
     pool: (n_pool, n_kv, ps, hd); page_table: (B, P) int page ids;
@@ -104,22 +118,24 @@ def page_write(pool, page_table, cur_len, kv):
     reads) or lies past the raw pool (a cold id) is dropped, as the
     reference's ``mode="drop"`` scatter drops it; a negative index would
     otherwise count from the end of the pool and overwrite a live page.
-    Dropped rows write the garbage page's own contents back, which keeps
-    the scatter free of a host sync.  Returns pool."""
+    Dropped rows write the ``park`` row's own contents back (the garbage
+    page; a sharded rank's park row, whose local row 0 is a live page),
+    which keeps the scatter free of a host sync.  Returns pool."""
     n_pool, _, ps, _ = pool.shape
     P = page_table.shape[1]
     p_idx = (cur_len // ps).clamp(0, P - 1).long()
     off = (cur_len % ps).long()
     pids = page_table.gather(1, p_idx[:, None])[:, 0].long()
     keep = (pids >= 0) & (pids < n_pool)
-    pids = torch.where(keep, pids, GARBAGE_PAGE)
+    pids = torch.where(keep, pids, park)
     new = torch.where(keep[:, None, None], kv[:, :, 0, :].to(pool.dtype),
                       pool[pids, :, off, :])
     pool[pids, :, off, :] = new
     return pool
 
 
-def page_write_chunk(pool, row, positions, kv, n_valid: int):
+def page_write_chunk(pool, row, positions, kv, n_valid: int,
+                     park: int = GARBAGE_PAGE):
     """Scatter one prefill chunk's K (or V) into a single slot's pages, in
     place.
 
@@ -130,8 +146,9 @@ def page_write_chunk(pool, row, positions, kv, n_valid: int):
     (negative) or a cold id (past the raw pool), as the reference's
     ``mode="drop"`` scatter drops them; a negative index would otherwise
     count from the end of the pool and overwrite a live page.  Dropped
-    positions write the garbage page's own contents back, which keeps the
-    scatter free of a host sync.  Returns pool."""
+    positions write the ``park`` row's own contents back (as
+    :func:`page_write`), which keeps the scatter free of a host sync.
+    Returns pool."""
     n_pool, _, ps, _ = pool.shape
     P = row.shape[0]
     positions = positions[:n_valid]
@@ -139,7 +156,7 @@ def page_write_chunk(pool, row, positions, kv, n_valid: int):
     off = (positions % ps).long()
     pids = row[p_idx].long()
     keep = (pids >= 0) & (pids < n_pool)
-    pids = torch.where(keep, pids, GARBAGE_PAGE)
+    pids = torch.where(keep, pids, park)
     new = torch.where(keep[:, None, None],
                       kv[0, :, :n_valid].transpose(0, 1).to(pool.dtype),
                       pool[pids, :, off, :])
@@ -167,7 +184,8 @@ def without_cold(cache: dict) -> dict:
     return {**cache, "units": units}
 
 
-def page_gather(pool, page_table, cpool=None, path: str = "gather"):
+def page_gather(pool, page_table, cpool=None, path: str = "gather",
+                decoded=None):
     """Gather each slot's pages into a contiguous KV history.
 
     pool: (n_pool, n_kv, ps, hd); page_table: (B, P) ids into the
@@ -175,15 +193,18 @@ def page_gather(pool, page_table, cpool=None, path: str = "gather"):
     (ids >= n_pool) are entropy-decoded by the page-decode kernel and
     appended to the raw pool as a virtual suffix before the gather; ids
     are clipped, so garbage rows gather page 0 (their positions are masked
-    by ``kv_len`` downstream).  ``path`` tags the page-decode launches.
+    by ``kv_len`` downstream).  ``path`` tags the page-decode launches;
+    ``decoded``, when given, is the cold pool already decoded, (n_cold,
+    n_elem) (the sharded decode's ``kernels.decode_pages_sharded``).
     Returns (B, n_kv, P * ps, hd)."""
     n_kv, ps, hd = pool.shape[1:]
     virtual = pool
-    if cpool is not None:
-        dec = ops.decode_pages(*cpool, n_elem=n_kv * ps * hd,
-                               dtype_name=codec.dtype_name(pool.dtype),
-                               path=path)
-        virtual = torch.cat([pool, dec.view(-1, n_kv, ps, hd)])
+    if decoded is None and cpool is not None:
+        decoded = ops.decode_pages(*cpool, n_elem=n_kv * ps * hd,
+                                   dtype_name=codec.dtype_name(pool.dtype),
+                                   path=path)
+    if decoded is not None:
+        virtual = torch.cat([pool, decoded.view(-1, n_kv, ps, hd)])
     ids = page_table.clamp(0, virtual.shape[0] - 1).long()
     gath = virtual[ids]                            # (B, P, n_kv, ps, hd)
     B, P = page_table.shape
@@ -238,7 +259,8 @@ class PagedKVCache:
     def __init__(self, cfg: ArchConfig, max_batch: int, max_len: int, *,
                  dtype, device="cuda", page_size: int = 16,
                  n_pages: int | None = None, compress_cold: bool = False,
-                 n_cold_slots: int | None = None):
+                 n_cold_slots: int | None = None, n_shards: int = 1,
+                 shard: int | None = None, share=None):
         """Args:
           cfg: architecture config: paged ('attn'/'nope'), ``local`` and
             recurrent layers (the latter keep rings and states, not pages),
@@ -250,10 +272,20 @@ class PagedKVCache:
           page_size: token positions per page; rounded down to a divisor of
             ``max_len``.
           n_pages: raw pool size (id 0 is the garbage page); defaults to
-            the worst case (every slot full) plus the garbage page.
+            the worst case (every slot full) plus the garbage page, and is
+            rounded up to a multiple of ``n_shards``.
           compress_cold: entropy-code full pages into the cold pool.
           n_cold_slots: cold pool size (default: worst case minus one tail
-            page per slot).
+            page per slot), rounded up to a multiple of ``n_shards``.
+          n_shards: batch shards of the mesh (the batch axes' size): slots,
+            raw pages and cold slots split into ``n_shards`` contiguous
+            ranges with one free list each; ``max_batch`` must divide.
+          shard: the batch shard whose pool rows and cold slots this
+            process holds (a mesh rank); None holds every shard's.
+          share: ``share(obj, shard) -> obj``, a picklable value as the
+            first rank of ``shard`` holds it, on every rank (the mesh
+            engine's broadcast); None when every rank reads the same page
+            content (one process, or one batch shard).
         """
         from ..models.model import cache_groups
         # (section, key, kind) of every layer group: the pattern positions
@@ -280,7 +312,17 @@ class PagedKVCache:
                 f"per-token scatter/gather)", stacklevel=2)
         self.page_size = ps
         self.pages_per_slot = max_len // ps
-        self.n_pages = n_pages or (1 + max_batch * self.pages_per_slot)
+        if n_shards < 1 or max_batch % n_shards:
+            raise ValueError(
+                f"max_batch={max_batch} not divisible by n_shards={n_shards}")
+        if shard is not None and not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} not in [0, {n_shards})")
+        self.n_shards, self.shard, self.share = n_shards, shard, share
+        self.slots_per_shard = max_batch // n_shards
+        n_pages = n_pages or (n_shards + max_batch * self.pages_per_slot)
+        # each shard owns a contiguous, equal range of page ids
+        self.n_pages = -(-n_pages // n_shards) * n_shards
+        self.pages_per_shard = self.n_pages // n_shards
         self.n_units = cfg.n_layers // cfg.unit
         # pattern positions whose layers page, and the groups that keep
         # per-slot state (rings, recurrent states) beside the pools
@@ -304,12 +346,25 @@ class PagedKVCache:
             self.stride_budget * LANES + self.sm_nbytes
             + 4 * (3 * self.max_code_len + self.n_sym))
         default_cold = max_batch * max(self.pages_per_slot - 1, 1)
-        self.n_cold = ((n_cold_slots if n_cold_slots is not None
-                        else default_cold) if self.compress else 0)
-        # descending, so pop() hands out low ids first; excludes the
-        # garbage page id 0
-        self._free = list(range(self.n_pages - 1, 0, -1))
-        self._cold_free = list(range(self.n_cold - 1, -1, -1))
+        n_cold = ((n_cold_slots if n_cold_slots is not None
+                   else default_cold) if self.compress else 0)
+        self.n_cold = -(-n_cold // n_shards) * n_shards
+        self.cold_per_shard = self.n_cold // n_shards
+        # per-shard free lists (descending, so pop() hands out low ids
+        # first); shard 0's range excludes the garbage page id 0
+        pps, cps = self.pages_per_shard, self.cold_per_shard
+        self._free = [list(range((k + 1) * pps - 1, max(k * pps, 1) - 1, -1))
+                      for k in range(n_shards)]
+        self._cold_free = [list(range((k + 1) * cps - 1, k * cps - 1, -1))
+                           for k in range(n_shards)]
+        # the device rows this process holds: one shard's pool (and a park
+        # row for the sharded scatter's dropped writes) and cold slots, or
+        # every shard's
+        local = shard is not None and n_shards > 1
+        self._row0 = shard * pps if local else 0
+        self._cold0 = shard * cps if local else 0
+        self.pool_rows = pps + 1 if local else self.n_pages
+        self.cold_rows = cps if local else self.n_cold
         self._slot_pages: dict[int, list[int]] = {}
         self._skip: dict[int, set[int]] = {}        # incompressible pages
         self._cold_bytes: dict[int, int] = {}       # cold slot -> bytes
@@ -333,12 +388,13 @@ class PagedKVCache:
         self.n_compressed = self.compressed_bytes = 0
         self.encode_seconds = self.retire_seconds = 0.0
         self.n_fault_decodes = 0
+        self.n_moved_pages = 0          # faulted into another shard
 
     def _pool_leaves(self) -> dict:
         """One paged position's page pools (and cold-pool leaves), stacked
         over the units."""
         cfg, dev, U = self.cfg, self.device, self.n_units
-        pool = (U, self.n_pages, cfg.n_kv_heads, self.page_size, cfg.hd)
+        pool = (U, self.pool_rows, cfg.n_kv_heads, self.page_size, cfg.hd)
         leaves = {"k_pool": torch.zeros(pool, dtype=self.dtype, device=dev),
                   "v_pool": torch.zeros(pool, dtype=self.dtype, device=dev)}
         if self.compress:
@@ -349,7 +405,7 @@ class PagedKVCache:
             for kn in ("k", "v"):
                 for c, (shape, dt) in shapes.items():
                     leaves[f"{kn}_{c}"] = torch.zeros(
-                        (U, self.n_cold) + shape, dtype=dt, device=dev)
+                        (U, self.cold_rows) + shape, dtype=dt, device=dev)
         return leaves
 
     def init_cache(self) -> dict:
@@ -378,9 +434,9 @@ class PagedKVCache:
 
     # -- allocator ---------------------------------------------------------
 
-    def _alloc_raw(self) -> int:
-        """Pop a raw page off the free list with refcount 1."""
-        pid = self._free.pop()
+    def _alloc_raw(self, sh: int) -> int:
+        """Pop a raw page off ``sh``'s free list with refcount 1."""
+        pid = self._free[sh].pop()
         self._ref[pid] = 1
         return pid
 
@@ -392,17 +448,47 @@ class PagedKVCache:
         n = self._ref.get(pid, 1) - 1
         if n <= 0:
             self._ref.pop(pid, None)
-            self._free.append(pid)
+            self._free[pid // self.pages_per_shard].append(pid)
         else:
             self._ref[pid] = n
 
     def _free_cold(self, cs: int) -> None:
-        self._cold_free.append(cs)
+        self._cold_free[cs // max(self.cold_per_shard, 1)].append(cs)
         self._cold_bytes.pop(cs, None)
+
+    def shard_of_slot(self, slot: int) -> int:
+        """Batch shard owning ``slot`` (contiguous slot ranges per shard)."""
+        return slot // self.slots_per_shard
+
+    def holds(self, slot: int) -> bool:
+        """Whether this process holds ``slot``'s pages."""
+        return self._holds_shard(self.shard_of_slot(slot))
+
+    def _holds_shard(self, sh: int) -> bool:
+        return self.shard is None or self.n_shards == 1 or sh == self.shard
+
+    def _row(self, pid: int) -> int:
+        """The local pool row of raw page ``pid``."""
+        return pid - self._row0
+
+    def _crow(self, cs: int) -> int:
+        """The local cold row of cold slot ``cs``."""
+        return cs - self._cold0
+
+    def _share(self, obj, sh: int):
+        """``obj`` as the first rank of shard ``sh`` holds it."""
+        if self.share is None or self.n_shards == 1:
+            return obj
+        return self.share(obj, sh)
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        """Total free raw pages across all shards."""
+        return sum(len(f) for f in self._free)
+
+    @property
+    def free_pages_per_shard(self) -> list:
+        return [len(f) for f in self._free]
 
     @property
     def has_cold(self) -> bool:
@@ -427,30 +513,38 @@ class PagedKVCache:
         last = max(min(prompt_len + max_new, self.max_len) - 2, prompt_len)
         return min(last // self.page_size + 1, self.pages_per_slot)
 
-    def shard_capacity(self, shard: int = 0) -> int:
-        """Allocatable raw pages (all but the garbage page; the port keeps
-        the reference's one-shard layout)."""
-        return self.n_pages - 1
+    def shard_capacity(self, shard: int) -> int:
+        """Allocatable raw pages in ``shard``'s id range (shard 0 loses
+        the garbage page)."""
+        return self.pages_per_shard - (1 if shard == 0 else 0)
 
     # -- request lifecycle -------------------------------------------------
 
     def admit(self, cache: dict, slot: int, frag: dict, prompt_len: int):
-        """Allocate a fresh slot's pages and copy its prefill fragment
-        (``models.model.prefill``'s cache, batch 1, prefilled with this
-        cache's ``max_len``) into them, and its rings into the slot's."""
+        """Allocate a fresh slot's pages (from its shard's free list) and
+        copy its prefill fragment (``models.model.prefill``'s cache, batch
+        1, prefilled with this cache's ``max_len``) into them, and its rings
+        into the slot's.  ``frag`` is None on a rank that does not hold the
+        slot's shard: the bookkeeping alone."""
         need = self.pages_needed(prompt_len)
-        if len(self._free) < need:
-            cache = self._reclaim_prefix(cache, need - len(self._free))
-        if len(self._free) < need:
-            raise OutOfPages(f"slot {slot} needs {need} pages, "
-                             f"{len(self._free)} free")
-        pids = [self._alloc_raw() for _ in range(need)]
+        sh = self.shard_of_slot(slot)
+        free = self._free[sh]
+        if len(free) < need:
+            cache = self._reclaim_prefix(cache, need - len(free))
+        if len(free) < need:
+            raise OutOfPages(f"shard {sh}: slot {slot} needs {need} pages, "
+                             f"{len(free)} free")
+        pids = [self._alloc_raw(sh) for _ in range(need)]
         self._slot_pages[slot] = pids
         self._skip[slot] = set()
-        ids = torch.tensor(pids, dtype=torch.int64, device=self.device)
         cache["page_table"][slot] = 0
-        cache["page_table"][slot, :need] = ids.to(torch.int32)
+        cache["page_table"][slot, :need] = torch.tensor(
+            pids, dtype=torch.int32, device=self.device)
         cache["cur_len"][slot] = prompt_len
+        if frag is None:
+            return cache            # another shard's slot: no rows here
+        ids = torch.tensor([self._row(p) for p in pids], dtype=torch.int64,
+                           device=self.device)
         for name in self.paged_pos:
             dst, src = cache["units"][name], frag["units"][name]
             for kn in ("k", "v"):
@@ -467,12 +561,14 @@ class PagedKVCache:
         """Allocate a fresh slot for chunked prefill: grant ``need`` pages
         (no fragment is copied: the chunks write their K/V with
         :func:`page_write_chunk`) and reset the slot's timeline to 0."""
-        if len(self._free) < need:
-            cache = self._reclaim_prefix(cache, need - len(self._free))
-        if len(self._free) < need:
-            raise OutOfPages(f"slot {slot} needs {need} pages, "
-                             f"{len(self._free)} free")
-        pids = [self._alloc_raw() for _ in range(need)]
+        sh = self.shard_of_slot(slot)
+        free = self._free[sh]
+        if len(free) < need:
+            cache = self._reclaim_prefix(cache, need - len(free))
+        if len(free) < need:
+            raise OutOfPages(f"shard {sh}: slot {slot} needs {need} pages, "
+                             f"{len(free)} free")
+        pids = [self._alloc_raw(sh) for _ in range(need)]
         self._slot_pages[slot] = pids
         self._skip[slot] = set()
         cache["page_table"][slot] = 0
@@ -489,17 +585,20 @@ class PagedKVCache:
         return x.permute(0, 2, 1, 3, 4)
 
     def ensure(self, cache: dict, slot: int, pos: int):
-        """Grow the slot's page list to cover a write at ``pos``."""
+        """Grow the slot's page list to cover a write at ``pos`` (from the
+        slot's shard)."""
         pages = self._slot_pages.get(slot)
         if pages is None:
             return cache
+        sh = self.shard_of_slot(slot)
         p = min(pos // self.page_size, self.pages_per_slot - 1)
         while len(pages) <= p:
-            if not self._free:
+            if not self._free[sh]:
                 cache = self._reclaim_prefix(cache, 1)
-            if not self._free:
-                raise OutOfPages(f"slot {slot} needs page {len(pages)}")
-            pid = self._alloc_raw()
+            if not self._free[sh]:
+                raise OutOfPages(
+                    f"shard {sh}: slot {slot} needs page {len(pages)}")
+            pid = self._alloc_raw(sh)
             cache["page_table"][slot, len(pages)] = pid
             pages.append(pid)
         return cache
@@ -518,7 +617,8 @@ class PagedKVCache:
         allocates and rolls back within one engine step, before cold
         compression or eviction can reach them.  Stale K/V past
         ``n_tokens`` inside kept pages is masked by ``kv_len`` until the
-        slot's next write overwrites it.  ``cur_len[slot]`` is set to
+        slot's next write overwrites it; pages return to the slot's shard.
+        ``cur_len[slot]`` is set to
         ``n_tokens`` (in place)."""
         pages = self._slot_pages.get(slot)
         if pages is not None:
@@ -571,7 +671,9 @@ class PagedKVCache:
     def _install_cold(self, cache: dict, cs: int, entries) -> None:
         """Write coded sub-pages (``SwapEntry``-like: name, kn, u, payload,
         signmant, tables, perm) into cold slot ``cs``, payloads zero-padded
-        to the stride budget; one host->device copy per leaf."""
+        to the stride budget; one host->device copy per leaf.  Only a rank
+        that holds the slot's shard calls it."""
+        row = self._crow(cs)
         for name, kn in self._groups():
             leaves = cache["units"][name]
             mine = [e for e in entries if (e.name, e.kn) == (name, kn)]
@@ -584,11 +686,12 @@ class PagedKVCache:
                     "ctab": np.stack([e.tables for e in mine]),
                     "cperm": np.stack([e.perm for e in mine])}
             for c, arr in host.items():
-                leaves[f"{kn}_{c}"][:, cs] = torch.from_numpy(arr).to(
+                leaves[f"{kn}_{c}"][:, row] = torch.from_numpy(arr).to(
                     self.device)
 
     def _raw_page_host(self, cache: dict, pid: int) -> dict:
-        return {(name, kn): cache["units"][name][f"{kn}_pool"][:, pid].cpu()
+        row = self._row(pid)
+        return {(name, kn): cache["units"][name][f"{kn}_pool"][:, row].cpu()
                 for name, kn in self._groups()}
 
     # -- swap tier (hot/cold -> host, see kvcache/swap.py) -----------------
@@ -611,25 +714,36 @@ class PagedKVCache:
     def n_swapped(self, slot: int) -> int:
         return sum(1 for e in self._slot_pages.get(slot, ()) if e < 0)
 
-    def _encode_raw_page(self, cache: dict, pid: int) -> SwappedPage:
-        """Entropy-code one raw pool page into a host SwappedPage."""
+    def _encode_raw_page(self, cache: dict, pid: int, sh: int
+                         ) -> SwappedPage:
+        """Entropy-code one raw pool page of shard ``sh`` into a host
+        SwappedPage.  A rank that does not hold the shard keeps an entry-less
+        page of the holder's byte count (the swap ledger is every rank's)."""
         page = SwappedPage(was_cold=False)
-        for name, kn, u, cp in self._encode_host(
-                self._raw_page_host(cache, pid)):
-            page.entries.append(SwapEntry(name, kn, u, cp.payload,
-                                          cp.signmant, cp.tables(), cp.perm))
-            page.nbytes += cp.nbytes()
+        if self._holds_shard(sh):
+            for name, kn, u, cp in self._encode_host(
+                    self._raw_page_host(cache, pid)):
+                page.entries.append(SwapEntry(name, kn, u, cp.payload,
+                                              cp.signmant, cp.tables(),
+                                              cp.perm))
+                page.nbytes += cp.nbytes()
+        page.nbytes = self._share([page.nbytes], sh)[0]
         return page
 
-    def _copy_cold_page(self, cache: dict, cslot: int) -> SwappedPage:
+    def _copy_cold_page(self, cache: dict, cslot: int, sh: int
+                        ) -> SwappedPage:
         """Copy an already-coded cold page's container to the host (the
-        cheap, cold-first eviction path: no re-encode)."""
+        cheap, cold-first eviction path: no re-encode); entry-less on a rank
+        that does not hold shard ``sh``."""
         page = SwappedPage(was_cold=True,
                            nbytes=self._cold_bytes.get(cslot, 0))
+        if not self._holds_shard(sh):
+            return page
+        row = self._crow(cslot)
         for name, kn in self._groups():
             leaves = cache["units"][name]
             # a copy even on the CPU: the cold slot is reused at once
-            host = [leaves[f"{kn}_{c}"][:, cslot].to("cpu", copy=True)
+            host = [leaves[f"{kn}_{c}"][:, row].to("cpu", copy=True)
                     .numpy() for c in _COLD]
             for u in range(self.n_units):
                 page.entries.append(SwapEntry(name, kn, u,
@@ -650,6 +764,7 @@ class PagedKVCache:
         pages = self._slot_pages.get(slot)
         if pages is None:
             return cache
+        sh = self.shard_of_slot(slot)
         idxs = list(range(len(pages))) if page_idxs is None else list(page_idxs)
         # cold-first: already-compressed pages are the cheapest victims
         idxs.sort(key=lambda p: (pages[p] < self.n_pages, p))
@@ -661,12 +776,14 @@ class PagedKVCache:
                 continue
             if e >= self.n_pages:
                 cs = e - self.n_pages
-                key = self.swap.put(self._copy_cold_page(cache, cs))
+                key = self.swap.put(self._copy_cold_page(cache, cs, sh),
+                                    shard=sh)
                 self._free_cold(cs)
             else:
                 # a shared page gets a *private* swap copy and a decref:
                 # the prefix index keeps its own (still resident) reference
-                key = self.swap.put(self._encode_raw_page(cache, e))
+                key = self.swap.put(self._encode_raw_page(cache, e, sh),
+                                    shard=sh)
                 self._decref(e)
             pages[p] = -(key + 1)
             cache["page_table"][slot, p] = -(key + 1)
@@ -688,7 +805,8 @@ class PagedKVCache:
         cold slot (never decoded); raw-swapped pages are **batch-decoded
         through the page-decode kernel** (``ops.decode_pages``) into fresh
         raw pages.  Raises :class:`OutOfPages` — before any state is
-        mutated — if the free list cannot cover the restore."""
+        mutated — if the slot's shard cannot cover the restore.  Only the
+        ranks holding the shard write device rows."""
         pages = self._slot_pages.get(slot)
         if pages is None:
             return cache
@@ -696,10 +814,13 @@ class PagedKVCache:
                             else page_idxs) if pages[p] < 0]
         if not idxs:
             return cache
+        sh = self.shard_of_slot(slot)
+        mine = self._holds_shard(sh)
+        free = self._free[sh]
         # placement plan (peek only): cold-swapped pages take cold slots
         # while they last, everything else needs a raw page
         plan = []                       # (p, SwappedPage, to_cold)
-        cold_budget = len(self._cold_free) if self.compress else 0
+        cold_budget = len(self._cold_free[sh]) if self.compress else 0
         raw_need = 0
         for p in idxs:
             sp = self.swap.peek(-pages[p] - 1)
@@ -707,29 +828,40 @@ class PagedKVCache:
             cold_budget -= int(to_cold)
             raw_need += int(not to_cold)
             plan.append((p, sp, to_cold))
-        if raw_need > len(self._free):
-            cache = self._reclaim_prefix(cache, raw_need - len(self._free))
-        if raw_need > len(self._free):
+        if raw_need > len(free):
+            cache = self._reclaim_prefix(cache, raw_need - len(free))
+        if raw_need > len(free):
             raise OutOfPages(
-                f"faulting {len(idxs)} swapped pages of slot {slot} needs "
-                f"{raw_need} raw pages, {len(self._free)} free")
+                f"shard {sh}: faulting {len(idxs)} swapped pages of slot "
+                f"{slot} needs {raw_need} raw pages, {len(free)} free")
 
         t0 = time.perf_counter()
         raw_jobs = []                   # (entry, pid) scattered after decode
         for p, sp, to_cold in plan:
-            self.swap.pop(-pages[p] - 1)
+            key = -pages[p] - 1
+            origin = self.swap.shard_of(key)
+            self.swap.pop(key)
+            entries = sp.entries
+            if origin != sh:
+                # the request resumes on another shard than it left: the
+                # coded arrays move from the ranks that evicted them
+                entries = self._share(
+                    entries if self._holds_shard(origin) else None, origin)
+                self.n_moved_pages += 1
             if to_cold:
-                cs = self._cold_free.pop()
-                self._install_cold(cache, cs, sp.entries)
+                cs = self._cold_free[sh].pop()
+                if mine:
+                    self._install_cold(cache, cs, entries)
                 self._cold_bytes[cs] = sp.nbytes
                 entry = self.n_pages + cs
             else:
-                pid = self._alloc_raw()
-                raw_jobs.extend((ent, pid) for ent in sp.entries)
+                pid = self._alloc_raw(sh)
+                if mine:
+                    raw_jobs.extend((ent, pid) for ent in entries)
                 entry = pid
             pages[p] = entry
             cache["page_table"][slot, p] = entry
-        if raw_jobs:
+        if any(not to_cold for *_, to_cold in plan):
             self._restore_raw(cache, raw_jobs)
         if self.telemetry is not None:
             self.telemetry.registry.counter(
@@ -744,7 +876,12 @@ class PagedKVCache:
         """Batch-decode swapped sub-pages and scatter them into the raw
         pool: one ``ops.decode_pages`` call covers every sub-page of every
         page being faulted (stride padded to the batch max, rounded up to
-        a multiple of 4 as the reference buckets its shapes)."""
+        a multiple of 4 as the reference buckets its shapes).  ``jobs`` is
+        empty on a rank that does not hold the pages' shard: the call is
+        counted, nothing is decoded there."""
+        self.n_fault_decodes += 1
+        if not jobs:
+            return
         stride = max(e.payload.shape[0] for e, _ in jobs)
         stride = -(-stride // 4) * 4
         pay = np.zeros((len(jobs), stride, LANES), np.uint8)
@@ -757,14 +894,14 @@ class PagedKVCache:
             torch.from_numpy(np.stack([e.tables for e, _ in jobs])).to(dev),
             torch.from_numpy(np.stack([e.perm for e, _ in jobs])).to(dev),
             n_elem=self.page_elems, dtype_name=self.dtype_name, path="fault")
-        self.n_fault_decodes += 1
         dec = dec.view(len(jobs), self.cfg.n_kv_heads, self.page_size,
                        self.cfg.hd)
         for name, kn in self._groups():
             rows = [i for i, (e, _) in enumerate(jobs)
                     if (e.name, e.kn) == (name, kn)]
             u = torch.tensor([jobs[i][0].u for i in rows], device=dev)
-            pid = torch.tensor([jobs[i][1] for i in rows], device=dev)
+            pid = torch.tensor([self._row(jobs[i][1]) for i in rows],
+                               device=dev)
             cache["units"][name][f"{kn}_pool"][u, pid] = dec[
                 torch.tensor(rows, device=dev)]
 
@@ -783,10 +920,22 @@ class PagedKVCache:
                 for section, key in self.state_groups
                 for kn, leaf in cache[section][key].items()}
 
-    def restore_slot_state(self, cache: dict, slot: int,
-                           snap: dict) -> dict:
+    def swap_shard(self, pages) -> int | None:
+        """The batch shard a preempted slot's swapped ``pages`` left (None
+        without one): whose ranks hold its coded pages and its
+        :func:`snapshot_slot_state`."""
+        return self.swap.shard_of(-pages[0] - 1) if pages else None
+
+    def restore_slot_state(self, cache: dict, slot: int, snap: dict,
+                           origin: int | None = None) -> dict:
         """Inverse of :func:`snapshot_slot_state`, in place (bit-exact: the
-        state never leaves its dtype)."""
+        state never leaves its dtype).  ``origin``: the shard the snapshot
+        was taken on; when the slot lies on another, the snapshot moves
+        from ``origin``'s first rank (only its ranks held the rows)."""
+        sh = self.shard_of_slot(slot)
+        if origin is not None and origin != sh:
+            snap = self._share(snap if self._holds_shard(origin) else None,
+                               origin)
         section = {key: sec for sec, key in self.state_groups}
         for (key, kn), host in snap.items():
             sec = section[key]
@@ -821,9 +970,14 @@ class PagedKVCache:
     def enable_prefix_sharing(self) -> None:
         """Attach a :class:`PrefixIndex`, so requests with a common
         page-aligned prompt prefix share one physical copy of its pages
-        (copy-on-write protected).  The reference refuses more than one
-        batch shard here (page ids are shard-local); the port's cache is a
-        single shard, so there is nothing to refuse."""
+        (copy-on-write protected).  Single-shard only, as the reference's:
+        page ids are shard-local, so a prefix cached by one shard would be
+        unreachable from another's slots."""
+        if self.n_shards != 1:
+            raise ValueError(
+                f"prefix sharing requires n_shards == 1 (got "
+                f"{self.n_shards}): pages are shard-local and slots must "
+                f"gather only their own shard's pages")
         if self.prefix is None:
             self.prefix = PrefixIndex()
 
@@ -900,12 +1054,12 @@ class PagedKVCache:
                     if self.swap is None or not self.swap.contains(k):
                         self.prefix.drop(key)
                         break
-                    if not self._free:
+                    if not self._free[0]:
                         cache = self._reclaim_prefix(cache, 1)
-                    if not self._free:
+                    if not self._free[0]:
                         break       # match shrinks; the suffix is prefilled
                     sp = self.swap.pop(k)
-                    ent = self._alloc_raw()         # the index's reference
+                    ent = self._alloc_raw(0)         # the index's reference
                     raw_jobs.extend((e, ent) for e in sp.entries)
                     self.prefix.put(key, ent)
                     n_faulted += 1
@@ -916,14 +1070,14 @@ class PagedKVCache:
             self._restore_raw(cache, raw_jobs)
 
         extra = max(min(extra, self.pages_per_slot - len(shared)), 0)
-        if len(self._free) < extra:
-            cache = self._reclaim_prefix(cache, extra - len(self._free))
-        if len(self._free) < extra:
+        if len(self._free[0]) < extra:
+            cache = self._reclaim_prefix(cache, extra - len(self._free[0]))
+        if len(self._free[0]) < extra:
             for pid in shared:      # undo: the admission failed whole
                 self._decref(pid)
             raise OutOfPages(f"slot {slot} needs {extra} pages past its "
-                             f"shared prefix, {len(self._free)} free")
-        pids = [self._alloc_raw() for _ in range(extra)]
+                             f"shared prefix, {len(self._free[0])} free")
+        pids = [self._alloc_raw(0) for _ in range(extra)]
         self._slot_pages[slot] = shared + pids
         self._skip[slot] = set()
         cache["page_table"][slot] = 0
@@ -985,15 +1139,15 @@ class PagedKVCache:
             if (not GARBAGE_PAGE < pid < self.n_pages
                     or self._ref.get(pid, 1) <= 1):
                 continue
-            if not self._free:
+            if not self._free[0]:
                 cache = self._reclaim_prefix(cache, 1)
-            if not self._free:
+            if not self._free[0]:
                 raise OutOfPages(f"CoW split of slot {slot} page {p} has no "
                                  f"free page")
-            new = self._alloc_raw()
+            new = self._alloc_raw(0)
             for name, kn in self._groups():
                 pool = cache["units"][name][f"{kn}_pool"]
-                pool[:, new] = pool[:, pid]
+                pool[:, self._row(new)] = pool[:, self._row(pid)]
             self._decref(pid)
             pages[p] = new
             cache["page_table"][slot, p] = new
@@ -1020,7 +1174,7 @@ class PagedKVCache:
             k = None
             if self.swap is not None:
                 t0 = time.perf_counter()
-                sp = self._encode_raw_page(cache, ent)
+                sp = self._encode_raw_page(cache, ent, 0)
                 self.retire_seconds += time.perf_counter() - t0
                 k = self.swap.put(sp, pinned=False)
             if k is not None:
@@ -1033,14 +1187,15 @@ class PagedKVCache:
             freed += 1
         return cache
 
-    def reclaimable_pages(self) -> int:
-        """Raw pages held only by the prefix index (refcount 1): on-demand
-        headroom the scheduler counts as available when sizing
-        admission."""
+    def reclaimable_pages(self, shard: int = 0) -> int:
+        """Raw pages of ``shard`` held only by the prefix index (refcount
+        1): on-demand headroom the scheduler counts as available when
+        sizing admission."""
         if self.prefix is None:
             return 0
         return sum(1 for e in self.prefix.entries()
-                   if e > 0 and self._ref.get(e, 0) == 1)
+                   if e > 0 and e // self.pages_per_shard == shard
+                   and self._ref.get(e, 0) == 1)
 
     def n_shared_pages(self) -> int:
         """Raw index pages currently co-held by at least one slot."""
@@ -1058,6 +1213,7 @@ class PagedKVCache:
         ``pos // page_size`` are complete and never written again."""
         if not self.compress or slot not in self._slot_pages:
             return cache
+        sh = self.shard_of_slot(slot)
         pages = self._slot_pages[slot]
         full = min(pos // self.page_size, len(pages))
         for p in range(full):
@@ -1066,7 +1222,7 @@ class PagedKVCache:
             if (pages[p] >= self.n_pages or p in self._skip[slot]
                     or self._ref.get(pages[p], 1) > 1):
                 continue
-            if not self._cold_free:
+            if not self._cold_free[sh]:
                 return cache
             if not self._compress_one(cache, slot, p):
                 self._skip[slot].add(p)
@@ -1074,21 +1230,30 @@ class PagedKVCache:
 
     def _compress_one(self, cache: dict, slot: int, p: int) -> bool:
         """Move page ``p`` of ``slot`` into a cold slot; False (and no
-        change) when a sub-page's stream exceeds the stride budget."""
+        change) when a sub-page's stream exceeds the stride budget.  The
+        ranks holding the slot's shard encode the page; whether it fits and
+        its coded bytes reach every rank through ``share``."""
+        sh = self.shard_of_slot(slot)
         pid = self._slot_pages[slot][p]
-        enc = self._encode_host(self._raw_page_host(cache, pid))
-        if any(cp.stride > self.stride_budget for *_, cp in enc):
+        enc = []
+        if self._holds_shard(sh):
+            enc = self._encode_host(self._raw_page_host(cache, pid))
+        fits, nbytes = self._share(
+            [int(all(cp.stride <= self.stride_budget for *_, cp in enc)),
+             sum(cp.nbytes() for *_, cp in enc)], sh)
+        if not fits:
             return False                # incompressible: stay raw
-        cslot = self._cold_free.pop()
-        self._install_cold(cache, cslot, [
-            SwapEntry(name, kn, u, cp.payload, cp.signmant, cp.tables(),
-                      cp.perm)
-            for name, kn, u, cp in enc])
+        cslot = self._cold_free[sh].pop()
+        if enc:
+            self._install_cold(cache, cslot, [
+                SwapEntry(name, kn, u, cp.payload, cp.signmant, cp.tables(),
+                          cp.perm)
+                for name, kn, u, cp in enc])
         entry = self.n_pages + cslot
         self._slot_pages[slot][p] = entry
         cache["page_table"][slot, p] = entry
         self._decref(pid)
-        self._cold_bytes[cslot] = sum(cp.nbytes() for *_, cp in enc)
+        self._cold_bytes[cslot] = nbytes
         self.n_compressed += 1
         self.compressed_bytes += self._cold_bytes[cslot]
         return True
@@ -1118,8 +1283,15 @@ class PagedKVCache:
         page_bytes = (self.n_attn_layers * 2 * self.page_elems
                       * torch.empty((), dtype=self.dtype).element_size())
         cold_ragged = sum(self._cold_bytes.values())
+        per_shard = [0] * self.n_shards
+        for slot, pages in self._slot_pages.items():
+            per_shard[self.shard_of_slot(slot)] += sum(
+                1 for e in pages if e > GARBAGE_PAGE)
         out = {
             "page_size": self.page_size,
+            "n_shards": self.n_shards,
+            "pages_in_use_per_shard": per_shard,
+            "free_pages_per_shard": self.free_pages_per_shard,
             "pages_in_use": raw,
             "free_pages": self.free_pages,
             "cold_pages_in_use": cold,

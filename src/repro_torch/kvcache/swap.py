@@ -6,7 +6,9 @@ restored later with zero output deviation.  ``SwapStore`` is that tier — a
 host dict of ``SwappedPage`` containers keyed by an opaque swap id, with
 byte accounting, cumulative traffic counters, the LRU cache of retired
 shared-prefix pages (unpinned pages) and the telemetry registry's level
-gauges (the reference's ``kvcache/swap.py`` on one shard).
+gauges (the reference's ``kvcache/swap.py``), with per-shard byte ledgers
+for a mesh's batch shards (a swapped page keeps its shard, so a faulting
+slot restores into its own shard's free lists).
 
 Lifecycle (driven by ``paged.PagedKVCache.evict`` / ``fault``):
 
@@ -75,8 +77,12 @@ class SwapStore:
     """Host store of swapped pages with capacity + traffic accounting.
 
     ``capacity_bytes``: hard ceiling on resident swapped bytes (``None``
-    = unbounded).  The store has one shard: the reference's ``shard``
-    argument and per-shard ledgers have nothing to partition here.
+    = unbounded).  ``n_shards`` sizes the per-shard byte ledgers
+    (``bytes_used_per_shard``; a mesh engine keeps one free list a batch
+    shard and the store the matching ledger, so load imbalance shows in
+    ``stats()``).  Every rank of a mesh keeps the same ledger: a rank that
+    does not hold a page's shard stores it entry-less, with the holder's
+    byte count.
 
     Pages are **pinned** by default: they belong to a live (possibly
     preempted) request and are never dropped by the store; a pinned put
@@ -91,9 +97,12 @@ class SwapStore:
     checks prefix keys with :meth:`contains` when it matches a prompt, so
     a silent eviction needs no callback."""
 
-    def __init__(self, capacity_bytes: int | None = None):
+    def __init__(self, capacity_bytes: int | None = None, n_shards: int = 1):
         self.capacity_bytes = capacity_bytes
+        self.n_shards = n_shards
         self._pages: dict[int, SwappedPage] = {}
+        self._shard_of: dict[int, int] = {}
+        self.bytes_used_per_shard = [0] * n_shards
         self._unpinned: dict[int, None] = {}    # ordered set: LRU order
         self.n_prefix_evicted = 0               # unpinned pages dropped
         self._next_key = 0
@@ -125,7 +134,8 @@ class SwapStore:
         self._registry.gauge("kvcache_swap_bytes_used").set(self.bytes_used)
         self._registry.gauge("kvcache_swap_pages").set(len(self._pages))
 
-    def put(self, page: SwappedPage, *, pinned: bool = True) -> int | None:
+    def put(self, page: SwappedPage, shard: int = 0, *,
+            pinned: bool = True) -> int | None:
         """Store a swapped page; returns its opaque swap key.
 
         Over capacity, unpinned (prefix-cache) pages are evicted LRU-first
@@ -145,9 +155,11 @@ class SwapStore:
         key = self._next_key
         self._next_key += 1
         self._pages[key] = page
+        self._shard_of[key] = shard
         if not pinned:
             self._unpinned[key] = None
         self.bytes_used += page.nbytes
+        self.bytes_used_per_shard[shard] += page.nbytes
         self.swap_out_bytes += page.nbytes
         self.n_swap_out += 1
         self.sync_registry()
@@ -159,8 +171,14 @@ class SwapStore:
         page = self._pages.pop(key)
         del self._unpinned[key]
         self.bytes_used -= page.nbytes
+        self.bytes_used_per_shard[self._shard_of.pop(key)] -= page.nbytes
         self.n_prefix_evicted += 1
         self.sync_registry()
+
+    def shard_of(self, key: int) -> int:
+        """The batch shard whose device rows the page left (whose ranks
+        hold its coded arrays)."""
+        return self._shard_of[key]
 
     def contains(self, key: int) -> bool:
         """Whether ``key`` is still resident (an unpinned page may have been
@@ -176,6 +194,7 @@ class SwapStore:
         page = self._pages.pop(key)
         self._unpinned.pop(key, None)
         self.bytes_used -= page.nbytes
+        self.bytes_used_per_shard[self._shard_of.pop(key)] -= page.nbytes
         self.swap_in_bytes += page.nbytes
         self.n_swap_in += 1
         self.sync_registry()
@@ -189,6 +208,7 @@ class SwapStore:
             return
         self._unpinned.pop(key, None)
         self.bytes_used -= page.nbytes
+        self.bytes_used_per_shard[self._shard_of.pop(key)] -= page.nbytes
         self.sync_registry()
 
     def stats(self) -> dict:
@@ -204,4 +224,5 @@ class SwapStore:
             "swap_in_bytes_total": self.swap_in_bytes,
             "n_swap_out": self.n_swap_out,
             "n_swap_in": self.n_swap_in,
+            "swap_bytes_per_shard": list(self.bytes_used_per_shard),
         }

@@ -47,7 +47,18 @@ Usage:
       --arch recurrentgemma-2b --check-lossless
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
       --check-lossless
-  # on a machine without a card, at smoke size:
+  # on a mesh of ranks, one process a card (NCCL): the paged cache split
+  # over the data axis (2 or 4 batch shards), a model axis splitting the
+  # decode step's pages and the prefill's query rows; --max-batch must
+  # divide by D.  Started alone it spawns D x M ranks; under torchrun it
+  # joins the group torchrun set up
+  PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4 \
+      --max-batch 8 --cache paged-compressed --swap-bytes -1
+  PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2x2
+  # on a machine without a card, at smoke size (a mesh as gloo ranks):
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 2x2 --compress tpu --cache paged-compressed --swap-bytes -1 \
+      --check-lossless
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch \
       moonshot-v1-16b-a3b --smoke --device cpu
@@ -64,6 +75,7 @@ The helpers below are the same steps for a caller that brings its own
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from dataclasses import replace
 
@@ -74,11 +86,13 @@ from ..configs import get, smoke_variant
 from ..core.store import build_trees
 from ..device import resolve
 from ..models import model as M
+from ..runtime.sharding import MeshShape
 from ..runtime.trace_export import export_chrome_trace
 from ..runtime.tracing import TorchProfilerHook
 from ..serving import EngineConfig, EngineConfigError, GenerationEngine, \
     Request
 from ..serving.telemetry import Telemetry, serving_report_line
+from . import mesh as MESH
 
 # the reference's leaf-selection threshold for serving (launch/serve.py)
 MIN_ELEMS = 4096
@@ -122,7 +136,8 @@ def make_prompts(cfg, n: int, seed: int, lo: int = 4, hi: int = 12,
 def serve(params, cfg, ecfg: EngineConfig, prompts, max_new: int,
           device="cuda", on_step=None):
     """Serve ``prompts`` greedily -> (finished requests, engine, seconds);
-    ``on_step`` is ``GenerationEngine.run``'s."""
+    ``on_step`` is ``GenerationEngine.run``'s.  On a mesh (``ecfg.mesh``)
+    every rank calls it with the same arguments."""
     eng = GenerationEngine(params, cfg, config=ecfg, device=device)
     reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     for r in reqs:
@@ -132,6 +147,17 @@ def serve(params, cfg, ecfg: EngineConfig, prompts, max_new: int,
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     return reqs, eng, time.perf_counter() - t0
+
+
+def mesh_report(eng) -> str:
+    """The mesh line of a run: its axes, the batch shards and each one's
+    pages and cold slots."""
+    pc = eng.paged
+    layout = ("monolithic cache, replicated" if pc is None else
+              f"{pc.pages_per_shard} pages a shard, {pc.cold_per_shard} "
+              f"cold slots a shard")
+    return (f"mesh {{data: {eng.config.n_shards()}, model: {eng.n_model}}},"
+            f" n_shards {eng.config.n_shards()}, {layout}")
 
 
 def cache_report(eng) -> list:
@@ -168,8 +194,8 @@ def cache_report(eng) -> list:
             f"cold pool: {n} pages compressed, {raw / 1e6:.2f} MB raw -> "
             f"{coded / 1e6:.2f} MB coded ({vs_raw(coded, raw)}), "
             f"{n * slot_b / 1e6:.2f} MB in cold slots at the stride budget "
-            f"({vs_raw(n * slot_b, raw)}); {pc.n_cold} cold slots allocate "
-            f"{pc.n_cold * slot_b / 1e6:.2f} MB on the device "
+            f"({vs_raw(n * slot_b, raw)}); {pc.cold_rows} cold slots "
+            f"allocate {pc.cold_rows * slot_b / 1e6:.2f} MB on the device "
             f"({vs_raw(slot_b, page_b)} a page); encode_page "
             f"{pc.encode_seconds:.2f}s on the host")
     if pc.swap is not None:
@@ -196,10 +222,14 @@ def kv_report(eng, cache_name: str) -> str | None:
     ratio = s["cold_compression_ratio"]
     cold = (f"cold-page compression {ratio:.3f}x raw"
             if ratio == ratio else "no page went cold")
-    return (f"kv-cache ({cache_name}, page={eng.paged.page_size}): peak "
+    line = (f"kv-cache ({cache_name}, page={eng.paged.page_size}): peak "
             f"{s['peak_paged_bytes'] / 1e6:.3f}MB vs monolithic "
             f"{s['monolithic_bytes'] / 1e6:.3f}MB "
             f"({100 * (1 - s['paged_vs_monolithic']):.1f}% saved), {cold}")
+    if eng.paged.n_shards > 1:
+        line += (f"\n[serve] pages-per-shard peak {mon.peak_per_shard()} "
+                 f"(free now {eng.paged.free_pages_per_shard})")
+    return line
 
 
 def prefix_report(eng) -> str:
@@ -251,8 +281,7 @@ def same_tokens(a, b) -> bool:
     return all(x.out_tokens == y.out_tokens for x, y in zip(a, b))
 
 
-def main(argv=None, cfg=None):
-    """CLI entry point; ``cfg`` overrides ``--arch``/``--smoke``."""
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--smoke", action="store_true")
@@ -339,8 +368,20 @@ def main(argv=None, cfg=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "PyTorch versions")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None, metavar="D[xM]",
+                    help="serve on a (data=D[, model=M]) mesh of D x M "
+                         "ranks, e.g. '2' or '2x2': one process a card "
+                         "over NCCL (D x M cards must be visible), gloo "
+                         "ranks with --device cpu.  --max-batch must be "
+                         "divisible by D or the engine falls back to the "
+                         "monolithic cache.  Spawns the ranks, or joins "
+                         "the group when started under torchrun.")
+    return ap
 
+
+def _configs(ap, args, cfg, mesh=None):
+    """(model config, draft config, EngineConfig) of the CLI's arguments,
+    resolved strictly (an incompatible request exits with the reason)."""
     if cfg is None:
         cfg = get(args.arch)
         if args.smoke:
@@ -350,15 +391,73 @@ def main(argv=None, cfg=None):
         dcfg = smoke_variant(get(args.draft)) if args.smoke \
             else get(args.draft)
     try:
-        ecfg = EngineConfig.from_args(args, cfg, draft_cfg=dcfg)
+        ecfg = EngineConfig.from_args(args, cfg, draft_cfg=dcfg, mesh=mesh)
     except EngineConfigError as e:
         ap.error(str(e))
+    return cfg, dcfg, ecfg
 
+
+def main(argv=None, cfg=None):
+    """CLI entry point; ``cfg`` overrides ``--arch``/``--smoke``.  With
+    ``--mesh`` the ranks are spawned here (or joined under torchrun) and
+    each serves the same requests; rank 0 prints the report.  Returns the
+    finished requests (rank 0's); exits 1 when ``--check-lossless`` finds
+    a token that differs from the fp8 baseline's."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if not args.mesh:
+        done, same = _serve_cli(ap, args, cfg, args.device)
+    else:
+        try:
+            data, model = MESH.parse_mesh(args.mesh)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        n = data * model
+        if torch.device(args.device).type == "cuda":
+            visible = torch.cuda.device_count()
+            if n > visible:
+                raise SystemExit(
+                    f"--mesh {args.mesh} needs {n} devices, {visible} "
+                    f"visible (one rank a card; --device cpu runs the "
+                    f"ranks on the CPU)")
+        # the configs are checked here, before any rank starts
+        _configs(ap, args, cfg, MeshShape(MESH.AXES, (data, model)))
+        argv = sys.argv[1:] if argv is None else list(argv)
+        if MESH.under_torchrun():
+            done, same = MESH.join(_serve_rank, argv, cfg, data, model,
+                                   device=args.device)
+        else:
+            done, same = MESH.spawn(_serve_rank, n, argv, cfg, data, model,
+                                    device=args.device)[0]
+    if same is False:
+        raise SystemExit(1)
+    return done
+
+
+def _serve_rank(rank, world, device, argv, cfg, data, model):
+    """One rank of ``main --mesh``: the CLI's run on this rank's device
+    with the mesh -> (finished requests, the lossless verdict or None)."""
+    backend = torch.distributed.get_backend()
+    mesh = MESH.make_mesh(data, model,
+                          "cuda" if backend == "nccl" else "cpu")
+    ap = _parser()
+    return _serve_cli(ap, ap.parse_args(argv), cfg, device, mesh, rank)
+
+
+def _serve_cli(ap, args, cfg, device, mesh=None, rank: int = 0):
+    """The CLI's serve run on ``device`` (with a mesh, this rank's share;
+    only rank 0 prints) -> (finished requests, the lossless verdict or
+    None without a check)."""
+    def write(line):
+        if rank == 0:
+            print(line, flush=True)
+
+    cfg, dcfg, ecfg = _configs(ap, args, cfg, mesh)
     params_c, params_fp8, report, enc_s = build_params(
-        cfg, args.seed, args.compress, device=args.device)
+        cfg, args.seed, args.compress, device=device)
     if report is not None:
         fp8_b = max(report["fp8_bytes"], 1)
-        print(f"[serve] ECF8({args.compress}) encode {enc_s:.1f}s: "
+        write(f"[serve] ECF8({args.compress}) encode {enc_s:.1f}s: "
               f"{report['n_compressed']} tensors, fp8 {fp8_b / 1e6:.2f}MB ->"
               f" {report['compressed_bytes'] / 1e6:.2f}MB "
               f"({100 * (1 - report['compressed_bytes'] / fp8_b):.1f}% "
@@ -367,10 +466,10 @@ def main(argv=None, cfg=None):
     if dcfg is not None:
         draft_seed = 1 if args.draft_seed is None else args.draft_seed
         dparams_c, dparams_fp8, _, _ = build_params(
-            dcfg, draft_seed, args.compress, device=args.device)
+            dcfg, draft_seed, args.compress, device=device)
         ecfg = replace(ecfg, draft_params=dparams_c)
         ecfg_fp8 = replace(ecfg, draft_params=dparams_fp8)
-        print(f"[serve] speculative: draft {dcfg.name} ({dcfg.n_layers} "
+        write(f"[serve] speculative: draft {dcfg.name} ({dcfg.n_layers} "
               f"layers, seed {draft_seed}), k={ecfg.spec_k}")
     prompts = make_prompts(cfg, args.requests, args.seed,
                            shared_prefix=args.shared_prefix)
@@ -389,48 +488,49 @@ def main(argv=None, cfg=None):
         if profiler is not None:
             profiler.on_step(i)
         if args.metrics_interval and (i + 1) % args.metrics_interval == 0:
-            print(f"[serve] step {i + 1}: "
+            write(f"[serve] step {i + 1}: "
                   f"{serving_report_line(tel.registry)}")
 
     done, eng, dt = serve(params_c, cfg,
                           replace(ecfg, telemetry=tel),
-                          prompts, args.max_new, device=args.device,
+                          prompts, args.max_new, device=device,
                           on_step=on_step)
     if profiler is not None:
         profiler.close()
-        print(f"[serve] torch.profiler trace in {profiler.trace_path}")
+        write(f"[serve] torch.profiler trace in {profiler.trace_path}")
     if args.trace_out:
         trace = export_chrome_trace(tel.tracer, args.trace_out,
                                     registry=tel.registry)
-        print(f"[serve] wrote {args.trace_out}: "
+        write(f"[serve] wrote {args.trace_out}: "
               f"{len(trace['traceEvents'])} trace events "
               f"({tel.tracer.n_dropped} dropped) — open in "
               f"ui.perfetto.dev")
     n_tok = sum(len(r.out_tokens) for r in done)
-    print(f"[serve] {len(done)} requests, {n_tok} tokens in {dt:.1f}s "
+    write(f"[serve] {len(done)} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s host wall-clock, "
           f"{eng.steps} decode steps, batch occupancy "
           f"{n_tok / max(eng.steps, 1):.2f})")
     if eng.spec_on:
-        print(f"[serve] {spec_report(eng, n_tok)}")
+        write(f"[serve] {spec_report(eng, n_tok)}")
     for line in (latency_report(tel.registry), kv_report(eng, args.cache)):
         if line is not None:
-            print(f"[serve] {line}")
+            write(f"[serve] {line}")
     for line in cache_report(eng):
-        print(f"[serve] {line}")
+        write(f"[serve] {line}")
+    if eng.mesh is not None:
+        write(f"[serve] {mesh_report(eng)}")
     if eng.prefill_chunk:
-        print(f"[serve] {chunk_report(eng)}")
+        write(f"[serve] {chunk_report(eng)}")
     if eng.prefix_sharing:
-        print(f"[serve] {prefix_report(eng)}")
+        write(f"[serve] {prefix_report(eng)}")
     if args.check_lossless and args.compress != "none":
         done2, _, _ = serve(params_fp8, cfg, ecfg_fp8, prompts, args.max_new,
-                            device=args.device)
+                            device=device)
         same = same_tokens(done, done2)
-        print(f"[serve] lossless check vs fp8 baseline: "
+        write(f"[serve] lossless check vs fp8 baseline: "
               f"{'IDENTICAL' if same else 'MISMATCH'}")
-        if not same:
-            raise SystemExit(1)
-    return done
+        return done, same
+    return done, None
 
 
 if __name__ == "__main__":

@@ -65,6 +65,19 @@ Entry points:
                                           -> (all logits, cache) [paged]
   decode_step(params, cfg, token, cache)  -> (logits, cache)
                                           [paged or contiguous cache]
+
+On a mesh of ranks (``mesh=``, a ``("data", "model")`` DeviceMesh,
+``launch/mesh.py``) the private entry points route as the reference's:
+a prefill's flash attention splits its query rows over ``model``
+(``flash_attention.flash_attention_sharded``); a paged decode step runs
+this rank's batch shard's slots on its local pools
+(``decode_sharded.paged_decode_attention_sharded``) and returns their
+logits alone, rows ``[d * B / n_data, (d + 1) * B / n_data)``; a prefill
+chunk runs on the ranks of its slot's batch shard and returns None logits
+elsewhere (``decode_sharded.paged_prefill_chunk_sharded``); a contiguous
+cache with one shared timeline, each model rank holding its sequence
+slice, decodes through ``decode_sharded.decode_attention_update_sharded``.
+Weights are replicated.
 """
 from __future__ import annotations
 
@@ -77,7 +90,10 @@ from ..core.store import is_compressed, torch_dtype
 from ..device import resolve
 from ..kernels import ops
 from ..kvcache import paged as paged_kv
+from ..runtime.sharding import axis_size
+from . import decode_sharded as DS
 from . import recurrent as rec
+from .flash_attention import flash_attention_sharded
 from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
                      local_attention, mat, mlp_apply, mlp_init, rms_norm)
 from .moe import moe_apply, moe_init
@@ -301,10 +317,12 @@ def _attn_out(p, o, dtype):
     return o @ mat(p["wo"], dtype)
 
 
-def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype):
+def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype,
+                         mesh=None):
     """Full-sequence causal self attention (prefill): the flash kernel, or
     for a ``local`` layer whose window is shorter than the prompt,
-    :func:`local_attention` (the reference's condition)."""
+    :func:`local_attention` (the reference's condition).  On a mesh the
+    flash kernel's query rows split over ``model``."""
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
     q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype,
@@ -312,13 +330,16 @@ def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype):
     if kind == "local" and cfg.local_window < T:
         o = local_attention(q, k, v, window=cfg.local_window,
                             attn_softcap=cfg.attn_softcap)
+    elif mesh is not None:
+        o = flash_attention_sharded(q, k, v, mesh,
+                                    attn_softcap=cfg.attn_softcap)
     else:
         o = ops.flash_attention(q, k, v, True, cfg.attn_softcap)
     return _attn_out(p, o, dtype), (k, v)
 
 
 def _self_attention_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
-                           cur_len, page_table):
+                           cur_len, page_table, mesh=None):
     """One-token decode through the paged cache: the new K/V is written
     into each slot's tail page (in place), each slot's history gathered
     back, and the token attends over ``cur_len + 1`` positions.
@@ -330,8 +351,15 @@ def _self_attention_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
     a swap sentinel (negative id) can only sit in a vacated slot's row,
     whose write lands on the garbage page as the reference's does.  Such a
     row's output is never read by its slot, but a mixture-of-experts layer
-    routes it with the live rows, so it must be the reference's own."""
+    routes it with the live rows, so it must be the reference's own.  On a
+    mesh the rows are this rank's batch shard's and ``pools`` its local
+    rows (:func:`decode_sharded.paged_decode_attention_sharded`)."""
     q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", cur_len[:, None])
+    if mesh is not None:
+        o = DS.paged_decode_attention_sharded(q, k, v, pools, page_table,
+                                              cur_len, mesh,
+                                              softcap=cfg.attn_softcap)
+        return _attn_out(p, o, dtype)
     k_pool, v_pool, k_cold, v_cold = pools
     paged_kv.page_write(k_pool, page_table, cur_len, k)
     paged_kv.page_write(v_pool, page_table, cur_len, v)
@@ -343,7 +371,7 @@ def _self_attention_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
 
 
 def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, kind: str,
-                                      dtype, kc, vc, cur_len):
+                                      dtype, kc, vc, cur_len, mesh=None):
     """One-token decode through a contiguous cache row, ``kc`` / ``vc``
     (B, n_kv, S, hd), written in place.
 
@@ -354,7 +382,21 @@ def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, kind: str,
     attends over ``cur_len + 1`` positions.  A ``local`` layer's row is
     its ring of ``W = S`` positions: the write lands at
     ``cur_len % W`` and the token attends over ``min(cur_len + 1, W)``
-    slots, every one of them once the ring has wrapped."""
+    slots, every one of them once the ring has wrapped.
+
+    ``mesh`` (a model axis, one shared timeline, a 0-d ``cur_len``): the
+    rank's ``kc`` / ``vc`` are its sequence slice of ``S / n_model``
+    positions, decoded by
+    :func:`decode_sharded.decode_attention_update_sharded`."""
+    if mesh is not None:
+        S = kc.shape[2] * axis_size(mesh, "model")
+        q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", cur_len[None])
+        ring = kind == "local"
+        o = DS.decode_attention_update_sharded(
+            q, kc, vc, k, v, (cur_len + 1).clamp(max=S) if ring
+            else cur_len + 1, cur_len % S if ring else cur_len, mesh,
+            softcap=cfg.attn_softcap)
+        return _attn_out(p, o, dtype)
     B, S = x.shape[0], kc.shape[2]
     ring = kind == "local"
     q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", cur_len[:, None])
@@ -369,7 +411,8 @@ def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, kind: str,
 
 
 def _self_attention_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools,
-                          row, start, n_valid: int, path: str = "gather"):
+                          row, start, n_valid: int, path: str = "gather",
+                          mesh=None, slot: int = 0, n_slots: int = 1):
     """One prefill chunk of a single slot through the paged cache.
 
     x: (1, C, d), a chunk of the slot's prompt padded to the engine's chunk
@@ -380,10 +423,17 @@ def _self_attention_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools,
     page-decode kernel) is gathered back, and the chunk attends causally
     over it from ``q_offset=start``.  ``pools`` is as in
     :func:`_self_attention_decode`; ``path`` tags the page-decode launches
-    of its cold pages (``kvcache.kernels.run``)."""
+    of its cold pages (``kvcache.kernels.run``).  On a mesh with batch
+    shards ``pools`` are the rank's local rows and the chunk goes through
+    :func:`decode_sharded.paged_prefill_chunk_sharded`."""
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
     q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", positions)
+    if mesh is not None:
+        o = DS.paged_prefill_chunk_sharded(
+            q, k, v, pools, row, slot, positions, n_valid, mesh,
+            n_slots=n_slots, softcap=cfg.attn_softcap)
+        return _attn_out(p, o, dtype)
     k_pool, v_pool, k_cold, v_cold = pools
     paged_kv.page_write_chunk(k_pool, row, positions, k, n_valid)
     paged_kv.page_write_chunk(v_pool, row, positions, v, n_valid)
@@ -468,7 +518,7 @@ def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None):
 
 
 def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
-                      cross_kv=None, aux=None):
+                      cross_kv=None, aux=None, mesh=None):
     """Full-sequence layer (prefill, forward).  Returns (x, (k, v)) for an
     attention layer, (x, final state) for a recurrent one; an mLSTM runs
     at the reference's ``chunk = min(128, T)``, so ``T`` must be at most
@@ -476,7 +526,7 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     K/V (:func:`_cross_kv`) in an encoder-decoder's decoder."""
     h = rms_norm(x, p["norm1"])
     if kind in ATTN_KINDS:
-        o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype)
+        o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype, mesh)
     elif kind == "rglru":
         o, st = rec.rglru_apply(p["rglru"], h, dtype=dtype)
     elif kind == "slstm":
@@ -509,18 +559,22 @@ def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state):
 
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
-                        cur_len, page_table, cross_kv=None):
+                        cur_len, page_table, cross_kv=None, mesh=None,
+                        shared: bool = False):
     """Decode layer; ``page_table`` None means ``pools`` is this layer's
     contiguous (k, v): the monolithic cache's row, or a ``local`` layer's
     ring.  ``cross_kv``: the layer's cached cross-attention K/V in an
-    encoder-decoder's decoder."""
+    encoder-decoder's decoder.  ``mesh``: the paged step's mesh, or with
+    ``shared`` (one timeline, a 0-d ``cur_len``) the sequence-sharded
+    contiguous step's."""
     h = rms_norm(x, p["norm1"])
     if page_table is None:
-        o = _self_attention_decode_contiguous(p["attn"], h, cfg, kind,
-                                              dtype, *pools, cur_len)
+        o = _self_attention_decode_contiguous(
+            p["attn"], h, cfg, kind, dtype, *pools, cur_len,
+            mesh if shared else None)
     else:
         o = _self_attention_decode(p["attn"], h, cfg, kind, dtype, pools,
-                                   cur_len, page_table)
+                                   cur_len, page_table, mesh)
     cross = None
     if cross_kv is not None:
         def cross(hx):
@@ -530,7 +584,8 @@ def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
 
 
 def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
-                       start, n_valid: int, path: str):
+                       start, n_valid: int, path: str, mesh=None,
+                       slot: int = 0, n_slots: int = 1):
     """Chunk-mode layer: the decode layer's residual structure at T = C.
     Pages only: a ``local`` layer is refused, as the reference refuses it
     (the engine falls back to whole-prompt prefill for such stacks)."""
@@ -539,7 +594,7 @@ def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
             f"chunked prefill only pages 'attn'/'nope' layers, got {kind}")
     h = rms_norm(x, p["norm1"])
     o = _self_attention_chunk(p["attn"], h, cfg, kind, dtype, pools, row,
-                              start, n_valid, path)
+                              start, n_valid, path, mesh, slot, n_slots)
     return _residual(p, x, o, cfg, dtype)
 
 
@@ -690,14 +745,16 @@ def _fill(dst, got, kind: str):
 
 
 def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None,
-             frames=None):
+             frames=None, mesh=None):
     """Process a prompt, build its cache -> (last-pos logits (B, 1, V),
     cache with global K/V zero-padded to ``max_len``, every ``local``
     layer's ring of ``min(local_window, max_len)`` positions filled and
     every recurrent layer's final state).  An encoder-decoder takes
     ``frames`` (B, F, d): it encodes them, and each decoder layer's cross
     K/V, computed once, serves its cross attention here and is kept in
-    the cache's ``units/cross`` leaves for the decode steps."""
+    the cache's ``units/cross`` leaves for the decode steps.  ``mesh``: the
+    flash attention's query rows split over its ``model`` axis (every rank
+    of the calling group gets the whole output)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
@@ -708,7 +765,7 @@ def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None,
     for section, key, u, kind in _stack_layers(cfg):
         p = _at(params, section, key, u)
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
-        x, st = _layer_apply_full(p, x, cfg, kind, dtype, kv)
+        x, st = _layer_apply_full(p, x, cfg, kind, dtype, kv, mesh=mesh)
         if kv is not None:
             cache["units"]["cross"]["k"][u] = kv[0]
             cache["units"]["cross"]["v"][u] = kv[1]
@@ -815,7 +872,7 @@ def _layer_pools(leaves: dict, u):
     return leaves["k"][u], leaves["v"][u]
 
 
-def _decode_step(params, cfg: ArchConfig, token, cache):
+def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
     paged cache (``kvcache.paged.PagedKVCache.init_cache``) or a contiguous
     one (:func:`init_cache`, ``per_slot`` or a prefill's shared length,
@@ -824,27 +881,50 @@ def _decode_step(params, cfg: ArchConfig, token, cache):
     advances by one.  A paged cache's ``local`` and recurrent layers keep
     their rings and states beside the pools.  Cold-pool leaves, where a
     paged cache carries them, are decoded in every paged layer (the engine
-    leaves them out while no page is cold)."""
+    leaves them out while no page is cold).
+
+    ``mesh``: on a paged cache with per-slot timelines (a rank's cache of
+    ``PagedKVCache(n_shards=..., shard=...)``: full page table, timelines
+    and rings, local pools), only this rank's batch shard's rows are run
+    and their logits returned, (B / n_data, 1, V); every timeline still
+    advances.  On a contiguous cache with one shared timeline and a model
+    axis each rank holds its sequence slice (see the module docstring).
+    Elsewhere every rank runs every row."""
     dtype = torch_dtype(cfg.dtype)
     B = token.shape[0]
     cur_len = cache["cur_len"]
     page_table = cache.get("page_table")
+    rows = slice(None)
+    paged_mesh = DS.paged_shardable(page_table, cur_len, mesh)
+    if paged_mesh:
+        b_loc = B // axis_size(mesh, "data")
+        lo = mesh.get_local_rank("data") * b_loc
+        rows = slice(lo, lo + b_loc)
+    shared = (mesh is not None and cur_len.ndim == 0
+              and axis_size(mesh, "model") > 1)
     lens = cur_len.expand(B) if cur_len.ndim == 0 else cur_len
+    lens = cur_len if shared else lens[rows]
     if page_table is not None:
-        page_table = page_table.clamp(min=paged_kv.GARBAGE_PAGE)
+        page_table = page_table[rows].clamp(min=paged_kv.GARBAGE_PAGE)
     cross = cache["units"].get("cross")
-    x = _embed(params, cfg, token, dtype)
+    x = _embed(params, cfg, token[rows], dtype)
     for section, key, u, kind in _stack_layers(cfg):
         p = _at(params, section, key, u)
         leaves = cache[section][key]
         if kind in REC_KINDS:
+            state = _at(cache, section, key, u)
             x = _layer_apply_step(p, x, cfg, kind, dtype,
-                                  _at(cache, section, key, u))
+                                  {n: v[rows] for n, v in state.items()})
         else:
+            pools = _layer_pools(leaves, u)
+            if "k_pool" not in leaves:
+                pools = tuple(t[rows] for t in pools)
             x = _layer_apply_decode(
-                p, x, cfg, kind, dtype, _layer_pools(leaves, u), lens,
+                p, x, cfg, kind, dtype, pools, lens,
                 page_table if "k_pool" in leaves else None,
-                None if cross is None else (cross["k"][u], cross["v"][u]))
+                None if cross is None else (cross["k"][u][rows],
+                                            cross["v"][u][rows]),
+                mesh=mesh if paged_mesh or shared else None, shared=shared)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache
@@ -891,26 +971,36 @@ def undo_step(saved: list, slot: int) -> None:
 
 
 def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
-                 n_valid: int, path: str = "gather"):
+                 n_valid: int, path: str = "gather", mesh=None):
     """Embed a chunk, run every layer in chunk mode, advance the slot's
     timeline by ``n_valid`` (in place) -> the residual stream (1, C, d).
-    ``path`` tags the page-decode launches of cold pages."""
+    ``path`` tags the page-decode launches of cold pages.  On a mesh with
+    batch shards a rank off the slot's shard only advances the timeline
+    and returns None."""
     dtype = torch_dtype(cfg.dtype)
     cur_len = cache["cur_len"]
     start = cur_len[slot].clone()
+    n_slots = cache["page_table"].shape[0]
+    if not DS.chunk_shardable(mesh):
+        mesh = None
+    elif slot // (n_slots // axis_size(mesh, "data")) != \
+            mesh.get_local_rank("data"):
+        cur_len[slot] = start + n_valid
+        return None
     row = cache["page_table"][slot]
     x = _embed(params, cfg, tokens, dtype)
     for section, key, u, kind in _stack_layers(cfg):
         leaves = cache[section][key]
         pools = _layer_pools(leaves, u) if "k_pool" in leaves else None
         x = _layer_apply_chunk(_at(params, section, key, u), x, cfg, kind,
-                               dtype, pools, row, start, n_valid, path)
+                               dtype, pools, row, start, n_valid, path,
+                               mesh, slot, n_slots)
     cur_len[slot] = start + n_valid
     return x
 
 
 def _prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
-                   n_valid: int):
+                   n_valid: int, mesh=None):
     """Process one fixed-size prompt chunk for ``slot`` of a paged cache.
 
     tokens: (1, C) int, a chunk of the prompt padded to the engine's chunk
@@ -920,15 +1010,18 @@ def _prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
     are where the request's first token is sampled from.  Returns (logits
     (1, 1, V) at position ``n_valid - 1`` of the chunk, cache with
     ``cur_len[slot] += n_valid``); the pools and ``cur_len`` are updated in
-    place."""
+    place.  On a mesh the logits are None on a rank off the slot's batch
+    shard (:func:`_chunk_stack`)."""
     check_supported(cfg)
-    x = _chunk_stack(params, cfg, tokens, cache, slot, n_valid)
+    x = _chunk_stack(params, cfg, tokens, cache, slot, n_valid, mesh=mesh)
+    if x is None:
+        return None, cache
     last = x[:, max(n_valid - 1, 0):max(n_valid, 1)]
     return _unembed(params, cfg, last, torch_dtype(cfg.dtype)), cache
 
 
 def _verify_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
-                  n_valid: int):
+                  n_valid: int, mesh=None):
     """The speculative-decoding verify forward: :func:`prefill_chunk`'s
     chunk program, unembedding **every** chunk row.
 
@@ -941,9 +1034,12 @@ def _verify_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
     ``cur_len[slot]`` advances by ``n_valid`` (in place); the engine rolls
     the rejected suffix back (``PagedKVCache.rollback``).  Cold pages of
     the history are decoded with the page-decode launches tagged
-    ``'verify'``."""
+    ``'verify'``; on a mesh, None logits off the slot's batch shard."""
     check_supported(cfg)
-    x = _chunk_stack(params, cfg, tokens, cache, slot, n_valid, "verify")
+    x = _chunk_stack(params, cfg, tokens, cache, slot, n_valid, "verify",
+                     mesh=mesh)
+    if x is None:
+        return None, cache
     return _unembed(params, cfg, x, torch_dtype(cfg.dtype)), cache
 
 

@@ -12,9 +12,10 @@ summed into f32 buffers and divided, as the reference's ``lax.scan`` sums
 them, and ``aux`` is reported as 0, as there.  ``remat`` recomputes each
 unit's activations in the backward.
 
-The reference's mesh (sharding rules, sequence-parallel constraints) and
-its dry-run specs (``input_specs``, ``param_specs``,
-``compressed_param_specs``) are not ported yet: a ``mesh`` is refused.
+The train-time mesh (its sequence-parallel constraints over the sharding
+rules of ``runtime/sharding.py``) and the dry-run specs (``input_specs``,
+``param_specs``, ``compressed_param_specs``) are not ported yet: a
+``mesh`` is refused.
 """
 from __future__ import annotations
 

@@ -1,16 +1,20 @@
 """Typed engine configuration: the reference's ``EngineConfig`` and its
 feature-gating matrix.
 
-The port serves, on one device: the paged cache (``page_size``,
-``n_pages``, the compressed cold pool ``compress_cold`` / ``n_cold_slots``,
-the host swap tier ``swap_bytes`` (-1 unbounded, 0 or None off) with
+The port serves, on one device or on a mesh of ranks: the paged cache
+(``page_size``, ``n_pages``, the compressed cold pool ``compress_cold`` /
+``n_cold_slots``, the host swap tier ``swap_bytes`` (-1 unbounded, 0 or None off) with
 ``preemption``, chunked prefill ``prefill_chunk`` / ``prefill_budget``) or
 the monolithic cache (``cache_mode="monolithic"``), cross-request prefix
 sharing (``prefix_sharing``), speculative decoding (``draft_params``,
 ``draft_cfg``, ``spec_k``) and the observability objects (``telemetry``,
 a ``serving.telemetry.Telemetry``; ``kv_monitor``, a
-``runtime.monitor.KVCacheMonitor``).  ``mesh`` keeps its name and default;
-setting it raises ``EngineConfigError`` ("not yet ported").
+``runtime.monitor.KVCacheMonitor``) and ``mesh``, a ``("data", "model")``
+``DeviceMesh`` of ranks (``launch/mesh.py``; ``n_shards()`` its data axis,
+``n_model_shards()`` its model axis).  On a mesh the port serves the
+stacks of attention layers ('attn', 'nope', 'local'); a mixture-of-experts,
+recurrent or encoder-decoder stack raises ``EngineConfigError`` ("not yet
+ported on a mesh") in both modes.
 
 The gating matrix (the reference's ``serving/config.py``):
 
@@ -18,11 +22,14 @@ The gating matrix (the reference's ``serving/config.py``):
 feature                   requires
 ========================  =================================================
 paged cache               a pageable decoder stack (an 'attn'/'nope' layer)
-chunked prefill           the paged cache and an all-'attn'/'nope' stack
-prefix sharing            chunked prefill (and one batch shard, which the
-                          port's cache always is)
-speculative decoding      the paged cache, an all-'attn'/'nope' target,
-                          whole-prompt prefill and a same-vocabulary draft
+                          and ``max_batch`` divisible by the mesh's batch
+                          shards
+chunked prefill           the paged cache, an all-'attn'/'nope' stack and
+                          no model mesh axis
+prefix sharing            chunked prefill and one batch shard
+speculative decoding      the paged cache, an all-'attn'/'nope' target, no
+                          model mesh axis, whole-prompt prefill and a
+                          same-vocabulary draft
 ========================  =================================================
 
 ``validate(cfg)`` resolves a config against an architecture.  Arch-driven
@@ -51,12 +58,10 @@ from dataclasses import dataclass, field, replace
 
 from ..configs.base import ArchConfig
 from ..kvcache.paged import PAGED_KINDS
-from ..models.model import check_supported
+from ..models.model import ATTN_KINDS, check_supported
+from ..runtime.sharding import axis_size
 
 CACHE_MODES = ("paged", "monolithic")
-
-# field -> the only value the port serves
-_NOT_YET_PORTED = {"mesh": None}
 
 
 class EngineConfigError(ValueError):
@@ -109,12 +114,18 @@ class EngineConfig:
             bad.append(f"page_size={self.page_size} (must be >= 1)")
         if self.spec_k < 1:
             bad.append(f"spec_k={self.spec_k} (must be >= 1)")
-        for name, served in _NOT_YET_PORTED.items():
-            value = getattr(self, name)
-            if value is not served and value != served:
-                bad.append(f"{name}={value!r}: not yet ported")
         if bad:
             raise EngineConfigError("; ".join(bad))
+
+    # -- mesh-derived helpers ---------------------------------------------
+
+    def n_shards(self) -> int:
+        """Size of the mesh's batch axis (1 without a mesh): the divisor
+        ``max_batch`` must honour for per-shard slot ranges."""
+        return axis_size(self.mesh, "data")
+
+    def n_model_shards(self) -> int:
+        return axis_size(self.mesh, "model")
 
     def validate(self, cfg: ArchConfig, *, strict: bool = False
                  ) -> "EngineConfig":
@@ -137,17 +148,32 @@ class EngineConfig:
                     f"encoder-decoder (a request carries no frames); run "
                     f"models.model.prefill(..., frames=...) and "
                     f"decode_step directly")
+            if self.mesh is not None and (
+                    arch.n_experts
+                    or not set(arch.pattern) <= set(ATTN_KINDS)):
+                raise EngineConfigError(
+                    f"{arch.name}: not yet ported on a mesh (the port's "
+                    f"mesh serves stacks of 'attn', 'nope' and 'local' "
+                    f"layers with dense MLPs)")
         problems: list[str] = []
         cache_mode = self.cache_mode
+        n_shards, n_model = self.n_shards(), self.n_model_shards()
         # arch-driven: nothing to page is a silent resolve, never an error
         if cache_mode == "paged" and not any(
                 cfg.layer_kind(i) in ("attn", "nope")
                 for i in range(cfg.n_layers)):
             cache_mode = "monolithic"
+        if cache_mode == "paged" and self.max_batch % n_shards:
+            problems.append(
+                f"max_batch={self.max_batch} not divisible by the mesh "
+                f"batch-axes size {n_shards}; falling back to the "
+                f"monolithic cache")
+            cache_mode = "monolithic"
         all_paged = all(cfg.layer_kind(i) in PAGED_KINDS
                         for i in range(cfg.n_layers))
         chunk = min(max(self.prefill_chunk, 0), self.max_len)
-        if chunk and (cache_mode != "paged" or not all_paged):
+        if chunk and (cache_mode != "paged" or not all_paged
+                      or n_model > 1):
             problems.append(
                 f"prefill_chunk={self.prefill_chunk} needs the paged "
                 f"cache, an all-'attn'/'nope' layer stack and no model "
@@ -155,7 +181,7 @@ class EngineConfig:
             chunk = 0
         budget = max(self.prefill_budget or chunk, 1) if chunk else 0
         prefix_sharing = bool(self.prefix_sharing)
-        if prefix_sharing and not chunk:
+        if prefix_sharing and (not chunk or n_shards != 1):
             problems.append(
                 "prefix_sharing needs chunked prefill (prefill_chunk > 0, "
                 "with its paged-cache requirements) and a single batch "
@@ -164,7 +190,8 @@ class EngineConfig:
         draft_params, draft_cfg = self.draft_params, self.draft_cfg
         if draft_cfg is not None and (
                 cache_mode != "paged" or not all_paged
-                or chunk or draft_cfg.vocab_size != cfg.vocab_size):
+                or n_model > 1 or chunk
+                or draft_cfg.vocab_size != cfg.vocab_size):
             problems.append(
                 "speculative decoding needs the paged cache, an "
                 "all-'attn'/'nope' target stack, no model mesh axis, "
@@ -190,8 +217,8 @@ class EngineConfig:
         ``EngineConfigError`` at once; with ``cfg`` the result is resolved
         with ``validate(cfg, strict=True)``, so incompatible requests (e.g.
         ``--prefix-sharing`` with ``--draft``) fail before any weights
-        exist.  ``overrides`` supply fields with no flag (``draft_cfg``,
-        ``draft_params``, ``telemetry``, ``kv_monitor``)."""
+        exist.  ``overrides`` supply fields with no flag (``mesh``,
+        ``draft_cfg``, ``draft_params``, ``telemetry``, ``kv_monitor``)."""
         ignored = []
         if not getattr(args, "draft", None):
             if getattr(args, "spec_k", None) is not None:

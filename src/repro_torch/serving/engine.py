@@ -61,6 +61,23 @@ Weights may be an ECF8-compressed tree (``core.store.compress_tree``):
 every weight is decoded where it is used (the ECF8 decode kernel).
 Sampling keys fold ``(rng_seed, request.id, position)`` only, so a
 request's sampled stream does not depend on batching.
+
+On a mesh (``config.mesh``, a ``("data", "model")`` DeviceMesh of ranks,
+``launch/mesh.py``) every rank runs this engine on the same requests with
+replicated weights (their checksums compared at construction), and every
+host decision is made from values all ranks hold.  The paged cache's
+pools and cold slots are split over the data axis (``PagedKVCache(
+n_shards=..., shard=...)``: a slot's pages lie in its own batch shard,
+whose ranks alone hold them); a decode step runs each data group's slots
+on its ranks, which sample their own slots' tokens, and one all-gather a
+step hands every rank all tokens (model rank 0 of each group is
+authoritative).  A slot's whole-prompt prefill and its prefill chunks run
+on its shard's ranks, the model ranks splitting a prefill's query rows,
+and the first token is broadcast from the shard's first rank; so are an
+encoded page's byte count and fit (``PagedKVCache.share``), which the
+cold pool's and the swap tier's bookkeeping read.  The monolithic cache
+and a speculative draft's cache are whole on every rank, their work
+replicated.
 """
 from __future__ import annotations
 
@@ -78,6 +95,7 @@ from ..kernels import build
 from ..kvcache import OutOfPages, PagedKVCache, SwapExhausted, SwapStore
 from ..kvcache import paged as paged_kv
 from ..models import model as M
+from ..runtime import collectives
 from ..runtime.monitor import KVCacheMonitor, StragglerMonitor
 from . import spec as SPEC
 from .config import EngineConfig
@@ -156,15 +174,33 @@ class GenerationEngine:
         self.slots: list = [None] * max_batch   # Request or None
         self._inflight: list = []               # submitted, not yet returned
         self.cache_mode = config.cache_mode
+        self.mesh = mesh = config.mesh
+        n_shards, self.n_model = config.n_shards(), config.n_model_shards()
+        self.d_rank = mesh.get_local_rank("data") if mesh is not None else 0
+        self.weights_checksum = None
+        if mesh is not None:
+            self.weights_checksum = collectives.check_replicated(params, mesh)
+        # the rows of this rank's decode step and whether the step's tokens
+        # are gathered from the data groups (a paged cache split over them)
+        paged_mesh = (mesh is not None and self.cache_mode == "paged"
+                      and (n_shards > 1 or self.n_model > 1))
+        b_loc = max_batch // n_shards if paged_mesh else max_batch
+        lo = self.d_rank * b_loc if paged_mesh else 0
+        self._rows = (lo, lo + b_loc)
+        self._split = paged_mesh and n_shards > 1
+        self.gather_seconds = 0.0               # host s in token gathers
         if self.cache_mode == "paged":
             self.paged = PagedKVCache(
                 cfg, max_batch, config.max_len, dtype=torch_dtype(cfg.dtype),
                 device=self.device, page_size=config.page_size,
                 n_pages=config.n_pages, compress_cold=config.compress_cold,
-                n_cold_slots=config.n_cold_slots)
+                n_cold_slots=config.n_cold_slots, n_shards=n_shards,
+                shard=self.d_rank if mesh is not None else None,
+                share=self._share if self._split else None)
             if config.swap_bytes:
                 self.paged.attach_swap(SwapStore(
-                    None if config.swap_bytes < 0 else config.swap_bytes))
+                    None if config.swap_bytes < 0 else config.swap_bytes,
+                    n_shards=n_shards))
             self.cache = self.paged.init_cache()
         else:
             self.paged = None
@@ -176,6 +212,9 @@ class GenerationEngine:
         if self.spec_on:
             self.draft_params = config.draft_params
             self.draft_cfg = config.draft_cfg
+            if mesh is not None:
+                collectives.check_replicated(self.draft_params, mesh,
+                                             "draft weights")
             # the paired draft cache, always monolithic: a small draft
             # needs no paging, and its rollback is a timeline reset
             # (_spec_round)
@@ -310,6 +349,41 @@ class GenerationEngine:
                 tr.counter("kvcache_swap_bytes_used",
                            stats["swap_bytes_used"])
 
+    # -- the mesh ----------------------------------------------------------
+
+    def _src(self, shard: int) -> int:
+        """Global rank of ``shard``'s model rank 0 (rank ``r`` sits at data
+        ``r // n_model``, model ``r % n_model``)."""
+        return shard * self.n_model
+
+    def _share(self, obj, shard: int):
+        """``obj`` as the first rank of ``shard`` holds it, on every rank
+        (``PagedKVCache.share``)."""
+        return collectives.broadcast_object(obj, self._src(shard))
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank computes ``slot``'s prefill."""
+        return not self._split or self.paged.holds(slot)
+
+    def _first_token(self, slot: int, logits, req) -> int:
+        """The token sampled from a prefill's last logits, as the slot's
+        shard samples it, on every rank."""
+        tok = self._sample_one(logits, req) if logits is not None else 0
+        if self._split:
+            tok = self._share([tok], self.paged.shard_of_slot(slot))[0]
+        return tok
+
+    def _gather_tokens(self, local: list) -> list:
+        """Every data group's sampled tokens of its rows -> the whole
+        batch's, as each group's model rank 0 sampled them."""
+        t0 = time.perf_counter()
+        got = collectives.gather_rows(
+            torch.tensor(local, dtype=torch.int64), self.mesh)
+        n_data = got.shape[0] // self.n_model
+        toks = got[::self.n_model][:n_data].reshape(-1).tolist()
+        self.gather_seconds += time.perf_counter() - t0
+        return toks
+
     # -- scheduling --------------------------------------------------------
 
     def load(self) -> int:
@@ -348,8 +422,10 @@ class GenerationEngine:
                                     args={"slot": slot})
         toks = torch.tensor(req.prompt, dtype=torch.int64,
                             device=self.device)[None, :]
-        logits, frag = M.prefill(self.params, self.cfg, toks,
-                                 max_len=self.max_len)
+        logits = frag = None
+        if self._owns(slot):
+            logits, frag = M.prefill(self.params, self.cfg, toks,
+                                     max_len=self.max_len, mesh=self.mesh)
         if self.paged is not None:
             self.cache = self.paged.admit(self.cache, slot, frag,
                                           len(req.prompt))
@@ -363,7 +439,7 @@ class GenerationEngine:
                                  max_len=self.max_len)
             self.draft_cache = splice_fragment(self.draft_cache, dfrag, slot)
         self._host_len[slot] = len(req.prompt)
-        tok = self._sample_one(logits, req)
+        tok = self._first_token(slot, logits, req)
         req.out_tokens.append(tok)
         self._last_tok[slot] = tok
         self.slots[slot] = req
@@ -434,12 +510,13 @@ class GenerationEngine:
         mid-prefill record re-enters the prefill phase at
         ``st.prefill_pos`` instead of rejoining the decode batch."""
         tel, t0 = self.tel, time.perf_counter()
+        origin = self.paged.swap_shard(st.pages)
         self.cache = self.paged.attach_slot(self.cache, slot, st.pages,
                                             st.skip)
         self.cache = self.paged.fault(self.cache, slot)
         if st.state:
             self.cache = self.paged.restore_slot_state(self.cache, slot,
-                                                       st.state)
+                                                       st.state, origin)
         if self.spec_on and st.draft_state is not None:
             self._draft_restore(slot, st.draft_state)
         self.cache["cur_len"][slot] = st.host_len
@@ -555,15 +632,16 @@ class GenerationEngine:
             # has drained, so in-flight work always completes first.
             bad = sched.impossible()
             if bad is not None:
+                pc = self.paged
+                largest = max(map(pc.shard_capacity, range(pc.n_shards)))
                 raise OutOfPages(
                     f"request {bad.id} needs "
-                    f"{self.paged.pages_worst_case(len(bad.prompt), bad.max_new_tokens)}"
-                    f" resident pages; the pool holds "
-                    f"{self.paged.shard_capacity()} (swap cannot hold a "
-                    f"single slot's working set)")
+                    f"{pc.pages_worst_case(len(bad.prompt), bad.max_new_tokens)}"
+                    f" resident pages; largest shard holds {largest} (swap "
+                    f"cannot hold a single slot's working set)")
             raise OutOfPages(
-                f"queued work cannot be admitted with an empty batch "
-                f"({self.paged.free_pages} pages free)")
+                f"queued work cannot be admitted with an empty batch (free "
+                f"per shard: {self.paged.free_pages_per_shard})")
 
     def _sample_one(self, logits, req: Request) -> int:
         """The next token of ``req`` from its logits (1, 1, V)."""
@@ -701,7 +779,15 @@ class GenerationEngine:
             toks[0, 1:1 + k_eff] = torch.from_numpy(props[s, :k_eff])
             logits, _ = M.verify_chunk(self.params, self.cfg,
                                        toks.to(self.device),
-                                       self._step_cache(), s, k_eff + 1)
+                                       self._step_cache(), s, k_eff + 1,
+                                       mesh=self.mesh)
+            if self._split:
+                # the slot's shard verified; every rank rolls back alike
+                if logits is None:
+                    logits = torch.empty((1, k + 1, self.cfg.vocab_size),
+                                         dtype=torch.float32)
+                logits = collectives.broadcast_tensor(
+                    logits.float(), self._src(self.paged.shard_of_slot(s)))
             p_log = logits[0, :k_eff + 1].float().cpu().numpy()
             q_log = (torch.stack([q_rows[j][s, 0] for j in range(k_eff)])
                      .float().cpu().numpy()
@@ -779,7 +865,9 @@ class GenerationEngine:
                 self.cache = self.paged.ensure(self.cache, slot, pos)
                 return True
             except OutOfPages:
-                victim = self.scheduler.victim(self.slots, exclude=(slot,))
+                victim = self.scheduler.victim(
+                    self.slots, shard=self.paged.shard_of_slot(slot),
+                    exclude=(slot,))
                 if victim is not None and self._preempt(victim):
                     continue
                 if (self.scheduler._can_preempt()
@@ -819,7 +907,8 @@ class GenerationEngine:
                                 dtype=torch.int64, device=self.device)[None]
             tc0 = time.perf_counter()
             logits, _ = M.prefill_chunk(self.params, self.cfg, toks,
-                                        self._step_cache(), slot, n)
+                                        self._step_cache(), slot, n,
+                                        mesh=self.mesh)
             self._prefill_pos[slot] = pos + n
             self._host_len[slot] = pos + n
             if self.prefix_sharing:
@@ -835,7 +924,7 @@ class GenerationEngine:
                     "serving_prefill_chunk_seconds").observe(
                         time.perf_counter() - tc0)
             if pos + n >= len(req.prompt):      # final chunk: first token
-                tok = self._sample_one(logits, req)
+                tok = self._first_token(slot, logits, req)
                 req.out_tokens.append(tok)
                 self._last_tok[slot] = tok
                 del self._prefill_pos[slot]
@@ -896,7 +985,9 @@ class GenerationEngine:
                                                self._host_len[slot])
                 return
             except OutOfPages:
-                victim = self.scheduler.victim(self.slots, exclude=(slot,))
+                victim = self.scheduler.victim(
+                    self.slots, shard=self.paged.shard_of_slot(slot),
+                    exclude=(slot,))
                 if victim is None or not self._preempt(victim):
                     raise
 
@@ -962,7 +1053,7 @@ class GenerationEngine:
         last = torch.tensor(self._last_tok, dtype=torch.int64,
                             device=self.device)[:, None]
         logits, out = M.decode_step(self.params, self.cfg, last,
-                                    self._step_cache())
+                                    self._step_cache(), mesh=self.mesh)
         self.cache["cur_len"] = out["cur_len"]
         self.steps += 1
         if self._prefill_pos:
@@ -974,11 +1065,16 @@ class GenerationEngine:
             self.cache["cur_len"][idx] -= 1
         if prefill_spent:
             self.n_interleaved_steps += 1
+        # this rank's rows (every row off a split paged mesh); sampled rows
+        # draw on the host's read of their logits
+        lo, hi = self._rows
         toks = greedy(logits)[:, 0].tolist()
-        # sampled rows draw on the host's read of their logits
         for s in active:
-            if self.slots[s].temperature > 0:
-                toks[s] = self._sample_one(logits[s:s + 1], self.slots[s])
+            if lo <= s < hi and self.slots[s].temperature > 0:
+                toks[s - lo] = self._sample_one(logits[s - lo:s - lo + 1],
+                                                self.slots[s])
+        if self._split:
+            toks = self._gather_tokens(toks)
         now = time.perf_counter()
         self.decode_seconds += now - t0
         if self.tel is not None:

@@ -1,6 +1,6 @@
 """Preemptive request scheduler: priority admission over virtual capacity.
 
-The reference's ``serving/scheduler.py`` on one device, with its
+The reference's ``serving/scheduler.py``, with its
 chunked-prefill pieces (the per-step prefill token budget, mid-prefill
 preemption records) and prefix sharing (a matched prefix costs no prefill
 budget and no pages at admission).  Over the monolithic cache (``paged``
@@ -16,8 +16,10 @@ policy layer over it:
   * **admission control against virtual capacity** — a request is queued,
     not rejected, while its pages are swappable; ``OutOfPages`` is raised
     only for requests that can *never* fit (their worst-case resident
-    working set exceeds the pool — swap cannot help, because a slot's
-    whole history must be device-resident to gather).
+    working set exceeds every shard's page range — swap cannot help,
+    because a slot's whole history must be device-resident to gather).
+    On a mesh a slot is admitted against its own batch shard's free list
+    and pressure picks victims on the same shard.
   * **whole-request preemption** — when a higher-priority request waits or
     an active slot cannot grow, the victim (lowest priority, then least
     recently scheduled) is swapped out wholesale: the engine evicts all
@@ -122,7 +124,7 @@ class Scheduler:
 
     def impossible(self):
         """First queued request whose worst-case resident set can never
-        fit the pool — the diagnostic for the engine's drained-queue
+        fit any shard — the diagnostic for the engine's drained-queue
         ``OutOfPages`` (never raised while other work is in flight)."""
         if self.paged is None:
             return None
@@ -176,25 +178,31 @@ class Scheduler:
         return (self.admission_grant(item)
                 + self.paged.match_page_cost(item.prompt))
 
-    def _fits(self, item) -> bool:
-        """Admissible *now and for its whole lifetime*: the current need
-        must fit the free list, and the worst-case working set the pool.
+    def _fits(self, item, shard: int) -> bool:
+        """Admissible on ``shard`` *now and for its whole lifetime*: the
+        current need must fit the shard's free list, and the worst-case
+        working set the shard's capacity (placing a request on a shard it
+        will outgrow would wedge it mid-flight with no victim to preempt).
         Index-only prefix pages (refcount 1) are reclaimed on demand by
         every allocation site, so they count as available."""
-        avail = self.paged.free_pages + self.paged.reclaimable_pages()
+        avail = (self.paged.free_pages_per_shard[shard]
+                 + self.paged.reclaimable_pages(shard))
         if self._need_now(item) > avail:
             return False
         req = item.req if isinstance(item, Preempted) else item
-        return self._ever_fits(req)
+        worst = self.paged.pages_worst_case(len(req.prompt),
+                                            req.max_new_tokens)
+        return worst <= self.paged.shard_capacity(shard)
 
     def _ever_fits(self, req) -> bool:
-        """Whether the request's worst-case resident set fits the pool at
-        full capacity (raw pages only: cold space is shared and
+        """Whether the request's worst-case resident set fits *some* shard
+        at full capacity (raw pages only: cold space is shared and
         incompressible pages stay raw, so counting it could admit a
         request that later wedges mid-flight)."""
         worst = self.paged.pages_worst_case(len(req.prompt),
                                             req.max_new_tokens)
-        return worst <= self.paged.shard_capacity()
+        return any(worst <= self.paged.shard_capacity(k)
+                   for k in range(self.paged.n_shards))
 
     def pick(self, slot: int, prefill_budget: int | None = None):
         """Pop the best waiting item admissible on ``slot`` now, or None.
@@ -217,6 +225,7 @@ class Scheduler:
                 self._note_depth()
                 return item
             return None
+        shard = self.paged.shard_of_slot(slot)
         for p in self._priorities():
             q = self._classes[p]
             for i, item in enumerate(q):
@@ -226,7 +235,7 @@ class Scheduler:
                 if (prefill_budget is not None and prefill_budget <= 0
                         and self.prefill_tokens(item) > 0):
                     break           # out of prefill budget this step
-                if self._fits(item):
+                if self._fits(item, shard):
                     del q[i]
                     self.touch(slot)
                     self._note_depth()
@@ -256,36 +265,45 @@ class Scheduler:
         """A victim whose eviction provably lets ``head`` admit *now*.
 
         Strictly-lower-priority active slots only (preempting your own
-        class livelocks), and only when the freed pages would then hold
+        class livelocks), and only when the victim's shard would then hold
         ``head``'s current page need — so every admission preemption is
         followed by head's admission in the same pass, never by
         preempt/resume flapping across steps.  Ties break
         lowest-priority-first, then least recently scheduled."""
         if not self._can_preempt():
             return None
+        hreq = head.req if isinstance(head, Preempted) else head
+        worst = self.paged.pages_worst_case(len(hreq.prompt),
+                                            hreq.max_new_tokens)
         need = self._need_now(head)
         best = None
         for s, req in enumerate(slots):
             if req is None or req.priority >= head.priority:
                 continue
+            sh = self.paged.shard_of_slot(s)
+            if worst > self.paged.shard_capacity(sh):
+                continue            # head could not live on this shard
             raw = self.paged.resident_raw_pages(s)
-            if self.paged.free_pages + raw < need:
+            if self.paged.free_pages_per_shard[sh] + raw < need:
                 continue            # would not unblock head: keep running
             cand = (req.priority, self._last_used.get(s, 0), s)
             best = cand if best is None else min(best, cand)
         return best[2] if best is not None else None
 
-    def victim(self, slots, *, exclude=()):
+    def victim(self, slots, *, shard=None, exclude=()):
         """Choose a page-pressure victim among active ``slots`` (a list of
         Request-or-None): lowest priority first, then least recently
         scheduled — any priority qualifies, because the slot under
-        pressure cannot write at all until pages free up.  ``exclude``
-        protects the slot under pressure."""
+        pressure cannot write at all until pages free up.  ``shard``
+        restricts to slots whose pages live on that shard (free lists are
+        per shard); ``exclude`` protects the slot under pressure."""
         if not self._can_preempt():
             return None
         cands = []
         for s, req in enumerate(slots):
             if req is None or s in exclude:
+                continue
+            if shard is not None and self.paged.shard_of_slot(s) != shard:
                 continue
             if self.paged.resident_raw_pages(s) == 0:
                 continue        # holds no raw pages: evicting it would

@@ -1130,3 +1130,81 @@ def test_flash_autograd_on_card_matches_cpu(card):
     b4, b5 = flash_fwd.run.launches, flash_bwd.run.launches
     ops.flash_attention(q, k, v, True, 20.0)
     assert (flash_fwd.run.launches - b4, flash_bwd.run.launches - b5) == (1, 0)
+
+
+# -- the mesh: B4 with q_base, ranks on the card -----------------------------
+
+# qwen3-8b's, gemma2-9b's (softcap 50) and llama4-scout's heads: (Hq, Hkv,
+# D, softcap)
+_MESH_HEADS = [(32, 8, 128, 0.0), (16, 8, 256, 50.0), (40, 8, 128, 0.0)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Hq,Hkv,D,cap", _MESH_HEADS)
+@pytest.mark.parametrize("T", [452, 1024])
+@pytest.mark.parametrize("part", [1, 2, 4])
+def test_flash_kernel_q_base(card, dtype, tol, Hq, Hkv, D, cap, T, part):
+    """B4 on the rows ``[q_base, T)`` of a causal prefill over ``T`` keys
+    (``q_base`` 0, T / 2 and 3T / 4: a model rank's rows of
+    ``flash_attention_sharded``) against its plain version within ``tol``,
+    and bit for bit equal to the same rows of the launch over all ``T``
+    rows (each row's sums run over the same key tiles in the same order;
+    the tiles past a row's last key are fully masked and change nothing),
+    so a sharded prefill gives the unsharded one's bits."""
+    base = T - T // part if part > 1 else 0
+
+    def rnd(h, t):
+        return torch.randn((1, h, t, D), generator=card,
+                           device="cuda").to(dtype)
+
+    q, k, v = rnd(Hq, T), rnd(Hkv, T), rnd(Hkv, T)
+    rows = q[:, :, base:].contiguous()
+    before = flash_fwd.run.launches_q_base
+    got = flash_fwd.run(rows, k, v, causal=True, softcap=cap, q_base=base)
+    assert flash_fwd.run.launches_q_base == before + bool(base)
+    want = flash_fwd.plain(rows, k, v, True, cap, q_base=base)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    full = flash_fwd.run(q, k, v, causal=True, softcap=cap)
+    assert torch.equal(got, full[:, :, base:])
+    if not base:
+        # q_base = 0 is the launch without it, bit for bit
+        assert torch.equal(got, flash_fwd.run(rows, k, v, causal=True,
+                                              softcap=cap))
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_mesh_serve_on_the_card(card, n_ranks):
+    """The mesh engine's ranks on the card: two ranks sharing card 0 over
+    gloo, four NCCL ranks one a card when four are visible.  ``launch/
+    serve.py``'s rank runner on a small qwen3 stack in f32 (2 layers, d 256,
+    heads of 64: B4's head dims), ECF8 weights, the paged-compressed cache
+    under page pressure (preempting, swapping, going cold) on ``--mesh D``:
+    the tokens equal one rank's, and the fp8 baseline's on the mesh
+    (``--check-lossless``)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import serve
+    if n_ranks > torch.cuda.device_count() and n_ranks != 2:
+        pytest.skip(f"needs {n_ranks} cards, {torch.cuda.device_count()} "
+                    f"visible")
+    cfg = dataclasses.replace(
+        get("qwen3-8b"), name="qwen3-small", n_layers=2, d_model=256,
+        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+        dtype="float32")
+    argv = ["--device", "cuda", "--cache", "paged-compressed",
+            "--requests", "8", "--max-batch", str(2 * n_ranks), "--max-new",
+            "12", "--max-len", "64", "--page-size", "8", "--n-pages",
+            str(8 * n_ranks), "--swap-bytes", "-1", "--check-lossless"]
+    one, same = serve._serve_cli(serve._parser(), serve._parser().parse_args(
+        argv), cfg, "cuda")
+    assert same
+    nccl = torch.cuda.device_count() >= n_ranks > 2
+    got = MESH.spawn(serve._serve_rank, n_ranks, argv + ["--mesh",
+                                                         str(n_ranks)],
+                     cfg, n_ranks, 1, device="cuda",
+                     backend="nccl" if nccl else "gloo", timeout=600)
+    for done, lossless in got:
+        assert lossless
+        assert [r.out_tokens for r in done] == [r.out_tokens for r in one]

@@ -236,13 +236,10 @@ def test_arch_driven_resolution_is_silent():
     ("mesh", object()), ("prefix_sharing", True), ("telemetry", object()),
     ("kv_monitor", object())])
 def test_unported_fields_still_refused(field, value):
-    """``mesh`` is still refused; prefix sharing and the observability
-    objects are served."""
-    if field != "mesh":
-        assert getattr(EngineConfig(**{field: value}), field) is value
-        return
-    with pytest.raises(EngineConfigError, match="not yet ported"):
-        EngineConfig(**{field: value})
+    """Every field of the reference's config is served now: ``mesh`` (the
+    mesh engine; its gates are in ``test_torch_mesh.py``), prefix sharing
+    and the observability objects; none raises "not yet ported"."""
+    assert getattr(EngineConfig(**{field: value}), field) is value
 
 
 # -- from_args --------------------------------------------------------------

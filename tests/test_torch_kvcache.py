@@ -339,8 +339,8 @@ def _frags(cfg, max_len, seed):
 
 
 def _assert_same_state(ref_pc, pc, ref_cache, cache, what):
-    assert pc._free == ref_pc._free[0], what
-    assert pc._cold_free == ref_pc._cold_free[0], what
+    assert pc._free == ref_pc._free, what
+    assert pc._cold_free == ref_pc._cold_free, what
     assert pc._slot_pages == ref_pc._slot_pages, what
     assert pc._skip == ref_pc._skip, what
     assert pc._cold_bytes == ref_pc._cold_bytes, what
@@ -399,7 +399,7 @@ def test_evict_fault_round_trip_matches_reference():
         cache = pc.admit(cache, slot, gf, n)
         ref_cache = ref_pc.compress_cold_pages(ref_cache, slot, n)
         cache = pc.compress_cold_pages(cache, slot, n)
-    assert pc._cold_bytes and not pc._cold_free   # slot 1 kept raw pages
+    assert pc._cold_bytes and not pc._cold_free[0]  # slot 1 kept raw pages
 
     def history(slot):
         pools = cache["units"]["pos0"]
@@ -418,7 +418,7 @@ def test_evict_fault_round_trip_matches_reference():
     # leaving one for the fault
     ref_cache = ref_pc.compress_cold_pages(ref_cache, 1, 9)
     cache = pc.compress_cold_pages(cache, 1, 9)
-    assert len(pc._cold_free) == 1
+    assert len(pc._cold_free[0]) == 1
     ref_cache = ref_pc.fault(ref_cache, 0)
     cache = pc.fault(cache, 0)
     assert pc.n_fault_decodes == 1 and not pc.has_swapped(0)

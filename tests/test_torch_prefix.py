@@ -69,10 +69,10 @@ _PREFIX_POOL = [tuple(range(1, 10)), tuple(range(1, 18)),
 
 
 def _check_invariants(pkv):
-    """tests/test_prefix_sharing.py's audit invariants, on the port's one
+    """tests/test_prefix_sharing.py's audit invariants, on the one shard's
     free list."""
-    cap = pkv.shard_capacity()
-    free = list(pkv._free)
+    cap = pkv.shard_capacity(0)
+    free = list(pkv._free[0])
     assert len(free) == len(set(free)), "free list has duplicates"
     assert not (set(free) & set(pkv._ref)), "freed page still referenced"
     assert len(free) + len(pkv._ref) == cap, (len(free), len(pkv._ref))
@@ -112,7 +112,7 @@ def _pair(cfg, ref_cfg, seed):
 
 
 def _assert_same_state(ref, ref_cache, pkv, cache):
-    assert pkv._free == ref._free[0]
+    assert pkv._free == ref._free
     assert pkv._ref == ref._ref
     assert pkv._slot_pages == ref._slot_pages
     assert list(pkv.prefix._entries.items()) == \
@@ -456,11 +456,11 @@ def test_admission_counts_the_pages_a_match_takes(raw_weights):
     req = Request(prompt=prefix + list(range(80, 100)), max_new_tokens=4)
     assert sched.admission_grant(req) == 3
     assert pkv.match_page_cost(req.prompt) == 2
-    assert ref_sched._fits(req, 0) and not sched._fits(req)
+    assert ref_sched._fits(req, 0) and not sched._fits(req, 0)
     with pytest.raises(ref_paged.OutOfPages):
         ref.admit_shared(ref_cache, 2, req.prompt, 3)
     cache = pkv.release(cache, 1)
-    assert sched._fits(req)
+    assert sched._fits(req, 0)
     cache, matched = pkv.admit_shared(cache, 2, req.prompt,
                                       sched.admission_grant(req))
     assert matched == 16 and pkv._slot_pages[2][:2] == \

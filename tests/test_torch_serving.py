@@ -30,8 +30,8 @@ from repro_torch.configs import get, smoke_variant  # noqa: E402
 from repro_torch.core import store  # noqa: E402
 from repro_torch.kvcache import paged  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.serving import EngineConfig, EngineConfigError, \
-    GenerationEngine, Request  # noqa: E402
+from repro_torch.serving import EngineConfig, GenerationEngine, \
+    Request  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
 
 # tests/test_serving.py:38's workload (more requests than slots) and
@@ -140,7 +140,7 @@ def test_allocator_state_matches_reference():
         else:
             ref_cache = ref_pc.release(ref_cache, slot)
             cache = pc.release(cache, slot)
-        assert pc._free == ref_pc._free[0], (op, slot, n)
+        assert pc._free == ref_pc._free, (op, slot, n)
         assert pc._slot_pages == ref_pc._slot_pages
         np.testing.assert_array_equal(cache["page_table"].numpy(),
                                       np.asarray(ref_cache["page_table"]))
@@ -172,15 +172,12 @@ def test_allocator_state_matches_reference():
     ("draft_cfg", smoke_variant(get("qwen3-8b"))), ("prefix_sharing", True),
     ("telemetry", object()), ("spec_k", 2)])
 def test_unported_engine_options_raise(field, value):
-    """Every option of the reference that the port does not serve yet
-    (``mesh``) raises; the monolithic cache, the speculative fields, prefix
-    sharing and telemetry (``cache_mode``, ``draft_cfg``, ``spec_k``,
-    ``prefix_sharing``, ``telemetry``), ported since, are accepted."""
-    if field != "mesh":
-        assert getattr(EngineConfig(**{field: value}), field) == value
-        return
-    with pytest.raises(EngineConfigError, match="not yet ported"):
-        EngineConfig(**{field: value})
+    """Every option of the reference is accepted now that the port serves
+    them: the monolithic cache, the speculative fields, prefix sharing,
+    telemetry (``cache_mode``, ``draft_cfg``, ``spec_k``,
+    ``prefix_sharing``, ``telemetry``) and the mesh (its gates are in
+    ``test_torch_mesh.py``)."""
+    assert getattr(EngineConfig(**{field: value}), field) == value
 
 
 def test_sampler_keys_and_filters():

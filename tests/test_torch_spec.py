@@ -562,7 +562,7 @@ def _check_rollback(ps, lens, target, d, j):
             else:
                 cache = pkv.ensure(cache, target, new_len - 1)
                 cache = _set_len(cache, target, new_len, port)
-            free = pkv._free if port else pkv._free[0]
+            free = pkv._free[0]
             states.append((list(free),
                            {s: list(p) for s, p in pkv._slot_pages.items()},
                            np.asarray(cache["page_table"]).tolist(),
