@@ -4,11 +4,13 @@ NVIDIA H100.
 Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--only 1,21]
+    python3 chip_smoke.py [--layers N] [--seed S] [--only 1,21[,22]]
 
-``--only 1,21`` runs the build and phase 21 alone: on a host with four or
-more cards, ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full
-depth on four NCCL ranks.
+``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
+22 alone: on a host with four or more cards, ``python3 chip_smoke.py
+--only 1,21`` serves qwen3-8b at full depth on four NCCL ranks, and
+``--only 1,22`` moonshot-v1-16b-a3b and llama4-scout-17b-a16e at full
+depth.
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the five CUDA kernels built with
@@ -298,6 +300,39 @@ Phases, each failing loudly (non-zero exit, no result line):
      token-gather ms, launches a step, peak memory, per-shard peak pages
      and swap bytes; aggregate tok/s; the stat merge's ms; tokens against
      rank 0 alone, counted (bf16: reported, not gated).
+  22. the mixture-of-experts and recurrent stacks on a mesh of ranks:
+     before the ranks start, the ECF8 decode kernel at the expert
+     container a rank decodes on the model axis (and, with four cards,
+     llama4-scout's) and the flash kernel at the largest model's heads
+     against their plain versions.  Each rank builds its trees on its
+     card from the seed, on a model axis its share of every expert leaf
+     alone (``runtime.sharding.expert_cut``: each layer drawn whole, its
+     slice cast and compressed as a container of its own), and serves
+     them.  On one card two gloo ranks share it: moonshot-v1-16b-a3b at
+     ``MOE_MESH_LAYERS`` of its 48 layers with phase 5's 8 requests at
+     max_batch 4 on ``1x2`` (32 experts a rank, the MoE layers' two
+     ``all_to_all`` over ``model``) and on ``--mesh 2`` paged-compressed
+     (the whole batch routed at once, each rank's routing weights
+     gathered over ``data``; B3 on each rank's cold slots), and
+     recurrentgemma-2b at ``RG_MESH_LAYERS`` layers on ``--mesh 2`` with
+     phase 14's prompts (the monolithic cache, whole on every rank).
+     With four cards, four NCCL ranks: moonshot at all 48 layers on
+     ``1x4``, ``2x2`` and ``--mesh 4`` (paged-compressed) with 16
+     requests at max_batch 8, and llama4-scout at all 48 layers on
+     ``1x4`` with phase 17's prompts at max_len 8704, its ECF8 and fp8
+     trees built and served in turn (both would not fit a card beside the
+     cache).  Gates: every rank's tokens alike; ECF8 tokens IDENTICAL to
+     the fp8 tree's on every mesh; B1 launched on every rank from ECF8
+     (all bf16) and never from fp8, B4 launched, B2 never, B3 on the
+     sharded path on every rank of a paged-compressed ``--mesh D`` run;
+     ``all_to_all`` on every rank on a model axis and never without one;
+     each rank's expert containers of ``E / M`` experts; the cache paged
+     for a MoE stack and monolithic for a recurrent one.  Per rank: build
+     s, resident and peak GiB, step ms, token-gather ms, launches a step,
+     the experts it holds; per mesh: aggregate tok/s, one ``all_to_all``
+     (model axis) or routing-weight gather (data axis) at the decode
+     shape, timed; tokens against rank 0 alone on ``--mesh D`` (reported,
+     not gated).
 Each phase logs the time since the start when it is done.  Phases 5-12,
 16, 17 and 19 run at a cut depth so that the whole script stays near half
 its time limit (13-15 and 18 at full depth), 20 and 20b at a depth whose
@@ -389,7 +424,12 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 # max_batch 8 (two slots a batch shard); on one card two ranks share it at
 # QWEN_LAYERS with phase 5's 8 requests at max_batch 4
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
-MESH_PHASES = ("1", "21")   # what --only may name
+MESH_PHASES = ("1", "21", "22")     # what --only may name
+# phase 22 on one card: moonshot at 4 of its 48 layers on two gloo ranks
+# (its trees built four times, whole and halved, beside phase 21's
+# leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
+# four cards moonshot and llama4-scout at full depth
+MOE_MESH_LAYERS, RG_MESH_LAYERS, MOE_LAYERS_FULL = 4, 5, 48
 MESH_SHARD_PAGES, MESH_SHARD_COLD = 32, 2   # 21a's pools a batch shard
 
 
@@ -3108,51 +3148,467 @@ def mesh_phase(torch, np, MESH, serve, get, n_ranks: int, layers: int,
     return out
 
 
+# --------------------------------------------------------------------------
+# 22. the mixture-of-experts and recurrent stacks on a mesh of ranks
+# --------------------------------------------------------------------------
+
+def moe_mesh_rank(rank, world, dev, spec):
+    """One rank of phase 22 (a process of its own, started by
+    ``launch.mesh.spawn``): for each group of ``spec["groups"]`` the
+    model's trees built on this rank's card from the seed, placed for the
+    group's mesh (on a model axis this rank's experts alone), served on
+    that mesh run by run with this rank's counts and timings, rank 0 also
+    alone where the tree is whole; then the group's exchange timed at its
+    decode shape: the two ``all_to_all`` of a MoE layer on a model axis,
+    the routing weights' gather over ``data`` without one -> a dict of
+    plain values."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get
+    from repro_torch.kernels import ecf8_decode, flash_fwd
+    from repro_torch.kernels import fused_decode_matmul as fused
+    from repro_torch.kvcache import kernels as kv_page
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import serve
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.sharding import expert_rows
+    from repro_torch.serving import EngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = dist.get_backend() == "nccl"
+    meshes = {dims: MESH.make_mesh(*dims, "cuda" if nccl else "cpu")
+              for dims in sorted({tuple(g["mesh"]) for g in spec["groups"]})}
+    # the MoE layers reach the exchange through the module attribute
+    a2a = {"calls": 0}
+    exchange = collectives.all_to_all
+
+    def counted(x, mesh, axis="model"):
+        a2a["calls"] += 1
+        return exchange(x, mesh, axis)
+
+    collectives.all_to_all = counted
+    gib = 2 ** 30
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def timed(fn, reps=20):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = dict(rank=rank, device=torch.cuda.get_device_name(dev),
+               backend=dist.get_backend(), groups={})
+    for g in spec["groups"]:
+        cfg = dataclasses.replace(get(g["arch"]), n_layers=g["layers"])
+        dims = tuple(g["mesh"])
+        mesh = meshes[dims]
+        n_model = dims[1]
+        res = dict(builds=[], runs={})
+        for build in g["builds"]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            fmt = "tpu" if "ecf8" in build else "none"
+            served, base, report, build_s = serve.build_params(
+                cfg, spec["seed"], fmt, device=dev,
+                baseline="fp8" in build, mesh=mesh)
+            trees = {"ecf8": served if fmt == "tpu" else None, "fp8": base}
+            # one layer's expert leaf (a stacked tensor leads with layers)
+            wi = (served if fmt == "tpu" else base)["units"]["pos0"]
+            wi = tuple(wi["moe"]["wi_gate"].shape)[-3:] if "moe" in wi \
+                else None
+            res["builds"].append(dict(
+                trees=build, build_s=build_s,
+                resident_gib=(torch.cuda.memory_allocated(dev) - before)
+                / gib,
+                build_peak_gib=torch.cuda.max_memory_allocated(dev) / gib,
+                fp8_mb=(report or {}).get("fp8_bytes", 0) / 1e6,
+                ecf8_mb=(report or {}).get("compressed_bytes", 0) / 1e6,
+                expert_shape=list(wi) if wi is not None else None))
+            for run in g["runs"]:
+                if run["tree"] not in build:
+                    continue
+                tree = trees[run["tree"]]
+                ecfg = EngineConfig(max_batch=g["max_batch"],
+                                    max_len=g["max_len"], mesh=mesh,
+                                    **run["engine"])
+                _zero(ecf8_decode, flash_fwd, kv_page)
+                ecf8_decode.run.launches_by_dtype.clear()
+                fused.run.launches = 0
+                a2a["calls"] = 0
+                torch.cuda.reset_peak_memory_stats(dev)
+                dist.barrier()
+                done, eng, dt = serve.serve(tree, cfg, ecfg, g["prompts"],
+                                            g["new"], device=dev)
+                dist.barrier()
+                launches = _counts(ecf8_decode, flash_fwd, kv_page)
+                launches["fused_decode_matmul"] = fused.run.launches
+                launches["ecf8_decode_by_dtype"] = {
+                    str(k): v for k, v in
+                    ecf8_decode.run.launches_by_dtype.items()}
+                res["runs"][run["tag"]] = dict(
+                    tokens=[r.out_tokens for r in done], wall_s=dt,
+                    steps=eng.steps, decode_s=eng.decode_seconds,
+                    prefill_s=eng.prefill_seconds,
+                    gather_s=eng.gather_seconds, cache_mode=eng.cache_mode,
+                    peak_gib=torch.cuda.max_memory_allocated(dev) / gib,
+                    launches=launches, all_to_all=a2a["calls"],
+                    resident=[list(b) for b in eng.resident_bytes],
+                    checksum=list(eng.weights_checksum),
+                    cold_compressed=(eng.paged.n_compressed
+                                     if eng.paged is not None else 0))
+                if rank == 0:
+                    log(f"rank 0: {run['tag']} served in {dt:.1f}s "
+                        f"({eng.steps} steps)")
+                del eng, done
+                if run.get("solo"):
+                    # rank 0 alone on the same (whole) tree, the comparison
+                    if rank == 0:
+                        ecfg = EngineConfig(max_batch=g["max_batch"],
+                                            max_len=g["max_len"],
+                                            **run["engine"])
+                        done, eng, dt = serve.serve(tree, cfg, ecfg,
+                                                    g["prompts"], g["new"],
+                                                    device=dev)
+                        res["solo"] = dict(
+                            tokens=[r.out_tokens for r in done], wall_s=dt,
+                            steps=eng.steps, decode_s=eng.decode_seconds)
+                        del eng, done
+                    dist.barrier()
+                # the next build (the other tree alone) must not find
+                # this one alive
+                del tree
+            del trees, served, base
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the exchange of one MoE layer of a decode step, at its shape
+        if cfg.n_experts:
+            b_loc = g["max_batch"] // dims[0]
+            if n_model > 1:
+                e_loc = cfg.n_experts // n_model
+                lo, hi = expert_rows(cfg.n_experts, mesh)
+                x = torch.randn((n_model, 1, e_loc, 8, cfg.d_model),
+                                device=dev).to(torch.bfloat16)
+                res["all_to_all_ms"] = timed(lambda: exchange(x, mesh))
+                res["all_to_all_bytes"] = x.numel() * 2
+                res["experts"] = [lo, hi]
+            elif dims[0] > 1:
+                w = torch.rand((b_loc, 2 * cfg.n_experts), device=dev)
+                res["route_gather_ms"] = timed(
+                    lambda: collectives.gather_rows(w, mesh, "data"))
+                res["route_gather_bytes"] = w.numel() * 4
+        out["groups"][g["tag"]] = res
+        dist.barrier()
+    return out
+
+
+def moe_mesh_phase(torch, np, MESH, serve, get, n_ranks: int, seed: int,
+                   ecf8_decode, fp8, tpu_format, flash_fwd, gen, flush):
+    """Phase 22 on ``n_ranks`` ranks (four NCCL ranks, one a card, or two
+    gloo ranks sharing one card) -> (measurements, the kernels' checks at
+    the ranks' shapes, per-run launches of every rank).  Fails on any
+    gate."""
+    nccl = torch.cuda.device_count() >= n_ranks > 1 and \
+        torch.cuda.device_count() > 1
+    moe = get(MOE_ARCH)
+    if nccl:
+        moe_layers, n_req, max_batch = MOE_LAYERS_FULL, MESH_REQUESTS, \
+            MESH_BATCH
+        moe_meshes = ((1, n_ranks), (n_ranks // 2, 2), (n_ranks, 1))
+    else:
+        moe_layers, n_req, max_batch = MOE_MESH_LAYERS, 8, 4
+        moe_meshes = ((1, n_ranks), (n_ranks, 1))
+    cfg = dataclasses.replace(moe, n_layers=moe_layers)
+    prompts = serve.make_prompts(cfg, n_req, seed, lo=64, hi=513)
+    groups = []
+    for dims in moe_meshes:
+        data_only = dims[1] == 1
+        # one card: --mesh 2 on the cold pool (B3 on each rank's cold
+        # slots); four cards paged (phase 21 runs the cold pool there, and
+        # its host page encoder at 48 layers would double the phase)
+        eng = dict(compress_cold=True) if data_only and not nccl else {}
+        tag = f"moe_{dims[0]}x{dims[1]}"
+        groups.append(dict(
+            tag=tag, arch=MOE_ARCH, layers=moe_layers, mesh=dims,
+            prompts=prompts, max_batch=max_batch, max_len=1024, new=32,
+            builds=[["ecf8", "fp8"]],
+            runs=[dict(tag=f"{tag}_ecf8", tree="ecf8", engine=eng,
+                       solo=data_only),
+                  dict(tag=f"{tag}_fp8", tree="fp8", engine=eng)]))
+    if nccl:
+        ll = get(LLAMA_ARCH)
+        rng = np.random.default_rng(seed)
+        lp = [rng.integers(0, ll.vocab_size, n).tolist()
+              for n in LLAMA_PROMPTS]
+        tag = f"llama4_1x{n_ranks}"
+        # each tree alone beside the cache: both would not fit a card
+        groups.insert(0, dict(
+            tag=tag, arch=LLAMA_ARCH, layers=ll.n_layers, mesh=(1, n_ranks),
+            prompts=lp, max_batch=4, max_len=LLAMA_MAX_LEN, new=32,
+            builds=[["ecf8"], ["fp8"]],
+            runs=[dict(tag=f"{tag}_ecf8", tree="ecf8", engine={}),
+                  dict(tag=f"{tag}_fp8", tree="fp8", engine={})]))
+    else:
+        rg = dataclasses.replace(get(RG_ARCH), n_layers=RG_MESH_LAYERS)
+        rng = np.random.default_rng(seed)
+        rp = [rng.integers(0, rg.vocab_size, n).tolist() for n in RG_PROMPTS]
+        tag = f"rg_{n_ranks}x1"
+        groups.append(dict(
+            tag=tag, arch=RG_ARCH, layers=RG_MESH_LAYERS, mesh=(n_ranks, 1),
+            prompts=rp, max_batch=4, max_len=RG_MAX_LEN, new=32,
+            builds=[["ecf8", "fp8"]],
+            runs=[dict(tag=f"{tag}_ecf8", tree="ecf8", engine={}),
+                  dict(tag=f"{tag}_fp8", tree="fp8", engine={})]))
+    log(f"phase 22: {n_ranks} ranks over "
+        f"{'NCCL, one card each' if nccl else 'gloo on one card'}; "
+        + "; ".join(f"{g['tag']}: {g['arch']} at {g['layers']} layers on "
+                    f"mesh {g['mesh']}, {len(g['prompts'])} requests "
+                    f"({min(map(len, g['prompts']))}-"
+                    f"{max(map(len, g['prompts']))} tokens), max_batch "
+                    f"{g['max_batch']}, max_len {g['max_len']}, trees "
+                    f"{g['builds']}" for g in groups))
+
+    # B1 at the expert containers a rank decodes on the model axis, and B4
+    # at the heads of the phase's largest model, against their plain
+    # versions
+    checks = {}
+    for name, c in (("moe", cfg), ("llama4", get(LLAMA_ARCH) if nccl
+                                   else None)):
+        if c is None:
+            continue
+        e_loc = c.n_experts // n_ranks
+        w = torch.randn((e_loc, c.d_model, c.moe_d_ff), generator=gen,
+                        device="cuda").mul_(c.d_model ** -0.5)
+        bits = fp8.cast_to_fp8_bits(w)
+        del w
+        checks[f"b1_{name}_expert_1x{n_ranks}"] = check_decode(
+            torch, ecf8_decode, fp8, tpu_format,
+            f"{name} expert container on 1x{n_ranks}", bits, flush, 10)
+        del bits
+        torch.cuda.empty_cache()
+    hc = get(LLAMA_ARCH) if nccl else cfg
+    checks["b4"] = check_flash(torch, flash_fwd, 2048, gen, flush,
+                               heads=(hc.n_heads, hc.n_kv_heads), D=hc.hd,
+                               gqa=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = MESH.spawn(moe_mesh_rank, n_ranks, dict(seed=seed, groups=groups),
+                     device="cuda", backend="nccl" if nccl else "gloo",
+                     timeout=1100)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"phase 22 ranks: {n_ranks} x {r0['device']} over {r0['backend']},"
+        f" spawn + builds + runs {wall:.1f}s")
+    out = dict(ranks=n_ranks, backend=r0["backend"], wall_s=wall,
+               checks=checks, groups={})
+    launches = {}
+    # every gate is read and every group logged before the phase fails
+    problems = []
+    for g in groups:
+        tag, dims = g["tag"], tuple(g["mesh"])
+        c = dataclasses.replace(get(g["arch"]), n_layers=g["layers"])
+        per = [r["groups"][tag] for r in res]
+        go = dict(arch=g["arch"], layers=g["layers"], mesh=list(dims),
+                  builds=[p["builds"] for p in per], runs={})
+        for run in g["runs"]:
+            rt = run["tag"]
+            pr = [p["runs"][rt] for p in per]
+            toks = [p["tokens"] for p in pr]
+            ln = [p["launches"] for p in pr]
+            a2a = [p["all_to_all"] for p in pr]
+            launches[rt] = ln
+            ecf8 = run["tree"] == "ecf8"
+            want_mode = "monolithic" if g["arch"] == RG_ARCH else "paged"
+            for bad, what in (
+                    (any(t != toks[0] for t in toks),
+                     "the ranks' tokens differ"),
+                    (not all(len(t) == g["new"] and all(
+                        0 <= x < c.vocab_size for x in t) for t in toks[0]),
+                     "unfinished requests or out-of-vocab tokens"),
+                    (any(p["cache_mode"] != want_mode for p in pr),
+                     f"the cache resolved to {pr[0]['cache_mode']}, not "
+                     f"{want_mode}"),
+                    (ecf8 and not all(x["ecf8_decode"] for x in ln),
+                     f"B1 not launched on every rank: {ln}"),
+                    (not ecf8 and any(x["ecf8_decode"] for x in ln),
+                     f"B1 launched from the fp8 tree: {ln}"),
+                    (any(set(x["ecf8_decode_by_dtype"])
+                         - {str(torch.bfloat16)} for x in ln),
+                     f"a weight decoded to another dtype than bf16: {ln}"),
+                    (not any(x["flash_fwd"] for x in ln),
+                     "B4 never launched"),
+                    (any(x["fused_decode_matmul"] for x in ln),
+                     "B2 launched on a serve path"),
+                    (run["engine"].get("compress_cold") and not all(
+                        x["kv_page_decode_by_path"].get("sharded", 0)
+                        for x in ln),
+                     f"B3 not launched on the sharded path on every rank: "
+                     f"{ln}"),
+                    (c.n_experts and dims[1] > 1 and not all(a2a),
+                     f"a rank made no all_to_all: {a2a}"),
+                    (dims[1] == 1 and any(a2a),
+                     "all_to_all without a model axis")):
+                if bad:
+                    problems.append(f"phase 22 {rt}: {what}")
+            steps = pr[0]["steps"]
+            n_tok = sum(len(t) for t in toks[0])
+            go["runs"][rt] = dict(
+                steps=steps, tok_s=n_tok / pr[0]["wall_s"],
+                wall_s=[p["wall_s"] for p in pr],
+                step_ms=[p["decode_s"] / max(steps, 1) * 1e3 for p in pr],
+                token_gather_ms=[p["gather_s"] / max(steps, 1) * 1e3
+                                 for p in pr],
+                prefill_s=[p["prefill_s"] for p in pr],
+                peak_gib=[p["peak_gib"] for p in pr],
+                resident_gib=[[b / 2 ** 30 for b in rb]
+                              for rb in pr[0]["resident"]],
+                all_to_all_a_rank=a2a,
+                launches_a_step={k: [x[k] / max(steps, 1) for x in ln]
+                                 for k in ("ecf8_decode", "flash_fwd",
+                                           "kv_page_decode")},
+                launches=ln, cold_compressed=pr[0]["cold_compressed"])
+            log(f"phase 22 {rt} (mesh {list(dims)}): "
+                f"{json.dumps(go['runs'][rt])}")
+        # experts placed: each rank's share of every expert leaf (the
+        # engine compared the model peers' checksums)
+        if c.n_experts:
+            shapes = {tuple(b["expert_shape"]) for p in per
+                      for b in p["builds"]}
+            want = c.n_experts // dims[1]
+            if any(s[0] != want for s in shapes):
+                problems.append(f"phase 22 {tag}: expert containers of "
+                                f"{shapes}, not {want} experts a rank")
+            go["expert_shape_a_rank"] = sorted(shapes)
+            go["experts"] = [p.get("experts") for p in per]
+            go["all_to_all_ms"] = [p.get("all_to_all_ms") for p in per]
+            go["all_to_all_bytes"] = per[0].get("all_to_all_bytes")
+            go["route_gather_ms"] = [p.get("route_gather_ms") for p in per]
+            go["route_gather_bytes"] = per[0].get("route_gather_bytes")
+        ecf8_t = per[0]["runs"][f"{tag}_ecf8"]["tokens"]
+        fp8_t = per[0]["runs"][f"{tag}_fp8"]["tokens"]
+        bad = [i for i, (a, b) in enumerate(zip(ecf8_t, fp8_t)) if a != b]
+        go["lossless"] = not bad
+        if bad:
+            problems.append(f"phase 22 {tag}: ECF8 tokens differ from the "
+                            f"fp8 tree's on the mesh (requests {bad})")
+        else:
+            log(f"lossless on mesh {list(dims)}: {g['arch']} ECF8 greedy "
+                f"tokens IDENTICAL to the fp8 tree's ({len(ecf8_t)} "
+                f"requests)")
+        if "solo" in per[0]:
+            solo = per[0]["solo"]
+            same = sum(a == b for a, b in zip(ecf8_t, solo["tokens"]))
+            go["same_as_one_rank"] = same
+            go["one_rank_step_ms"] = solo["decode_s"] / max(
+                solo["steps"], 1) * 1e3
+            log(f"phase 22 {tag}: requests identical to rank 0 alone "
+                f"(reported, not gated): {same} of {len(solo['tokens'])}; "
+                f"one rank {go['one_rank_step_ms']:.1f} ms a step")
+        for p in per:
+            for b in p["builds"]:
+                log(f"phase 22 {tag} rank {per.index(p)} build "
+                    f"{b['trees']}: {b['build_s']:.1f}s, resident "
+                    f"{b['resident_gib']:.2f} GiB (build peak "
+                    f"{b['build_peak_gib']:.2f}), fp8 {b['fp8_mb']:.0f} MB "
+                    f"-> ECF8 {b['ecf8_mb']:.0f} MB, experts a rank "
+                    f"{b['expert_shape']}")
+        if c.n_experts:
+            log(f"phase 22 {tag}: experts a rank {go['experts']}, "
+                f"all_to_all ms {go['all_to_all_ms']} "
+                f"({go['all_to_all_bytes']} B), routing-weight gather ms "
+                f"{go['route_gather_ms']} ({go['route_gather_bytes']} B)")
+        out["groups"][tag] = go
+    if problems:
+        log(f"phase 22 measurements: {json.dumps(out)}")
+        fail("; ".join(problems))
+    return out, launches
+
+
 def only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page, ecf8_decode,
-                seed: int, t_start: float):
-    """``--only 1,21``: after the build, phase 21 alone (four NCCL ranks at
-    ``MESH_LAYERS`` when four cards are visible, else two gloo ranks on one
-    card at ``QWEN_LAYERS``), then the kernels line of what ran (B1, B2
-    and B5 were not timed: their time keys are null) and the last line."""
+                fp8, tpu_format, only: set, seed: int, t_start: float):
+    """``--only 1,21`` / ``1,22`` / ``1,21,22``: after the build, the mesh
+    phases named (four NCCL ranks when four cards are visible: phase 21 at
+    ``MESH_LAYERS``, phase 22 at full depth; else two gloo ranks on one
+    card), then the kernels line of what ran (a kernel no phase of the run
+    timed has null time keys) and the last line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
-    out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
-                     MESH_LAYERS if n_ranks == 4 else QWEN_LAYERS, seed,
-                     flash_fwd, gen, flush)
+    out = moe_out = None
+    launches = {}
+    if "21" in only:
+        out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
+                         MESH_LAYERS if n_ranks == 4 else QWEN_LAYERS, seed,
+                         flash_fwd, gen, flush)
+        log(f"phase 21 measurements: {json.dumps(out)}")
+        log(f"phase 21 done at {time.perf_counter() - t_start:.1f}s")
+        launches.update({tag: run["launches"]
+                         for tag, run in out["runs"].items()})
+    if "22" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_out, l22 = moe_mesh_phase(torch, np, MESH, serve, get, n_ranks,
+                                      seed, ecf8_decode, fp8, tpu_format,
+                                      flash_fwd, gen, flush)
+        log(f"phase 22 measurements: {json.dumps(moe_out)}")
+        log(f"phase 22 done at {time.perf_counter() - t_start:.1f}s")
+        launches.update(l22)
     del flush
-    log(f"phase 21 measurements: {json.dumps(out)}")
-    log(f"phase 21 done at {time.perf_counter() - t_start:.1f}s")
 
     def mesh_l(name):
-        return {tag: [ln[name] for ln in run["launches"]]
-                for tag, run in out["runs"].items()}
+        return {tag: [ln[name] for ln in runs] for tag, runs in
+                launches.items()}
+
+    def main_path(name):
+        """The kernel's launches on every rank over the phases' runs."""
+        return sum(sum(v) for v in mesh_l(name).values())
 
     untimed = dict(max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
                    bound_by=None, library_ms=None)
-    b4 = out["q_base_checks"]["T1024_base512"]
-    b3 = out["b3_sharded"]
+    checks = moe_out["checks"] if moe_out is not None else {}
+    b1 = next((v for k, v in checks.items() if k.startswith("b1_")),
+              untimed)
+    b1 = {k: b1[k] for k in untimed}
+    b4 = (out["q_base_checks"]["T1024_base512"] if out is not None
+          else checks["b4"])
+    b3 = out["b3_sharded"] if out is not None else None
     kernels = [
         dict(name="ecf8_decode", route="cuda",
              source="src/repro_torch/csrc/ecf8_decode.cu",
              replaces="src/repro/kernels/ecf8_decode.py:36",
-             launches=sum(mesh_l("ecf8_decode")["21a"]),
-             launches_mesh=mesh_l("ecf8_decode"), **untimed),
+             launches=main_path("ecf8_decode"),
+             launches_mesh=mesh_l("ecf8_decode"),
+             at_expert_shape_a_rank={k: v for k, v in checks.items()
+                                     if k.startswith("b1_")}, **b1),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_fwd.py:37",
-             launches=sum(mesh_l("flash_fwd")["21b"]),
+             launches=main_path("flash_fwd"),
              launches_mesh=mesh_l("flash_fwd"),
              launches_mesh_q_base=mesh_l("flash_fwd_q_base"),
-             q_base_at_shard_shape=out["q_base_checks"], **b4),
+             q_base_at_shard_shape=(out["q_base_checks"] if out is not None
+                                    else None), **b4),
         dict(name="kv_page_decode", route="cuda",
              source="src/repro_torch/csrc/kv_page_decode.cu",
              replaces="src/repro/kvcache/kernels.py:34",
-             launches=sum(mesh_l("kv_page_decode")["21a"]),
+             launches=main_path("kv_page_decode"),
              launches_mesh=mesh_l("kv_page_decode"),
-             max_abs_err=0.0 if b3["bit_exact"] else None, ms=b3["ms"],
-             plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
-             bound_by="bytes", library_ms=None),
+             **(untimed if b3 is None else dict(
+                 max_abs_err=0.0 if b3["bit_exact"] else None, ms=b3["ms"],
+                 plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
+                 bound_by="bytes", library_ms=None))),
         dict(name="fused_decode_matmul", route="cuda",
              source="src/repro_torch/csrc/fused_decode_matmul.cu",
              replaces="src/repro/kernels/fused_decode_matmul.py:80",
@@ -3182,7 +3638,7 @@ def main(argv=None):
     only = None
     if args.only is not None:
         only = set(args.only.split(","))
-        if not only <= set(MESH_PHASES) or "1" not in only:
+        if not only <= set(MESH_PHASES) or "1" not in only or len(only) < 2:
             ap.error(f"--only {args.only}: phase 1 (the build) and any of "
                      f"{', '.join(MESH_PHASES[1:])}")
 
@@ -3240,7 +3696,8 @@ def main(argv=None):
         f"({len(built)} of {len(build.SOURCES)} sources compiled)")
     if only is not None:
         return only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page,
-                           ecf8_decode, args.seed, t_start)
+                           ecf8_decode, fp8, tpu_format, only, args.seed,
+                           t_start)
 
     # -- 2. kernel 1: ECF8 decode -------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4051,9 +4508,18 @@ def main(argv=None):
     mesh_out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
                           MESH_LAYERS if n_ranks == 4 else args.layers,
                           args.seed, flash_fwd, gen, flush)
-    del flush
     log(f"phase 21 measurements: {json.dumps(mesh_out)}")
     mark("phase 21")
+
+    # -- 22. the mixture-of-experts and recurrent stacks on a mesh ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_mesh_out, moe_mesh_launches = moe_mesh_phase(
+        torch, np, MESH, serve, get, n_ranks, args.seed, ecf8_decode, fp8,
+        tpu_format, flash_fwd, gen, flush)
+    del flush
+    log(f"phase 22 measurements: {json.dumps(moe_mesh_out)}")
+    mark("phase 22")
 
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
@@ -4079,6 +4545,11 @@ def main(argv=None):
         """Each rank's launches in each phase-21 run."""
         return {tag: [ln[name] for ln in run["launches"]]
                 for tag, run in mesh_out["runs"].items()}
+
+    def on_moe_mesh(name):
+        """Each rank's launches in each phase-22 run."""
+        return {tag: [ln[name] for ln in runs]
+                for tag, runs in moe_mesh_launches.items()}
 
     def on_recurrent_paths(name):
         return dict(
@@ -4107,6 +4578,10 @@ def main(argv=None):
              launches_train=train_launches["ecf8_decode"],
              launches_ckpt_restore=ckpt_b1,
              launches_mesh=on_mesh("ecf8_decode"),
+             launches_mesh_moe=on_moe_mesh("ecf8_decode"),
+             at_expert_shape_a_rank={
+                 k: v for k, v in moe_mesh_out["checks"].items()
+                 if k.startswith("b1_")},
              fixedrate_decode=fr_results, **results["wi_gate"]),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
@@ -4127,6 +4602,7 @@ def main(argv=None):
              launches_train=train_launches["flash_fwd"],
              launches_mesh=on_mesh("flash_fwd"),
              launches_mesh_q_base=on_mesh("flash_fwd_q_base"),
+             launches_mesh_moe=on_moe_mesh("flash_fwd"),
              q_base_at_shard_shape=mesh_out["q_base_checks"],
              with_stats_at_train_shape={
                  k: results["bwd_qwen3"][k]
@@ -4145,6 +4621,7 @@ def main(argv=None):
              at_whisper_shape=None,
              launches_train=train_launches["kv_page_decode"],
              launches_mesh=on_mesh("kv_page_decode"),
+             launches_mesh_moe=on_moe_mesh("kv_page_decode"),
              launches_mesh_sharded={
                  tag: [ln["kv_page_decode_by_path"].get("sharded", 0)
                        for ln in run["launches"]]

@@ -215,7 +215,8 @@ def fp8_cast_tree(params, min_elems: int = 65536):
 
 
 def build_trees(init, fmt: str = FORMAT_TPU, min_elems: int = 65536,
-                out_dtype: str = "bfloat16", baseline: bool = True):
+                out_dtype: str = "bfloat16", baseline: bool = True,
+                place=None):
     """Both trees of a serve run, streamed from their f32 draws: the
     compression (``fmt``, or None for ``"none"``) and the fp8 baseline
     (or None unless ``baseline``).
@@ -227,7 +228,16 @@ def build_trees(init, fmt: str = FORMAT_TPU, min_elems: int = 65536,
     leaf's fp8 stack is then compressed layer by layer
     (:func:`compress_stacked`) and kept as the baseline's leaf or dropped.
     Bit-equal to ``compress_tree(init())`` and ``fp8_cast_tree(init())``,
-    report included -> (compressed, baseline, report)."""
+    report included -> (compressed, baseline, report).
+
+    ``place(path, shape)`` (``runtime.sharding.expert_cut`` of a rank)
+    gives ``(dim, lo, hi)`` for a leaf of which this rank keeps only rows
+    ``[lo, hi)`` along ``dim`` of its whole ``shape``, or None: each
+    layer is still drawn whole (the weights stay ``init_params``'s), then
+    cut, and the cut is cast and compressed as a container of its own
+    (its own codebook a layer), whose decode is the cut of the whole
+    leaf's fp8 bits.  Leaf selection reads the whole shape; the report
+    counts what this rank keeps."""
     report = {"raw_bytes": 0, "fp8_bytes": 0, "compressed_bytes": 0,
               "n_compressed": 0, "n_kept": 0}
     base = {}
@@ -235,10 +245,28 @@ def build_trees(init, fmt: str = FORMAT_TPU, min_elems: int = 65536,
     def leaf(path, draws, n_layers):
         first = next(draws)
         shape = first.shape if n_layers is None else (n_layers, *first.shape)
+        selected = _selected(path, shape, min_elems)
+        cut = place(path, shape) if place is not None else None
+        if cut is not None:
+            dim, lo, hi = cut
+            dim -= n_layers is not None      # the dim of one layer's draw
+            whole = draws
+
+            def draws_cut():
+                yield first.narrow(dim, lo, hi - lo)
+                for x in whole:
+                    yield x.narrow(dim, lo, hi - lo)
+
+            draws = draws_cut()
+            first = next(draws)
+            shape = first.shape if n_layers is None else (n_layers,
+                                                          *first.shape)
         report["raw_bytes"] += math.prod(shape) * first.element_size()
-        if not _selected(path, shape, min_elems):
+        if not selected:
             report["n_kept"] += 1
             x = first if n_layers is None else torch.stack([first, *draws])
+            if cut is not None and n_layers is None:
+                x = x.clone()       # not a view of the whole draw
             base[path] = x
             return x
         bits = torch.empty(shape, dtype=torch.uint8, device=first.device)

@@ -55,6 +55,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --mesh 4 \
       --max-batch 8 --cache paged-compressed --swap-bytes -1
   PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2x2
+  # the mixture-of-experts stacks on a mesh: a model axis splits the
+  # experts (each rank builds and holds its share), the MoE layers
+  # exchange rows over it; the recurrent stacks on the monolithic cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      moonshot-v1-16b-a3b --mesh 1x4 --max-batch 8 --check-lossless
   # on a machine without a card, at smoke size (a mesh as gloo ranks):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --mesh 2x2 --compress tpu --cache paged-compressed --swap-bytes -1 \
@@ -62,6 +67,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch \
       moonshot-v1-16b-a3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      moonshot-v1-16b-a3b --smoke --device cpu --mesh 2x2 --check-lossless
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      recurrentgemma-2b --smoke --device cpu --mesh 2 --check-lossless
   PYTHONPATH=src python -m repro_torch.launch.serve --arch \
       recurrentgemma-2b --smoke --device cpu --check-lossless
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
@@ -86,7 +95,7 @@ from ..configs import get, smoke_variant
 from ..core.store import build_trees
 from ..device import resolve
 from ..models import model as M
-from ..runtime.sharding import MeshShape
+from ..runtime.sharding import MeshShape, expert_cut, expert_rows
 from ..runtime.trace_export import export_chrome_trace
 from ..runtime.tracing import TorchProfilerHook
 from ..serving import EngineConfig, EngineConfigError, GenerationEngine, \
@@ -99,7 +108,7 @@ MIN_ELEMS = 4096
 
 
 def build_params(cfg, seed: int, fmt: str = "tpu", device="cuda",
-                 baseline: bool = True):
+                 baseline: bool = True, mesh=None):
     """Synthesize weights and prepare both trees a serve run uses.
 
     Returns ``(served, baseline, report, encode_seconds)``: ``baseline`` is
@@ -108,12 +117,17 @@ def build_params(cfg, seed: int, fmt: str = "tpu", device="cuda",
     or the baseline itself (``fmt="none"``).  The trees are streamed from
     the draws of ``models.model.init_params`` one layer at a time
     (``core.store.build_trees``): no f32 master of a stacked leaf is ever
-    whole, and the weights are those of ``init_params(cfg, seed)``."""
+    whole, and the weights are those of ``init_params(cfg, seed)``.  On a
+    ``mesh`` with a model axis each expert leaf keeps this rank's experts
+    (``runtime.sharding.expert_cut``), its own container a layer, and the
+    report counts this rank's bytes."""
     t0 = time.perf_counter()
+    place = (None if mesh is None else
+             lambda path, shape: expert_cut(path, shape, mesh))
     served, base, report = build_trees(
         lambda leaf: M.init_params(cfg, seed, device=device, leaf=leaf),
         fmt=fmt, min_elems=MIN_ELEMS, out_dtype=cfg.dtype,
-        baseline=baseline or fmt == "none")
+        baseline=baseline or fmt == "none", place=place)
     if fmt == "none":
         served = base
     if resolve(device).type == "cuda":
@@ -151,13 +165,26 @@ def serve(params, cfg, ecfg: EngineConfig, prompts, max_new: int,
 
 def mesh_report(eng) -> str:
     """The mesh line of a run: its axes, the batch shards and each one's
-    pages and cold slots."""
+    pages and cold slots, then each rank's resident weights (and, for a
+    mixture-of-experts stack, the experts it holds)."""
     pc = eng.paged
     layout = ("monolithic cache, replicated" if pc is None else
               f"{pc.pages_per_shard} pages a shard, {pc.cold_per_shard} "
               f"cold slots a shard")
+    ranks = []
+    for r, (exp_b, other_b) in enumerate(eng.resident_bytes):
+        line = f"rank {r}: "
+        if eng.cfg.n_experts:
+            coords = MeshShape(("data", "model"), (eng.config.n_shards(),
+                                                   eng.n_model),
+                               (r // eng.n_model, r % eng.n_model))
+            lo, hi = expert_rows(eng.cfg.n_experts, coords)
+            line += (f"experts [{lo}, {hi}) {exp_b / 2 ** 30:.3f} GiB + "
+                     f"the rest {other_b / 2 ** 30:.3f} GiB = ")
+        ranks.append(f"{line}{(exp_b + other_b) / 2 ** 30:.3f} GiB")
     return (f"mesh {{data: {eng.config.n_shards()}, model: {eng.n_model}}},"
-            f" n_shards {eng.config.n_shards()}, {layout}")
+            f" n_shards {eng.config.n_shards()}, {layout}; resident "
+            f"weights {'; '.join(ranks)}")
 
 
 def cache_report(eng) -> list:
@@ -454,7 +481,7 @@ def _serve_cli(ap, args, cfg, device, mesh=None, rank: int = 0):
 
     cfg, dcfg, ecfg = _configs(ap, args, cfg, mesh)
     params_c, params_fp8, report, enc_s = build_params(
-        cfg, args.seed, args.compress, device=device)
+        cfg, args.seed, args.compress, device=device, mesh=mesh)
     if report is not None:
         fp8_b = max(report["fp8_bytes"], 1)
         write(f"[serve] ECF8({args.compress}) encode {enc_s:.1f}s: "

@@ -77,7 +77,14 @@ chunk runs on the ranks of its slot's batch shard and returns None logits
 elsewhere (``decode_sharded.paged_prefill_chunk_sharded``); a contiguous
 cache with one shared timeline, each model rank holding its sequence
 slice, decodes through ``decode_sharded.decode_attention_update_sharded``.
-Weights are replicated.
+Weights are replicated, except a mixture-of-experts layer's experts on a
+model axis: each rank holds its ``E / M`` (``runtime.sharding.
+expert_cut``) and the layer exchanges dispatch rows over ``model``
+(``models/moe.py``).  A prefill or a chunk routes its rows as one group
+(the engine runs it on the slot's data group alone); a split paged decode
+step routes each data group's rows (over the whole batch without a model
+axis); the replicated steps route the whole batch as the mesh's data
+groups would.
 """
 from __future__ import annotations
 
@@ -485,20 +492,24 @@ def _cross_attention_decode(p, x, kv, cfg: ArchConfig, dtype):
     return _attn_out(p, o, dtype)
 
 
-def _ffn(p, x, cfg: ArchConfig, dtype, aux=None):
+def _ffn(p, x, cfg: ArchConfig, dtype, aux=None, ep=None):
     """The layer's feed-forward block: the MoE layer or the dense MLP.  The
     MoE's load-balancing loss is appended to ``aux`` (a list) where the
     caller keeps one (:func:`forward`), else dropped, as the reference's
-    serve path drops it."""
+    serve path drops it.  ``ep``: (mesh, rows) of the MoE layer on a mesh
+    (``models.moe``'s ``mesh`` and ``rows``), None off one."""
     if "moe" in p:
-        y, a = moe_apply(p["moe"], x, cfg, dtype=dtype)
+        mesh, rows = ep if ep is not None else (None, "all")
+        y, a = moe_apply(p["moe"], x, cfg, mesh=mesh, rows=rows,
+                         dtype=dtype)
         if aux is not None:
             aux.append(a)
         return y
     return mlp_apply(p["mlp"], x, cfg.mlp_type, dtype)
 
 
-def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None):
+def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None,
+              ep=None):
     """The layer's residual adds around the mixer output ``o``: ``x +
     post_norm1(o)``, then, in an encoder-decoder's decoder, ``+
     cross(norm_x(x))`` (``cross`` the layer's cross attention), then ``+
@@ -511,7 +522,7 @@ def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None):
         x = x + cross(rms_norm(x, p["norm_x"]))
     if "mlp" not in p and "moe" not in p:
         return x
-    o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype, aux)
+    o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype, aux, ep)
     if cfg.post_norms:
         o2 = rms_norm(o2, p["post_norm2"])
     return x + o2
@@ -523,7 +534,8 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     attention layer, (x, final state) for a recurrent one; an mLSTM runs
     at the reference's ``chunk = min(128, T)``, so ``T`` must be at most
     128 or a multiple of it.  ``cross_kv``: the layer's cross-attention
-    K/V (:func:`_cross_kv`) in an encoder-decoder's decoder."""
+    K/V (:func:`_cross_kv`) in an encoder-decoder's decoder.  On a mesh a
+    MoE layer routes the rows as one group (``rows="own"``)."""
     h = rms_norm(x, p["norm1"])
     if kind in ATTN_KINDS:
         o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype, mesh)
@@ -538,12 +550,14 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     if cross_kv is not None:
         def cross(hx):
             return _cross_attention(p["cross"], hx, cross_kv, cfg, dtype)
-    return _residual(p, x, o, cfg, dtype, cross, aux), st
+    ep = None if mesh is None else (mesh, "own")
+    return _residual(p, x, o, cfg, dtype, cross, aux, ep), st
 
 
-def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state):
+def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state,
+                      ep=None):
     """One-token decode through a recurrent layer; ``state`` (views of the
-    layer's cache leaves) is advanced in place."""
+    layer's cache leaves) is advanced in place.  ``ep``: :func:`_ffn`'s."""
     h = rms_norm(x, p["norm1"])[:, 0]
     if kind == "rglru":
         o, new = rec.rglru_step(p["rglru"], h, state, dtype=dtype)
@@ -555,18 +569,18 @@ def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state):
                                 dtype=dtype)
     for name, leaf in state.items():
         leaf.copy_(new[name])
-    return _residual(p, x, o[:, None], cfg, dtype)
+    return _residual(p, x, o[:, None], cfg, dtype, ep=ep)
 
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
                         cur_len, page_table, cross_kv=None, mesh=None,
-                        shared: bool = False):
+                        shared: bool = False, ep=None):
     """Decode layer; ``page_table`` None means ``pools`` is this layer's
     contiguous (k, v): the monolithic cache's row, or a ``local`` layer's
     ring.  ``cross_kv``: the layer's cached cross-attention K/V in an
     encoder-decoder's decoder.  ``mesh``: the paged step's mesh, or with
     ``shared`` (one timeline, a 0-d ``cur_len``) the sequence-sharded
-    contiguous step's."""
+    contiguous step's.  ``ep``: :func:`_ffn`'s."""
     h = rms_norm(x, p["norm1"])
     if page_table is None:
         o = _self_attention_decode_contiguous(
@@ -580,7 +594,7 @@ def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
         def cross(hx):
             return _cross_attention_decode(p["cross"], hx, cross_kv, cfg,
                                            dtype)
-    return _residual(p, x, o, cfg, dtype, cross)
+    return _residual(p, x, o, cfg, dtype, cross, ep=ep)
 
 
 def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
@@ -595,7 +609,8 @@ def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
     h = rms_norm(x, p["norm1"])
     o = _self_attention_chunk(p["attn"], h, cfg, kind, dtype, pools, row,
                               start, n_valid, path, mesh, slot, n_slots)
-    return _residual(p, x, o, cfg, dtype)
+    return _residual(p, x, o, cfg, dtype,
+                     ep=None if mesh is None else (mesh, "own"))
 
 
 # --------------------------------------------------------------------------
@@ -907,6 +922,9 @@ def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
     if page_table is not None:
         page_table = page_table[rows].clamp(min=paged_kv.GARBAGE_PAGE)
     cross = cache["units"].get("cross")
+    # the MoE layers' rows: this data group's on a split paged step, the
+    # whole batch, the same on every rank, elsewhere
+    ep = None if mesh is None else (mesh, "shard" if paged_mesh else "all")
     x = _embed(params, cfg, token[rows], dtype)
     for section, key, u, kind in _stack_layers(cfg):
         p = _at(params, section, key, u)
@@ -914,7 +932,8 @@ def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
         if kind in REC_KINDS:
             state = _at(cache, section, key, u)
             x = _layer_apply_step(p, x, cfg, kind, dtype,
-                                  {n: v[rows] for n, v in state.items()})
+                                  {n: v[rows] for n, v in state.items()},
+                                  ep)
         else:
             pools = _layer_pools(leaves, u)
             if "k_pool" not in leaves:
@@ -924,7 +943,8 @@ def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
                 page_table if "k_pool" in leaves else None,
                 None if cross is None else (cross["k"][u][rows],
                                             cross["v"][u][rows]),
-                mesh=mesh if paged_mesh or shared else None, shared=shared)
+                mesh=mesh if paged_mesh or shared else None, shared=shared,
+                ep=ep)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache

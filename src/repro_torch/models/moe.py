@@ -16,15 +16,41 @@ atomics: every token's contributions are placed by their rank among that
 token's experts and summed in that order, so two runs on the card are
 bit-equal.
 
-The reference's expert-parallel branch (``shard_map`` with two
-``all_to_all`` exchanges over a mesh axis) is not ported: the port serves
-one device, every expert local.
+On a mesh of ranks (``mesh=``, a ``("data", "model")`` DeviceMesh,
+``launch/mesh.py``) the layer routes as the reference's does on the same
+mesh (its ``shard_map`` branch is taken only for a model axis above 1):
+
+  * a model axis of ``M > 1``: each data group routes its own rows, with
+    ``cap`` from those rows, and each rank holds ``E / M`` experts
+    (``runtime.sharding.expert_cut``).  The ``(E, cap, d)`` dispatch
+    buffer goes out as ``(M, E / M, cap, d)`` through one ``all_to_all``
+    over ``model`` (``runtime.collectives.all_to_all``), the rank's
+    experts run on the rows of every source, and a second ``all_to_all``
+    returns their outputs in global expert order to the combine.  As in
+    the reference, the ``M`` ranks of a group hold the same rows, so each
+    receives ``M`` identical copies of its experts' rows;
+  * without one: the whole batch is routed at once (``cap`` from all its
+    rows), every expert local.  Where a rank holds only its data group's
+    rows of the batch (``rows="shard"``, the split paged decode step),
+    the groups' f32 routing weights are all-gathered over ``data``, each
+    expert takes its top ``cap`` over the whole batch (a tie to the lower
+    global row), and each rank runs the experts on the selected rows it
+    holds: one device's result.
+
+``rows`` says what ``x`` holds: ``"shard"`` this data group's rows of a
+batch split over ``data``; ``"own"`` a batch only this group computes (a
+prefill, a chunk), routed as one group; ``"all"`` the whole batch, the
+same on every rank (the monolithic cache's replicated step), whose rows
+the mesh's data groups route apart where a model axis is there (one group
+when ``data`` does not divide them).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..runtime import collectives
+from ..runtime.sharding import axis_size
 from .layers import F32, mat, mlp_apply, mlp_init
 
 
@@ -62,19 +88,33 @@ def _top(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route_local(x, gate_w, top_k: int, n_experts: int, capacity: int):
-    """Local routing: x (T, d) -> dispatch buffer + combine metadata.
-
-    Returns (buf (E, C, d), sel_idx (E, C), sel_w (E, C), aux_loss)."""
+def _gate(x, gate_w, top_k: int, n_experts: int):
+    """x (T, d) -> (each token's weight an expert, 0 where not routed (T,
+    E); the softmax probabilities (T, E)), f32."""
     T = x.shape[0]
     logits = (x @ gate_w).to(F32)                          # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = _top(probs, top_k)                      # (T, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-
-    # per-expert weight of each token (0 if not routed there): (E, T)
     w_te = torch.zeros((T, n_experts), dtype=F32, device=x.device)
     w_te.scatter_(1, top_i, top_p)
+    return w_te, probs
+
+
+def _aux(w_te, probs, n_experts: int):
+    """The Switch-style load-balancing loss of a routing."""
+    frac_tokens = (w_te > 0).to(F32).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return n_experts * torch.sum(frac_tokens * frac_probs)
+
+
+def _route_local(x, gate_w, top_k: int, n_experts: int, capacity: int):
+    """Local routing: x (T, d) -> dispatch buffer + combine metadata.
+
+    Returns (buf (E, C, d), sel_idx (E, C), sel_w (E, C), aux_loss)."""
+    T = x.shape[0]
+    # per-expert weight of each token (0 if not routed there): (E, T)
+    w_te, probs = _gate(x, gate_w, top_k, n_experts)
     w_et = w_te.T
 
     # per-expert top-C token selection
@@ -86,11 +126,7 @@ def _route_local(x, gate_w, top_k: int, n_experts: int, capacity: int):
     buf = x[sel_idx]                                       # (E, C, d)
     buf = buf * (sel_w[..., None] > 0).to(x.dtype)
 
-    # load-balancing aux loss (Switch-style)
-    frac_tokens = (w_te > 0).to(F32).mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    aux = n_experts * torch.sum(frac_tokens * frac_probs)
-    return buf, sel_idx, sel_w, aux
+    return buf, sel_idx, sel_w, _aux(w_te, probs, n_experts)
 
 
 def _combine(y, sel_idx, sel_w, n_tokens: int, top_k: int):
@@ -121,21 +157,101 @@ def _combine(y, sel_idx, sel_w, n_tokens: int, top_k: int):
     return out
 
 
-def _moe_apply(params, x, cfg, *, dtype=torch.bfloat16):
-    """x: (B, T, d) -> ((B, T, d) in x's dtype, aux loss)."""
+def _capacity(n_rows: int, cfg) -> int:
+    """Tokens an expert takes from a routing group of ``n_rows`` rows."""
+    return max(8, int((n_rows * cfg.top_k * cfg.capacity_factor)
+                      / cfg.n_experts + 0.999))
+
+
+def _expert_parallel(xg, gate_w, experts, cfg, mesh):
+    """The reference's ``shard_map`` body on a model axis, for ``G`` data
+    groups a rank computes at once: xg (G, n, d), each group routed apart
+    -> ((G, n, d), the groups' mean aux loss)."""
+    G, n, d = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n_ep = axis_size(mesh, "model")
+    e_loc = E // n_ep
+    cap = _capacity(n, cfg)
+    routed = [_route_local(xg[g], gate_w, k, E, cap) for g in range(G)]
+    buf = torch.stack([r[0] for r in routed])             # (G, E, cap, d)
+    # (n_ep, G, E_loc, cap, d): row j holds rank j's experts' rows
+    send = buf.reshape(G, n_ep, e_loc, cap, d).transpose(0, 1)
+    got = collectives.all_to_all(send, mesh, "model")     # row j: source j
+    h = got.permute(2, 0, 1, 3, 4).reshape(e_loc, n_ep * G * cap, d)
+    y = _expert_ffn(*experts, h)
+    y = y.reshape(e_loc, n_ep, G, cap, d).permute(1, 2, 0, 3, 4)
+    y = collectives.all_to_all(y, mesh, "model")          # row j: rank j's
+    y = y.transpose(0, 1).reshape(G, E, cap, d)           # global experts
+    out = torch.stack([_combine(y[g], r[1], r[2], n, k)
+                       for g, r in enumerate(routed)])
+    return out, torch.stack([r[3] for r in routed]).mean()
+
+
+def _routed_over_data(xt, gate_w, experts, cfg, mesh):
+    """The whole batch routed at once when a rank holds only its data
+    group's rows xt (n, d) of it: the groups' routing weights gathered
+    over ``data``, every expert's top ``cap`` chosen over the batch (ties
+    to the lower global row), the experts run on the chosen rows held
+    here -> ((n, d) one device's rows, the batch's aux loss)."""
+    n, d = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    w_te, probs = _gate(xt, gate_w, k, E)
+    both = collectives.gather_rows(torch.cat([w_te, probs], 1), mesh,
+                                   "data").reshape(-1, 2 * E)
+    w_all, p_all = both[:, :E], both[:, E:]
+    N = w_all.shape[0]
+    cap = _capacity(N, cfg)
+    sel_w, sel_idx = _top(w_all.T, min(cap, N))           # (E, C) global
+    if cap > N:
+        sel_w = F.pad(sel_w, (0, cap - N))
+        sel_idx = F.pad(sel_idx, (0, cap - N))
+    lo = mesh.get_local_rank("data") * n
+    here = (sel_idx >= lo) & (sel_idx < lo + n)
+    sel_w = torch.where(here, sel_w, 0.0)                  # others' rows: 0
+    sel_idx = torch.where(here, sel_idx - lo, 0)
+    buf = xt[sel_idx] * (sel_w[..., None] > 0).to(xt.dtype)
+    y = _expert_ffn(*experts, buf)
+    return _combine(y, sel_idx, sel_w, n, k), _aux(w_all, p_all, E)
+
+
+def _moe_apply(params, x, cfg, *, mesh=None, rows: str = "all",
+               dtype=torch.bfloat16):
+    """x: (B, T, d) -> ((B, T, d) in x's dtype, aux loss).  ``mesh`` and
+    ``rows``: the module docstring.  On a model axis the expert leaves
+    must hold this rank's ``E / M`` experts; the aux loss is then the mean
+    over the groups this rank routes (the reference's is over all)."""
+    if rows not in ("shard", "own", "all"):
+        raise ValueError(f"rows={rows!r}: 'shard', 'own' or 'all'")
     B, T, d = x.shape
-    E, k, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
+    E, k = cfg.n_experts, cfg.top_k
+    n_ep = axis_size(mesh, "model")
+    n_data = axis_size(mesh, "data")
+    if E % n_ep:
+        raise ValueError(f"{cfg.name}: {E} experts do not split over a "
+                         f"model axis of {n_ep}")
 
     gate_w = mat(params["gate"], dtype)
-    wi_gate = mat(params["wi_gate"], dtype)
-    wi_up = mat(params["wi_up"], dtype)
-    wo = mat(params["wo"], dtype)
+    experts = tuple(mat(params[n], dtype) for n in ("wi_gate", "wi_up",
+                                                     "wo"))
+    if experts[0].shape[0] * n_ep != E:
+        raise ValueError(
+            f"{cfg.name}: this rank holds {experts[0].shape[0]} experts; a "
+            f"model axis of {n_ep} needs {E // n_ep} of {E} a rank "
+            f"(runtime.sharding.expert_cut)")
 
     xt = x.to(dtype).reshape(B * T, d)
-    cap = max(8, int((B * T * k * cf) / E + 0.999))
-    buf, sel_idx, sel_w, aux = _route_local(xt, gate_w, k, E, cap)
-    y = _expert_ffn(wi_gate, wi_up, wo, buf)
-    out = _combine(y, sel_idx, sel_w, B * T, k).reshape(B, T, d)
+    if n_ep > 1:
+        G = n_data if rows == "all" and B % n_data == 0 else 1
+        out, aux = _expert_parallel(xt.reshape(G, B * T // G, d), gate_w,
+                                    experts, cfg, mesh)
+    elif rows == "shard" and n_data > 1:
+        out, aux = _routed_over_data(xt, gate_w, experts, cfg, mesh)
+    else:
+        buf, sel_idx, sel_w, aux = _route_local(
+            xt, gate_w, k, E, _capacity(B * T, cfg))
+        y = _expert_ffn(*experts, buf)
+        out = _combine(y, sel_idx, sel_w, B * T, k)
+    out = out.reshape(B, T, d)
 
     if "shared" in params:
         out = out + mlp_apply(params["shared"], x.to(dtype), "swiglu", dtype)

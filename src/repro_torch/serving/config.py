@@ -11,10 +11,13 @@ sharing (``prefix_sharing``), speculative decoding (``draft_params``,
 a ``serving.telemetry.Telemetry``; ``kv_monitor``, a
 ``runtime.monitor.KVCacheMonitor``) and ``mesh``, a ``("data", "model")``
 ``DeviceMesh`` of ranks (``launch/mesh.py``; ``n_shards()`` its data axis,
-``n_model_shards()`` its model axis).  On a mesh the port serves the
-stacks of attention layers ('attn', 'nope', 'local'); a mixture-of-experts,
-recurrent or encoder-decoder stack raises ``EngineConfigError`` ("not yet
-ported on a mesh") in both modes.
+``n_model_shards()`` its model axis).  On a mesh the port serves every
+stack the engine serves on one device: the attention stacks ('attn',
+'nope', 'local') and the mixture-of-experts ones paged (on a model axis
+each rank holding its share of the experts, ``models/moe.py``), the
+recurrent ones on the monolithic cache, whole on every rank.  A model axis
+that does not divide a mixture-of-experts stack's experts raises
+``EngineConfigError`` in both modes, as the encoder-decoder does.
 
 The gating matrix (the reference's ``serving/config.py``):
 
@@ -58,7 +61,7 @@ from dataclasses import dataclass, field, replace
 
 from ..configs.base import ArchConfig
 from ..kvcache.paged import PAGED_KINDS
-from ..models.model import ATTN_KINDS, check_supported
+from ..models.model import check_supported
 from ..runtime.sharding import axis_size
 
 CACHE_MODES = ("paged", "monolithic")
@@ -148,13 +151,13 @@ class EngineConfig:
                     f"encoder-decoder (a request carries no frames); run "
                     f"models.model.prefill(..., frames=...) and "
                     f"decode_step directly")
-            if self.mesh is not None and (
-                    arch.n_experts
-                    or not set(arch.pattern) <= set(ATTN_KINDS)):
+            n_model = self.n_model_shards()
+            if arch.n_experts and arch.n_experts % n_model:
                 raise EngineConfigError(
-                    f"{arch.name}: not yet ported on a mesh (the port's "
-                    f"mesh serves stacks of 'attn', 'nope' and 'local' "
-                    f"layers with dense MLPs)")
+                    f"{arch.name}: its {arch.n_experts} experts do not "
+                    f"split over a model axis of {n_model} "
+                    f"({arch.n_experts} % {n_model} = "
+                    f"{arch.n_experts % n_model})")
         problems: list[str] = []
         cache_mode = self.cache_mode
         n_shards, n_model = self.n_shards(), self.n_model_shards()

@@ -64,8 +64,14 @@ request's sampled stream does not depend on batching.
 
 On a mesh (``config.mesh``, a ``("data", "model")`` DeviceMesh of ranks,
 ``launch/mesh.py``) every rank runs this engine on the same requests with
-replicated weights (their checksums compared at construction), and every
-host decision is made from values all ranks hold.  The paged cache's
+replicated weights, but for a mixture-of-experts stack's experts, which a
+model axis splits (``runtime.sharding.expert_cut``: each rank holds its
+model index's share and the MoE layers exchange rows over ``model``);
+the checksums of the other leaves are compared over the mesh and of the
+experts over the ranks sharing a model index at construction
+(``collectives.check_replicated``, which also reports every rank's
+resident bytes).  Every host decision is made from values all ranks
+hold.  The paged cache's
 pools and cold slots are split over the data axis (``PagedKVCache(
 n_shards=..., shard=...)``: a slot's pages lie in its own batch shard,
 whose ranks alone hold them); a decode step runs each data group's slots
@@ -76,8 +82,8 @@ on its shard's ranks, the model ranks splitting a prefill's query rows,
 and the first token is broadcast from the shard's first rank; so are an
 encoded page's byte count and fit (``PagedKVCache.share``), which the
 cold pool's and the swap tier's bookkeeping read.  The monolithic cache
-and a speculative draft's cache are whole on every rank, their work
-replicated.
+(the recurrent stacks') and a speculative draft's cache are whole on
+every rank, their work replicated.
 """
 from __future__ import annotations
 
@@ -177,9 +183,14 @@ class GenerationEngine:
         self.mesh = mesh = config.mesh
         n_shards, self.n_model = config.n_shards(), config.n_model_shards()
         self.d_rank = mesh.get_local_rank("data") if mesh is not None else 0
-        self.weights_checksum = None
+        self.weights_checksum = self.resident_bytes = None
         if mesh is not None:
-            self.weights_checksum = collectives.check_replicated(params, mesh)
+            got = collectives.check_replicated(params, mesh,
+                                               n_experts=cfg.n_experts)
+            self.weights_checksum = got["checksum"]
+            # every rank's resident weight bytes: (experts, the rest)
+            self.resident_bytes = list(zip(got["expert_bytes"],
+                                           got["other_bytes"]))
         # the rows of this rank's decode step and whether the step's tokens
         # are gathered from the data groups (a paged cache split over them)
         paged_mesh = (mesh is not None and self.cache_mode == "paged"
@@ -213,8 +224,9 @@ class GenerationEngine:
             self.draft_params = config.draft_params
             self.draft_cfg = config.draft_cfg
             if mesh is not None:
-                collectives.check_replicated(self.draft_params, mesh,
-                                             "draft weights")
+                collectives.check_replicated(
+                    self.draft_params, mesh, "draft weights",
+                    n_experts=self.draft_cfg.n_experts)
             # the paired draft cache, always monolithic: a small draft
             # needs no paging, and its rollback is a timeline reset
             # (_spec_round)

@@ -17,8 +17,10 @@ process with two virtual devices.  Ports of tests/test_kvcache.py:262,
     reference's own model-axis run;
   * a prefill on ``1x2`` at T divisible and not by 2;
   * every rank's engine state alike after a run;
-  * ``EngineConfig`` on a mesh: the reference's gate texts, and "not yet
-    ported on a mesh" for a MoE, recurrent or encoder-decoder stack.
+  * ``EngineConfig`` on a mesh: the reference's gate texts; a MoE stack
+    resolves paged, a recurrent one monolithic, the encoder-decoder is
+    refused as on one device (``tests/test_torch_moe_mesh.py`` serves
+    them).
 """
 import os
 import subprocess
@@ -411,18 +413,32 @@ def test_speculation_off_on_a_model_axis():
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "recurrentgemma-2b",
                                   "xlstm-350m", "whisper-base"])
 def test_unported_stacks_refused_on_a_mesh(arch):
-    """A mixture-of-experts, recurrent or encoder-decoder stack on a mesh
-    raises in both modes (the next slices); the dense and local stacks
-    resolve."""
+    """What each stack resolves to on a mesh, in both modes, on ``2`` and
+    ``2x2``: the mixture-of-experts one paged, the recurrent ones
+    monolithic (nothing to page), the encoder-decoder refused with the
+    engine's own error; a model axis that does not divide the experts is
+    refused; the dense and local stacks resolve paged."""
     cfg = smoke_variant(get(arch))
+    want = {"moonshot-v1-16b-a3b": "paged", "recurrentgemma-2b": "monolithic",
+            "xlstm-350m": "monolithic"}.get(arch)
+    for dims in ((2, 1), (2, 2)):
+        mesh = MeshShape(("data", "model"), dims)
+        for strict in (False, True):
+            ecfg = EngineConfig(max_batch=4, mesh=mesh)
+            if want is None:
+                with pytest.raises(EngineConfigError, match="the engine "
+                                   "does not serve an encoder-decoder"):
+                    ecfg.validate(cfg, strict=strict)
+            else:
+                assert ecfg.validate(cfg, strict=strict).cache_mode == want
+    if cfg.n_experts:
+        with pytest.raises(EngineConfigError, match=f"{cfg.n_experts} "
+                           "experts do not split over a model axis of 3"):
+            EngineConfig(max_batch=3, mesh=MeshShape(
+                ("data", "model"), (1, 3))).validate(cfg)
     mesh = MeshShape(("data", "model"), (2, 1))
-    for strict in (False, True):
-        with pytest.raises(EngineConfigError, match="on a mesh|encoder"):
-            EngineConfig(max_batch=4, mesh=mesh).validate(cfg, strict=strict)
     for ok in ("qwen3-8b", "gemma2-9b", "llama4-scout-17b-a16e"):
         c = smoke_variant(get(ok))
-        if c.n_experts:
-            continue
         assert EngineConfig(max_batch=4, mesh=mesh).validate(c).cache_mode \
             == "paged"
 

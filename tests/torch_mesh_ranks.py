@@ -276,3 +276,131 @@ def gather_main(rank, world, device, spec):
                      (codes.numpy(), fp8.pack_nibbles(esc).numpy(),
                       fp8.pack_nibbles(sm).numpy()))
     return out
+
+
+# -- the mixture-of-experts and recurrent stacks on a mesh ------------------
+# (tests/test_torch_moe_mesh.py)
+
+MOE_ENGINE_KW = dict(max_batch=4, max_len=64, page_size=16)
+# PROMPTS with fewer new tokens (request 0 still fills a page: it goes
+# cold with compress_cold)
+MOE_NEWS = [12, 8, 6, 6, 5, 4]
+
+
+def _placed_layer(tree, mesh, names=("moe",)):
+    """A bare MoE layer's numpy leaves -> tensors, each expert leaf cut to
+    this rank's experts (``runtime.sharding.expert_cut`` at the layer's
+    path under ``moe``)."""
+    from repro_torch.runtime.sharding import expert_cut
+    if isinstance(tree, dict):
+        return {k: _placed_layer(v, mesh, names + (k,))
+                for k, v in tree.items()}
+    x = torch.from_numpy(tree.copy())
+    cut = expert_cut(names, x.shape, mesh)
+    return x if cut is None else x.narrow(cut[0], cut[1], cut[2] - cut[1])
+
+
+def moe_layer_outputs(mesh, layers, x, cfg):
+    """``moe_apply`` of each layer of ``layers`` (numpy MoE subtrees) on
+    ``mesh``, the experts placed: ``rows="all"`` on the whole ``x`` and
+    ``rows="shard"`` on this rank's data group's rows of it -> {name:
+    (all (B, T, d), shard rows, aux of "all")}."""
+    from repro_torch.models import moe
+    n_data = mesh.mesh.shape[0]
+    d = mesh.get_local_rank("data")
+    xt = torch.from_numpy(x)
+    b = xt.shape[0] // n_data
+    out = {}
+    for name, tree in layers.items():
+        p = _placed_layer(tree, mesh)
+        y_all, aux = moe.moe_apply(p, xt, cfg, mesh=mesh, rows="all",
+                                   dtype=torch.float32)
+        y_shard, _ = moe.moe_apply(p, xt[d * b:(d + 1) * b], cfg, mesh=mesh,
+                                   rows="shard", dtype=torch.float32)
+        out[name] = (y_all.numpy(), y_shard.numpy(), float(aux))
+    return out
+
+
+def moe_engine_runs(mesh, runs, cfgs, params) -> dict:
+    """The engine on ``mesh`` for each run of ``runs`` (name -> (arch,
+    cache kwargs, ECF8 or not)), the weights converted from the
+    reference's (``params``: arch -> numpy tree) and placed -> {name:
+    (tokens, cache mode, every rank's resident bytes (experts, the rest),
+    this rank's weights checksum)}."""
+    stream = [(p, n, 0) for p, n in zip(PROMPTS, MOE_NEWS)]
+    out = {}
+    for name, (arch, kw, ecf8) in runs.items():
+        cfg = cfgs[arch]
+        tree = convert.params_from_numpy(params[arch], cfg, "cpu", mesh=mesh)
+        if ecf8:
+            tree, _ = store.compress_tree(tree, min_elems=4096,
+                                          out_dtype="float32")
+        toks, eng = serve_tokens(tree, cfg, EngineConfig(
+            **MOE_ENGINE_KW, **kw, mesh=mesh), stream)
+        out[name] = (toks, eng.cache_mode, eng.resident_bytes,
+                     list(eng.weights_checksum))
+    return out
+
+
+def moe_world_main(rank, world, device, spec):
+    """Everything tests/test_torch_moe_mesh.py needs from ``world`` ranks,
+    in one spawn: the MoE layer on each mesh of ``spec["layer_meshes"]``
+    (capacity factor 1.0), the engine runs of ``spec["engines"]`` (mesh
+    dims -> runs), and on 2x2 a prefill's logits and the replication
+    check's refusals."""
+    import dataclasses
+    torch.manual_seed(0)
+    cfgs = {a: smoke(a) for a in spec["params"]}
+    meshes = {dims: MESH.make_mesh(*dims)
+              for dims in sorted(set(spec["layer_meshes"])
+                                 | set(spec["engines"]))}
+    out = {"layer": {}, "engine": {}}
+    tight = dataclasses.replace(cfgs["moonshot-v1-16b-a3b"],
+                                capacity_factor=1.0)
+    for dims in spec["layer_meshes"]:
+        out["layer"][dims] = moe_layer_outputs(meshes[dims], spec["layers"],
+                                               spec["x"], tight)
+    for dims, runs in spec["engines"].items():
+        out["engine"][dims] = moe_engine_runs(meshes[dims], runs, cfgs,
+                                              spec["params"])
+    if (2, 2) in meshes:
+        mesh = meshes[(2, 2)]
+        params = convert.params_from_numpy(
+            spec["params"]["moonshot-v1-16b-a3b"], tight, "cpu", mesh=mesh)
+        logits, _ = M.prefill(params, tight,
+                              torch.from_numpy(spec["prefill_tokens"]),
+                              max_len=96, mesh=mesh)
+        out["prefill_2x2"] = logits.numpy()
+        out["refused"] = refusals(mesh, params, tight)
+    return out
+
+
+def _with_layer(tree, moe):
+    """``tree`` with unit 0's MoE leaves replaced by ``moe`` (the rest
+    shared, not copied)."""
+    units = dict(tree["units"])
+    units["pos0"] = {**units["pos0"], "moe": moe}
+    return {**tree, "units": units}
+
+
+def refusals(mesh, params, cfg) -> dict:
+    """``check_replicated`` on trees a serving mesh must not hold -> {case:
+    the error text each raised, or None}: one rank's experts perturbed
+    (rank 2: data 1, model 0), and every rank holding all the experts on
+    the model axis."""
+    moe = params["units"]["pos0"]["moe"]
+    wo = moe["wo"].clone()
+    if torch.distributed.get_rank() == 2:
+        wo[0, 0, 0, 0] += 1.0
+    whole = {k: (torch.cat([v] * mesh.mesh.shape[1], dim=1)
+                 if k in ("wi_gate", "wi_up", "wo") else v)
+             for k, v in moe.items()}
+    out = {}
+    for case, tree in (("perturbed", _with_layer(params, {**moe, "wo": wo})),
+                       ("unplaced", _with_layer(params, whole))):
+        try:
+            collectives.check_replicated(tree, mesh, n_experts=cfg.n_experts)
+            out[case] = None
+        except RuntimeError as e:
+            out[case] = str(e)
+    return out
