@@ -4,13 +4,14 @@ NVIDIA H100.
 Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--only 1,21[,22]]
+    python3 chip_smoke.py [--layers N] [--seed S] [--only 1,21[,22][,23]]
 
 ``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
-22 alone: on a host with four or more cards, ``python3 chip_smoke.py
---only 1,21`` serves qwen3-8b at full depth on four NCCL ranks, and
-``--only 1,22`` moonshot-v1-16b-a3b and llama4-scout-17b-a16e at full
-depth.
+22 alone, ``--only 1,23`` phase 23 alone: on a host with four or more
+cards, ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full depth
+on four NCCL ranks, ``--only 1,22`` moonshot-v1-16b-a3b and
+llama4-scout-17b-a16e at full depth, and ``--only 1,23`` trains qwen3-8b at
+all 36 layers.
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the five CUDA kernels built with
@@ -333,6 +334,34 @@ Phases, each failing loudly (non-zero exit, no result line):
      (model axis) or routing-weight gather (data axis) at the decode
      shape, timed; tokens against rank 0 alone on ``--mesh D`` (reported,
      not gated).
+  23. training on a mesh of ranks (``runtime.steps.make_train_step(mesh=)``:
+     the state placed by the rule table, each leaf gathered whole in the
+     unit that uses it and its gradient summed into the rank's shard, the
+     sequence split over ``model``): before the ranks start, B5 with
+     ``q_base`` (and B4 with statistics and ``q_base``) against its plain
+     version at qwen3's heads on rows [512, 1024) and [768, 1024) of T =
+     1024, at gemma2's (D = 256, softcap 50) and at the micro-batch shape of
+     model rank 1, timed beside SDPA's backward with the causal mask as a
+     boolean mask; four 256-row shards of T = 1024: each shard's statistics
+     and dq bit for bit the unsharded launch's rows, their dk / dv summed
+     within 2e-2 of the unsharded.  On one card two gloo ranks share it:
+     qwen3-8b untied at full width and ``MESH_TRAIN_LAYERS`` layers, global
+     batch 4 x seq 512, grad_accum 2, remat, bf16 weights and f32 moments,
+     one step on ``--mesh 2`` and on ``1x2``; with four cards four NCCL
+     ranks at all 36 layers (more than one card holds), batch 8 x 2048,
+     ``TRAIN_STEPS`` steps on ``--mesh 4`` and ``2x2``.  Gates: every loss
+     and gradient norm finite and the ranks' losses equal; step 0 within
+     5e-3 (loss) and 2e-2 (gradient norm) of one rank's unsharded step on
+     the card from the same seed (one card), of the other mesh's (four
+     cards); phase 4's small f32 model on ``(D/2)x2`` within 2e-4 of one
+     rank's updated parameters; B4 with statistics (twice a layer a
+     micro-batch, remat) and B5 launched on every rank, with ``q_base``
+     exactly on the model ranks past the first, no other kernel; each
+     rank's resident state (parameters and moments) at most 0.55 (one
+     card) or 0.3 (four) of the whole tree's bytes.  Per rank: step ms,
+     the collectives' ms a step (a further step with each collective
+     synchronised and timed), resident and peak GiB, build s; per mesh:
+     aggregate tokens/s and the model-FLOP share of the ranks' 989 TFLOP/s.
 Each phase logs the time since the start when it is done.  Phases 5-12,
 16, 17 and 19 run at a cut depth so that the whole script stays near half
 its time limit (13-15 and 18 at full depth), 20 and 20b at a depth whose
@@ -424,13 +453,19 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 # max_batch 8 (two slots a batch shard); on one card two ranks share it at
 # QWEN_LAYERS with phase 5's 8 requests at max_batch 4
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
-MESH_PHASES = ("1", "21", "22")     # what --only may name
+MESH_PHASES = ("1", "21", "22", "23")   # what --only may name
 # phase 22 on one card: moonshot at 4 of its 48 layers on two gloo ranks
 # (its trees built four times, whole and halved, beside phase 21's
 # leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
 # four cards moonshot and llama4-scout at full depth
 MOE_MESH_LAYERS, RG_MESH_LAYERS, MOE_LAYERS_FULL = 4, 5, 48
 MESH_SHARD_PAGES, MESH_SHARD_COLD = 32, 2   # 21a's pools a batch shard
+# phase 23 on one card: qwen3-8b (untied) at 2 of its 36 layers on two gloo
+# ranks, global batch 4 x 512; on four cards all 36 layers (~12 bytes a
+# parameter, more than one card holds), batch 8 x 2048; grad_accum 2
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 2, 512, 4
+MESH_TRAIN_FULL_SEQ, MESH_TRAIN_FULL_BATCH = 2048, 8
+MESH_TRAIN_ACCUM = 2
 
 
 def fail(msg: str):
@@ -730,14 +765,16 @@ def check_flash(torch, flash_fwd, T, gen, flush, dtype=None, heads=(32, 8),
 
 def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
                     softcap=0.0, causal=True, B=1, Tk=None, dtype=None,
-                    tol=FLASH_TOL):
+                    tol=FLASH_TOL, q_base=0):
     """Phase 3d at one shape (module docstring) -> result dict.  B4 with
     its row statistics against B4 without them (o bit-identical) and
     against its plain version (m, l); B5 against its plain version on the
     same residuals, every gradient element within ``tol`` x the plain
     gradient's largest magnitude.  Timed after L2 flushes, beside the
     backward alone of SDPA (no softcap: SDPA has none) on the same
-    inputs."""
+    inputs.  ``q_base`` (phase 23): the ``T`` rows are positions
+    ``[q_base, q_base + T)`` of ``Tk`` keys (a model rank's rows), SDPA
+    given the causal mask as a boolean mask."""
     Hq, Hkv = heads
     Tk = Tk or T
     dtype = dtype or torch.bfloat16
@@ -750,11 +787,13 @@ def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
     what = (f"B={B} T={T}{'' if Tk == T else f' Tk={Tk}'} Hq={Hq} Hkv={Hkv} "
             f"D={D} softcap {softcap:g} "
             f"{'causal' if causal else 'non-causal'} "
-            f"{str(dtype).split('.')[-1]}")
-    o0 = flash_fwd.run(q, k, v, causal=causal, softcap=softcap)
+            f"{str(dtype).split('.')[-1]}"
+            f"{f' q_base {q_base}' if q_base else ''}")
+    qb = dict(q_base=q_base)
+    o0 = flash_fwd.run(q, k, v, causal=causal, softcap=softcap, **qb)
     o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=softcap,
-                            stats=True)
-    _, m_p, l_p = flash_fwd.plain_stats(q, k, v, causal, softcap)
+                            stats=True, **qb)
+    _, m_p, l_p = flash_fwd.plain_stats(q, k, v, causal, softcap, **qb)
     torch.cuda.synchronize()
     if not torch.equal(o.view(torch.uint8), o0.view(torch.uint8)):
         fail(f"flash_fwd {what}: o with statistics differs from o without")
@@ -764,8 +803,8 @@ def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
         fail(f"flash_fwd {what}: m / l off their plain version by "
              f"{stats_err} (relative) > {FLASH_STATS_TOL}")
     grads = flash_bwd.run(q, k, v, o, m, l, do, causal=causal,
-                          softcap=softcap)
-    want = flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap)
+                          softcap=softcap, **qb)
+    want = flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap, **qb)
     torch.cuda.synchronize()
     err = rel = 0.0
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
@@ -778,20 +817,33 @@ def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
                  f"{r} of its largest magnitude > {tol}")
         err, rel = max(err, e), max(rel, r)
     ms = cuda_ms(torch, lambda: flash_bwd.run(
-        q, k, v, o, m, l, do, causal=causal, softcap=softcap), 10, flush)
+        q, k, v, o, m, l, do, causal=causal, softcap=softcap, **qb), 10,
+        flush)
     plain_ms = cuda_ms(torch, lambda: flash_bwd.plain(
-        q, k, v, o, m, l, do, causal, softcap), 2, flush)
+        q, k, v, o, m, l, do, causal, softcap, **qb), 2, flush)
     fwd_ms = cuda_ms(torch, lambda: flash_fwd.run(
-        q, k, v, causal=causal, softcap=softcap), 10, flush)
+        q, k, v, causal=causal, softcap=softcap, **qb), 10, flush)
     stats_ms = cuda_ms(torch, lambda: flash_fwd.run(
-        q, k, v, causal=causal, softcap=softcap, stats=True), 10, flush)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=causal, enable_gqa=Hq != Hkv)
+        q, k, v, causal=causal, softcap=softcap, stats=True, **qb), 10,
+        flush)
+    if q_base:      # the mask explicit, K / V repeated to the heads
+        rows = q_base + torch.arange(T, device="cuda")
+        mask = torch.arange(Tk, device="cuda")[None, :] <= rows[:, None]
+        leaves = [t.detach().clone().requires_grad_(True) for t in (
+            q, k.repeat_interleave(Hq // Hkv, dim=1),
+            v.repeat_interleave(Hq // Hkv, dim=1))]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask)
+    else:
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=Hq != Hkv)
     lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True), 10, flush)
     del out, leaves
-    pairs = T * (T + 1) // 2 if causal else T * Tk
+    # the (q, k) pairs the causal mask leaves visible
+    pairs = (sum(min(Tk, q_base + r + 1) for r in range(T)) if causal
+             else T * Tk)
     flops = 10 * B * Hq * D * pairs          # five products, 2.5x forward
     moved = sum(t.numel() * t.element_size()
                 for t in (q, k, v, o, m, l, do, *grads))
@@ -935,8 +987,10 @@ def train_phase(torch, M, kernels, cfg, seed):
         f = flash_fwd.plain_stats if stats else flash_fwd.plain
         return f(q, k, v, causal, softcap, q_base=q_base)
 
-    def plain_bwd(q, k, v, o, m, l, do, causal=True, softcap=0.0):
-        return flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap)
+    def plain_bwd(q, k, v, o, m, l, do, causal=True, softcap=0.0,
+                  q_base=0):
+        return flash_bwd.plain(q, k, v, o, m, l, do, causal, softcap,
+                               q_base=q_base)
 
     batch0 = data.batch(0, "cuda")
     attn = p0["units"]["pos0"]["attn"]
@@ -3536,17 +3590,422 @@ def moe_mesh_phase(torch, np, MESH, serve, get, n_ranks: int, seed: int,
     return out, launches
 
 
-def only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page, ecf8_decode,
-                fp8, tpu_format, only: set, seed: int, t_start: float):
-    """``--only 1,21`` / ``1,22`` / ``1,21,22``: after the build, the mesh
-    phases named (four NCCL ranks when four cards are visible: phase 21 at
-    ``MESH_LAYERS``, phase 22 at full depth; else two gloo ranks on one
-    card), then the kernels line of what ran (a kernel no phase of the run
-    timed has null time keys) and the last line."""
+def train_mesh_rank(rank, world, dev, spec):
+    """One rank of phase 23 (a process of its own, started by
+    ``launch.mesh.spawn``): phase 4's small f32 qwen3 stack trained one
+    step on ``spec["small_mesh"]`` (its parameters gathered whole on rank
+    0), then qwen3-8b (untied, ``spec["layers"]`` layers) on each mesh of
+    ``spec["runs"]``: this rank's shards of the state drawn from the seed
+    (``runtime.steps.init_sharded``), ``spec["steps"]`` steps on its rows
+    (``sharded_batch``) with the kernels' launches counted, then one more
+    step with every collective timed (synchronised host clock around it;
+    over gloo, which stages every collective through the host and so
+    waits for it anyway, the counted steps themselves are timed instead)
+    -> a dict of plain values."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import ecf8_decode, flash_bwd, flash_fwd
+    from repro_torch.kernels import fused_decode_matmul as fused
+    from repro_torch.kvcache import kernels as kv_page
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, iter_leaves
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import steps as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = dist.get_backend() == "nccl"
+    gib = 2 ** 30
+    # every rank makes the meshes in the same order (each is a collective)
+    meshes = {dims: MESH.make_mesh(*dims, "cuda" if nccl else "cpu")
+              for dims in sorted({tuple(r["mesh"]) for r in spec["runs"]}
+                                 | {tuple(spec["small_mesh"])})}
+    timer = {"on": False, "s": 0.0, "n": 0}
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            if not timer["on"]:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timer["s"] += time.perf_counter() - t0
+            timer["n"] += 1
+            return out
+        return wrapper
+
+    collectives._sum_over = timed(collectives._sum_over)
+    collectives._cat_over = timed(collectives._cat_over)
+
+    def nbytes(*trees):
+        return sum(t.numel() * t.element_size() for tree in trees
+                   for _, t in iter_leaves(tree))
+
+    runs = {"ecf8_decode": ecf8_decode.run, "flash_fwd": flash_fwd.run,
+            "kv_page_decode": kv_page.run, "fused_decode_matmul": fused.run,
+            "flash_bwd": flash_bwd.run}
+
+    def zero():
+        for r in runs.values():
+            r.launches = 0
+        flash_fwd.run.launches_q_base = flash_bwd.run.launches_q_base = 0
+
+    def counts():
+        out = {n: r.launches for n, r in runs.items()}
+        out["flash_fwd_q_base"] = flash_fwd.run.launches_q_base
+        out["flash_bwd_q_base"] = flash_bwd.run.launches_q_base
+        return out
+
+    # phase 4's small f32 model, one step on the small mesh
+    cfg_s = dataclasses.replace(get("qwen3-8b"), **spec["small"])
+    mesh_s = meshes[tuple(spec["small_mesh"])]
+    p_s, specs_s = S.init_sharded(cfg_s, spec["seed"], mesh_s, device=dev)
+    data_s = SyntheticLMData(DataConfig(cfg_s.vocab_size, 64, 4,
+                                        spec["seed"]))
+    p_s, _, m_s = S.make_train_step(
+        cfg_s, AdamWConfig(lr=1e-3), mesh=mesh_s, remat=True,
+        grad_accum=2)(p_s, adamw_init(p_s), data_s.sharded_batch(
+            0, mesh_s, SH.batch_axes(mesh_s), dev), 0)
+    flat_s = dict(iter_leaves(specs_s))
+    small = {"/".join(k): collectives.gather_leaf(v, flat_s[k], mesh_s)
+             .cpu().numpy() for k, v in iter_leaves(p_s)}
+    small = dict(loss=float(m_s["loss"]), grad_norm=float(m_s["grad_norm"]),
+                 params=small if rank == 0 else None)
+    del p_s
+
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=spec["layers"],
+                              tie_embeddings=False)
+    shapes = M.init_params(cfg, device="meta", dtype=torch_dtype(cfg.dtype))
+    n_params = sum(x.numel() for _, x in iter_leaves(shapes))
+    whole = n_params * (2 + 8)      # bf16 weights, two f32 moments
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, spec["seq"],
+                                      spec["batch"], spec["seed"]))
+    out = {}
+    for run in spec["runs"]:
+        mesh = meshes[tuple(run["mesh"])]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params, _ = S.init_sharded(cfg, spec["seed"], mesh, device=dev)
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        resident = nbytes(params, opt["mu"], opt["nu"])
+        step_fn = S.make_train_step(
+            cfg, AdamWConfig(lr=TRAIN_LR), mesh=mesh, remat=True,
+            grad_accum=MESH_TRAIN_ACCUM, warmup_steps=1,
+            total_steps=spec["steps"])
+        steps, secs = [], []
+        zero()
+        timer.update(on=not nccl, s=0.0, n=0)
+        for i in range(spec["steps"]):
+            batch = data.sharded_batch(i, mesh, SH.batch_axes(mesh), dev)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch, i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            steps.append({k: float(v) for k, v in m.items()})
+        launches = counts()
+        if nccl:    # one more step, each collective timed (not counted)
+            batch = data.sharded_batch(spec["steps"], mesh,
+                                       SH.batch_axes(mesh), dev)
+            dist.barrier()
+            timer.update(on=True, s=0.0, n=0)
+            t0 = time.perf_counter()
+            params, opt, _ = step_fn(params, opt, batch, spec["steps"])
+            torch.cuda.synchronize()
+            timed_s = time.perf_counter() - t0
+            n_timed = 1
+        else:
+            timed_s, n_timed = sum(secs), len(secs)
+        timer["on"] = False
+        out[run["tag"]] = dict(
+            mesh=list(run["mesh"]), steps=steps,
+            step_ms=[x * 1e3 for x in secs], launches=launches,
+            collectives_ms=timer["s"] * 1e3 / n_timed,
+            collectives=timer["n"] // n_timed,
+            timed_step_ms=timed_s * 1e3 / n_timed, build_s=build_s,
+            resident_gib=resident / gib, whole_gib=whole / gib,
+            resident_share=resident / whole,
+            peak_gib=(torch.cuda.max_memory_allocated() - base) / gib)
+        del params, opt, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
+                small=small, runs=out, n_params=n_params)
+
+
+def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
+                     flash_fwd, flash_bwd, gen, flush):
+    """Phase 23 on ``n_ranks`` ranks (four NCCL ranks, one a card, or two
+    gloo ranks sharing one card) -> (measurements, per-rank launches of the
+    mesh runs, B4's and B5's results at the sharded shape).  Fails on any
+    gate."""
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         iter_leaves)
+    from repro_torch.runtime.steps import make_train_step
+    full = n_ranks >= 4
+    nccl = full and torch.cuda.device_count() >= n_ranks
+    layers, seq, batch = ((36, MESH_TRAIN_FULL_SEQ, MESH_TRAIN_FULL_BATCH)
+                          if full else (MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ,
+                                        MESH_TRAIN_BATCH))
+    steps = TRAIN_STEPS if full else 1
+    runs = [dict(tag=f"{n_ranks}", mesh=(n_ranks, 1)),
+            dict(tag=f"{n_ranks // 2}x2", mesh=(n_ranks // 2, 2))]
+    A = MESH_TRAIN_ACCUM
+    log(f"phase 23: training on {n_ranks} ranks over "
+        f"{'NCCL, one card each' if nccl else 'gloo on one card'}; "
+        f"qwen3-8b untied at full width, {layers} layers, global batch "
+        f"{batch} x seq {seq}, grad_accum {A}, remat, bf16 weights and f32 "
+        f"moments, {steps} step(s) a mesh; meshes "
+        f"{[r['mesh'] for r in runs]} (the sequence split over model)")
+
+    # B5 (and B4 with statistics) with q_base against the plain versions:
+    # a model rank's rows at qwen3's and gemma2's heads, and at the shape
+    # of a micro-batch on model rank 1 of the (D)x2 mesh
+    b_mb = batch // (n_ranks // 2) // A
+    qb = {}
+    for name, T, part, heads, D, cap, B in (
+            ("T1024_base512", 1024, 2, (32, 8), 128, 0.0, 1),
+            ("T1024_base768", 1024, 4, (32, 8), 128, 0.0, 1),
+            ("gemma2_T1024_base512", 1024, 2, (16, 8), 256, 50.0, 1),
+            (f"train_B{b_mb}_T{seq}_base{seq // 2}", seq, 2, (32, 8), 128,
+             0.0, b_mb)):
+        base = T - T // part
+        qb[name] = check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush,
+                                   T // part, heads, D, softcap=cap, Tk=T,
+                                   B=B, q_base=base)
+    train_shape = f"train_B{b_mb}_T{seq}_base{seq // 2}"
+    b4 = check_flash(torch, flash_fwd, seq // 2, gen, flush, B=b_mb,
+                     q_base=seq // 2, Tk=seq)
+    # four 256-row shards of T = 1024: dq bit for bit the unsharded rows,
+    # dk / dv summed within FLASH_TOL of the largest magnitude
+    shards = {}
+    for heads, D, cap in (((32, 8), 128, 0.0), ((16, 8), 256, 50.0)):
+        def rnd(h):
+            return torch.randn((1, h, 1024, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+
+        q, k, v, do = rnd(heads[0]), rnd(heads[1]), rnd(heads[1]), \
+            rnd(heads[0])
+        o, m, l = flash_fwd.run(q, k, v, softcap=cap, stats=True)
+        dq, dk, dv = flash_bwd.run(q, k, v, o, m, l, do, softcap=cap)
+        sk = sv = 0
+        for lo in range(0, 1024, 256):
+            rows = slice(lo, lo + 256)
+            qs, dos = q[:, :, rows].contiguous(), do[:, :, rows].contiguous()
+            os_, ms, ls = flash_fwd.run(qs, k, v, softcap=cap, stats=True,
+                                        q_base=lo)
+            g = flash_bwd.run(qs, k, v, os_, ms, ls, dos, softcap=cap,
+                              q_base=lo)
+            same = all(torch.equal(a, b[:, :, rows]) for a, b in
+                       ((os_, o), (ms, m), (ls, l), (g[0], dq)))
+            if not same:
+                fail(f"flash_bwd q_base {lo} (D {D}): the shard's "
+                     f"statistics or dq differ from the unsharded rows")
+            sk, sv = sk + g[1].float(), sv + g[2].float()
+        rel = max(float((got - want.float()).abs().max())
+                  / float(want.float().abs().max())
+                  for got, want in ((sk, dk), (sv, dv)))
+        if not rel <= FLASH_TOL:
+            fail(f"flash_bwd: four q_base shards' dk / dv off the unsharded "
+                 f"by {rel} of the largest magnitude > {FLASH_TOL}")
+        shards[f"D{D}"] = rel
+        del q, k, v, do, o, m, l, dq, dk, dv, sk, sv
+    log(f"flash_bwd q_base: four 256-row shards of T = 1024: statistics "
+        f"and dq bit for bit the unsharded rows, dk / dv summed within "
+        f"{ {k: f'{v:.2e}' for k, v in shards.items()} } of the largest "
+        f"magnitude (tol {FLASH_TOL})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-rank references on this card: the small f32 model's step and
+    # (one card) qwen3-8b's step 0 unsharded
+    small_cfg = dict(name="qwen3-small", n_layers=2, d_model=256, n_heads=4,
+                     n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+                     dtype="float32")
+    cfg_s = dataclasses.replace(get("qwen3-8b"), **small_cfg)
+    p_s = M.init_params(cfg_s, seed, device="cuda")
+    p_s, _, m_small = make_train_step(cfg_s, AdamWConfig(lr=1e-3),
+                                      remat=True, grad_accum=2)(
+        p_s, adamw_init(p_s), SyntheticLMData(DataConfig(
+            cfg_s.vocab_size, 64, 4, seed)).batch(0, "cuda"), 0)
+    small_want = {"/".join(k): v.detach().cpu().numpy()
+                  for k, v in iter_leaves(p_s)}
+    del p_s
+    cfg = dataclasses.replace(get("qwen3-8b"), n_layers=layers,
+                              tie_embeddings=False)
+    one = None
+    if not full:
+        t0 = time.perf_counter()
+        p1 = M.init_params(cfg, seed, device="cuda",
+                           dtype=torch_dtype(cfg.dtype))
+        data = SyntheticLMData(DataConfig(cfg.vocab_size, seq, batch, seed))
+        _, _, m1 = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), remat=True,
+                                   grad_accum=A, warmup_steps=1,
+                                   total_steps=steps)(
+            p1, adamw_init(p1), data.batch(0, "cuda"), 0)
+        one = {k: float(v) for k, v in m1.items()}
+        del p1, m1
+        log(f"phase 23 one rank unsharded, step 0: loss {one['loss']:.6f} "
+            f"grad_norm {one['grad_norm']:.5f} "
+            f"({time.perf_counter() - t0:.1f} s with the build)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = dict(seed=seed, layers=layers, seq=seq, batch=batch,
+                steps=steps, runs=runs, small=small_cfg,
+                small_mesh=(n_ranks // 2, 2))
+    t0 = time.perf_counter()
+    res = MESH.spawn(train_mesh_rank, n_ranks, spec, device="cuda",
+                     backend="nccl" if nccl else "gloo", timeout=1500)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"phase 23 ranks: {n_ranks} x {r0['device']} over {r0['backend']}, "
+        f"spawn + builds + steps {wall:.1f}s; {r0['n_params'] / 1e9:.3f} B "
+        f"parameters")
+    problems = []
+    # phase 4's small model on the mesh against one rank's
+    errs = [abs(r["small"]["loss"] - m_small["loss"].item())
+            / abs(m_small["loss"].item()) for r in res]
+    p_err = max(float(np.abs(r0["small"]["params"][k] - w).max())
+                for k, w in small_want.items())
+    log(f"phase 23 small f32 model on {list(spec['small_mesh'])}: loss gap "
+        f"{max(errs):.2e}, parameters within {p_err:.2e} of one rank's "
+        f"(tol 2e-4)")
+    if not (max(errs) <= 2e-4 and p_err <= 2e-4):
+        problems.append(f"small model off one rank's: loss {errs}, "
+                        f"parameters {p_err}")
+    share_max = 0.3 if full else 0.55
+    n_matmul = r0["n_params"] - cfg.vocab_size * cfg.d_model
+    pairs = seq * (seq + 1) // 2
+    model_flops = (6 * n_matmul * batch * seq
+                   + 12 * batch * cfg.n_heads * cfg.hd * pairs * layers)
+    per_step = {"flash_fwd": 2 * layers * A, "flash_bwd": layers * A}
+    out = dict(ranks=n_ranks, backend=r0["backend"], layers=layers, seq=seq,
+               batch=batch, grad_accum=A, steps=steps, one_rank=one,
+               small_loss_gap=max(errs), small_param_err=p_err,
+               q_base_checks=qb, shard_sums=shards, runs={})
+    launches = {}
+    for run in runs:
+        tag = run["tag"]
+        per = [r["runs"][tag] for r in res]
+        n_model = run["mesh"][1]
+        for rank, p in enumerate(per):
+            bad = [s for s in p["steps"] if not (math.isfinite(s["loss"])
+                                                 and math.isfinite(
+                                                     s["grad_norm"]))]
+            if bad:
+                problems.append(f"{tag} rank {rank}: non-finite {bad}")
+            if p["resident_share"] > share_max:
+                problems.append(f"{tag} rank {rank}: resident state "
+                                f"{p['resident_share']:.3f} of the tree > "
+                                f"{share_max}")
+            ln = p["launches"]
+            want = {k: v * steps for k, v in per_step.items()}
+            if {k: ln[k] for k in want} != want or ln["ecf8_decode"] or \
+                    ln["kv_page_decode"] or ln["fused_decode_matmul"]:
+                problems.append(f"{tag} rank {rank}: launches {ln}, "
+                                f"expected {want} and no other kernel")
+            q_rank = rank % n_model != 0
+            if (ln["flash_fwd_q_base"], ln["flash_bwd_q_base"]) != (
+                    (want["flash_fwd"], want["flash_bwd"]) if q_rank
+                    else (0, 0)):
+                problems.append(f"{tag} rank {rank}: launches with q_base "
+                                f"{ln}")
+        losses = {s["loss"] for p in per for s in p["steps"][:1]}
+        if len(losses) != 1:
+            problems.append(f"{tag}: the ranks' step 0 losses differ "
+                            f"{losses}")
+        step_s = statistics.median([x for p in per
+                                    for x in p["step_ms"][1:]
+                                    or p["step_ms"]]) / 1e3
+        tok_s = batch * seq / step_s
+        share = model_flops / step_s / (n_ranks * H100_BF16_FLOPS)
+        out["runs"][tag] = dict(
+            mesh=run["mesh"], loss=[s["loss"] for s in per[0]["steps"]],
+            grad_norm=[s["grad_norm"] for s in per[0]["steps"]],
+            step_ms=[p["step_ms"] for p in per], median_step_ms=step_s * 1e3,
+            tokens_per_s=tok_s, flop_share=share,
+            collectives_ms=[p["collectives_ms"] for p in per],
+            collectives=per[0]["collectives"],
+            timed_step_ms=[p["timed_step_ms"] for p in per],
+            resident_gib=[p["resident_gib"] for p in per],
+            resident_share=[p["resident_share"] for p in per],
+            whole_gib=per[0]["whole_gib"],
+            peak_gib=[p["peak_gib"] for p in per],
+            build_s=[p["build_s"] for p in per],
+            launches=[p["launches"] for p in per])
+        launches[f"train_{tag}"] = [p["launches"] for p in per]
+        log(f"phase 23 {tag} (mesh {list(run['mesh'])}): losses "
+            f"{[round(x, 5) for x in out['runs'][tag]['loss']]} grad_norm "
+            f"{[round(x, 4) for x in out['runs'][tag]['grad_norm']]}; a rank"
+            f"'s step {[[round(x, 1) for x in p['step_ms']] for p in per]} "
+            f"ms (median {step_s * 1e3:.1f}), collectives "
+            f"{[round(p['collectives_ms'], 1) for p in per]} ms in "
+            f"{per[0]['collectives']} calls (a synchronised step of "
+            f"{[round(p['timed_step_ms'], 1) for p in per]} ms); resident "
+            f"{[round(p['resident_gib'], 3) for p in per]} GiB of "
+            f"{per[0]['whole_gib']:.3f} "
+            f"({max(p['resident_share'] for p in per):.3f}), peak "
+            f"{[round(p['peak_gib'], 2) for p in per]} GiB; build "
+            f"{[round(p['build_s'], 1) for p in per]} s; {tok_s:.0f} "
+            f"tokens/s, model FLOPs {model_flops / 1e12:.1f} T a step = "
+            f"{100 * share:.1f} % of {n_ranks} x 989 TFLOP/s; launches "
+            f"{per[0]['launches']} (rank 0), {per[-1]['launches']} (rank "
+            f"{n_ranks - 1})")
+    first = [out["runs"][r["tag"]]["loss"][0] for r in runs]
+    norms = [out["runs"][r["tag"]]["grad_norm"][0] for r in runs]
+    if one is not None:
+        out["gaps_to_one_rank"] = [dict(
+            loss=abs(x - one["loss"]) / abs(one["loss"]),
+            grad_norm=abs(g - one["grad_norm"]) / abs(one["grad_norm"]))
+            for x, g in zip(first, norms)]
+        log(f"phase 23 step 0 against one rank unsharded: "
+            f"{out['gaps_to_one_rank']} (tol loss 5e-3, grad_norm 2e-2)")
+        if not all(d["loss"] <= 5e-3 and d["grad_norm"] <= 2e-2
+                   for d in out["gaps_to_one_rank"]):
+            problems.append(f"step 0 off one rank's: "
+                            f"{out['gaps_to_one_rank']}")
+    gap = abs(first[0] - first[1]) / abs(first[0])
+    out["loss_gap_between_meshes"] = gap
+    log(f"phase 23 step 0 loss {first[0]:.6f} on {runs[0]['tag']} vs "
+        f"{first[1]:.6f} on {runs[1]['tag']} (gap {gap:.2e}, tol 5e-3)")
+    if gap > 5e-3:
+        problems.append(f"step 0 losses of the meshes {first} differ by "
+                        f"{gap}")
+    if problems:
+        fail("phase 23: " + "; ".join(problems))
+    return out, launches, dict(b5=qb[train_shape], b4=b4)
+
+
+def only_phases(torch, np, MESH, serve, get, flash_fwd, flash_bwd, kv_page,
+                ecf8_decode, fp8, tpu_format, only: set, seed: int,
+                t_start: float):
+    """``--only 1,21`` / ``1,22`` / ``1,23`` / any of them together: after
+    the build, the mesh phases named (four NCCL ranks when four cards are
+    visible: phase 21 at ``MESH_LAYERS``, phases 22 and 23 at full depth;
+    else two gloo ranks on one card), then the kernels line of what ran (a
+    kernel no phase of the run timed has null time keys) and the last
+    line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
-    out = moe_out = None
+    out = moe_out = t23 = None
     launches = {}
     if "21" in only:
         out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
@@ -3565,10 +4024,19 @@ def only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page, ecf8_decode,
         log(f"phase 22 measurements: {json.dumps(moe_out)}")
         log(f"phase 22 done at {time.perf_counter() - t_start:.1f}s")
         launches.update(l22)
+    if "23" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_out, l23, t23 = train_mesh_phase(
+            torch, np, MESH, get, n_ranks, seed, flash_fwd, flash_bwd, gen,
+            flush)
+        log(f"phase 23 measurements: {json.dumps(train_out)}")
+        log(f"phase 23 done at {time.perf_counter() - t_start:.1f}s")
+        launches.update(l23)
     del flush
 
     def mesh_l(name):
-        return {tag: [ln[name] for ln in runs] for tag, runs in
+        return {tag: [ln.get(name, 0) for ln in runs] for tag, runs in
                 launches.items()}
 
     def main_path(name):
@@ -3581,8 +4049,13 @@ def only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page, ecf8_decode,
     b1 = next((v for k, v in checks.items() if k.startswith("b1_")),
               untimed)
     b1 = {k: b1[k] for k in untimed}
-    b4 = (out["q_base_checks"]["T1024_base512"] if out is not None
-          else checks["b4"])
+    if out is not None:
+        b4 = out["q_base_checks"]["T1024_base512"]
+    elif moe_out is not None:
+        b4 = checks["b4"]
+    else:
+        b4 = t23["b4"]
+    b5 = untimed if t23 is None else t23["b5"]
     b3 = out["b3_sharded"] if out is not None else None
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -3616,7 +4089,10 @@ def only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page, ecf8_decode,
         dict(name="flash_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/models/flash_attention.py:142",
-             launches=0, **untimed)]
+             launches=main_path("flash_bwd"),
+             launches_mesh=mesh_l("flash_bwd"),
+             launches_mesh_q_base=mesh_l("flash_bwd_q_base"),
+             **{k: b5[k] for k in untimed})]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3695,9 +4171,9 @@ def main(argv=None):
     log(f"build phase {time.perf_counter() - t0:.1f}s "
         f"({len(built)} of {len(build.SOURCES)} sources compiled)")
     if only is not None:
-        return only_phases(torch, np, MESH, serve, get, flash_fwd, kv_page,
-                           ecf8_decode, fp8, tpu_format, only, args.seed,
-                           t_start)
+        return only_phases(torch, np, MESH, serve, get, flash_fwd, flash_bwd,
+                           kv_page, ecf8_decode, fp8, tpu_format, only,
+                           args.seed, t_start)
 
     # -- 2. kernel 1: ECF8 decode -------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4517,9 +4993,23 @@ def main(argv=None):
     moe_mesh_out, moe_mesh_launches = moe_mesh_phase(
         torch, np, MESH, serve, get, n_ranks, args.seed, ecf8_decode, fp8,
         tpu_format, flash_fwd, gen, flush)
-    del flush
     log(f"phase 22 measurements: {json.dumps(moe_mesh_out)}")
     mark("phase 22")
+
+    # -- 23. training on a mesh of ranks -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_mesh_out, train_mesh_launches, t23 = train_mesh_phase(
+        torch, np, MESH, get, n_ranks, args.seed, flash_fwd, flash_bwd, gen,
+        flush)
+    del flush
+    log(f"phase 23 measurements: {json.dumps(train_mesh_out)}")
+    mark("phase 23")
+
+    def on_train_mesh(name):
+        """Each rank's launches in each phase-23 run."""
+        return {tag: [ln[name] for ln in runs]
+                for tag, runs in train_mesh_launches.items()}
 
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
@@ -4604,6 +5094,9 @@ def main(argv=None):
              launches_mesh_q_base=on_mesh("flash_fwd_q_base"),
              launches_mesh_moe=on_moe_mesh("flash_fwd"),
              q_base_at_shard_shape=mesh_out["q_base_checks"],
+             launches_mesh_train=on_train_mesh("flash_fwd"),
+             launches_mesh_train_q_base=on_train_mesh("flash_fwd_q_base"),
+             with_stats_q_base_at_train_shape=t23["b4"],
              with_stats_at_train_shape={
                  k: results["bwd_qwen3"][k]
                  for k in ("fwd_ms", "fwd_stats_ms", "stats_err")},
@@ -4650,6 +5143,9 @@ def main(argv=None):
              launches=train_launches["flash_bwd"],
              launches_per_train_step=train_out["launches_per_step"][
                  "flash_bwd"],
+             launches_mesh_train=on_train_mesh("flash_bwd"),
+             launches_mesh_train_q_base=on_train_mesh("flash_bwd_q_base"),
+             q_base_at_shard_shape=train_mesh_out["q_base_checks"],
              library="scaled_dot_product_attention backward, no softcap",
              at_gemma2_shape=results["bwd_gemma2"],
              at_whisper_shape=results["bwd_whisper"],

@@ -37,8 +37,14 @@ which is what ``np.savez`` makes of the reference's bf16 arrays, with the
 manifest ``dtype`` ``bfloat16``: the port restores it as bf16 bits (the
 reference hands a ``|V2`` array back and cannot use it).
 
-Not yet ported: the reference's elastic restore onto a mesh
-(``shardings``), which waits for the port's multi-GPU slice.
+On a mesh of ranks (``shardings``, a tree of ``runtime.sharding.
+NamedSharding`` like the tree: ``sharding.named(mesh, specs)``) a rank
+holds its shard of every leaf.  A save gathers the leaves whole one at a
+time (``runtime.collectives.gather_leaf``; every rank takes part) and rank 0
+alone snapshots and writes them, in the layout above: whole leaves, as one
+device writes them.  A restore reads each whole leaf and keeps the rank's
+part (``NamedSharding.shard``), so a checkpoint saved on one mesh restores
+on another, or on one card, bit for bit (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -157,19 +163,40 @@ def _host_leaf(x, compress: str) -> _HostLeaf:
     return _HostLeaf(a, str(a.dtype))
 
 
-def _snapshot(tree, compress: str) -> dict:
+def _snapshot(tree, compress: str, shardings=None) -> dict | None:
     """The tree in host memory, {key: leaf}: what a save writes.  fp8 leaves
-    are ECF8-encoded here when ``compress="ecf8"``."""
+    are ECF8-encoded here when ``compress="ecf8"``.  With ``shardings``
+    (``tree`` a rank's shards) each leaf is gathered whole on every rank in
+    key order and rank 0 keeps it: the other ranks return None."""
     if compress not in ("none", "ecf8"):
         raise ValueError(f"compress={compress!r} (none or ecf8)")
-    return {k: _host_leaf(v, compress)
-            for k, v in _flatten(tree).items()}
+    if shardings is None:
+        return {k: _host_leaf(v, compress)
+                for k, v in _flatten(tree).items()}
+    import torch.distributed as dist
+    from ..runtime.collectives import gather_leaf
+    first = dist.get_rank() == 0
+    specs = _flatten(shardings)
+    out = {}
+    for k, v in _flatten(tree).items():
+        if torch.is_tensor(v):
+            v = gather_leaf(v, specs[k].spec, specs[k].mesh)
+        if first:
+            out[k] = _host_leaf(v, compress)
+        del v
+    return out if first else None
 
 
-def save_tree(tree, directory: str, step: int, compress: str = "none"):
+def save_tree(tree, directory: str, step: int, compress: str = "none",
+              shardings=None):
     """Synchronous atomic checkpoint write of ``tree`` (tensors on any
-    device).  compress: none|ecf8."""
-    return _write(_snapshot(tree, compress), directory, step, compress)
+    device).  compress: none|ecf8.  With ``shardings`` every rank of the
+    mesh calls it with its shards, and rank 0 writes the whole leaves (the
+    other ranks return None)."""
+    flat = _snapshot(tree, compress, shardings)
+    if flat is None:
+        return None
+    return _write(flat, directory, step, compress)
 
 
 def _write(flat: dict, directory: str, step: int, compress: str):
@@ -248,9 +275,10 @@ def _check_size(n: int, shape: tuple, key: str) -> None:
 
 
 def _load_dir(path: str, template_tree, dev: torch.device,
-              verify: bool = True):
+              verify: bool = True, shardings=None):
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    place = {} if shardings is None else _flatten(shardings)
     out = {}
     with np.load(os.path.join(path, "arrays.npz")) as npz:
         for key in _flatten(template_tree):
@@ -261,6 +289,8 @@ def _load_dir(path: str, template_tree, dev: torch.device,
                 _check_size(t.numel(), shape, key)
                 bits = t.cpu().numpy()
                 t = t.view(_FP8).reshape(shape)
+                if key in place:
+                    t = place[key].shard(t)
             else:
                 bits = npz[key]
                 _check_size(bits.size, shape, key)
@@ -272,7 +302,10 @@ def _load_dir(path: str, template_tree, dev: torch.device,
                     t = torch.from_numpy(bits).view(_FP8)
                 else:
                     t = torch.from_numpy(bits)
-                t = t.reshape(shape).to(dev)
+                t = t.reshape(shape)
+                if key in place:
+                    t = place[key].shard(t)
+                t = t.to(dev)
             if verify and _crc(bits) != entry["crc32"]:
                 raise IOError(f"checksum mismatch for {key} in {path}")
             out[key] = t
@@ -284,21 +317,25 @@ def restore_tree(directory: str, template_tree, shardings=None,
                  device="cuda"):
     """Restore the latest (or given) valid checkpoint onto ``device`` (the
     card unless the caller asks for the CPU), shaped as ``template_tree``.
-    Returns (tree, step) or (None, -1) when nothing restorable exists.  A
-    damaged step is skipped for an older one; any other error (a failed
-    decode launch) is raised."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto shardings: not yet ported (the port restores onto "
-            "one device)")
+    ``shardings``: a tree of ``runtime.sharding.NamedSharding`` like the
+    template (``sharding.named``): each leaf is read whole and this rank's
+    part kept, whatever mesh (or single device) saved it.  Returns (tree,
+    step) or (None, -1) when nothing restorable exists.  A damaged step is
+    skipped for an older one; any other error (a failed decode launch) is
+    raised."""
     dev = resolve(device)
+    if shardings is not None and set(_flatten(shardings)) != set(
+            _flatten(template_tree)):
+        raise ValueError("restore_tree: the shardings do not place the "
+                         "template's leaves one for one")
     steps = available_steps(directory)
     if step is not None:
         steps = [s for s in steps if s == step]
     for s in sorted(steps, reverse=True):
         path = os.path.join(directory, f"step_{s:08d}")
         try:
-            return _load_dir(path, template_tree, dev, verify=verify)
+            return _load_dir(path, template_tree, dev, verify=verify,
+                             shardings=shardings)
         except _CORRUPT as e:       # damaged: try an older one
             print(f"[checkpoint] skipping {path}: {e}")
     return None, -1
@@ -367,13 +404,18 @@ class CheckpointManager:
             if _tmp_is_orphan(path):
                 shutil.rmtree(path, ignore_errors=True)
 
-    def save_async(self, step: int, tree):
-        """Snapshot to host now; write on the background thread."""
-        self._q.put((step, _snapshot(tree, self.compress)))
+    def save_async(self, step: int, tree, shardings=None):
+        """Snapshot to host now; write on the background thread.  With
+        ``shardings`` every rank calls it (the leaves are gathered) and
+        rank 0 alone writes."""
+        flat = _snapshot(tree, self.compress, shardings)
+        if flat is not None:
+            self._q.put((step, flat))
 
-    def save_sync(self, step: int, tree):
-        save_tree(tree, self.directory, step, compress=self.compress)
-        self._gc()
+    def save_sync(self, step: int, tree, shardings=None):
+        if save_tree(tree, self.directory, step, compress=self.compress,
+                     shardings=shardings) is not None:
+            self._gc()
 
     def wait(self):
         self._q.join()
@@ -381,9 +423,10 @@ class CheckpointManager:
             errs, self._errors = self._errors, []
             raise IOError(f"async checkpoint writes failed: {errs}")
 
-    def restore(self, template_tree, device="cuda"):
+    def restore(self, template_tree, shardings=None, device="cuda"):
         self.wait()
-        return restore_tree(self.directory, template_tree, device=device)
+        return restore_tree(self.directory, template_tree, shardings,
+                            device=device)
 
     def close(self):
         """Drain the queue, stop the worker, and raise any pending write

@@ -274,7 +274,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ m, const float* __restrict__ l,
                     const T* __restrict__ dout, T* __restrict__ dq,
                     float* __restrict__ delta, int Hq, int Hkv, int Tq,
-                    int Tk, float scale, float softcap, int causal) {
+                    int Tk, float scale, float softcap, int causal,
+                    int q_base) {
   constexpr int NW = 4 * groups<D>(), NTH = 32 * NW;
   constexpr int DV = D / groups<D>(), BN = bn_dq<T, D>();
   constexpr int LD = D + pad<T>(), LS = BN + pad<T>();
@@ -339,7 +340,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
 
-  const int kv_end = causal ? min(Tk, q0 + BM) : Tk;
+  const int kv_end = causal ? min(Tk, q_base + q0 + BM) : Tk;
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(sK, kb + size_t(k0) * D, BN, Tk - k0, 1.f, false, tid,
@@ -365,7 +366,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           x = th * softcap;
           fac = 1.f - th * th;
         }
-        const bool keep = row < Tq && col < Tk && (!causal || col <= row);
+        const bool keep =
+            row < Tq && col < Tk && (!causal || col <= q_base + row);
         s[4 * j + e] =
             keep ? expf(x - mr[e >> 1]) / lr[e >> 1] * fac : 0.f;
       }
@@ -394,7 +396,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ dout,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int Hq, int Hkv, int Tq, int Tk,
-                     float scale, float softcap, int causal) {
+                     float scale, float softcap, int causal, int q_base) {
   constexpr int NW = 4 * groups<D>(), NTH = 32 * NW;
   constexpr int DV = D / groups<D>(), BN = bn_dkv<T, D>();
   constexpr int LD = D + pad<T>(), LS = BN + pad<T>();
@@ -429,8 +431,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NO * 4; ++i) acc_k[i] = acc_v[i] = 0.f;
 
-  // under causality no query before k0 sees these keys
-  const int q_begin = causal ? k0 : 0;
+  // under causality no query before global position k0 sees these keys;
+  // with q_base the shard's rows start at global position q_base, and a
+  // block no row of the shard sees loops zero times and stores zeros
+  const int q_begin = causal ? max(0, k0 - q_base) : 0;
   for (int hh = 0; hh < group; ++hh) {
     const size_t qrow = (size_t(b) * Hq + hk * group + hh) * Tq;
     for (int qs = q_begin; qs < Tq; qs += BN) {
@@ -466,7 +470,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             fac = 1.f - th * th;
           }
           const bool keep = key < Tk && qs + ql < Tq &&
-                            (!causal || key <= qs + ql);
+                            (!causal || key <= q_base + qs + ql);
           const float pr = keep ? expf(x - sM[ql]) / sL[ql] : 0.f;
           p[4 * j + e] = pr;
           st[4 * j + e] = pr * fac;
@@ -504,7 +508,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const float* m, const float* l, const void* dout, void* dq,
            void* dk, void* dv, float* delta, int B, int Hq, int Hkv, int Tq,
-           int Tk, float scale, float softcap, int causal,
+           int Tk, float scale, float softcap, int causal, int q_base,
            cudaStream_t stream) {
   constexpr int NTH = 128 * groups<D>();
   const size_t smem_a = smem_bytes<T, D, bn_dq<T, D>(), 1>();
@@ -521,13 +525,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       <<<dim3(B * Hq, (Tq + BM - 1) / BM), NTH, smem_a, stream>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)o, m, l,
           (const T*)dout, (T*)dq, delta, Hq, Hkv, Tq, Tk, scale, softcap,
-          causal);
+          causal, q_base);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   flash_bwd_dkv_kernel<T, D>
       <<<dim3(B * Hkv, (Tk + BM - 1) / BM), NTH, smem_b, stream>>>(
           (const T*)q, (const T*)k, (const T*)v, m, l, (const T*)dout, delta,
-          (T*)dk, (T*)dv, Hq, Hkv, Tq, Tk, scale, softcap, causal);
+          (T*)dk, (T*)dv, Hq, Hkv, Tq, Tk, scale, softcap, causal, q_base);
   return int(cudaGetLastError());
 }
 
@@ -536,17 +540,17 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
              const float* m, const float* l, const void* dout, void* dq,
              void* dk, void* dv, float* delta, int B, int Hq, int Hkv,
              int Tq, int Tk, int D, float scale, float softcap, int causal,
-             cudaStream_t s) {
+             int q_base, cudaStream_t s) {
   switch (D) {
     case 64:
       return launch<T, 64>(q, k, v, o, m, l, dout, dq, dk, dv, delta, B, Hq,
-                           Hkv, Tq, Tk, scale, softcap, causal, s);
+                           Hkv, Tq, Tk, scale, softcap, causal, q_base, s);
     case 128:
       return launch<T, 128>(q, k, v, o, m, l, dout, dq, dk, dv, delta, B, Hq,
-                            Hkv, Tq, Tk, scale, softcap, causal, s);
+                            Hkv, Tq, Tk, scale, softcap, causal, q_base, s);
     case 256:
       return launch<T, 256>(q, k, v, o, m, l, dout, dq, dk, dv, delta, B, Hq,
-                            Hkv, Tq, Tk, scale, softcap, causal, s);
+                            Hkv, Tq, Tk, scale, softcap, causal, q_base, s);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -556,13 +560,15 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q, o, dout, dq: (B, Hq,
 // Tq, D); k, v, dk, dv: (B, Hkv, Tk, D); m, l, delta: f32 (B, Hq, Tq), delta
-// written by the first launch and read by the second.
+// written by the first launch and read by the second.  q_base: the global
+// position of query row 0 for the causal mask (a model rank's rows of the
+// query-row split, whose m and l are its own forward's).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* o, const void* m, const void* l,
                          const void* dout, void* dq, void* dk, void* dv,
                          void* delta, int B, int Hq, int Hkv, int Tq, int Tk,
                          int D, int dtype, int causal, float softcap,
-                         float scale, void* stream) {
+                         float scale, int q_base, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
@@ -570,14 +576,16 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       return launch_d<float>(q, k, v, o, mf, lf, dout, dq, dk, dv, df, B, Hq,
-                             Hkv, Tq, Tk, D, scale, softcap, causal, s);
+                             Hkv, Tq, Tk, D, scale, softcap, causal, q_base,
+                             s);
     case 1:
       return launch_d<__nv_bfloat16>(q, k, v, o, mf, lf, dout, dq, dk, dv,
                                      df, B, Hq, Hkv, Tq, Tk, D, scale,
-                                     softcap, causal, s);
+                                     softcap, causal, q_base, s);
     case 2:
       return launch_d<__half>(q, k, v, o, mf, lf, dout, dq, dk, dv, df, B,
-                              Hq, Hkv, Tq, Tk, D, scale, softcap, causal, s);
+                              Hq, Hkv, Tq, Tk, D, scale, softcap, causal,
+                             q_base, s);
     default:
       return int(cudaErrorInvalidValue);
   }

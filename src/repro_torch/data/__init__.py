@@ -1,2 +1,2 @@
 """The reference's synthetic token pipeline (``pipeline``)."""
-from .pipeline import DataConfig, SyntheticLMData  # noqa: F401
+from .pipeline import DataConfig, SyntheticLMData, make_global_array  # noqa: F401

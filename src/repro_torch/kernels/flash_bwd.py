@@ -32,16 +32,22 @@ from ..models.flash_attention import flash_attention_bwd as plain
 from . import build
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128, 256)
 
 
-def run(q, k, v, o, m, l, do, causal: bool = True, softcap: float = 0.0):
+def run(q, k, v, o, m, l, do, causal: bool = True, softcap: float = 0.0,
+        q_base: int = 0):
     """The gradients (dq, dk, dv) of the flash forward at q: (B, Hq, Tq, D),
     k / v: (B, Hkv, Tk, D), from its output ``o``, its row statistics ``m``,
     ``l`` (f32 (B, Hq, Tq)) and the output cotangent ``do``, all on the
-    card -> dq like q, dk / dv like k / v."""
+    card -> dq like q, dk / dv like k / v.  ``q_base`` is the global
+    position of query row 0 for the causal mask (a model rank's rows of
+    the query-row split, its ``m`` / ``l`` from the forward with the same
+    ``q_base``); dk / dv are then the shard's part, zero for a key no row
+    of the shard sees.  ``run.launches_q_base`` counts the launches with
+    ``q_base != 0``."""
     if not all(t.is_cuda and t.is_contiguous()
                for t in (q, k, v, o, m, l, do)):
         raise ValueError("flash_bwd: inputs must be contiguous CUDA tensors")
@@ -63,6 +69,8 @@ def run(q, k, v, o, m, l, do, causal: bool = True, softcap: float = 0.0):
         raise ValueError("flash_bwd: q, k, v, o, do must be 16-byte aligned")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_bwd: head_dim {D} not in {_HEAD_DIMS}")
+    if q_base < 0:
+        raise ValueError(f"flash_bwd: q_base {q_base} < 0")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -73,11 +81,13 @@ def run(q, k, v, o, m, l, do, causal: bool = True, softcap: float = 0.0):
         l.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Tq, Tk, D,
         _DTYPE_CODES[q.dtype], int(causal), float(softcap), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(q_base), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
     run.launches += 1
+    run.launches_q_base += bool(q_base)
     return dq, dk, dv
 
 
 run.launches = 0
+run.launches_q_base = 0

@@ -55,13 +55,8 @@ class FlashAttention(torch.autograd.Function):
             grads = flash_bwd.plain(q, k, v, o, m, l, do, ctx.causal,
                                     ctx.softcap, q_base=ctx.q_base)
         else:
-            if ctx.q_base:
-                # the backward kernel masks from row 0: a sharded
-                # training step is the training-mesh slice's
-                raise NotImplementedError(
-                    "flash_bwd: q_base != 0 has no backward kernel yet")
             grads = flash_bwd.run(q, k, v, o, m, l, do, causal=ctx.causal,
-                                  softcap=ctx.softcap)
+                                  softcap=ctx.softcap, q_base=ctx.q_base)
         return (*grads, None, None, None)
 
 

@@ -40,7 +40,7 @@ from ..kvcache import kernels as kv_kernels
 from ..kvcache import paged as paged_kv
 from ..kvcache.codec import dtype_name
 from ..runtime.collectives import gather_rows
-from ..runtime.sharding import axis_size
+from ..runtime.sharding import axis_size, batch_index, n_batch_shards
 from .flash_attention import _gqa_combine, _gqa_scores, scale_in_dtype
 
 F32 = torch.float32
@@ -135,7 +135,7 @@ def _paged_shardable(page_table, cur_len, mesh) -> bool:
     guarantees it)."""
     if mesh is None or page_table is None or cur_len.ndim != 1:
         return False
-    n_ba, n_model = axis_size(mesh, "data"), axis_size(mesh, "model")
+    n_ba, n_model = n_batch_shards(mesh), axis_size(mesh, "model")
     if n_ba == 1 and n_model == 1:
         return False
     return page_table.shape[0] % n_ba == 0
@@ -145,7 +145,7 @@ def _chunk_shardable(mesh) -> bool:
     """Whether a prefill chunk takes :func:`paged_prefill_chunk_sharded`: a
     mesh with batch shards.  A model-axis-only mesh returns False; the
     engine gates chunked prefill off there."""
-    return axis_size(mesh, "data") > 1
+    return n_batch_shards(mesh) > 1
 
 
 def _local_ids(pools, ids, mesh):
@@ -155,10 +155,10 @@ def _local_ids(pools, ids, mesh):
     L_loc)``, the park row at ``L_loc`` (a sharded rank's pool has one),
     the local cold slots after the pool's rows."""
     k_pool, _, k_cold, _ = pools
-    n_ba = axis_size(mesh, "data")
+    n_ba = n_batch_shards(mesh)
     rows = k_pool.shape[0]
     L_loc = rows - 1 if n_ba > 1 else rows
-    d = mesh.get_local_rank("data") if n_ba > 1 else 0
+    d = batch_index(mesh)
     n_pool = L_loc * n_ba
     c_loc = k_cold[0].shape[0] if k_cold is not None else 0
     lo, cold_lo = d * L_loc, d * c_loc
@@ -195,8 +195,8 @@ def _paged_prefill_chunk_sharded(q, new_k, new_v, pools, row, slot: int,
     K/V, gather the history (local cold pages decoded), attend causally
     from ``positions[0]`` -> o (1, Hq, C, D)."""
     from .layers import blockwise_attention
-    n_ba = axis_size(mesh, "data")
-    if slot // (n_slots // n_ba) != mesh.get_local_rank("data"):
+    n_ba = n_batch_shards(mesh)
+    if slot // (n_slots // n_ba) != batch_index(mesh):
         raise ValueError(f"slot {slot} is not on this rank's batch shard")
     k_pool, v_pool = pools[0], pools[1]
     loc, wrow, park = _local_ids(pools, row, mesh)

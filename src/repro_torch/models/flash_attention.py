@@ -203,30 +203,54 @@ def flash_attention_bwd(q, k, v, o, m, l, do, causal: bool = True,
 
 
 def _flash_attention_sharded(q, k, v, mesh, *, causal: bool = True,
-                             attn_softcap: float = 0.0):
+                             attn_softcap: float = 0.0, q_base=None):
     """The reference's ``flash_attention_sharded`` on a mesh of ranks: the
     *query rows* split over ``model`` (GQA-group-agnostic, unlike a head
     split), k / v whole on every model rank, each rank's flash kernel
-    (``ops.flash_attention``, B4 on the card) masking causally from its
-    rows' global position ``q_base = model index * T / n_model``, and o
-    all-gathered in the model group.  When ``T`` does not divide by
-    ``n_model`` (or ``T == 1``) every rank runs the unsharded kernel, as
-    the reference falls back.  The batch stays whole: the mesh engine runs
-    a prefill on one data group (its owner's).
+    (``ops.flash_attention``, B4 on the card, B5 in the backward) masking
+    causally from its rows' global position ``q_base``.  The batch stays
+    whole: a serving mesh runs a prefill on one data group (its owner's), a
+    training rank on its batch shard's rows.  Two layouts:
 
-    q: (B, Hq, T, D), k / v: (B, Hkv, T, D) -> o (B, Hq, T, D)."""
+      * ``q_base`` None: q / k / v whole and the same on every model rank
+        (a prefill; training with the stream whole over ``model``).  The
+        rank takes its rows ``[i * T / M, (i + 1) * T / M)`` of q, and o is
+        all-gathered in the model group.  When ``T`` does not divide by
+        ``M`` (or ``T == 1``) every rank runs the unsharded kernel, as the
+        reference falls back.  Differentiable: the backward keeps the
+        rank's rows of do, sums dk / dv over ``model`` and gathers dq
+        whole (``runtime.collectives``: ``RowGather``, ``SumGrad``,
+        ``SplitRows``), so every model rank ends with the same gradients;
+      * ``q_base`` given (training with the sequence split over
+        ``model``): q / k / v are the rank's own positions ``[q_base,
+        q_base + t)``; k / v are all-gathered whole in the model group
+        (their backward sums dk / dv over it and keeps the rank's rows) and
+        o is the rank's rows alone.
+
+    q: (B, Hq, Tq, D), k / v: (B, Hkv, Tk, D) -> o, like q."""
     from ..kernels import ops
-    from ..runtime.collectives import gather_rows
+    from ..runtime import collectives as C
     from ..runtime.sharding import axis_size
     n_model = axis_size(mesh, "model")
     B, Hq, Tq, D = q.shape
+    if q_base is not None:
+        k = C.RowGather.apply(k, mesh, "model", 2, True)
+        v = C.RowGather.apply(v, mesh, "model", 2, True)
+        return ops.flash_attention(q, k, v, causal, attn_softcap,
+                                   q_base=q_base)
     if n_model == 1 or Tq % n_model or Tq <= 1:
         return ops.flash_attention(q, k, v, causal, attn_softcap)
     t_loc = Tq // n_model
     base = mesh.get_local_rank("model") * t_loc
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        q = C.SplitRows.apply(q, mesh, "model", 2)
+        k = C.SumGrad.apply(k, mesh, "model")
+        v = C.SumGrad.apply(v, mesh, "model")
+        o = ops.flash_attention(q, k, v, causal, attn_softcap, q_base=base)
+        return C.RowGather.apply(o, mesh, "model", 2, False)
     o = ops.flash_attention(q[:, :, base:base + t_loc].contiguous(), k, v,
                             causal, attn_softcap, q_base=base)
-    o = gather_rows(o, mesh, "model")              # (n_model, B, Hq, t, D)
+    o = C.gather_rows(o, mesh, "model")            # (n_model, B, Hq, t, D)
     return o.permute(1, 2, 0, 3, 4).reshape(B, Hq, Tq, D)
 
 

@@ -52,10 +52,10 @@ hd)`` over the encoder's ``F`` frames, stacked over the units and
 written once, at prefill.
 
 Entry points:
-  forward(params, cfg, tokens[, frames, remat])
+  forward(params, cfg, tokens[, frames, mesh, remat, constrain, gather])
                                           -> (logits, aux)  [differentiable]
-  loss_fn(params, cfg, tokens, labels[, frames, remat, aux_weight])
-                                          -> (loss, {"nll", "aux"})
+  loss_fn(params, cfg, tokens, labels[, frames, mesh, remat, aux_weight,
+          constrain, gather])             -> (loss, {"nll", "aux"})
   encode_frames(params, cfg, frames, dtype) -> encoder output (B, F, d)
   prefill(params, cfg, tokens, max_len[, frames])
                                           -> (last-pos logits, cache)
@@ -84,7 +84,10 @@ expert_cut``) and the layer exchanges dispatch rows over ``model``
 (the engine runs it on the slot's data group alone); a split paged decode
 step routes each data group's rows (over the whole batch without a model
 axis); the replicated steps route the whole batch as the mesh's data
-groups would.
+groups would.  Training on a mesh (:func:`forward`, :func:`loss_fn` with
+``mesh``; the dense attention stacks) runs a rank's batch shard on its
+shards of the weights, each gathered whole where a layer uses it, the
+sequence split over ``model`` or the attention's query rows.
 """
 from __future__ import annotations
 
@@ -97,7 +100,7 @@ from ..core.store import is_compressed, torch_dtype
 from ..device import resolve
 from ..kernels import ops
 from ..kvcache import paged as paged_kv
-from ..runtime.sharding import axis_size
+from ..runtime.sharding import axis_size, batch_index, n_batch_shards
 from . import decode_sharded as DS
 from . import recurrent as rec
 from .flash_attention import flash_attention_sharded
@@ -167,7 +170,9 @@ class _Draws:
 
         def draws():
             for _ in range(self.n_layers or 1):
-                if uniform is not None:
+                if gen is None:              # shapes alone: no draw
+                    yield torch.empty(shape, dtype=dtype, device="meta")
+                elif uniform is not None:
                     lo, hi = uniform
                     yield torch.rand(shape, generator=gen, dtype=dtype,
                                      device=gen.device).mul_(hi - lo).add_(lo)
@@ -216,10 +221,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     consume them before it returns; the default stacks them into f32
     masters.  ``core.store.build_trees`` casts and compresses each unit's
     draw as it comes instead, so a caller never holds more than one unit's
-    f32 draw of a stacked leaf, and both see the same weights."""
+    f32 draw of a stacked leaf, and both see the same weights.
+
+    ``device="meta"`` draws nothing: the leaves are shapes alone (what
+    ``runtime.sharding.param_pspecs`` reads to place a tree no rank holds
+    whole)."""
     check_supported(cfg)
     dev = resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     leaf = leaf or _stack
     top = _Draws(gen, dtype, leaf, None)
     d, V = cfg.d_model, cfg.vocab_size
@@ -325,21 +335,29 @@ def _attn_out(p, o, dtype):
 
 
 def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype,
-                         mesh=None):
+                         mesh=None, q_base=None):
     """Full-sequence causal self attention (prefill): the flash kernel, or
     for a ``local`` layer whose window is shorter than the prompt,
     :func:`local_attention` (the reference's condition).  On a mesh the
-    flash kernel's query rows split over ``model``."""
+    flash kernel's query rows split over ``model``; ``q_base`` (training's
+    sequence split) says that ``x`` holds positions ``[q_base, q_base +
+    T)`` of a sequence the model ranks split."""
     T = x.shape[1]
-    positions = torch.arange(T, device=x.device)
+    positions = (q_base or 0) + torch.arange(T, device=x.device)
     q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype,
                                             kind != "nope", positions))
+    if q_base is not None and kind == "local" and \
+            cfg.local_window < T * axis_size(mesh, "model"):
+        raise NotImplementedError(
+            f"{cfg.name}: a local layer whose window ({cfg.local_window}) "
+            f"is shorter than the sequence under the sequence split")
     if kind == "local" and cfg.local_window < T:
         o = local_attention(q, k, v, window=cfg.local_window,
                             attn_softcap=cfg.attn_softcap)
     elif mesh is not None:
         o = flash_attention_sharded(q, k, v, mesh,
-                                    attn_softcap=cfg.attn_softcap)
+                                    attn_softcap=cfg.attn_softcap,
+                                    q_base=q_base)
     else:
         o = ops.flash_attention(q, k, v, True, cfg.attn_softcap)
     return _attn_out(p, o, dtype), (k, v)
@@ -529,16 +547,18 @@ def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None,
 
 
 def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
-                      cross_kv=None, aux=None, mesh=None):
+                      cross_kv=None, aux=None, mesh=None, q_base=None):
     """Full-sequence layer (prefill, forward).  Returns (x, (k, v)) for an
     attention layer, (x, final state) for a recurrent one; an mLSTM runs
     at the reference's ``chunk = min(128, T)``, so ``T`` must be at most
     128 or a multiple of it.  ``cross_kv``: the layer's cross-attention
     K/V (:func:`_cross_kv`) in an encoder-decoder's decoder.  On a mesh a
-    MoE layer routes the rows as one group (``rows="own"``)."""
+    MoE layer routes the rows as one group (``rows="own"``).  ``q_base``:
+    :func:`_self_attention_full`'s."""
     h = rms_norm(x, p["norm1"])
     if kind in ATTN_KINDS:
-        o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype, mesh)
+        o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype, mesh,
+                                     q_base)
     elif kind == "rglru":
         o, st = rec.rglru_apply(p["rglru"], h, dtype=dtype)
     elif kind == "slstm":
@@ -797,7 +817,30 @@ def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None,
     return logits, cache
 
 
-def forward(params, cfg: ArchConfig, tokens, frames=None, remat: bool = False):
+def _gathered(tree, path, u, gather):
+    """A layer's leaves (unit ``u``'s of a stacked group, or an unstacked
+    one's), each through ``gather(path, shard, u)``."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v, path + (k,), u, gather)
+                for k, v in tree.items()}
+    return gather(path, tree, u)
+
+
+def check_mesh_trainable(cfg: ArchConfig) -> None:
+    """Raise for what training on a mesh does not run yet: experts (the
+    backward of the expert exchange), recurrent mixers and an encoder."""
+    if cfg.n_experts or any(k in REC_KINDS for k in cfg.pattern) or \
+            any(k in REC_KINDS for k in _tail_kinds(cfg)) or \
+            cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a mesh runs the dense attention "
+            f"stacks; a mixture-of-experts, recurrent or encoder-decoder "
+            f"stack on a mesh is the next training slice's (the backward "
+            f"of moe_apply's two all_to_all first)")
+
+
+def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
+            remat: bool = False, constrain=None, gather=None):
     """The full-sequence forward (the reference's training forward) ->
     (logits (B, T, V) f32, aux): ``aux`` the summed load-balancing loss of
     the MoE layers (0 without experts), summed a unit at a time as the
@@ -807,20 +850,55 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, remat: bool = False):
     backward (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint`` of its scan body: the unit is the remat boundary;
     the tail layers and the encoder are not checkpointed, as there).  An
-    encoder-decoder takes ``frames`` (B, F, d)."""
+    encoder-decoder takes ``frames`` (B, F, d).
+
+    On a mesh of ranks (``mesh``; the dense attention stacks): ``tokens``
+    are this rank's batch shard's rows and ``params`` its shards of the
+    leaves (``runtime.sharding.local_shard``); ``gather(path, shard, u)``
+    returns a leaf whole where a layer uses it (unit ``u``'s of a stacked
+    leaf; ``runtime.collectives.LeafGather``), inside the unit, so that
+    remat gathers it again in the recompute.  ``constrain``
+    (``runtime.sharding.make_constrainer``) cuts the stream after the
+    embedding: under the sequence split the rank runs positions ``[s, s +
+    t)`` of its rows (the flash attention with ``q_base = s`` against k / v
+    gathered over ``model``) and returns their logits (B, t, V); else the
+    stream stays whole over ``model`` and the flash attention splits its
+    query rows (:func:`flash_attention_sharded`)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
-    x = _embed(params, cfg, tokens, dtype)
+    if mesh is not None:
+        check_mesh_trainable(cfg)
+    if gather is None:
+        def top(name):
+            return params[name]
+
+        def unit_params(section, key, u):
+            return _at(params, section, key, u)
+    else:
+        def top(name):
+            return gather((name,), params[name], None)
+
+        def unit_params(section, key, u):
+            return _gathered(params[section][key], (section, key), u, gather)
+
+    embed = top("embed")
+    x = _embed({"embed": embed}, cfg, tokens, dtype)
+    cut = None
+    if constrain is not None:
+        cut = constrain.rows(x.shape[1])
+        x = constrain(x)
+    q_base = None if cut is None else cut[0]
     ctx = _context(params, cfg, frames, dtype)
 
     def layer(p, x, kind, aux):
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
-        return _layer_apply_full(p, x, cfg, kind, dtype, kv, aux)[0]
+        return _layer_apply_full(p, x, cfg, kind, dtype, kv, aux, mesh,
+                                 q_base)[0]
 
     def unit_body(x, u):
         aux = []
         for j, kind in enumerate(cfg.pattern):
-            x = layer(_layer(params["units"][f"pos{j}"], u), x, kind, aux)
+            x = layer(unit_params("units", f"pos{j}", u), x, kind, aux)
         return x, _total(aux, x.device)
 
     total = torch.zeros((), dtype=F32, device=x.device)
@@ -832,9 +910,12 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, remat: bool = False):
         total = total + a
     for t, kind in enumerate(_tail_kinds(cfg)):
         aux = []
-        x = layer(params["tail"][f"layer{t}"], x, kind, aux)
+        x = layer(unit_params("tail", f"layer{t}", None), x, kind, aux)
         total = total + _total(aux, x.device)
-    return _unembed(params, cfg, x, dtype), total
+    head = {"final_norm": top("final_norm"), "embed": embed}
+    if not cfg.tie_embeddings:
+        head["unembed"] = top("unembed")
+    return _unembed(head, cfg, x, dtype), total
 
 
 def _total(aux: list, device):
@@ -862,12 +943,36 @@ def _check_trainable(params) -> None:
 
 
 def _loss_fn(params, cfg: ArchConfig, tokens, labels, frames=None,
-             remat: bool = False, aux_weight: float = 0.01):
+             mesh=None, remat: bool = False, aux_weight: float = 0.01,
+             constrain=None, gather=None):
     """The reference's ``loss_fn``: the mean next-token NLL of the f32
     logits' log-softmax plus ``aux_weight`` x the MoE loss -> (loss,
-    {"nll", "aux"}).  A tree holding compressed weights is refused."""
+    {"nll", "aux"}).  A tree holding compressed weights is refused.
+
+    On a mesh (:func:`forward`'s ``mesh``, ``constrain`` and ``gather``;
+    ``tokens`` / ``labels`` this rank's rows): the mean over the *global*
+    batch, the same on every rank.  Each rank sums the NLL of the positions
+    it ran over the global count; the sum over the ranks that ran other
+    rows or positions (``runtime.collectives.SumForward``, whose backward
+    hands each rank's part the loss's own cotangent) is the loss."""
     _check_trainable(params)
-    logits, aux = forward(params, cfg, tokens, frames=frames, remat=remat)
+    logits, aux = forward(params, cfg, tokens, frames=frames, mesh=mesh,
+                          remat=remat, constrain=constrain, gather=gather)
+    if mesh is not None:
+        from ..runtime.collectives import SumForward
+        from ..runtime.sharding import grad_axes
+        cut = None if constrain is None else constrain.rows(
+            labels.shape[1])
+        if cut is not None:
+            labels = labels.narrow(1, cut[0], cut[1])
+        parts = n_batch_shards(mesh) * (1 if cut is None else
+                                        axis_size(mesh, "model"))
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.take_along_dim(logp, labels[..., None].long(),
+                                    dim=-1)[..., 0]
+        loss = SumForward.apply(nll.sum() / (nll.numel() * parts), mesh,
+                                grad_axes(mesh, cut is not None))
+        return loss, {"nll": loss, "aux": aux}
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
     loss = nll.mean() + aux_weight * aux
@@ -912,8 +1017,8 @@ def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
     rows = slice(None)
     paged_mesh = DS.paged_shardable(page_table, cur_len, mesh)
     if paged_mesh:
-        b_loc = B // axis_size(mesh, "data")
-        lo = mesh.get_local_rank("data") * b_loc
+        b_loc = B // n_batch_shards(mesh)
+        lo = batch_index(mesh) * b_loc
         rows = slice(lo, lo + b_loc)
     shared = (mesh is not None and cur_len.ndim == 0
               and axis_size(mesh, "model") > 1)
@@ -1003,8 +1108,7 @@ def _chunk_stack(params, cfg: ArchConfig, tokens, cache, slot: int,
     n_slots = cache["page_table"].shape[0]
     if not DS.chunk_shardable(mesh):
         mesh = None
-    elif slot // (n_slots // axis_size(mesh, "data")) != \
-            mesh.get_local_rank("data"):
+    elif slot // (n_slots // n_batch_shards(mesh)) != batch_index(mesh):
         cur_len[slot] = start + n_valid
         return None
     row = cache["page_table"][slot]

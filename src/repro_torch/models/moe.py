@@ -50,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from ..runtime import collectives
-from ..runtime.sharding import axis_size
+from ..runtime.sharding import (axis_size, batch_axes, batch_index,
+                                n_batch_shards)
 from .layers import F32, mat, mlp_apply, mlp_init
 
 
@@ -197,7 +198,7 @@ def _routed_over_data(xt, gate_w, experts, cfg, mesh):
     E, k = cfg.n_experts, cfg.top_k
     w_te, probs = _gate(xt, gate_w, k, E)
     both = collectives.gather_rows(torch.cat([w_te, probs], 1), mesh,
-                                   "data").reshape(-1, 2 * E)
+                                   batch_axes(mesh)).reshape(-1, 2 * E)
     w_all, p_all = both[:, :E], both[:, E:]
     N = w_all.shape[0]
     cap = _capacity(N, cfg)
@@ -205,7 +206,7 @@ def _routed_over_data(xt, gate_w, experts, cfg, mesh):
     if cap > N:
         sel_w = F.pad(sel_w, (0, cap - N))
         sel_idx = F.pad(sel_idx, (0, cap - N))
-    lo = mesh.get_local_rank("data") * n
+    lo = batch_index(mesh) * n
     here = (sel_idx >= lo) & (sel_idx < lo + n)
     sel_w = torch.where(here, sel_w, 0.0)                  # others' rows: 0
     sel_idx = torch.where(here, sel_idx - lo, 0)
@@ -225,7 +226,7 @@ def _moe_apply(params, x, cfg, *, mesh=None, rows: str = "all",
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n_ep = axis_size(mesh, "model")
-    n_data = axis_size(mesh, "data")
+    n_data = n_batch_shards(mesh)
     if E % n_ep:
         raise ValueError(f"{cfg.name}: {E} experts do not split over a "
                          f"model axis of {n_ep}")

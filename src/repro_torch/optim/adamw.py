@@ -13,12 +13,22 @@ Unlike the reference's pure update, :func:`adamw` writes the new
 parameters and moments into the tensors it is given (and returns them):
 holding the old and the new state at once would cost another 10 bytes a
 parameter on the card.
+
+On a mesh of ranks each rank updates its shards of the parameters and
+moments (``runtime.sharding.local_shard``) from its shards of the reduced
+gradients: the update is elementwise, so only the global gradient norm
+needs the others.  Each rank sums the squares of its shards, counting a
+leaf that its spec leaves replicated over an axis on one rank of that axis
+alone (``sharding.counts_once``), and the sums add up over the mesh.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from ..runtime.collectives import sum_over_mesh
+from ..runtime.sharding import counts_once
 
 F32 = torch.float32
 
@@ -64,14 +74,21 @@ def _adamw_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _clip_by_global_norm(grads, max_norm: float):
-    """Clip a gradient tree to a maximum global L2 norm.
+def _clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
+    """Clip a gradient tree to a maximum global L2 norm.  On a mesh
+    ``grads`` are this rank's shards under ``specs`` (a tree of
+    ``runtime.sharding.P`` like ``grads``): the norm is the whole tree's.
 
     Returns (clipped_grads, pre_clip_norm)."""
     device = next(iter_leaves(grads))[1].device
     sq = torch.zeros((), dtype=F32, device=device)
-    for _, g in iter_leaves(grads):
+    flat_spec = {} if specs is None else dict(iter_leaves(specs))
+    for path, g in iter_leaves(grads):
+        if mesh is not None and not counts_once(flat_spec[path], mesh):
+            continue
         sq = sq + torch.sum(torch.square(g.to(F32)))
+    if mesh is not None:
+        sq = sum_over_mesh(sq, mesh)
     gnorm = torch.sqrt(sq)
     scale = torch.where(gnorm > max_norm,
                         max_norm / torch.clamp(gnorm, min=1e-12),
@@ -79,16 +96,20 @@ def _clip_by_global_norm(grads, max_norm: float):
     return map_tree(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gnorm
 
 
-def _adamw(params, grads, state, cfg: AdamWConfig, lr=None):
+def _adamw(params, grads, state, cfg: AdamWConfig, lr=None, mesh=None,
+           specs=None):
     """One AdamW update, written into ``params`` and ``state``'s moments.
     Returns (params, new_state, metrics).
 
-    ``lr`` overrides cfg.lr (a 0-d f32 tensor: the schedule's value)."""
+    ``lr`` overrides cfg.lr (a 0-d f32 tensor: the schedule's value).  On
+    a mesh, ``params``, ``grads`` and the moments are this rank's shards
+    under ``specs`` (the module docstring)."""
     lr = cfg.lr if lr is None else lr
     device = next(iter_leaves(params))[1].device
     gnorm = torch.zeros((), dtype=F32, device=device)
     if cfg.clip_norm:
-        grads, gnorm = _clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = _clip_by_global_norm(grads, cfg.clip_norm, mesh,
+                                            specs)
 
     count = state["count"] + 1
     c1 = 1.0 - cfg.b1 ** count.to(F32)

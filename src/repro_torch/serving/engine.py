@@ -103,6 +103,7 @@ from ..kvcache import paged as paged_kv
 from ..models import model as M
 from ..runtime import collectives
 from ..runtime.monitor import KVCacheMonitor, StragglerMonitor
+from ..runtime.sharding import batch_index
 from . import spec as SPEC
 from .config import EngineConfig
 from .sampler import greedy, key_generator, request_key, root_key, \
@@ -182,7 +183,7 @@ class GenerationEngine:
         self.cache_mode = config.cache_mode
         self.mesh = mesh = config.mesh
         n_shards, self.n_model = config.n_shards(), config.n_model_shards()
-        self.d_rank = mesh.get_local_rank("data") if mesh is not None else 0
+        self.d_rank = batch_index(mesh)
         self.weights_checksum = self.resident_bytes = None
         if mesh is not None:
             got = collectives.check_replicated(params, mesh,

@@ -222,8 +222,11 @@ def test_available_steps_skips_stray_entries(tmp_path):
 
 
 def test_restore_onto_shardings_is_refused(tmp_path):
+    """Shardings that do not place every leaf of the template are refused
+    before any step is read (a restore onto shardings places each leaf by
+    its own: ``tests/test_torch_train_mesh.py`` restores across meshes)."""
     save_tree(_tree(1), str(tmp_path), step=1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="shardings"):
         restore_tree(str(tmp_path), _tree(), shardings={}, device="cpu")
 
 

@@ -1173,6 +1173,70 @@ def test_flash_kernel_q_base(card, dtype, tol, Hq, Hkv, D, cap, T, part):
                                               softcap=cap))
 
 
+# B5 with q_base: qwen3-8b's heads and gemma2-9b's (D = 256, softcap 50)
+_BWD_Q_BASE_HEADS = [(32, 8, 128, 0.0), (16, 8, 256, 50.0)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Hq,Hkv,D,cap", _BWD_Q_BASE_HEADS)
+@pytest.mark.parametrize("base", [512, 768])
+def test_flash_bwd_q_base_matches_plain(card, dtype, tol, Hq, Hkv, D, cap,
+                                        base):
+    """B5 on the rows ``[base, 1024)`` of a causal sequence of 1024 keys (a
+    model rank's rows of the query-row split), from the shard's own
+    forward statistics (B4 with the same ``q_base``), against its plain
+    version: dq, dk, dv within ``tol`` x the plain gradient's largest
+    magnitude; one launch counted with ``q_base``."""
+    from repro_torch.kernels import flash_bwd
+    T = 1024
+    q, k, v, do = _attn_inputs(card, 1, Hq, Hkv, T, T, D, dtype)
+    q, do = q[:, :, base:].contiguous(), do[:, :, base:].contiguous()
+    o, m, l = flash_fwd.run(q, k, v, causal=True, softcap=cap, stats=True,
+                            q_base=base)
+    before = flash_bwd.run.launches_q_base
+    got = flash_bwd.run(q, k, v, o, m, l, do, causal=True, softcap=cap,
+                        q_base=base)
+    assert flash_bwd.run.launches_q_base == before + 1
+    want = flash_bwd.plain(q, k, v, o, m, l, do, True, cap, q_base=base)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D,cap", _BWD_Q_BASE_HEADS)
+def test_flash_bwd_q_base_shards_sum_to_the_unsharded(card, Hq, Hkv, D,
+                                                      cap):
+    """Four 256-row shards of T = 1024 (q_base 0, 256, 512, 768) in bf16:
+    each shard's forward statistics are the unsharded launch's rows bit for
+    bit, so is each shard's dq; the four shards' dk / dv sum to the
+    unsharded dk / dv within 2e-2 of its largest magnitude (the sums run in
+    another order)."""
+    from repro_torch.kernels import flash_bwd
+    T, n = 1024, 256
+    q, k, v, do = _attn_inputs(card, 1, Hq, Hkv, T, T, D, torch.bfloat16)
+    o, m, l = flash_fwd.run(q, k, v, causal=True, softcap=cap, stats=True)
+    dq, dk, dv = flash_bwd.run(q, k, v, o, m, l, do, causal=True,
+                               softcap=cap)
+    sk = sv = 0
+    for base in range(0, T, n):
+        rows = slice(base, base + n)
+        qs, dos = q[:, :, rows].contiguous(), do[:, :, rows].contiguous()
+        os_, ms, ls = flash_fwd.run(qs, k, v, causal=True, softcap=cap,
+                                    stats=True, q_base=base)
+        for got, want in ((os_, o), (ms, m), (ls, l)):
+            assert torch.equal(got, want[:, :, rows].contiguous()), base
+        g = flash_bwd.run(qs, k, v, os_, ms, ls, dos, causal=True,
+                          softcap=cap, q_base=base)
+        assert torch.equal(g[0], dq[:, :, rows]), base
+        sk, sv = sk + g[1].float(), sv + g[2].float()
+    for got, want, name in ((sk, dk, "dk"), (sv, dv, "dv")):
+        err = float((got - want.float()).abs().max())
+        assert err <= 2e-2 * float(want.float().abs().max()), (name, err)
+
+
 @pytest.mark.parametrize("n_ranks", [2, 4])
 def test_mesh_serve_on_the_card(card, n_ranks):
     """The mesh engine's ranks on the card: two ranks sharing card 0 over

@@ -333,3 +333,24 @@ def test_draft_params_and_cfg_must_travel_together(world):
     with pytest.raises(ValueError, match="together"):
         GenerationEngine(params, cfg, config=EngineConfig(draft_cfg=cfg),
                          device="cpu")
+
+
+def test_n_shards_folds_the_pod_axis_as_the_reference():
+    """The batch shards of a multi-pod mesh are ``pod x data`` (32 on the
+    reference's production shape), the reference's ``n_shards`` on a
+    stand-in mesh; the rank's shard folds its pod and data indices."""
+    from repro_torch.runtime.sharding import MeshShape
+    axes, sizes = ("pod", "data", "model"), (2, 16, 16)
+    stand_in = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, sizes)))
+    want = RefEngineConfig(mesh=stand_in).n_shards()
+    assert want == 32
+    assert EngineConfig(mesh=MeshShape(axes, sizes)).n_shards() == want
+    assert EngineConfig(mesh=MeshShape(("data", "model"), (4, 2))
+                        ).n_shards() == 4
+    from repro_torch.runtime.sharding import batch_index, n_batch_shards
+    # a (pod, data) stand-in: shard p * 16 + d on every model index
+    for p, d, m in ((0, 0, 3), (0, 15, 0), (1, 0, 7), (1, 9, 15)):
+        mesh = MeshShape(axes, sizes, coords=(p, d, m))
+        assert n_batch_shards(mesh) == 32
+        assert batch_index(mesh) == p * 16 + d
+    assert n_batch_shards(None) == 1 and batch_index(None) == 0
