@@ -80,7 +80,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      largest magnitude), dq / dk / dv within 2e-2 x the plain gradient's
      largest magnitude; f32 at T 451 within 1e-5; timed on the card beside
      the backward alone of ``F.scaled_dot_product_attention`` at the same
-     shape (no softcap), a yardstick;
+     shape (no softcap), a yardstick, each timing with the registers and
+     spill bytes a thread of B5's two kernels (``flash_bwd.attributes``);
   4. a small f32 model whose prefill logits on the card (both kernels)
      agree with the CPU run (plain versions), whose paged-compressed
      decode-step logits, with cold pages, agree too, and whose chunked-
@@ -851,6 +852,7 @@ def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
     bound_ops = flops / peak * 1e3
     bound_bytes = moved / H100_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops, bound_bytes)
+    regs = flash_bwd.attributes(D, dtype)   # (registers, spill bytes)
     log(f"flash_bwd {what}: o with stats bit-identical, m / l within "
         f"{stats_err:.2e} (tol {FLASH_STATS_TOL}); dq / dk / dv max_abs_err "
         f"{err:.3e} ({rel:.2e} of the largest, tol {tol}); kernel {ms:.4f}"
@@ -858,12 +860,14 @@ def check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, T, heads, D,
         f"(kernel / sdpa {ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
         f"({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
         f"{100 * bound_ms / ms:.1f} % of it), {flops / ms / 1e9:.2f} "
-        f"TFLOP/s; B4 forward {fwd_ms:.4f} ms, with stats {stats_ms:.4f} ms")
+        f"TFLOP/s; registers / spill bytes a thread: dq {regs['dq']}, "
+        f"dk / dv {regs['dkv']}; B4 forward {fwd_ms:.4f} ms, with stats "
+        f"{stats_ms:.4f} ms")
     return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                 library_ms=lib_ms, stats_err=stats_err, fwd_ms=fwd_ms,
-                fwd_stats_ms=stats_ms)
+                fwd_stats_ms=stats_ms, registers=regs)
 
 
 def _profile_step(torch, run_step, wall_s):
@@ -976,6 +980,9 @@ def train_phase(torch, M, kernels, cfg, seed):
     params, opt, _ = state.pop("out")
     log(f"phase 20 traced step ({time.perf_counter() - t0:.1f} s under the "
         f"profiler): {trace}")
+    if not (trace["b4_ms"] > 0 and trace["b5_ms"] > 0):
+        fail(f"phase 20 traced step: no B4 / B5 time among the traced "
+             f"kernels ({trace['b4_ms']} / {trace['b5_ms']} ms)")
     del params, opt, batch
     # the reference: the attention patched to the plain versions, for unit
     # 0's attention gradients on micro-batch 0 and for step 0 from the same

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BQ = 64;
@@ -100,7 +102,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
 
 
 // --------------------------------------------------------------------------
-// bf16 / fp16: tensor cores (mma.sync.m16n8k16, ldmatrix, cp.async ring)
+// bf16 / fp16: tensor cores (wgmma, cp.async ring; csrc/hopper.cuh)
 // --------------------------------------------------------------------------
 
 // one warpgroup a CTA up to D = 128: two, sharing each K/V tile, ran
@@ -110,225 +112,6 @@ template <int D>
 __host__ __device__ constexpr int tc_groups() {
   return D > 128 ? D / 128 : 1;
 }
-constexpr float kLog2e = 1.4426950408889634f;
-
-// two f32 -> one register of two T, the lower column in the low half
-template <typename T>
-struct Pack;
-template <>
-struct Pack<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <>
-struct Pack<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// element offset of (row, col) in a 64-row tile of D 16-bit columns, in
-// blocks of 64 columns (8 KB each, 128-byte rows), each row's eight 16-byte
-// chunks XOR-swizzled by row % 8: the 128-byte swizzle of wgmma's shared
-// operands (for a 1024-byte aligned tile), free of bank conflicts for
-// ldmatrix too
-template <int D>
-__device__ __forceinline__ int swz(int row, int col) {
-  return (col >> 6) * (64 * 64) + row * 64 +
-         ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
-}
-
-// warpgroup MMA (wgmma): D (64 x N, f32 registers) = A . B with A from
-// shared memory (ss: Q, K-major) or from registers (rs: P), B from shared
-// memory through a descriptor (K, K-major; V, MN-major, so trans-b = 1)
-template <typename T>
-struct Wgmma;
-template <>
-struct Wgmma<__nv_bfloat16> {
-  static __device__ __forceinline__ void ss_n64(float* d, uint64_t da,
-                                                uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs_n64(float* d, const uint32_t* a,
-                                                 uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-  static __device__ __forceinline__ void rs_n128(float* d, const uint32_t* a,
-                                                 uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <>
-struct Wgmma<__half> {
-  static __device__ __forceinline__ void ss_n64(float* d, uint64_t da,
-                                                uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs_n64(float* d, const uint32_t* a,
-                                                 uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-  static __device__ __forceinline__ void rs_n128(float* d, const uint32_t* a,
-                                                 uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// writes of the generic proxy (st.shared, cp.async) made visible to the
-// async proxy that wgmma reads shared memory through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo,
-                                              int sbo) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
 
 template <int D>
 __host__ __device__ constexpr size_t tc_smem_bytes() {
@@ -382,8 +165,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / CH, c = i % CH;
       const bool in = k0 + r < Tk;
       const size_t src = in ? size_t(k0 + r) * D + c * 8 : 0;
-      cp_async16(dk + swz<D>(r, c * 8), kb + src, in ? 16 : 0);
-      cp_async16(dv + swz<D>(r, c * 8), vb + src, in ? 16 : 0);
+      cp_async16(dk + swz(r, c * 8), kb + src, in ? 16 : 0);
+      cp_async16(dv + swz(r, c * 8), vb + src, in ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -400,7 +183,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       e[j] = Elem<T>::store(Elem<T>::load(e[j]) * scale_t);
-    *reinterpret_cast<uint4*>(sQ + swz<D>(r, c * 8)) = raw;
+    *reinterpret_cast<uint4*>(sQ + swz(r, c * 8)) = raw;
   }
   fence_proxy_async();
   __syncthreads();
@@ -439,7 +222,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        gmma_desc(tK + off, 16, 1024), ks > 0);
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
 
     // softcap and mask; element e of s[j] is row g + 8 * (e >> 1), key
     // 8j + 2t + (e & 1)
@@ -523,7 +306,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     __syncthreads();  // this stage's readers are done before it refills
   }
 
@@ -550,7 +333,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const uint32_t w = Pack<T>::pack(acc[4 * j + 2 * hf] / l_run[hf],
                                       acc[4 * j + 2 * hf + 1] / l_run[hf]);
       *reinterpret_cast<uint32_t*>(
-          sQ + swz<D>(r0 + g + 8 * hf, c0 + 8 * j + 2 * t)) = w;
+          sQ + swz(r0 + g + 8 * hf, c0 + 8 * j + 2 * t)) = w;
     }
   }
   __syncwarp();
@@ -558,7 +341,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / (DV / 8), c = c0 + 8 * (i % (DV / 8));
     if (q0 + r0 + r < Tq)
       *reinterpret_cast<uint4*>(ob + size_t(q0 + r0 + r) * D + c) =
-          *reinterpret_cast<const uint4*>(sQ + swz<D>(r0 + r, c));
+          *reinterpret_cast<const uint4*>(sQ + swz(r0 + r, c));
   }
 }
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C function that launches its
 kernel on the stream it is given and returns ``cudaGetLastError()``.  It is
 compiled for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at the
-repository root, keyed by a hash of the source so an edited source is
-rebuilt; nothing is compiled or imported until a kernel is first needed.
+repository root, keyed by a hash of the source and the shared headers
+(``csrc/*.cuh``) so an edited source is rebuilt; nothing is compiled or
+imported until a kernel is first needed.
 
     python -c "from repro_torch.kernels import build; print(build.build())"
 """
@@ -50,7 +51,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

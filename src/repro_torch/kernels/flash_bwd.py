@@ -6,15 +6,24 @@ TPU kernel: XLA compiles it there.  On the card it is a kernel, in two
 deterministic launches without atomics: (a) one CTA per ``(b * Hq + h,
 64-row q block)`` computes ``delta = rowsum(dO * O)`` for its rows and dq
 over the K/V tiles its rows can see; (b) one CTA per ``(b * Hkv + hk,
-64-key block)`` computes dk and dv over every head of the GQA group and
-the query tiles that can see its keys.  Both recompute the probabilities
-from q, k and the forward's row statistics (m, l) (``flash_fwd.run(...,
-stats=True)``), with causality, ragged Tq / Tk and the softcap, as the
-forward kernel masks them.  What bounds it on the H100 is operations: five
-products of ``2 * D`` flops per visible (q, k) pair, 2.5x the forward's.
-bf16 and fp16 multiply on the tensor cores (warp-level ``mma.sync``
-m16n8k16, f32 accumulators); f32 computes the same fragments with scalar
-FMAs.
+128-key block)`` (64 keys at D = 256) computes dk and dv over every head of
+the GQA group and the query tiles that can see its keys.  Both recompute
+the probabilities from q, k and the forward's row statistics (m, l)
+(``flash_fwd.run(..., stats=True)``), with causality, ragged Tq / Tk and
+the softcap, as the forward kernel masks them.  What bounds it on the H100
+is operations: five products of ``2 * D`` flops per visible (q, k) pair,
+2.5x the forward's; S and dP are recomputed by both launches (seven
+products), so the design reaches at most 5/7 of that bound.
+
+bf16 and fp16 run all seven products on Hopper's warpgroup MMA
+(``wgmma``, f32 accumulators), a warpgroup per 64 rows: S / S^T and dP /
+dP^T from K-major swizzled tiles, and dS (in (a)), P^T and dS^T (in (b)),
+rounded to the input dtype, fed from registers as the A operand of dq +=
+dS K, dv += P^T dO and dk += dS^T q, with K, dO and q read MN-major.  The
+loop's tiles arrive by ``cp.async`` into a two-stage ring.  At D = 256 two
+warpgroups split the output columns, each computing S and dP.  f32
+computes the same fragments with scalar FMAs.  :func:`attributes` reads
+each instance's registers and spill bytes.
 
 :func:`run` launches the kernel for tensors on the card; :data:`plain`
 (``models.flash_attention.flash_attention_bwd``) is the plain PyTorch
@@ -91,3 +100,20 @@ def run(q, k, v, o, m, l, do, causal: bool = True, softcap: float = 0.0,
 
 run.launches = 0
 run.launches_q_base = 0
+
+
+def attributes(D: int, dtype: torch.dtype) -> dict:
+    """Registers a thread and local (spill) bytes a thread of the instance
+    ``(D, dtype)``'s two kernels, as ``cudaFuncGetAttributes`` reports them
+    on the card: ``{"dq": (regs, local), "dkv": (regs, local)}``."""
+    if D not in _HEAD_DIMS or dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_bwd: no instance (D {D}, {dtype})")
+    lib = build.load("flash_bwd", _ARGTYPES)
+    fn = lib.flash_bwd_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(D, _DTYPE_CODES[dtype], ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"flash_bwd_attrs failed: CUDA error {err}")
+    return {"dq": (out[0], out[1]), "dkv": (out[2], out[3])}

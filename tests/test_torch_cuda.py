@@ -1206,6 +1206,82 @@ def test_flash_bwd_q_base_matches_plain(card, dtype, tol, Hq, Hkv, D, cap,
         assert err <= tol * float(w.float().abs().max()), (name, err)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Hq,Hkv,D,cap", _BWD_Q_BASE_HEADS)
+def test_flash_bwd_q_base_off_the_tile_edge(card, dtype, tol, Hq, Hkv, D,
+                                            cap):
+    """B5 on the rows ``[226, 452)`` of a causal sequence of 452 keys (a
+    model rank's rows that start inside a 64-row tile, as B4's ``q_base``
+    test has them) against its plain version within ``tol``; dq is the
+    unsharded launch's rows bit for bit (the key tiles sit at absolute
+    positions, and a tile past a row's last key adds zeros)."""
+    from repro_torch.kernels import flash_bwd
+    T, base = 452, 226
+    q, k, v, do = _attn_inputs(card, 1, Hq, Hkv, T, T, D, dtype)
+    o, m, l = flash_fwd.run(q, k, v, causal=True, softcap=cap, stats=True)
+    dq = flash_bwd.run(q, k, v, o, m, l, do, causal=True, softcap=cap)[0]
+    rows = slice(base, T)
+    qs, dos = q[:, :, rows].contiguous(), do[:, :, rows].contiguous()
+    os_, ms, ls = flash_fwd.run(qs, k, v, causal=True, softcap=cap,
+                                stats=True, q_base=base)
+    got = flash_bwd.run(qs, k, v, os_, ms, ls, dos, causal=True,
+                        softcap=cap, q_base=base)
+    want = flash_bwd.plain(qs, k, v, os_, ms, ls, dos, True, cap,
+                           q_base=base)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+    assert torch.equal(got[0], dq[:, :, rows])
+
+
+# B5's bf16 / fp16 instances at each D: (Hq, Hkv, Tq, Tk, D, causal,
+# softcap), ragged lengths and single query rows among them (a causal
+# row that sees one key has dq = 0 exactly: no relative tolerance holds
+# there, so the single rows are non-causal)
+_BWD_TC_SHAPES = [(32, 8, 300, 300, 128, True, 0.0),
+                  (8, 8, 200, 333, 64, False, 0.0),
+                  (16, 8, 130, 130, 256, True, 50.0),
+                  (4, 2, 1, 65, 64, False, 0.0),
+                  (4, 2, 1, 300, 128, False, 0.0),
+                  (16, 8, 1, 77, 256, False, 30.0),
+                  (8, 2, 2, 2, 64, True, 0.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Hq,Hkv,Tq,Tk,D,causal,cap", _BWD_TC_SHAPES)
+def test_flash_bwd_deterministic(card, dtype, Hq, Hkv, Tq, Tk, D, causal,
+                                 cap):
+    """Two launches of B5 on the same inputs give the same bits (no
+    atomics: every sum runs in one order), within 2e-2 of the plain
+    gradients' largest magnitude."""
+    from repro_torch.kernels import flash_bwd
+    q, k, v, do = _attn_inputs(card, 2, Hq, Hkv, Tq, Tk, D, dtype)
+    o, m, l = flash_fwd.run(q, k, v, causal=causal, softcap=cap, stats=True)
+    first = flash_bwd.run(q, k, v, o, m, l, do, causal=causal, softcap=cap)
+    again = flash_bwd.run(q, k, v, o, m, l, do, causal=causal, softcap=cap)
+    want = flash_bwd.plain(q, k, v, o, m, l, do, causal, cap)
+    for a, b, w, name in zip(first, again, want, ("dq", "dk", "dv")):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
+        assert bool(torch.isfinite(a.float()).all()), name
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 2e-2 * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_bwd_attributes(card, dtype, D):
+    """Each instance's two kernels report their registers (at most the
+    card's 255 a thread) and spill bytes."""
+    from repro_torch.kernels import flash_bwd
+    got = flash_bwd.attributes(D, dtype)
+    for name in ("dq", "dkv"):
+        regs, local = got[name]
+        assert 0 < regs <= 255 and local >= 0, (name, got)
+
+
 @pytest.mark.parametrize("Hq,Hkv,D,cap", _BWD_Q_BASE_HEADS)
 def test_flash_bwd_q_base_shards_sum_to_the_unsharded(card, Hq, Hkv, D,
                                                       cap):

@@ -120,3 +120,25 @@ def test_no_probability_residuals_saved():
     assert max(sizes) <= B * H * T * D, sizes   # no (T, T) tensor saved
     o.sum().backward()
     assert all(t.grad is not None for t in leaves)
+
+
+def test_kernel_wrapper_refuses_tensors_off_the_card():
+    """``flash_bwd.run`` launches the kernel or raises: CPU tensors are
+    refused before any build, with no fallback to the plain version."""
+    from repro_torch.kernels import flash_bwd
+    q, k, v, do = map(torch.from_numpy, _qkv(1, 4, 2, 19, 19, 64))
+    o, m, l = fa.flash_attention_fwd_stats(q, k, v, True)
+    before = flash_bwd.run.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd.run(q, k, v, o, m, l, do)
+    assert flash_bwd.run.launches == before
+
+
+@pytest.mark.parametrize("D,dtype", [(96, torch.bfloat16),
+                                     (128, torch.float64)])
+def test_kernel_attributes_refuse_missing_instances(D, dtype):
+    """``flash_bwd.attributes`` names only the instances the source has
+    (D 64 / 128 / 256 in f32, bf16, fp16)."""
+    from repro_torch.kernels import flash_bwd
+    with pytest.raises(ValueError, match="no instance"):
+        flash_bwd.attributes(D, dtype)
