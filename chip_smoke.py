@@ -4,14 +4,16 @@ NVIDIA H100.
 Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py [--layers N] [--seed S] [--only 1,21[,22][,23]]
+    python3 chip_smoke.py [--layers N] [--seed S]
+                          [--only 1,21[,22][,23][,24]]
 
 ``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
-22 alone, ``--only 1,23`` phase 23 alone: on a host with four or more
-cards, ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full depth
-on four NCCL ranks, ``--only 1,22`` moonshot-v1-16b-a3b and
-llama4-scout-17b-a16e at full depth, and ``--only 1,23`` trains qwen3-8b at
-all 36 layers.
+22 alone, ``--only 1,23`` phase 23 alone, ``--only 1,24`` phase 24 alone:
+on a host with four or more cards, ``python3 chip_smoke.py --only 1,21``
+serves qwen3-8b at full depth on four NCCL ranks, ``--only 1,22``
+moonshot-v1-16b-a3b and llama4-scout-17b-a16e at full depth, ``--only
+1,23`` trains qwen3-8b at all 36 layers and ``--only 1,24``
+moonshot-v1-16b-a3b at 24 of its 48 layers.
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the five CUDA kernels built with
@@ -172,10 +174,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      IDENTICAL to 12a's); 12b the fp8 baseline tree alone on the card
      (tokens IDENTICAL to 12a's); weights, step, tok/s, prefill and the
      peak device memory with each tree resident printed.
-  13. gemma2-9b at full width and depth (42 layers, ("local", "attn"),
+  13. gemma2-9b at full width and ``GEMMA_LAYERS`` of its 42 layers
+     (("local", "attn") units,
      window 4096, head_dim 256, softcaps, post-norms), 4 requests of
      ``GEMMA_PROMPTS`` tokens, max_len 8192, page 16, 32 new tokens:
-     13a the ECF8 tree alone, paged (B1 at 7 x 42 + 2 launches a pass, B4
+     13a the ECF8 tree alone, paged (B1 at 7 x 22 + 2 launches a pass, B4
      at D = 256 in every layer of a prompt the window covers and in the
      global ones past it); 13c 13a on a raw pool of
      ``GEMMA_SWAP_N_PAGES`` pages without a cold pool, swap on: a slot
@@ -363,11 +366,42 @@ Phases, each failing loudly (non-zero exit, no result line):
      the collectives' ms a step (a further step with each collective
      synchronised and timed), resident and peak GiB, build s; per mesh:
      aggregate tokens/s and the model-FLOP share of the ranks' 989 TFLOP/s.
-Each phase logs the time since the start when it is done.  Phases 5-12,
-16, 17 and 19 run at a cut depth so that the whole script stays near half
-its time limit (13-15 and 18 at full depth), 20 and 20b at a depth whose
-parameters, gradients and moments fit the card; every gate is
-depth-independent.
+  24. training the mixture-of-experts stack on a mesh of ranks (the MoE
+     layers route each data group's rows; on a model axis their two
+     ``all_to_all`` over ``model`` and the backward of each, under the
+     sequence split over the group's positions gathered over ``model``;
+     without one the routing weights gathered over ``data``; each rank
+     trains its ``E / M`` experts): before the ranks start, B5 and B4 with
+     statistics and ``q_base`` against their plain versions at moonshot's
+     heads on the last model rank's micro-batch.  moonshot's smoke stack in
+     f32, one step (remat, grad_accum 2) on ``1xN`` against one rank's step
+     on the card (parameters and first moments within 2e-4, the moments
+     of their largest magnitude), and on the model axis with the
+     sequence split against the stream whole over ``model`` (the same
+     routing: first moments within 2e-4; an ``M``-fold expert gradient
+     shows there).  On one card two gloo ranks share it: moonshot at full
+     width and ``MOE_TRAIN_LAYERS`` layers, global batch 4 x 512, one
+     step on ``1x2`` and ``--mesh 2``; with four cards four NCCL ranks at
+     ``MOE_TRAIN_FULL_LAYERS`` layers (more than one card holds), batch 8
+     x 2048, grad_accum 2, remat, ``MOE_TRAIN_STEPS`` steps on ``1x4``,
+     ``2x2`` and ``--mesh 4``.  Gates: every loss and gradient norm finite
+     and the ranks' losses equal; step 0 of ``1xN`` within 5e-3 (loss) and
+     2e-2 (gradient norm) of ``--mesh N``'s (both route as one device
+     does); B4 with statistics (twice a layer a micro-batch) and B5
+     launched on every rank, with ``q_base`` exactly on the model ranks
+     past the first, no other kernel; six ``all_to_all`` a MoE layer a
+     micro-batch on every rank of a model axis, none without one; each
+     rank's resident state at most 0.55 (one card) or 0.3 (four) of the
+     whole tree's bytes.  Per rank: step ms, the ``all_to_all`` ms and calls
+     a step, the other collectives' ms (a further step with each collective
+     synchronised and timed), resident and peak GiB; per mesh: tokens/s and
+     the model-FLOP share of the ranks' 989 TFLOP/s (the active parameters:
+     the attention, the shared SwiGLU, the gate and ``top_k`` experts).
+Each phase logs the time since the start when it is done.  Phases 5-13,
+16, 17 and 19 run at a cut depth so that the whole script stays well
+inside its time limit on a slow host (14, 15 and 18 at full depth), 20
+and 20b at a depth whose parameters, gradients and moments fit the card;
+every gate is depth-independent.
 No serve phase may launch the fused kernel.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -404,9 +438,10 @@ SPEC_K = 4              # phase 10's drafted tokens a round
 SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 MOE_ARCH = "moonshot-v1-16b-a3b"    # phase 12's model
-QWEN_LAYERS = 12        # phases 5-11's depth (qwen3-8b has 36)
+QWEN_LAYERS = 8         # phases 5-11's depth (qwen3-8b has 36)
 MOE_LAYERS = 24         # phase 12's depth (moonshot-v1-16b-a3b has 48)
 GEMMA_ARCH = "gemma2-9b"            # phase 13's model
+GEMMA_LAYERS = 22       # phase 13's depth: 11 of its 21 units
 # phase 13's prompts: longer than the local window (4096) at prefill
 # (local_attention, a rolled ring), one that wraps its ring in decode, one
 # that never does; submitted in this order
@@ -445,7 +480,7 @@ WHISPER_NEW = 64        # decode steps after each prefill
 TRAIN_LAYERS = 8
 TRAIN_STEPS = 6
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_LR = 4, 2048, 2, 3e-4
-CKPT_LAYERS = 2         # phase 20b: ~16 GB of bf16 weights + f32 moments
+CKPT_LAYERS = 1         # phase 20b: ~14 GB of bf16 weights + f32 moments
 # phase 20: unit 0's wq / wk / wv gradients against the plain attention's,
 # relative to their largest magnitude
 TRAIN_GRAD_TOL = 1e-2
@@ -454,7 +489,7 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 # max_batch 8 (two slots a batch shard); on one card two ranks share it at
 # QWEN_LAYERS with phase 5's 8 requests at max_batch 4
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
-MESH_PHASES = ("1", "21", "22", "23")   # what --only may name
+MESH_PHASES = ("1", "21", "22", "23", "24")   # what --only may name
 # phase 22 on one card: moonshot at 4 of its 48 layers on two gloo ranks
 # (its trees built four times, whole and halved, beside phase 21's
 # leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
@@ -467,6 +502,10 @@ MESH_SHARD_PAGES, MESH_SHARD_COLD = 32, 2   # 21a's pools a batch shard
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 2, 512, 4
 MESH_TRAIN_FULL_SEQ, MESH_TRAIN_FULL_BATCH = 2048, 8
 MESH_TRAIN_ACCUM = 2
+# phase 24: moonshot-v1-16b-a3b at full width, phase 23's batches; on one
+# card 2 of its 48 layers on two gloo ranks, on four cards 24 (the depth
+# phase 12 serves at: ~14.4 B parameters at ~10 bytes each, ~36 GB a rank)
+MOE_TRAIN_LAYERS, MOE_TRAIN_FULL_LAYERS, MOE_TRAIN_STEPS = 2, 24, 4
 
 
 def fail(msg: str):
@@ -3610,65 +3649,17 @@ def train_mesh_rank(rank, world, dev, spec):
     waits for it anyway, the counted steps themselves are timed instead)
     -> a dict of plain values."""
     import torch
-    import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
     from repro_torch.configs import get
-    from repro_torch.core.store import torch_dtype
     from repro_torch.data import DataConfig, SyntheticLMData
-    from repro_torch.kernels import ecf8_decode, flash_bwd, flash_fwd
-    from repro_torch.kernels import fused_decode_matmul as fused
-    from repro_torch.kvcache import kernels as kv_page
-    from repro_torch.launch import mesh as MESH
-    from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, iter_leaves
     from repro_torch.runtime import collectives
     from repro_torch.runtime import sharding as SH
     from repro_torch.runtime import steps as S
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    nccl = dist.get_backend() == "nccl"
-    gib = 2 ** 30
-    # every rank makes the meshes in the same order (each is a collective)
-    meshes = {dims: MESH.make_mesh(*dims, "cuda" if nccl else "cpu")
-              for dims in sorted({tuple(r["mesh"]) for r in spec["runs"]}
-                                 | {tuple(spec["small_mesh"])})}
-    timer = {"on": False, "s": 0.0, "n": 0}
-
-    def timed(fn):
-        def wrapper(*a, **kw):
-            if not timer["on"]:
-                return fn(*a, **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            timer["s"] += time.perf_counter() - t0
-            timer["n"] += 1
-            return out
-        return wrapper
-
-    collectives._sum_over = timed(collectives._sum_over)
-    collectives._cat_over = timed(collectives._cat_over)
-
-    def nbytes(*trees):
-        return sum(t.numel() * t.element_size() for tree in trees
-                   for _, t in iter_leaves(tree))
-
-    runs = {"ecf8_decode": ecf8_decode.run, "flash_fwd": flash_fwd.run,
-            "kv_page_decode": kv_page.run, "fused_decode_matmul": fused.run,
-            "flash_bwd": flash_bwd.run}
-
-    def zero():
-        for r in runs.values():
-            r.launches = 0
-        flash_fwd.run.launches_q_base = flash_bwd.run.launches_q_base = 0
-
-    def counts():
-        out = {n: r.launches for n, r in runs.items()}
-        out["flash_fwd_q_base"] = flash_fwd.run.launches_q_base
-        out["flash_bwd_q_base"] = flash_bwd.run.launches_q_base
-        return out
+    meshes, timer, zero, counts = _train_rank_setup(
+        torch, [r["mesh"] for r in spec["runs"]] + [spec["small_mesh"]])
 
     # phase 4's small f32 model, one step on the small mesh
     cfg_s = dataclasses.replace(get("qwen3-8b"), **spec["small"])
@@ -3689,11 +3680,98 @@ def train_mesh_rank(rank, world, dev, spec):
 
     cfg = dataclasses.replace(get("qwen3-8b"), n_layers=spec["layers"],
                               tie_embeddings=False)
+    out, n_params = _train_runs(torch, dev, cfg, spec, meshes, timer, zero,
+                                counts)
+    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
+                small=small, runs=out, n_params=n_params)
+
+
+def _train_rank_setup(torch, mesh_dims):
+    """What a rank of phases 23-24 sets up first: the meshes of
+    ``mesh_dims`` (every rank makes them in the same order: each is a
+    collective), the collectives ``_sum_over`` / ``_cat_over`` timed on a
+    synchronised host clock while ``timer["on"]``, and the kernels' launch
+    counters -> (meshes, timer, zero(), counts())."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ecf8_decode, flash_bwd, flash_fwd
+    from repro_torch.kernels import fused_decode_matmul as fused
+    from repro_torch.kvcache import kernels as kv_page
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.runtime import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = dist.get_backend() == "nccl"
+    meshes = {dims: MESH.make_mesh(*dims, "cuda" if nccl else "cpu")
+              for dims in sorted({tuple(d) for d in mesh_dims})}
+    timer = {"on": False, "s": 0.0, "n": 0}
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            if not timer["on"]:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timer["s"] += time.perf_counter() - t0
+            timer["n"] += 1
+            return out
+        return wrapper
+
+    collectives._sum_over = timed(collectives._sum_over)
+    collectives._cat_over = timed(collectives._cat_over)
+    runs = {"ecf8_decode": ecf8_decode.run, "flash_fwd": flash_fwd.run,
+            "kv_page_decode": kv_page.run, "fused_decode_matmul": fused.run,
+            "flash_bwd": flash_bwd.run}
+
+    def zero():
+        for r in runs.values():
+            r.launches = 0
+        flash_fwd.run.launches_q_base = flash_bwd.run.launches_q_base = 0
+
+    def counts():
+        out = {n: r.launches for n, r in runs.items()}
+        out["flash_fwd_q_base"] = flash_fwd.run.launches_q_base
+        out["flash_bwd_q_base"] = flash_bwd.run.launches_q_base
+        return out
+
+    return meshes, timer, zero, counts
+
+
+def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
+                exchange=None):
+    """The full-width runs of phases 23 and 24 on this rank: for each run
+    of ``spec["runs"]`` this rank's shards of ``cfg``'s state drawn from
+    the seed (``runtime.steps.init_sharded``), ``spec["steps"]`` steps on
+    its rows with the kernels' launches counted (``zero`` / ``counts``),
+    then under NCCL one more step with every collective synchronised and
+    timed into ``timer`` (over gloo, which stages every collective through
+    the host and so waits for it anyway, the counted steps are timed
+    instead).  ``exchange`` (phase 24): the MoE layers' ``all_to_all``
+    counts ``{"calls", "s", "on"}``, timed where ``timer`` is on and
+    reported apart -> ({tag: the run's figures}, the tree's parameters)."""
+    import torch.distributed as dist
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, iter_leaves
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import steps as S
+
+    nccl = dist.get_backend() == "nccl"
+    gib = 2 ** 30
+
+    def nbytes(*trees):
+        return sum(t.numel() * t.element_size() for tree in trees
+                   for _, t in iter_leaves(tree))
+
     shapes = M.init_params(cfg, device="meta", dtype=torch_dtype(cfg.dtype))
     n_params = sum(x.numel() for _, x in iter_leaves(shapes))
     whole = n_params * (2 + 8)      # bf16 weights, two f32 moments
     data = SyntheticLMData(DataConfig(cfg.vocab_size, spec["seq"],
                                       spec["batch"], spec["seed"]))
+    a2a = exchange if exchange is not None else {}
     out = {}
     for run in spec["runs"]:
         mesh = meshes[tuple(run["mesh"])]
@@ -3714,6 +3792,7 @@ def train_mesh_rank(rank, world, dev, spec):
         steps, secs = [], []
         zero()
         timer.update(on=not nccl, s=0.0, n=0)
+        a2a.update(calls=0, s=0.0, on=not nccl)
         for i in range(spec["steps"]):
             batch = data.sharded_batch(i, mesh, SH.batch_axes(mesh), dev)
             dist.barrier()
@@ -3724,11 +3803,13 @@ def train_mesh_rank(rank, world, dev, spec):
             secs.append(time.perf_counter() - t0)
             steps.append({k: float(v) for k, v in m.items()})
         launches = counts()
+        a2a_calls = a2a.get("calls", 0)
         if nccl:    # one more step, each collective timed (not counted)
             batch = data.sharded_batch(spec["steps"], mesh,
                                        SH.batch_axes(mesh), dev)
             dist.barrier()
             timer.update(on=True, s=0.0, n=0)
+            a2a.update(calls=0, s=0.0, on=True)
             t0 = time.perf_counter()
             params, opt, _ = step_fn(params, opt, batch, spec["steps"])
             torch.cuda.synchronize()
@@ -3736,7 +3817,7 @@ def train_mesh_rank(rank, world, dev, spec):
             n_timed = 1
         else:
             timed_s, n_timed = sum(secs), len(secs)
-        timer["on"] = False
+        timer["on"] = a2a["on"] = False
         out[run["tag"]] = dict(
             mesh=list(run["mesh"]), steps=steps,
             step_ms=[x * 1e3 for x in secs], launches=launches,
@@ -3746,11 +3827,14 @@ def train_mesh_rank(rank, world, dev, spec):
             resident_gib=resident / gib, whole_gib=whole / gib,
             resident_share=resident / whole,
             peak_gib=(torch.cuda.max_memory_allocated() - base) / gib)
+        if exchange is not None:
+            out[run["tag"]].update(
+                all_to_all_calls=a2a_calls / spec["steps"],
+                all_to_all_ms=a2a["s"] * 1e3 / n_timed)
         del params, opt, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
-                small=small, runs=out, n_params=n_params)
+    return out, n_params
 
 
 def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
@@ -4000,19 +4084,322 @@ def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
     return out, launches, dict(b5=qb[train_shape], b4=b4)
 
 
-def only_phases(torch, np, MESH, serve, get, flash_fwd, flash_bwd, kv_page,
-                ecf8_decode, fp8, tpu_format, only: set, seed: int,
-                t_start: float):
-    """``--only 1,21`` / ``1,22`` / ``1,23`` / any of them together: after
-    the build, the mesh phases named (four NCCL ranks when four cards are
-    visible: phase 21 at ``MESH_LAYERS``, phases 22 and 23 at full depth;
-    else two gloo ranks on one card), then the kernels line of what ran (a
-    kernel no phase of the run timed has null time keys) and the last
-    line."""
+def train_moe_mesh_rank(rank, world, dev, spec):
+    """One rank of phase 24 (a process of its own, started by
+    ``launch.mesh.spawn``): :func:`moe_smoke`'s f32 stack trained one step
+    on each mesh of ``spec["smoke_runs"]`` ({tag: (mesh, rule)}), its
+    parameters and first moments gathered whole on rank 0; then
+    moonshot-v1-16b-a3b at full width and ``spec["layers"]`` layers on
+    each mesh of ``spec["runs"]`` as phase 23's runs (:func:`_train_runs`),
+    the MoE layers' ``all_to_all`` counted and, where the collectives are,
+    timed -> a dict of plain values."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get, smoke_variant
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, iter_leaves
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import steps as S
+
+    meshes, timer, zero, counts = _train_rank_setup(
+        torch, [r["mesh"] for r in spec["runs"]]
+        + [m for m, _ in spec["smoke_runs"].values()])
+    # the MoE layers reach the exchange through the module attribute
+    a2a = {"calls": 0, "s": 0.0, "on": False}
+    exchange = collectives.all_to_all
+
+    def counted(x, mesh, axis="model"):
+        a2a["calls"] += 1
+        if not a2a["on"]:
+            return exchange(x, mesh, axis)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(x, mesh, axis)
+        torch.cuda.synchronize()
+        a2a["s"] += time.perf_counter() - t0
+        return out
+
+    collectives.all_to_all = counted
+
+    cfg_s = moe_smoke(get, smoke_variant)
+    data_s = SyntheticLMData(DataConfig(cfg_s.vocab_size, 64, 4,
+                                        spec["seed"]))
+    smoke = {}
+    for tag, (dims, rule) in spec["smoke_runs"].items():
+        mesh = meshes[tuple(dims)]
+        rules = SH.ShardingRules(activation_partitioning=rule)
+        p, specs = S.init_sharded(cfg_s, spec["seed"], mesh, rules,
+                                  device=dev)
+        p, o, m = S.make_train_step(
+            cfg_s, AdamWConfig(lr=1e-3), mesh=mesh, rules=rules, remat=True,
+            grad_accum=2)(p, adamw_init(p), data_s.sharded_batch(
+                0, mesh, SH.batch_axes(mesh), dev), 0)
+        flat = dict(iter_leaves(specs))
+        trees = {name: {"/".join(k): collectives.gather_leaf(
+            v, flat[k], mesh).cpu().numpy() for k, v in iter_leaves(tree)}
+            for name, tree in (("params", p), ("mu", o["mu"]))}
+        smoke[tag] = dict(metrics={k: float(v) for k, v in m.items()},
+                          **(trees if rank == 0 else {}))
+        del p, o
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=spec["layers"])
+    out, n_params = _train_runs(torch, dev, cfg, spec, meshes, timer, zero,
+                                counts, exchange=a2a)
+    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
+                smoke=smoke, runs=out, n_params=n_params)
+
+
+def moe_smoke(get, smoke_variant):
+    """Phase 24's small f32 stack: moonshot's smoke variant (8 experts
+    top-2, a shared expert) with heads of 64, the narrowest B4 takes."""
+    return dataclasses.replace(smoke_variant(get(MOE_ARCH)), head_dim=64)
+
+
+def _active_params(cfg) -> int:
+    """The parameters a token's products use in one layer of a MoE stack:
+    the attention's four projections, the shared SwiGLU, the gate and
+    ``top_k`` of the experts."""
+    attn = 4 * cfg.d_model * cfg.n_heads * cfg.hd
+    shared = 3 * cfg.d_model * cfg.moe_d_ff * cfg.n_shared_experts
+    return (attn + shared + cfg.d_model * cfg.n_experts
+            + cfg.top_k * 3 * cfg.d_model * cfg.moe_d_ff)
+
+
+def _trees_close(np, got, want, scaled: bool) -> float:
+    """The largest |got - want| over two {name: array} trees, over the
+    largest |want| where ``scaled``."""
+    err = max(float(np.abs(got[k] - w).max()) for k, w in want.items())
+    if scaled:
+        err /= max(float(np.abs(w).max()) for w in want.values())
+    return err
+
+
+def train_moe_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
+                         seed: int, flash_fwd, flash_bwd, gen, flush):
+    """Phase 24 on ``n_ranks`` ranks (four NCCL ranks, one a card, or two
+    gloo ranks sharing one card) -> (measurements, per-rank launches of the
+    full-width runs, B4's and B5's results at a model rank's micro-batch).
+    Fails on any gate."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         iter_leaves)
+    from repro_torch.runtime.steps import make_train_step
+    full = n_ranks >= 4
+    nccl = full and torch.cuda.device_count() >= n_ranks
+    layers, seq, batch = ((MOE_TRAIN_FULL_LAYERS, MESH_TRAIN_FULL_SEQ,
+                           MESH_TRAIN_FULL_BATCH) if full
+                          else (MOE_TRAIN_LAYERS, MESH_TRAIN_SEQ,
+                                MESH_TRAIN_BATCH))
+    steps = MOE_TRAIN_STEPS if full else 1
+    A = MESH_TRAIN_ACCUM
+    n = n_ranks
+    runs = [dict(tag=f"1x{n}", mesh=(1, n))]
+    if full:
+        runs.append(dict(tag="2x2", mesh=(2, 2)))
+    runs.append(dict(tag=f"{n}", mesh=(n, 1)))
+    # the smoke gate: 1xN against one rank; a model axis's two rules
+    # (the same routing) against each other
+    pair = (2, 2) if full else (1, n)
+    pair_tag = f"{pair[0]}x{pair[1]}"
+    smoke_runs = {f"1x{n}": ((1, n), "seq"), f"{pair_tag}/seq": (pair, "seq"),
+                  f"{pair_tag}/none": (pair, "none")}
+    if not full:
+        del smoke_runs[f"1x{n}"]
+    one_tag = f"1x{n}" if full else f"{pair_tag}/seq"
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=layers)
+    log(f"phase 24: training {MOE_ARCH} on {n} ranks over "
+        f"{'NCCL, one card each' if nccl else 'gloo on one card'}; full "
+        f"width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"of {cfg.hd}, {cfg.n_experts} experts of {cfg.moe_d_ff} top-"
+        f"{cfg.top_k}, shared SwiGLU of {cfg.moe_d_ff * cfg.n_shared_experts}"
+        f", "
+        f"vocab {cfg.vocab_size}, tied), {layers} of 48 layers, global "
+        f"batch {batch} x seq {seq}, grad_accum {A}, remat, bf16 weights and "
+        f"f32 moments, {steps} step(s) a mesh; meshes "
+        f"{[r['mesh'] for r in runs]} (the sequence split over model)")
+
+    # B4 with statistics and B5 at the micro-batch of the last model rank
+    # of 1xN (moonshot's heads: 16 / 16 of 128)
+    b_mb = batch // A
+    t_loc = seq // n
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    b5 = check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, t_loc,
+                         heads, cfg.hd, Tk=seq, B=b_mb, q_base=seq - t_loc)
+    b4 = check_flash(torch, flash_fwd, t_loc, gen, flush, heads=heads,
+                     D=cfg.hd, B=b_mb, q_base=seq - t_loc, Tk=seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-rank reference of the smoke gate, on this card
+    cfg_s = moe_smoke(get, smoke_variant)
+    from repro_torch.data import DataConfig, SyntheticLMData
+    p_s = M.init_params(cfg_s, seed, device="cuda")
+    p_s, o_s, m_s = make_train_step(cfg_s, AdamWConfig(lr=1e-3), remat=True,
+                                    grad_accum=2)(
+        p_s, adamw_init(p_s), SyntheticLMData(DataConfig(
+            cfg_s.vocab_size, 64, 4, seed)).batch(0, "cuda"), 0)
+    one = {name: {"/".join(k): v.detach().cpu().numpy()
+                  for k, v in iter_leaves(tree)}
+           for name, tree in (("params", p_s), ("mu", o_s["mu"]))}
+    del p_s, o_s
+
+    spec = dict(seed=seed, layers=layers, seq=seq, batch=batch, steps=steps,
+                runs=runs, smoke_runs=smoke_runs)
+    t0 = time.perf_counter()
+    res = MESH.spawn(train_moe_mesh_rank, n, spec, device="cuda",
+                     backend="nccl" if nccl else "gloo", timeout=1500)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"phase 24 ranks: {n} x {r0['device']} over {r0['backend']}, spawn "
+        f"+ steps {wall:.1f}s; {r0['n_params'] / 1e9:.3f} B parameters")
+    problems = []
+
+    # the smoke stack (f32): 1xN against one rank; seq against none
+    sm = r0["smoke"]
+    gaps = dict(
+        params=_trees_close(np, sm[one_tag]["params"], one["params"], False),
+        mu=_trees_close(np, sm[one_tag]["mu"], one["mu"], True),
+        seq_none_mu=_trees_close(np, sm[f"{pair_tag}/seq"]["mu"],
+                                 sm[f"{pair_tag}/none"]["mu"], True))
+    log(f"phase 24 smoke stack (f32): {one_tag} against one rank: "
+        f"parameters within {gaps['params']:.2e}, first moments within "
+        f"{gaps['mu']:.2e} of their largest; {pair_tag} 'seq' against "
+        f"'none' first moments within {gaps['seq_none_mu']:.2e} (tol 2e-4 "
+        f"each); losses "
+        f"{[round(v['metrics']['loss'], 6) for v in sm.values()]}")
+    if not max(gaps.values()) <= 2e-4:
+        problems.append(f"smoke stack off: {gaps}")
+    for tag in smoke_runs:
+        ls = {r["smoke"][tag]["metrics"]["loss"] for r in res}
+        if len(ls) != 1:
+            problems.append(f"smoke {tag}: the ranks' losses differ {ls}")
+
+    share_max = 0.3 if full else 0.55
+    active = layers * _active_params(cfg) + cfg.vocab_size * cfg.d_model
+    pairs = seq * (seq + 1) // 2
+    model_flops = (6 * active * batch * seq
+                   + 12 * batch * cfg.n_heads * cfg.hd * pairs * layers)
+    per_step = {"flash_fwd": 2 * layers * A, "flash_bwd": layers * A}
+    out = dict(ranks=n, backend=r0["backend"], layers=layers, seq=seq,
+               batch=batch, grad_accum=A, steps=steps, smoke_gaps=gaps,
+               active_params=active, model_flops_a_step=model_flops,
+               flops_formula="6 x (layers x (4 d H hd + 3 d moe_d_ff "
+               "n_shared + d E + top_k x 3 d moe_d_ff) + V d) x tokens + 12 "
+               "x B x H x hd x T(T+1)/2 x layers; each expert rank computes "
+               "M copies of its rows (not counted)", runs={})
+    launches = {}
+    for run in runs:
+        tag = run["tag"]
+        per = [r["runs"][tag] for r in res]
+        n_model = run["mesh"][1]
+        for rank, p in enumerate(per):
+            bad = [s for s in p["steps"] if not (math.isfinite(s["loss"])
+                                                 and math.isfinite(
+                                                     s["grad_norm"]))]
+            if bad:
+                problems.append(f"{tag} rank {rank}: non-finite {bad}")
+            if p["resident_share"] > share_max:
+                problems.append(f"{tag} rank {rank}: resident state "
+                                f"{p['resident_share']:.3f} of the tree > "
+                                f"{share_max}")
+            ln = p["launches"]
+            want = {k: v * steps for k, v in per_step.items()}
+            if {k: ln[k] for k in want} != want or ln["ecf8_decode"] or \
+                    ln["kv_page_decode"] or ln["fused_decode_matmul"]:
+                problems.append(f"{tag} rank {rank}: launches {ln}, "
+                                f"expected {want} and no other kernel")
+            q_rank = rank % n_model != 0
+            if (ln["flash_fwd_q_base"], ln["flash_bwd_q_base"]) != (
+                    (want["flash_fwd"], want["flash_bwd"]) if q_rank
+                    else (0, 0)):
+                problems.append(f"{tag} rank {rank}: launches with q_base "
+                                f"{ln}")
+            # two exchanges a MoE layer a micro-batch, again in the
+            # recompute, and their backward
+            a2a_want = 6 * layers * A if n_model > 1 else 0
+            if p["all_to_all_calls"] != a2a_want:
+                problems.append(f"{tag} rank {rank}: {p['all_to_all_calls']}"
+                                f" all_to_all a step, expected {a2a_want}")
+        for i in range(steps):
+            ls = {p["steps"][i]["loss"] for p in per}
+            if len(ls) != 1:
+                problems.append(f"{tag} step {i}: the ranks' losses differ "
+                                f"{ls}")
+        step_s = statistics.median([x for p in per
+                                    for x in p["step_ms"][1:]
+                                    or p["step_ms"]]) / 1e3
+        tok_s = batch * seq / step_s
+        share = model_flops / step_s / (n * H100_BF16_FLOPS)
+        out["runs"][tag] = dict(
+            mesh=run["mesh"], loss=[s["loss"] for s in per[0]["steps"]],
+            aux=[s["aux"] for s in per[0]["steps"]],
+            grad_norm=[s["grad_norm"] for s in per[0]["steps"]],
+            step_ms=[p["step_ms"] for p in per], median_step_ms=step_s * 1e3,
+            tokens_per_s=tok_s, flop_share=share,
+            all_to_all_ms=[p["all_to_all_ms"] for p in per],
+            all_to_all_calls=[p["all_to_all_calls"] for p in per],
+            collectives_ms=[p["collectives_ms"] for p in per],
+            collectives=per[0]["collectives"],
+            timed_step_ms=[p["timed_step_ms"] for p in per],
+            resident_gib=[p["resident_gib"] for p in per],
+            resident_share=[p["resident_share"] for p in per],
+            whole_gib=per[0]["whole_gib"],
+            peak_gib=[p["peak_gib"] for p in per],
+            build_s=[p["build_s"] for p in per],
+            launches=[p["launches"] for p in per])
+        launches[f"train_moe_{tag}"] = [p["launches"] for p in per]
+        log(f"phase 24 {tag} (mesh {list(run['mesh'])}): losses "
+            f"{[round(x, 5) for x in out['runs'][tag]['loss']]} aux "
+            f"{[round(x, 4) for x in out['runs'][tag]['aux']]} grad_norm "
+            f"{[round(x, 4) for x in out['runs'][tag]['grad_norm']]}; a rank"
+            f"'s step {[[round(x, 1) for x in p['step_ms']] for p in per]} "
+            f"ms (median {step_s * 1e3:.1f}); all_to_all "
+            f"{[round(p['all_to_all_calls']) for p in per]} calls a step, "
+            f"{[round(p['all_to_all_ms'], 1) for p in per]} ms, the other "
+            f"collectives {[round(p['collectives_ms'], 1) for p in per]} ms "
+            f"in {per[0]['collectives']} calls (a synchronised step of "
+            f"{[round(p['timed_step_ms'], 1) for p in per]} ms); resident "
+            f"{[round(p['resident_gib'], 3) for p in per]} GiB of "
+            f"{per[0]['whole_gib']:.3f} "
+            f"({max(p['resident_share'] for p in per):.3f}), peak "
+            f"{[round(p['peak_gib'], 2) for p in per]} GiB; build "
+            f"{[round(p['build_s'], 1) for p in per]} s; {tok_s:.0f} "
+            f"tokens/s, model FLOPs {model_flops / 1e12:.1f} T a step "
+            f"({active / 1e9:.3f} B active parameters a token) = "
+            f"{100 * share:.2f} % of {n} x 989 TFLOP/s; launches "
+            f"{per[0]['launches']} (rank 0), {per[-1]['launches']} (rank "
+            f"{n - 1})")
+    # 1xN and N route as one device does: step 0 alike
+    first, last = out["runs"][runs[0]["tag"]], out["runs"][runs[-1]["tag"]]
+    gap = dict(loss=abs(first["loss"][0] - last["loss"][0])
+               / abs(last["loss"][0]),
+               grad_norm=abs(first["grad_norm"][0] - last["grad_norm"][0])
+               / abs(last["grad_norm"][0]))
+    out["step0_gap"] = gap
+    log(f"phase 24 step 0 on {runs[0]['tag']} against {runs[-1]['tag']}: "
+        f"{gap} (tol loss 5e-3, grad_norm 2e-2)")
+    if not (gap["loss"] <= 5e-3 and gap["grad_norm"] <= 2e-2):
+        problems.append(f"step 0 of {runs[0]['tag']} off {runs[-1]['tag']}'s:"
+                        f" {gap}")
+    if problems:
+        fail("phase 24: " + "; ".join(problems))
+    return out, launches, dict(b5=b5, b4=b4)
+
+
+def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
+                flash_bwd, kv_page, ecf8_decode, fp8, tpu_format, only: set,
+                seed: int, t_start: float):
+    """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / any of them
+    together: after the build, the mesh phases named (four NCCL ranks when
+    four cards are visible: phase 21 at ``MESH_LAYERS``, phases 22 and 23
+    at full depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks on
+    one card), then the kernels line of what ran (a kernel no phase of the
+    run timed has null time keys) and the last line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
-    out = moe_out = t23 = None
+    out = moe_out = t23 = t24 = None
     launches = {}
     if "21" in only:
         out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
@@ -4040,6 +4427,15 @@ def only_phases(torch, np, MESH, serve, get, flash_fwd, flash_bwd, kv_page,
         log(f"phase 23 measurements: {json.dumps(train_out)}")
         log(f"phase 23 done at {time.perf_counter() - t_start:.1f}s")
         launches.update(l23)
+    if "24" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_train_out, l24, t24 = train_moe_mesh_phase(
+            torch, np, MESH, get, smoke_variant, n_ranks, seed, flash_fwd,
+            flash_bwd, gen, flush)
+        log(f"phase 24 measurements: {json.dumps(moe_train_out)}")
+        log(f"phase 24 done at {time.perf_counter() - t_start:.1f}s")
+        launches.update(l24)
     del flush
 
     def mesh_l(name):
@@ -4061,8 +4457,8 @@ def only_phases(torch, np, MESH, serve, get, flash_fwd, flash_bwd, kv_page,
     elif moe_out is not None:
         b4 = checks["b4"]
     else:
-        b4 = t23["b4"]
-    b5 = untimed if t23 is None else t23["b5"]
+        b4 = (t23 or t24)["b4"]
+    b5 = (t23 or t24 or {}).get("b5", untimed)
     b3 = out["b3_sharded"] if out is not None else None
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -4178,9 +4574,9 @@ def main(argv=None):
     log(f"build phase {time.perf_counter() - t0:.1f}s "
         f"({len(built)} of {len(build.SOURCES)} sources compiled)")
     if only is not None:
-        return only_phases(torch, np, MESH, serve, get, flash_fwd, flash_bwd,
-                           kv_page, ecf8_decode, fp8, tpu_format, only,
-                           args.seed, t_start)
+        return only_phases(torch, np, MESH, serve, get, smoke_variant,
+                           flash_fwd, flash_bwd, kv_page, ecf8_decode, fp8,
+                           tpu_format, only, args.seed, t_start)
 
     # -- 2. kernel 1: ECF8 decode -------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4879,9 +5275,10 @@ def main(argv=None):
     log(f"phase 12 measurements: {json.dumps(moe_out)}")
     mark("phase 12")
 
-    # -- 13. gemma2-9b at full width and depth from ECF8 weights -----------
+    # -- 13. gemma2-9b at full width from ECF8 weights ---------------------
     gemma_out, gemma_launches = gemma_phase(
-        torch, np, serve, EngineConfig, kernel_runs, g2, args.seed)
+        torch, np, serve, EngineConfig, kernel_runs,
+        dataclasses.replace(g2, n_layers=GEMMA_LAYERS), args.seed)
     log(f"phase 13 measurements: {json.dumps(gemma_out)}")
     mark("phase 13")
 
@@ -5009,14 +5406,24 @@ def main(argv=None):
     train_mesh_out, train_mesh_launches, t23 = train_mesh_phase(
         torch, np, MESH, get, n_ranks, args.seed, flash_fwd, flash_bwd, gen,
         flush)
-    del flush
     log(f"phase 23 measurements: {json.dumps(train_mesh_out)}")
     mark("phase 23")
 
+    # -- 24. training the mixture-of-experts stack on a mesh ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_out, moe_train_launches, t24 = train_moe_mesh_phase(
+        torch, np, MESH, get, smoke_variant, n_ranks, args.seed, flash_fwd,
+        flash_bwd, gen, flush)
+    del flush
+    log(f"phase 24 measurements: {json.dumps(moe_train_out)}")
+    mark("phase 24")
+
     def on_train_mesh(name):
-        """Each rank's launches in each phase-23 run."""
+        """Each rank's launches in each phase-23 and phase-24 run."""
         return {tag: [ln[name] for ln in runs]
-                for tag, runs in train_mesh_launches.items()}
+                for tag, runs in {**train_mesh_launches,
+                                  **moe_train_launches}.items()}
 
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
@@ -5104,6 +5511,7 @@ def main(argv=None):
              launches_mesh_train=on_train_mesh("flash_fwd"),
              launches_mesh_train_q_base=on_train_mesh("flash_fwd_q_base"),
              with_stats_q_base_at_train_shape=t23["b4"],
+             with_stats_q_base_at_moe_train_shape=t24["b4"],
              with_stats_at_train_shape={
                  k: results["bwd_qwen3"][k]
                  for k in ("fwd_ms", "fwd_stats_ms", "stats_err")},
@@ -5153,6 +5561,7 @@ def main(argv=None):
              launches_mesh_train=on_train_mesh("flash_bwd"),
              launches_mesh_train_q_base=on_train_mesh("flash_bwd_q_base"),
              q_base_at_shard_shape=train_mesh_out["q_base_checks"],
+             q_base_at_moe_train_shape=t24["b5"],
              library="scaled_dot_product_attention backward, no softcap",
              at_gemma2_shape=results["bwd_gemma2"],
              at_whisper_shape=results["bwd_whisper"],

@@ -27,6 +27,9 @@ Usage:
   # four gloo ranks on the CPU, a model axis of 2 (a 2x2 mesh)
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --mesh host --model-axis 2 --ranks 4 --steps 3 --batch 4 --seq-len 16
+  # the mixture-of-experts stack, each model rank training E / M experts
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --arch moonshot-v1-16b-a3b --mesh host --model-axis 2 --ranks 2
   # every visible card a rank (NCCL), or the ranks torchrun started
   PYTHONPATH=src python -m repro_torch.launch.train --mesh host \\
       --model-axis 2
@@ -34,8 +37,9 @@ Usage:
 Without ``--ckpt-dir`` checkpoints go to ``repro_ckpt`` under the
 temporary directory (``$TMPDIR``); the trainer resumes from whatever it
 finds there, so give each run its own directory.  On a mesh rank 0 prints
-the log and a closing ``mesh {data: D, model: M}`` line with each rank's
-resident state (parameters and moments, GiB).
+the log and a closing ``mesh {data: D, model: M}`` line with the experts
+a rank trains (``E / M``, for a MoE stack) and each rank's resident state
+(parameters and moments, GiB).
 """
 from __future__ import annotations
 
@@ -237,8 +241,12 @@ def _train(args, dev, mesh=None, rank: int = 0):
     if mesh is not None:
         mine = torch.tensor([_tree_bytes(params) + _tree_bytes(opt_state)])
         got = collectives.gather_rows(mine, mesh).reshape(-1).tolist()
+        experts = ""
+        if cfg.n_experts:
+            experts = (f", experts {cfg.n_experts // args.model_axis} of "
+                       f"{cfg.n_experts} a rank")
         say(f"[train] mesh {{data: {n_batch_shards(mesh)}, model: "
-            f"{args.model_axis}}}, resident state a rank "
+            f"{args.model_axis}}}{experts}, resident state a rank "
             f"{[round(b / 2 ** 30, 4) for b in got]} GiB")
     return losses
 

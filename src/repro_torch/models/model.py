@@ -85,9 +85,11 @@ expert_cut``) and the layer exchanges dispatch rows over ``model``
 step routes each data group's rows (over the whole batch without a model
 axis); the replicated steps route the whole batch as the mesh's data
 groups would.  Training on a mesh (:func:`forward`, :func:`loss_fn` with
-``mesh``; the dense attention stacks) runs a rank's batch shard on its
-shards of the weights, each gathered whole where a layer uses it, the
-sequence split over ``model`` or the attention's query rows.
+``mesh``; the attention stacks, with or without experts) runs a rank's
+batch shard on its shards of the weights, each gathered whole where a
+layer uses it (an expert leaf over ``data`` only: the rank's ``E / M``
+experts), the sequence split over ``model`` or the attention's query rows;
+its MoE layers route each data group's rows (``rows="shard"``).
 """
 from __future__ import annotations
 
@@ -514,11 +516,13 @@ def _ffn(p, x, cfg: ArchConfig, dtype, aux=None, ep=None):
     """The layer's feed-forward block: the MoE layer or the dense MLP.  The
     MoE's load-balancing loss is appended to ``aux`` (a list) where the
     caller keeps one (:func:`forward`), else dropped, as the reference's
-    serve path drops it.  ``ep``: (mesh, rows) of the MoE layer on a mesh
-    (``models.moe``'s ``mesh`` and ``rows``), None off one."""
+    serve path drops it.  ``ep``: (mesh, rows) or (mesh, rows, seq) of the
+    MoE layer on a mesh (``models.moe``'s ``mesh``, ``rows`` and ``seq``),
+    None off one."""
     if "moe" in p:
-        mesh, rows = ep if ep is not None else (None, "all")
-        y, a = moe_apply(p["moe"], x, cfg, mesh=mesh, rows=rows,
+        mesh, rows, seq = (ep + (None,))[:3] if ep is not None else (
+            None, "all", None)
+        y, a = moe_apply(p["moe"], x, cfg, mesh=mesh, rows=rows, seq=seq,
                          dtype=dtype)
         if aux is not None:
             aux.append(a)
@@ -547,13 +551,15 @@ def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None,
 
 
 def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
-                      cross_kv=None, aux=None, mesh=None, q_base=None):
+                      cross_kv=None, aux=None, mesh=None, q_base=None,
+                      ep=None):
     """Full-sequence layer (prefill, forward).  Returns (x, (k, v)) for an
     attention layer, (x, final state) for a recurrent one; an mLSTM runs
     at the reference's ``chunk = min(128, T)``, so ``T`` must be at most
     128 or a multiple of it.  ``cross_kv``: the layer's cross-attention
     K/V (:func:`_cross_kv`) in an encoder-decoder's decoder.  On a mesh a
-    MoE layer routes the rows as one group (``rows="own"``).  ``q_base``:
+    MoE layer routes the rows as one group (``rows="own"``) unless ``ep``
+    (:func:`_ffn`'s) says otherwise.  ``q_base``:
     :func:`_self_attention_full`'s."""
     h = rms_norm(x, p["norm1"])
     if kind in ATTN_KINDS:
@@ -570,7 +576,8 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     if cross_kv is not None:
         def cross(hx):
             return _cross_attention(p["cross"], hx, cross_kv, cfg, dtype)
-    ep = None if mesh is None else (mesh, "own")
+    if ep is None and mesh is not None:
+        ep = (mesh, "own")
     return _residual(p, x, o, cfg, dtype, cross, aux, ep), st
 
 
@@ -827,16 +834,21 @@ def _gathered(tree, path, u, gather):
 
 
 def check_mesh_trainable(cfg: ArchConfig) -> None:
-    """Raise for what training on a mesh does not run yet: experts (the
-    backward of the expert exchange), recurrent mixers and an encoder."""
-    if cfg.n_experts or any(k in REC_KINDS for k in cfg.pattern) or \
+    """Raise for what training on a mesh does not run yet: recurrent
+    mixers and an encoder.  (A ``local`` layer whose window is shorter
+    than the sequence is refused under the sequence split by
+    :func:`_self_attention_full`.)  Experts train on a mesh."""
+    if any(k in REC_KINDS for k in cfg.pattern) or \
             any(k in REC_KINDS for k in _tail_kinds(cfg)) or \
             cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: training on a mesh runs the dense attention "
-            f"stacks; a mixture-of-experts, recurrent or encoder-decoder "
-            f"stack on a mesh is the next training slice's (the backward "
-            f"of moe_apply's two all_to_all first)")
+            f"{cfg.name}: training on a mesh runs the attention stacks, "
+            f"with or without experts; a recurrent stack on a mesh is the "
+            f"next training slice's (its scans over the whole sequence "
+            f"under the sequence split), an encoder-decoder's the one "
+            f"after (the encoder and cross attention with mesh=), and "
+            f"gemma2's local layers under the sequence split wait with "
+            f"the recurrent stacks")
 
 
 def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
@@ -852,9 +864,10 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     the tail layers and the encoder are not checkpointed, as there).  An
     encoder-decoder takes ``frames`` (B, F, d).
 
-    On a mesh of ranks (``mesh``; the dense attention stacks): ``tokens``
-    are this rank's batch shard's rows and ``params`` its shards of the
-    leaves (``runtime.sharding.local_shard``); ``gather(path, shard, u)``
+    On a mesh of ranks (``mesh``; the attention stacks, with or without
+    experts): ``tokens`` are this rank's batch shard's rows and ``params``
+    its shards of the leaves (``runtime.sharding.local_shard``);
+    ``gather(path, shard, u)``
     returns a leaf whole where a layer uses it (unit ``u``'s of a stacked
     leaf; ``runtime.collectives.LeafGather``), inside the unit, so that
     remat gathers it again in the recompute.  ``constrain``
@@ -863,7 +876,10 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     t)`` of its rows (the flash attention with ``q_base = s`` against k / v
     gathered over ``model``) and returns their logits (B, t, V); else the
     stream stays whole over ``model`` and the flash attention splits its
-    query rows (:func:`flash_attention_sharded`)."""
+    query rows (:func:`flash_attention_sharded`).  A MoE layer routes each
+    data group's rows (``rows="shard"``), under the sequence split over
+    the group's whole sequence, gathered over ``model`` and cut back to
+    the rank's positions after it (``models.moe``'s ``seq``)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     if mesh is not None:
@@ -888,12 +904,13 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
         cut = constrain.rows(x.shape[1])
         x = constrain(x)
     q_base = None if cut is None else cut[0]
+    ep = None if mesh is None else (mesh, "shard", cut)
     ctx = _context(params, cfg, frames, dtype)
 
     def layer(p, x, kind, aux):
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
         return _layer_apply_full(p, x, cfg, kind, dtype, kv, aux, mesh,
-                                 q_base)[0]
+                                 q_base, ep)[0]
 
     def unit_body(x, u):
         aux = []
@@ -950,11 +967,16 @@ def _loss_fn(params, cfg: ArchConfig, tokens, labels, frames=None,
     {"nll", "aux"}).  A tree holding compressed weights is refused.
 
     On a mesh (:func:`forward`'s ``mesh``, ``constrain`` and ``gather``;
-    ``tokens`` / ``labels`` this rank's rows): the mean over the *global*
-    batch, the same on every rank.  Each rank sums the NLL of the positions
-    it ran over the global count; the sum over the ranks that ran other
-    rows or positions (``runtime.collectives.SumForward``, whose backward
-    hands each rank's part the loss's own cotangent) is the loss."""
+    ``tokens`` / ``labels`` this rank's rows): the reference's loss on the
+    same mesh, the same on every rank.  Each rank sums the NLL of the
+    positions it ran over the global count, and takes its share of the MoE
+    loss: the ranks over which the sum runs (those that ran other rows or
+    positions) each hold a data group's aux (the reference's mean over the
+    groups on a model axis) or, without one, the whole batch's, every rank
+    alike, so each adds it over their number.  The sum
+    (``runtime.collectives.SumForward``, whose backward hands each rank's
+    part the loss's own cotangent) is the NLL and the aux, and the loss is
+    ``nll + aux_weight * aux`` as without a mesh."""
     _check_trainable(params)
     logits, aux = forward(params, cfg, tokens, frames=frames, mesh=mesh,
                           remat=remat, constrain=constrain, gather=gather)
@@ -970,9 +992,11 @@ def _loss_fn(params, cfg: ArchConfig, tokens, labels, frames=None,
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.take_along_dim(logp, labels[..., None].long(),
                                     dim=-1)[..., 0]
-        loss = SumForward.apply(nll.sum() / (nll.numel() * parts), mesh,
-                                grad_axes(mesh, cut is not None))
-        return loss, {"nll": loss, "aux": aux}
+        part = torch.stack([nll.sum() / (nll.numel() * parts), aux / parts])
+        nll_aux = SumForward.apply(part, mesh,
+                                   grad_axes(mesh, cut is not None))
+        loss = nll_aux[0] + aux_weight * nll_aux[1]
+        return loss, {"nll": nll_aux[0], "aux": nll_aux[1]}
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
     loss = nll.mean() + aux_weight * aux

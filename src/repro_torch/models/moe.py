@@ -43,6 +43,17 @@ prefill, a chunk), routed as one group; ``"all"`` the whole batch, the
 same on every rank (the monolithic cache's replicated step), whose rows
 the mesh's data groups route apart where a model axis is there (one group
 when ``data`` does not divide them).
+
+Training on a mesh (``models.model.forward(mesh=)``) takes ``rows="shard"``
+and differentiates both branches: the exchanges are
+``collectives.ExpertExchange`` (an ``all_to_all`` whose backward is the
+same exchange) and the routing weights' gather over ``data`` a
+``collectives.RowGather`` whose backward sums the cotangent over the batch
+axes.  On a model axis the gradients are those of the reference's
+``shard_map`` (:func:`_expert_parallel_grads`); under the sequence split
+(``seq``) the layer gathers its group's positions over ``model`` first.
+Each rank's expert gradients are its own experts' (summed over ``data``
+by the caller, never over ``model``).
 """
 from __future__ import annotations
 
@@ -177,15 +188,53 @@ def _expert_parallel(xg, gate_w, experts, cfg, mesh):
     buf = torch.stack([r[0] for r in routed])             # (G, E, cap, d)
     # (n_ep, G, E_loc, cap, d): row j holds rank j's experts' rows
     send = buf.reshape(G, n_ep, e_loc, cap, d).transpose(0, 1)
-    got = collectives.all_to_all(send, mesh, "model")     # row j: source j
+    got = collectives.ExpertExchange.apply(send, mesh, "model")  # source j
     h = got.permute(2, 0, 1, 3, 4).reshape(e_loc, n_ep * G * cap, d)
     y = _expert_ffn(*experts, h)
     y = y.reshape(e_loc, n_ep, G, cap, d).permute(1, 2, 0, 3, 4)
-    y = collectives.all_to_all(y, mesh, "model")          # row j: rank j's
+    y = collectives.ExpertExchange.apply(y, mesh, "model")  # rank j's
     y = y.transpose(0, 1).reshape(G, E, cap, d)           # global experts
     out = torch.stack([_combine(y[g], r[1], r[2], n, k)
                        for g, r in enumerate(routed)])
     return out, torch.stack([r[3] for r in routed]).mean()
+
+
+def _expert_parallel_grads(x, gate_w, experts, cfg, mesh, seq=None):
+    """:func:`_expert_parallel` for a data group's rows x (B, T, d) on a
+    model axis of ``M`` ranks, with the gradients of the reference's
+    ``shard_map`` (run with ``check_rep=False``) -> ((B, T, d), aux).  Each
+    exchange's backward is its transpose; the ``M`` ranks of a group send
+    the same rows, so each expert receives ``M`` copies of their
+    cotangents.  Two cases, as the caller's cotangents are laid out:
+
+      * ``seq`` None: x is whole on the group's ranks and so is the
+        cotangent of the output.  The reference's transpose: the
+        output's and the aux loss's cotangents divided by ``M``, and x's
+        and the gate's summed over ``model``;
+      * ``seq = (start, length)`` (training's sequence split): x holds
+        positions ``[start, start + length)`` of the group's sequence, the
+        rest on the group's other ranks.  The sequence is gathered over
+        ``model``, routed whole, and the rank's positions returned, so the
+        output's cotangent here covers those positions alone: the ``M``
+        ranks' cotangents add to the whole one, the copies arrive at the
+        experts undivided, and the gather's backward sums x's cotangent
+        over ``model``; the gate's sums there with the rest of its
+        gradient (the caller's)."""
+    n_ep = axis_size(mesh, "model")
+    if seq is None:
+        x = collectives.SumGrad.apply(x, mesh, "model")
+        gate_w = collectives.SumGrad.apply(gate_w, mesh, "model")
+    else:
+        x = collectives.RowGather.apply(x.contiguous(), mesh, "model", 1,
+                                        True)
+    B, T, d = x.shape
+    out, aux = _expert_parallel(x.reshape(1, B * T, d), gate_w, experts, cfg,
+                                mesh)
+    out = out.reshape(B, T, d)
+    if seq is None:
+        return (collectives.ScaleGrad.apply(out, 1.0 / n_ep),
+                collectives.ScaleGrad.apply(aux, 1.0 / n_ep))
+    return out.narrow(1, seq[0], seq[1]), aux
 
 
 def _routed_over_data(xt, gate_w, experts, cfg, mesh):
@@ -197,8 +246,10 @@ def _routed_over_data(xt, gate_w, experts, cfg, mesh):
     n, d = xt.shape
     E, k = cfg.n_experts, cfg.top_k
     w_te, probs = _gate(xt, gate_w, k, E)
-    both = collectives.gather_rows(torch.cat([w_te, probs], 1), mesh,
-                                   batch_axes(mesh)).reshape(-1, 2 * E)
+    # in the backward each rank's rows take the cotangent summed over the
+    # ranks (every rank routes the whole batch from them)
+    both = collectives.RowGather.apply(torch.cat([w_te, probs], 1), mesh,
+                                       batch_axes(mesh), 0, True)
     w_all, p_all = both[:, :E], both[:, E:]
     N = w_all.shape[0]
     cap = _capacity(N, cfg)
@@ -215,12 +266,13 @@ def _routed_over_data(xt, gate_w, experts, cfg, mesh):
     return _combine(y, sel_idx, sel_w, n, k), _aux(w_all, p_all, E)
 
 
-def _moe_apply(params, x, cfg, *, mesh=None, rows: str = "all",
+def _moe_apply(params, x, cfg, *, mesh=None, rows: str = "all", seq=None,
                dtype=torch.bfloat16):
     """x: (B, T, d) -> ((B, T, d) in x's dtype, aux loss).  ``mesh`` and
     ``rows``: the module docstring.  On a model axis the expert leaves
     must hold this rank's ``E / M`` experts; the aux loss is then the mean
-    over the groups this rank routes (the reference's is over all)."""
+    over the groups this rank routes (the reference's is over all).
+    ``seq``: see :func:`_expert_parallel_grads`."""
     if rows not in ("shard", "own", "all"):
         raise ValueError(f"rows={rows!r}: 'shard', 'own' or 'all'")
     B, T, d = x.shape
@@ -239,9 +291,15 @@ def _moe_apply(params, x, cfg, *, mesh=None, rows: str = "all",
             f"{cfg.name}: this rank holds {experts[0].shape[0]} experts; a "
             f"model axis of {n_ep} needs {E // n_ep} of {E} a rank "
             f"(runtime.sharding.expert_cut)")
+    if seq is not None and (n_ep == 1 or rows != "shard"):
+        raise ValueError(f"seq={seq}: the sequence split takes rows='shard' "
+                         f"on a model axis")
 
     xt = x.to(dtype).reshape(B * T, d)
-    if n_ep > 1:
+    if n_ep > 1 and rows == "shard":
+        out, aux = _expert_parallel_grads(xt.reshape(B, T, d), gate_w,
+                                          experts, cfg, mesh, seq)
+    elif n_ep > 1:
         G = n_data if rows == "all" and B % n_data == 0 else 1
         out, aux = _expert_parallel(xt.reshape(G, B * T // G, d), gate_w,
                                     experts, cfg, mesh)

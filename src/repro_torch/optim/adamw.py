@@ -12,7 +12,11 @@ and rounding order differ, and the numbers must match the reference.
 Unlike the reference's pure update, :func:`adamw` writes the new
 parameters and moments into the tensors it is given (and returns them):
 holding the old and the new state at once would cost another 10 bytes a
-parameter on the card.
+parameter on the card.  For the same reason it clips and updates a block
+of at most :data:`BLOCK` elements at a time (whole rows of a leaf's
+leading dim): the update is elementwise, so the numbers are the same, and
+no clipped copy of the gradients nor a whole leaf's f32 temporaries are
+ever held.
 
 On a mesh of ranks each rank updates its shards of the parameters and
 moments (``runtime.sharding.local_shard``) from its shards of the reduced
@@ -31,6 +35,7 @@ from ..runtime.collectives import sum_over_mesh
 from ..runtime.sharding import counts_once
 
 F32 = torch.float32
+BLOCK = 1 << 26     # elements a clip-and-update pass takes at a time
 
 
 @dataclass(frozen=True)
@@ -80,6 +85,18 @@ def _clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     ``runtime.sharding.P`` like ``grads``): the norm is the whole tree's.
 
     Returns (clipped_grads, pre_clip_norm)."""
+    scale, gnorm = _clip_scale(grads, max_norm, mesh, specs)
+    return map_tree(lambda g: _clipped(g, scale), grads), gnorm
+
+
+def _clipped(g, scale):
+    """``g`` times the clip scale in f32, cast back to g's dtype."""
+    return (g.to(F32) * scale).to(g.dtype)
+
+
+def _clip_scale(grads, max_norm: float, mesh=None, specs=None):
+    """(the f32 factor that clips ``grads`` to ``max_norm``, their global
+    norm) (:func:`_clip_by_global_norm`)."""
     device = next(iter_leaves(grads))[1].device
     sq = torch.zeros((), dtype=F32, device=device)
     flat_spec = {} if specs is None else dict(iter_leaves(specs))
@@ -93,7 +110,19 @@ def _clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
     scale = torch.where(gnorm > max_norm,
                         max_norm / torch.clamp(gnorm, min=1e-12),
                         torch.ones((), dtype=F32, device=device))
-    return map_tree(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gnorm
+    return scale, gnorm
+
+
+def _blocks(x: torch.Tensor):
+    """Index views that cover ``x`` in blocks of whole rows of its leading
+    dim, each of at most :data:`BLOCK` elements (a row wider than that is
+    one block; a 0-d tensor is one)."""
+    if x.ndim == 0 or x.numel() <= BLOCK:
+        yield ...
+        return
+    rows = max(1, BLOCK // (x.numel() // x.shape[0]))
+    for i in range(0, x.shape[0], rows):
+        yield slice(i, i + rows)
 
 
 def _adamw(params, grads, state, cfg: AdamWConfig, lr=None, mesh=None,
@@ -107,9 +136,9 @@ def _adamw(params, grads, state, cfg: AdamWConfig, lr=None, mesh=None,
     lr = cfg.lr if lr is None else lr
     device = next(iter_leaves(params))[1].device
     gnorm = torch.zeros((), dtype=F32, device=device)
+    scale = None
     if cfg.clip_norm:
-        grads, gnorm = _clip_by_global_norm(grads, cfg.clip_norm, mesh,
-                                            specs)
+        scale, gnorm = _clip_scale(grads, cfg.clip_norm, mesh, specs)
 
     count = state["count"] + 1
     c1 = 1.0 - cfg.b1 ** count.to(F32)
@@ -118,20 +147,26 @@ def _adamw(params, grads, state, cfg: AdamWConfig, lr=None, mesh=None,
     flat_mu = dict(iter_leaves(state["mu"]))
     flat_nu = dict(iter_leaves(state["nu"]))
     with torch.no_grad():
-        for path, p in iter_leaves(params):
+        for path, p_all in iter_leaves(params):
             name = "/".join(path)
             decay = not any(s in name.lower() for s in cfg.no_decay_substrings)
-            g32 = flat_g[path].to(F32)
-            mu = cfg.b1 * flat_mu[path] + (1.0 - cfg.b1) * g32
-            nu = cfg.b2 * flat_nu[path] + (1.0 - cfg.b2) * torch.square(g32)
-            del g32
-            step = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-            flat_mu[path].copy_(mu)
-            flat_nu[path].copy_(nu)
-            del mu, nu
-            if decay and cfg.weight_decay:
-                step = step + cfg.weight_decay * p.to(F32)
-            p.copy_((p.to(F32) - lr * step).to(p.dtype))
+            for b in _blocks(p_all):
+                p, g = p_all[b], flat_g[path][b]
+                if scale is not None:
+                    g = _clipped(g, scale)
+                g32 = g.to(F32)
+                del g
+                mu = cfg.b1 * flat_mu[path][b] + (1.0 - cfg.b1) * g32
+                nu = (cfg.b2 * flat_nu[path][b]
+                      + (1.0 - cfg.b2) * torch.square(g32))
+                del g32
+                step = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+                flat_mu[path][b].copy_(mu)
+                flat_nu[path][b].copy_(nu)
+                del mu, nu
+                if decay and cfg.weight_decay:
+                    step = step + cfg.weight_decay * p.to(F32)
+                p.copy_((p.to(F32) - lr * step).to(p.dtype))
     new_state = {"mu": state["mu"], "nu": state["nu"], "count": count}
     return params, new_state, {"grad_norm": gnorm}
 

@@ -43,7 +43,12 @@ buffer.  The attention's query-row split (``models.flash_attention.
 flash_attention_sharded``) uses :class:`RowGather` (o gathered over
 ``model``, or k / v whose dk / dv sum over it), :class:`SplitRows` (q's
 rows, dq gathered back) and :class:`SumGrad` (k / v whole, dk / dv
-summed); :class:`SumForward` sums the loss's parts.  An axis is one name,
+summed); :class:`SumForward` sums the loss's parts.  The MoE layer
+(``models/moe.py``) exchanges its dispatch rows through
+:class:`ExpertExchange` (an :func:`all_to_all` whose backward is the same
+exchange), gathers a data group's routing weights or positions through
+:class:`RowGather`, and applies the reference's ``shard_map`` transpose
+with :class:`SumGrad` and :class:`ScaleGrad`.  An axis is one name,
 a tuple of names (the batch axes ``("pod", "data")`` folded, through
 :func:`axes_group`) or None for the world.
 
@@ -440,6 +445,38 @@ class SumForward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward multiplies the cotangent by ``factor``
+    (the ``1 / M`` that the transpose of a ``shard_map`` applies to an
+    output every one of ``M`` ranks holds a copy of)."""
+
+    @staticmethod
+    def forward(ctx, x, factor: float):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+class ExpertExchange(torch.autograd.Function):
+    """:func:`all_to_all` over ``axis``, differentiable: row ``i`` goes to
+    the group's rank ``i``.  Its transpose is the same exchange, so the
+    backward sends each row's cotangent back where the row came from.
+    Both directions call the module's ``all_to_all`` when they run (a
+    caller may wrap it to count or time the exchanges)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.mesh, ctx.axis), None, None
 
 
 # Defined under a private name and bound to the public one: the reference's

@@ -12,24 +12,29 @@ summed into f32 buffers and divided, as the reference's ``lax.scan`` sums
 them, and ``aux`` is reported as 0, as there.  ``remat`` recomputes each
 unit's activations in the backward.
 
-On a mesh of ranks (``mesh``, ``launch/mesh.py``; the dense attention
-stacks) the step is GSPMD's placement written out.  Each rank holds its
-shard (``runtime.sharding.local_shard``) of every parameter and AdamW
-moment under the rule table (``param_pspecs`` / ``opt_pspecs``, ``rules``)
-and the rows of its batch shard (``data.pipeline.sharded_batch``).  A leaf
-is gathered whole inside the unit that uses it
-(``runtime.collectives.LeafGather``; again in the remat recompute) and its
-gradient summed over the ranks that computed on other data -- the batch
-axes, and ``model`` under the sequence split -- into the rank's f32 shard
-buffer.  ``rules.activation_partitioning`` (``sharding.make_constrainer``)
-picks the work of a model axis: ``"seq"`` (the reference's default) splits
-the sequence, each rank running its positions of every layer and the flash
+On a mesh of ranks (``mesh``, ``launch/mesh.py``; the attention stacks,
+with or without experts) the step is GSPMD's placement written out.
+Each rank holds its shard (``runtime.sharding.local_shard``) of every
+parameter and AdamW moment under the rule table (``param_pspecs`` /
+``opt_pspecs``, ``rules``) and the rows of its batch shard
+(``data.pipeline.sharded_batch``).  A leaf is gathered whole inside the
+unit that uses it (``runtime.collectives.LeafGather``; again in the remat
+recompute) and its gradient summed over the ranks that computed on other
+data -- the batch axes, and ``model`` under the sequence split -- into
+the rank's f32 shard buffer.  An expert leaf of a MoE layer
+(``sharding.is_expert_leaf``, its rule ``("model", "data", None)``) is
+gathered over ``data`` alone, so the rank keeps its ``E / M`` experts,
+and its gradient summed over the batch axes only.
+``rules.activation_partitioning`` (``sharding.make_constrainer``) picks
+the work of a model axis: ``"seq"`` (the reference's default) splits the
+sequence, each rank running its positions of every layer and the flash
 attention against k / v gathered over ``model``; ``"none"`` keeps the
 stream whole over ``model``, every rank repeating the layer but the
-attention, whose query rows split (``flash_attention_sharded``).  The loss
-is the global batch's mean on every rank, AdamW updates the shards, and
-the gradient norm is the whole tree's.  ``grad_accum`` cuts the rank's
-rows into micro-batches.
+attention, whose query rows split (``flash_attention_sharded``).  The
+loss is the global batch's mean on every rank, AdamW updates the shards,
+and the gradient norm is the whole tree's.  ``grad_accum`` cuts the
+rank's rows into micro-batches.  ``aux`` is the reference's on the same
+mesh with one micro-batch (and 0 with more, as there).
 
 The dry-run specs (``input_specs``, ``param_specs``,
 ``compressed_param_specs``) are not ported yet, nor a mesh for the prefill
@@ -46,7 +51,7 @@ from ..optim.adamw import AdamWConfig, adamw, iter_leaves
 from ..optim.schedules import cosine_schedule
 from .collectives import LeafGather
 from .sharding import (DEFAULT_RULES, P, ShardingRules, grad_axes,
-                       make_constrainer, named, param_pspecs)
+                       is_expert_leaf, make_constrainer, named, param_pspecs)
 
 F32 = torch.float32
 _NOT_YET_PORTED = ("mesh={!r}: not yet ported (the engine serves on a "
@@ -172,6 +177,14 @@ def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
     constrain = make_constrainer(mesh, rules)
     specs = train_pspecs(cfg, mesh, rules)
     flat_spec = dict(iter_leaves(specs))
+    # an expert leaf: its rank's E / M experts gathered over data alone,
+    # and its gradient summed over the batch axes, never over model (the
+    # other model ranks hold other experts)
+    expert_paths = {path for path in flat_spec if is_expert_leaf(path)}
+    expert_axes = grad_axes(mesh, False)
+
+    def spec_of_experts(spec):
+        return P(*(None if a == "model" else a for a in spec))
 
     def run_train_step(params, opt_state, batch, step):
         paths, leaves = zip(*iter_leaves(params))
@@ -192,24 +205,28 @@ def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
             spec, acc = flat_spec[path], accs[path]
             if u is not None:
                 x, acc, spec = x[u], acc[u], P(*spec[1:])
+            if path in expert_paths:
+                return LeafGather.apply(token, x, spec_of_experts(spec),
+                                        mesh, expert_axes, acc)
             return LeafGather.apply(token, x, spec, mesh, axes, acc)
 
         mb = B // grad_accum
         loss = torch.zeros((), dtype=F32, device=dev)
         for i in range(grad_accum):
             rows = slice(i * mb, (i + 1) * mb)
-            l, _ = M.loss_fn(params, cfg, tokens[rows], labels[rows],
-                             mesh=mesh, remat=remat, constrain=constrain,
-                             gather=gather)
+            l, met = M.loss_fn(params, cfg, tokens[rows], labels[rows],
+                               mesh=mesh, remat=remat, constrain=constrain,
+                               gather=gather)
             torch.autograd.grad(l, [token])
             loss = loss + l.detach()
         if grad_accum > 1:
             grads = [accs[p].div_(grad_accum) for p in paths]
             loss = loss / grad_accum
+            met = {"nll": loss, "aux": torch.zeros_like(loss)}
         else:       # one micro-batch: the gradient in the leaf's dtype
             grads = [accs.pop(p).to(x.dtype) for p, x in zip(paths, leaves)]
+            met = {k: v.detach() for k, v in met.items()}
         del accs
-        met = {"nll": loss, "aux": torch.zeros_like(loss)}
         lr = cosine_schedule(torch.as_tensor(step, device=dev),
                              warmup_steps, total_steps, opt_cfg.lr)
         params, opt_state, om = adamw(params, _unflatten(paths, grads),

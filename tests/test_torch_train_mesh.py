@@ -30,10 +30,12 @@ step the oracle.  f32, phi3-medium-14b's smoke stack, seq 16, global batch
     ``batch_numpy`` rows, bit for bit, on ``(data, model)`` and ``(pod,
     data, model)`` stand-ins;
   * a checkpoint saved on ``--mesh 2`` restored on ``1x2`` and on one rank,
-    every leaf bit-identical;
+    every leaf bit-identical; moonshot's (the experts split over
+    ``model``) saved on ``1x2`` and restored on ``--mesh 2`` (split over
+    ``data``) and on one rank, likewise;
   * ``launch/train.py --smoke --device cpu --mesh host --model-axis 2``
     on 4 gloo ranks, 3 steps, its losses within rtol 2e-4 of the one-rank
-    run's.
+    run's; moonshot's on 2 ranks (``1x2``) likewise.
 """
 import importlib
 from concurrent.futures import ThreadPoolExecutor
@@ -80,6 +82,8 @@ REF_RUNS4 = {"2x2": (2, 2, "seq", False, 1), "4": (4, 1, "seq", False, 1),
 ACCUM_RUNS4 = {"2x2/accum2": (2, 2, "seq", True, 2)}
 REF_RUNS2 = {"1x2/none": (1, 2, "none", False, 1)}
 ACCUM_RUNS2 = {"1x2/accum2": (1, 2, "seq", True, 2)}
+# {arch: (the mesh a step is saved from, the mesh it is restored onto)}
+CKPT_MESHES = {R.ARCH: ((2, 1), (1, 2)), R.MOON: ((1, 2), (2, 1))}
 
 
 def _np_tree(tree):
@@ -95,9 +99,12 @@ def _ref_leaves(tree) -> dict:
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """The reference's weights, its one-device step and the port's one-rank
-    steps (plain, and grad_accum 2 with remat)."""
+    steps (plain, and grad_accum 2 with remat); moonshot's weights for its
+    checkpoint drill."""
     ref_cfg = ref_smoke(ref_get(R.ARCH))
     params = RM.init_params(jax.random.PRNGKey(0), ref_cfg)
+    moon = _np_tree(RM.init_params(jax.random.PRNGKey(0),
+                                   ref_smoke(ref_get(R.MOON))))
     batch = RefData(RefDataConfig(vocab_size=ref_cfg.vocab_size,
                                   seq_len=R.SEQ,
                                   global_batch=R.BATCH)).batch(0)
@@ -122,7 +129,9 @@ def ref(tmp_path_factory):
     return dict(params=np_params, loss=float(m_ref["loss"]),
                 grad_norm=float(m_ref["grad_norm"]),
                 new_params=_ref_leaves(p_ref), mu=_ref_leaves(o_ref["mu"]),
-                port=port, ckpt=str(tmp_path_factory.mktemp("ckpt")))
+                port=port, moon=moon, ckpt={
+                    arch: str(tmp_path_factory.mktemp("ckpt"))
+                    for arch in (R.ARCH, R.MOON)})
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +143,9 @@ def worlds(ref):
             device="cpu", timeout=600)
         w2 = pool.submit(MESH.spawn, R.world_main, 2, dict(
             params=ref["params"], runs={**REF_RUNS2, **ACCUM_RUNS2},
-            ckpt=ref["ckpt"]), device="cpu", timeout=600)
+            ckpt={arch: (ref["ckpt"][arch], *CKPT_MESHES[arch])
+                  for arch in CKPT_MESHES},
+            ckpt_params={R.MOON: ref["moon"]}), device="cpu", timeout=600)
         return {4: w4.result(), 2: w2.result()}
 
 
@@ -270,18 +281,36 @@ def test_checkpoint_restores_across_meshes_bit_identical(worlds, ref):
     """Saved from ``--mesh 2`` (rank 0 writes whole leaves), restored on
     ``1x2`` (each rank its own shards) and on one rank: every leaf's bits
     the saved state's."""
-    drills = [r["ckpt"] for r in worlds[2]]
+    _check_drill(worlds, ref, R.ARCH)
+
+
+def test_moe_checkpoint_restores_across_meshes_bit_identical(worlds, ref):
+    """moonshot's state saved from ``1x2`` (each model rank its half of
+    the experts), restored on ``--mesh 2`` (every expert, half of d_model
+    a rank) and on one rank: every leaf's bits the saved state's."""
+    _check_drill(worlds, ref, R.MOON)
+
+
+def _check_drill(worlds, ref, arch):
+    drills = [r["ckpt"][arch] for r in worlds[2]]
     drill = drills[0]
     assert drill["step"] == 1 and drill["files"] == ["step_00000001"]
     saved, on_mesh = drill["saved"], drill["restored"]
     assert set(saved) == set(on_mesh)
     for path, x in saved.items():
         assert _same_bits(x, on_mesh[path]), path
-    # the 1x2 ranks hold halves of the model-split leaves
-    wq = ("params", "units", "pos0", "attn", "wq")
-    shapes = [d["local_shapes"][wq] for d in drills]
-    assert shapes[0] == shapes[1] and shapes[0][-1] * 2 == saved[wq].shape[-1]
-    one, at = restore_tree(ref["ckpt"], _tree_like(saved), device="cpu")
+    if arch == R.ARCH:
+        # the 1x2 ranks hold halves of the model-split leaves
+        leaf, dim = ("params", "units", "pos0", "attn", "wq"), -1
+    else:
+        # the --mesh 2 ranks hold every expert, half of d_model each
+        leaf, dim = ("params", "units", "pos0", "moe", "wi_gate"), 2
+        assert drills[0]["local_shapes"][leaf][1] == saved[leaf].shape[1]
+    shapes = [d["local_shapes"][leaf] for d in drills]
+    assert shapes[0] == shapes[1] and \
+        shapes[0][dim] * 2 == saved[leaf].shape[dim]
+    one, at = restore_tree(ref["ckpt"][arch], _tree_like(saved),
+                           device="cpu")
     assert at == 1
     for path, x in iter_leaves(one):
         assert _same_bits(x.numpy(), saved[path]), path
@@ -305,11 +334,25 @@ def _tree_like(flat: dict) -> dict:
 def test_launch_train_mesh_host_matches_one_rank(tmp_path):
     """The CLI on four gloo ranks (a model axis of 2) against its one-rank
     run: three steps, losses within rtol 2e-4."""
-    common = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
-              "--seq-len", "16", "--log-every", "1"]
+    _check_cli(tmp_path, R.ARCH, 4)
+
+
+def test_launch_train_mesh_host_moe_matches_one_rank(tmp_path, capfd):
+    """moonshot's smoke stack through the CLI on two gloo ranks (``1x2``,
+    each rank training half the experts) against its one-rank run: three
+    steps, losses within rtol 2e-4; rank 0's closing line names the mesh
+    and the expert split."""
+    _check_cli(tmp_path, R.MOON, 2)
+    assert "mesh {data: 1, model: 2}, experts 4 of 8 a rank" in \
+        capfd.readouterr().out
+
+
+def _check_cli(tmp_path, arch, ranks):
+    common = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+              "--batch", "4", "--seq-len", "16", "--log-every", "1"]
     one = train_cli.main(common + ["--ckpt-dir", str(tmp_path / "one")])
     mesh = train_cli.main(common + ["--ckpt-dir", str(tmp_path / "mesh"),
                                     "--mesh", "host", "--model-axis", "2",
-                                    "--ranks", "4"])
+                                    "--ranks", str(ranks)])
     assert len(one) == len(mesh) == 3
     np.testing.assert_allclose(mesh, one, rtol=RTOL)
