@@ -5,15 +5,16 @@ Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
     python3 chip_smoke.py [--layers N] [--seed S]
-                          [--only 1,21[,22][,23][,24]]
+                          [--only 1,21[,22][,23][,24][,25]]
 
 ``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
-22 alone, ``--only 1,23`` phase 23 alone, ``--only 1,24`` phase 24 alone:
-on a host with four or more cards, ``python3 chip_smoke.py --only 1,21``
-serves qwen3-8b at full depth on four NCCL ranks, ``--only 1,22``
-moonshot-v1-16b-a3b and llama4-scout-17b-a16e at full depth, ``--only
-1,23`` trains qwen3-8b at all 36 layers and ``--only 1,24``
-moonshot-v1-16b-a3b at 24 of its 48 layers.
+22 alone, ``--only 1,23`` phase 23 alone, ``--only 1,24`` phase 24 alone,
+``--only 1,25`` phase 25 alone: on a host with four or more cards,
+``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full depth on four
+NCCL ranks, ``--only 1,22`` moonshot-v1-16b-a3b and llama4-scout-17b-a16e
+at full depth, ``--only 1,23`` trains qwen3-8b at all 36 layers, ``--only
+1,24`` moonshot-v1-16b-a3b at 24 of its 48 layers and ``--only 1,25``
+recurrentgemma-2b and gemma2-9b at full depth, xlstm-350m at 4 of 24.
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the five CUDA kernels built with
@@ -397,6 +398,39 @@ Phases, each failing loudly (non-zero exit, no result line):
      synchronised and timed), resident and peak GiB; per mesh: tokens/s and
      the model-FLOP share of the ranks' 989 TFLOP/s (the active parameters:
      the attention, the shared SwiGLU, the gate and ``top_k`` experts).
+  25. training the recurrent and sliding-window stacks on a mesh of ranks
+     (under the sequence split each RG-LRU, sLSTM and mLSTM mixer runs on
+     its normed input gathered over ``model`` and keeps the rank's
+     positions; each local layer past its window gathers its k / v over
+     ``model`` and runs ``local_attention`` with ``q_base``): before the
+     ranks start, B5 and B4 with statistics and ``q_base`` against their
+     plain versions at gemma2-9b's heads (16 / 8 of 256, softcap 50) on the
+     last model rank's micro-batch of seq 8192.  The smoke stacks of
+     recurrentgemma-2b, xlstm-350m and gemma2-9b (heads of 64) in f32, seq
+     64 (past their window of 32), one step (remat, grad_accum 2) on
+     ``1x2`` (one card) or ``2x2`` (four) against one rank's step on the
+     card: loss and updated parameters within 2e-4.  At full width, bf16
+     weights and f32 moments, grad_accum 2, remat (``REC_TRAIN_FULL``): on
+     four NCCL ranks recurrentgemma-2b at 26 layers, batch 4 x 4096 (past
+     its window of 2048), xlstm-350m at 4, batch 8 x 1024, gemma2-9b at
+     42, batch 4 x 8192 (past its window of 4096; more state than a card
+     holds), ``REC_TRAIN_STEPS`` steps on ``1x4`` and ``2x2``; on one card
+     two gloo ranks on ``1x2``, one step each (``REC_TRAIN_ONE_CARD``:
+     recurrentgemma at 3 layers, batch 2 x 4096, xlstm at 2, batch 4 x
+     512).  Gates: every loss and gradient norm finite and the ranks'
+     losses equal; step 0 within 5e-3 (loss) and 2e-2 (gradient norm) of
+     one rank's unsharded step on card 0 from the same seed (recurrentgemma,
+     in micro-batches of one row, and xlstm), of the other mesh's
+     (gemma2); B4 with statistics (twice a global layer a micro-batch) and
+     B5 launched on gemma2's global layers alone, with ``q_base`` exactly
+     on the model ranks past the first, and no kernel for recurrentgemma
+     (every local layer past its window) and xlstm; each rank's resident
+     state at most 0.55 (one card) or 0.3 (four) of the whole tree's
+     bytes.  Per rank: step ms, the collectives' ms a step and the
+     mixers' forward ms by kind, to their issue's end and to the card's
+     (a further step with each synchronised and timed), resident and peak
+     GiB; per mesh: tokens/s and the model-FLOP share of the ranks' 989
+     TFLOP/s; the one-rank step's ms, its mixers' and its peak GiB.
 Each phase logs the time since the start when it is done.  Phases 5-13,
 16, 17 and 19 run at a cut depth so that the whole script stays well
 inside its time limit on a slow host (14, 15 and 18 at full depth), 20
@@ -438,10 +472,10 @@ SPEC_K = 4              # phase 10's drafted tokens a round
 SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 MOE_ARCH = "moonshot-v1-16b-a3b"    # phase 12's model
-QWEN_LAYERS = 8         # phases 5-11's depth (qwen3-8b has 36)
-MOE_LAYERS = 24         # phase 12's depth (moonshot-v1-16b-a3b has 48)
+QWEN_LAYERS = 4         # phases 5-11's depth (qwen3-8b has 36)
+MOE_LAYERS = 8          # phase 12's depth (moonshot-v1-16b-a3b has 48)
 GEMMA_ARCH = "gemma2-9b"            # phase 13's model
-GEMMA_LAYERS = 22       # phase 13's depth: 11 of its 21 units
+GEMMA_LAYERS = 8        # phase 13's depth: 4 of its 21 units
 # phase 13's prompts: longer than the local window (4096) at prefill
 # (local_attention, a rolled ring), one that wraps its ring in decode, one
 # that never does; submitted in this order
@@ -489,7 +523,7 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 # max_batch 8 (two slots a batch shard); on one card two ranks share it at
 # QWEN_LAYERS with phase 5's 8 requests at max_batch 4
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
-MESH_PHASES = ("1", "21", "22", "23", "24")   # what --only may name
+MESH_PHASES = ("1", "21", "22", "23", "24", "25")   # what --only may name
 # phase 22 on one card: moonshot at 4 of its 48 layers on two gloo ranks
 # (its trees built four times, whole and halved, beside phase 21's
 # leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
@@ -506,6 +540,22 @@ MESH_TRAIN_ACCUM = 2
 # card 2 of its 48 layers on two gloo ranks, on four cards 24 (the depth
 # phase 12 serves at: ~14.4 B parameters at ~10 bytes each, ~36 GB a rank)
 MOE_TRAIN_LAYERS, MOE_TRAIN_FULL_LAYERS, MOE_TRAIN_STEPS = 2, 24, 4
+# phase 25: the recurrent and sliding-window stacks at full width, each
+# sequence past its local window, trained on a mesh: (arch, layers, seq,
+# global batch) on four cards and, two gloo ranks sharing one card, the
+# one-card cut; gemma2-9b (more state than a card holds) on four only
+# (xlstm at 4 of its 24 layers: its sLSTM loop issues ~20 kernels a
+# position a layer from the host, ~1.3-2.1 ms a position with autograd on
+# one card, so 24 layers would take minutes a step)
+REC_TRAIN_FULL = ((RG_ARCH, 26, 4096, 4), (XLSTM_ARCH, 4, 1024, 8),
+                  (GEMMA_ARCH, 42, 8192, 4))
+REC_TRAIN_ONE_CARD = ((RG_ARCH, 3, 4096, 2), (XLSTM_ARCH, 2, 512, 4))
+REC_TRAIN_STEPS = 3
+# the one-rank reference of recurrentgemma-2b on one card runs
+# micro-batches of one row (the same mean gradient as the mesh's
+# grad_accum 2): at full width its f32 logits of 256,000 entries a position
+# then sit beside ~46 GB of state
+REC_ONE_ROW = (RG_ARCH,)
 
 
 def fail(msg: str):
@@ -3740,7 +3790,7 @@ def _train_rank_setup(torch, mesh_dims):
 
 
 def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
-                exchange=None):
+                exchange=None, mixer=None):
     """The full-width runs of phases 23 and 24 on this rank: for each run
     of ``spec["runs"]`` this rank's shards of ``cfg``'s state drawn from
     the seed (``runtime.steps.init_sharded``), ``spec["steps"]`` steps on
@@ -3750,7 +3800,10 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
     the host and so waits for it anyway, the counted steps are timed
     instead).  ``exchange`` (phase 24): the MoE layers' ``all_to_all``
     counts ``{"calls", "s", "on"}``, timed where ``timer`` is on and
-    reported apart -> ({tag: the run's figures}, the tree's parameters)."""
+    reported apart; ``mixer`` (phase 25): the recurrent mixers' forward
+    timings ``{"on", "by_kind"}`` (:func:`_mixer_probe`), taken where
+    ``timer`` is on -> ({tag: the run's figures}, the tree's
+    parameters)."""
     import torch.distributed as dist
     from repro_torch.core.store import torch_dtype
     from repro_torch.data import DataConfig, SyntheticLMData
@@ -3772,6 +3825,7 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
     data = SyntheticLMData(DataConfig(cfg.vocab_size, spec["seq"],
                                       spec["batch"], spec["seed"]))
     a2a = exchange if exchange is not None else {}
+    mix = mixer if mixer is not None else {}
     out = {}
     for run in spec["runs"]:
         mesh = meshes[tuple(run["mesh"])]
@@ -3793,6 +3847,7 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
         zero()
         timer.update(on=not nccl, s=0.0, n=0)
         a2a.update(calls=0, s=0.0, on=not nccl)
+        mix.update(on=not nccl, by_kind={})
         for i in range(spec["steps"]):
             batch = data.sharded_batch(i, mesh, SH.batch_axes(mesh), dev)
             dist.barrier()
@@ -3810,6 +3865,7 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
             dist.barrier()
             timer.update(on=True, s=0.0, n=0)
             a2a.update(calls=0, s=0.0, on=True)
+            mix.update(on=True, by_kind={})
             t0 = time.perf_counter()
             params, opt, _ = step_fn(params, opt, batch, spec["steps"])
             torch.cuda.synchronize()
@@ -3817,7 +3873,7 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
             n_timed = 1
         else:
             timed_s, n_timed = sum(secs), len(secs)
-        timer["on"] = a2a["on"] = False
+        timer["on"] = a2a["on"] = mix["on"] = False
         out[run["tag"]] = dict(
             mesh=list(run["mesh"]), steps=steps,
             step_ms=[x * 1e3 for x in secs], launches=launches,
@@ -3831,6 +3887,8 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
             out[run["tag"]].update(
                 all_to_all_calls=a2a_calls / spec["steps"],
                 all_to_all_ms=a2a["s"] * 1e3 / n_timed)
+        if mixer is not None:
+            out[run["tag"]]["mixer_ms"] = _mixer_ms(mix, n_timed)
         del params, opt, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4387,19 +4445,374 @@ def train_moe_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
     return out, launches, dict(b5=b5, b4=b4)
 
 
+def _mixer_probe(torch, M):
+    """Wrap ``models.model._mixer_full`` (a recurrent layer's mixer over
+    the whole sequence) so that, while the returned dict's ``"on"``, each
+    call is timed on the host clock from a synchronised start: to its
+    return (the host's issue of the mixer's kernels) and to the card's
+    end of them, summed by kind into ``"by_kind"`` -> the dict, whose
+    ``"restore"`` puts the mixer back."""
+    probe = {"on": False, "by_kind": {}}
+    mixer = M._mixer_full
+
+    def timed(p, h, cfg, kind, dtype):
+        if not probe["on"]:
+            return mixer(p, h, cfg, kind, dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mixer(p, h, cfg, kind, dtype)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k = probe["by_kind"].setdefault(kind, [0.0, 0.0, 0])
+        k[0] += t1 - t0
+        k[1] += t2 - t0
+        k[2] += 1
+        return out
+
+    def restore():
+        M._mixer_full = mixer
+
+    M._mixer_full = timed
+    probe["restore"] = restore
+    return probe
+
+
+def _mixer_ms(probe, n: int) -> dict:
+    """{kind: {"issue_ms", "ms", "calls"}} a step of ``n`` timed steps."""
+    return {kind: dict(issue_ms=v[0] * 1e3 / n, ms=v[1] * 1e3 / n,
+                       calls=v[2] / n)
+            for kind, v in probe["by_kind"].items()}
+
+
+def train_rec_mesh_rank(rank, world, dev, spec):
+    """One rank of phase 25 (a process of its own, started by
+    ``launch.mesh.spawn``): each small f32 stack of ``spec["small"]``
+    ({arch: config overrides of its smoke variant}) trained one step on
+    ``spec["small_mesh"]`` under the sequence split, its parameters
+    gathered whole on rank 0; then each full-width stack of
+    ``spec["stacks"]`` on each mesh of ``spec["runs"]`` as phase 23's runs
+    (:func:`_train_runs`), the recurrent mixers' forward timed where the
+    collectives are -> a dict of plain values."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get, smoke_variant
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, iter_leaves
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import steps as S
+
+    meshes, timer, zero, counts = _train_rank_setup(
+        torch, [r["mesh"] for r in spec["runs"]] + [spec["small_mesh"]])
+    probe = _mixer_probe(torch, M)
+    mesh_s = meshes[tuple(spec["small_mesh"])]
+    small = {}
+    for arch, over in spec["small"].items():
+        cfg_s = dataclasses.replace(smoke_variant(get(arch)), **over)
+        p, specs = S.init_sharded(cfg_s, spec["seed"], mesh_s, device=dev)
+        data_s = SyntheticLMData(DataConfig(cfg_s.vocab_size, 64, 4,
+                                            spec["seed"]))
+        p, _, m = S.make_train_step(
+            cfg_s, AdamWConfig(lr=1e-3), mesh=mesh_s, remat=True,
+            grad_accum=2)(p, adamw_init(p), data_s.sharded_batch(
+                0, mesh_s, SH.batch_axes(mesh_s), dev), 0)
+        flat = dict(iter_leaves(specs))
+        params = {"/".join(k): collectives.gather_leaf(v, flat[k], mesh_s)
+                  .cpu().numpy() for k, v in iter_leaves(p)}
+        small[arch] = dict(loss=float(m["loss"]),
+                           grad_norm=float(m["grad_norm"]),
+                           params=params if rank == 0 else None)
+        del p
+    full = {}
+    for arch, layers, seq, batch in spec["stacks"]:
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        out, n_params = _train_runs(
+            torch, dev, cfg, dict(spec, seq=seq, batch=batch), meshes, timer,
+            zero, counts, mixer=probe)
+        full[arch] = dict(runs=out, n_params=n_params)
+    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
+                small=small, full=full)
+
+
+def _rec_model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """A step's model FLOPs: 6 x the parameters a token's products use
+    (the tied embedding is the unembedding's) x tokens, and the attention's
+    12 x B x H x hd x visible pairs a layer (a local layer's within its
+    window); the recurrent mixers' elementwise work and each model rank's
+    repeat of the whole sequence's mixer are not counted."""
+    n_matmul = n_params - (0 if cfg.tie_embeddings
+                           else cfg.vocab_size * cfg.d_model)
+    W = min(cfg.local_window, seq)
+    pairs = {"attn": seq * (seq + 1) // 2, "nope": seq * (seq + 1) // 2,
+             "local": seq * W - W * (W - 1) // 2}
+    kinds = [cfg.pattern[i % cfg.unit] for i in range(
+        cfg.n_layers - cfg.n_layers % cfg.unit)]
+    attn = sum(pairs.get(k, 0) for k in kinds)
+    return 6 * n_matmul * batch * seq + 12 * batch * cfg.n_heads * cfg.hd \
+        * attn
+
+
+def train_rec_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
+                         seed: int, flash_fwd, flash_bwd, gen, flush):
+    """Phase 25 on ``n_ranks`` ranks (four NCCL ranks, one a card, or two
+    gloo ranks sharing one card) -> (measurements, per-rank launches of the
+    full-width runs, B4's and B5's results at gemma2's shard shape).  Fails
+    on any gate."""
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         iter_leaves)
+    from repro_torch.runtime.steps import make_train_step
+    full = n_ranks >= 4
+    nccl = full and torch.cuda.device_count() >= n_ranks
+    stacks = REC_TRAIN_FULL if full else REC_TRAIN_ONE_CARD
+    steps = REC_TRAIN_STEPS if full else 1
+    A = MESH_TRAIN_ACCUM
+    runs = ([dict(tag=f"1x{n_ranks}", mesh=(1, n_ranks)),
+             dict(tag="2x2", mesh=(2, 2))] if full
+            else [dict(tag=f"1x{n_ranks}", mesh=(1, n_ranks))])
+    small_mesh = (2, 2) if full else (1, n_ranks)
+    log(f"phase 25: training the recurrent and sliding-window stacks on "
+        f"{n_ranks} ranks over "
+        f"{'NCCL, one card each' if nccl else 'gloo on one card'}; full "
+        f"width, bf16 weights and f32 moments, grad_accum {A}, remat, "
+        f"{steps} step(s) a mesh on {[r['mesh'] for r in runs]} (the "
+        f"sequence split over model): "
+        + "; ".join(f"{a} {n} layers, batch {b} x seq {t}"
+                    for a, n, t, b in stacks))
+
+    # B4 with statistics and B5 at gemma2's shard shape: a micro-batch of
+    # the last model rank of 1x4 at seq 8192 (rows [6144, 8192))
+    g2 = get(GEMMA_ARCH)
+    _, _, seq_g2, batch_g2 = REC_TRAIN_FULL[2]
+    b_mb, t_loc = batch_g2 // A, seq_g2 // 4
+    heads = (g2.n_heads, g2.n_kv_heads)
+    b5 = check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, t_loc,
+                         heads, g2.hd, softcap=g2.attn_softcap, Tk=seq_g2,
+                         B=b_mb, q_base=seq_g2 - t_loc)
+    b4 = check_flash(torch, flash_fwd, t_loc, gen, flush, heads=heads,
+                     D=g2.hd, softcap=g2.attn_softcap, B=b_mb,
+                     q_base=seq_g2 - t_loc, Tk=seq_g2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-rank references on this card: each small f32 stack's step
+    # and, for the stacks a card holds, step 0 unsharded at full width
+    # gemma2's global layers launch B4 / B5, whose narrowest head is 64
+    small = {RG_ARCH: {}, XLSTM_ARCH: {}, GEMMA_ARCH: dict(head_dim=64)}
+    small_want = {}
+    for arch, over in small.items():
+        cfg_s = dataclasses.replace(smoke_variant(get(arch)), **over)
+        p_s = M.init_params(cfg_s, seed, device="cuda")
+        p_s, _, m_s = make_train_step(cfg_s, AdamWConfig(lr=1e-3),
+                                      remat=True, grad_accum=2)(
+            p_s, adamw_init(p_s), SyntheticLMData(DataConfig(
+                cfg_s.vocab_size, 64, 4, seed)).batch(0, "cuda"), 0)
+        small_want[arch] = dict(loss=float(m_s["loss"]), params={
+            "/".join(k): v.detach().cpu().numpy()
+            for k, v in iter_leaves(p_s)})
+        del p_s
+    probe = _mixer_probe(torch, M)
+    one = {}
+    for arch, layers, seq, batch in stacks:
+        if arch == GEMMA_ARCH:
+            continue            # more state than one card holds
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        accum = batch if arch in REC_ONE_ROW else A
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p1 = M.init_params(cfg, seed, device="cuda",
+                           dtype=torch_dtype(cfg.dtype))
+        data = SyntheticLMData(DataConfig(cfg.vocab_size, seq, batch, seed))
+        probe.update(on=True, by_kind={})
+        t1 = time.perf_counter()
+        _, _, m1 = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+                                   remat=True, grad_accum=accum,
+                                   warmup_steps=1, total_steps=steps)(
+            p1, adamw_init(p1), data.batch(0, "cuda"), 0)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        probe["on"] = False
+        one[arch] = dict({k: float(v) for k, v in m1.items()},
+                         grad_accum=accum, step_ms=step_s * 1e3,
+                         mixer_ms=_mixer_ms(probe, 1),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del p1, m1
+        log(f"phase 25 {arch} one rank unsharded at {layers} layers, step "
+            f"0: loss {one[arch]['loss']:.6f} grad_norm "
+            f"{one[arch]['grad_norm']:.5f}, grad_accum {accum}, "
+            f"{step_s * 1e3:.1f} ms (the mixers' forward "
+            + ", ".join(f"{k} {v['ms']:.1f}" for k, v in
+                        one[arch]["mixer_ms"].items())
+            + f" ms), peak {one[arch]['peak_gib']:.2f} GiB "
+            f"({time.perf_counter() - t0:.1f} s with the build)")
+    probe["restore"]()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = dict(seed=seed, steps=steps, runs=runs, stacks=stacks,
+                small=small, small_mesh=small_mesh)
+    t0 = time.perf_counter()
+    res = MESH.spawn(train_rec_mesh_rank, n_ranks, spec, device="cuda",
+                     backend="nccl" if nccl else "gloo", timeout=1500)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"phase 25 ranks: {n_ranks} x {r0['device']} over {r0['backend']}, "
+        f"spawn + builds + steps {wall:.1f}s")
+    problems = []
+    small_gaps = {}
+    for arch, want in small_want.items():
+        errs = [abs(r["small"][arch]["loss"] - want["loss"])
+                / abs(want["loss"]) for r in res]
+        p_err = _trees_close(np, r0["small"][arch]["params"],
+                             want["params"], False)
+        small_gaps[arch] = dict(loss=max(errs), params=p_err)
+        if not (max(errs) <= 2e-4 and p_err <= 2e-4):
+            problems.append(f"small {arch} off one rank's: loss {errs}, "
+                            f"parameters {p_err}")
+    log(f"phase 25 small f32 stacks on {list(small_mesh)} against one rank "
+        f"(loss gap, largest parameter gap; tol 2e-4): "
+        + ", ".join(f"{a} {g['loss']:.2e} / {g['params']:.2e}"
+                    for a, g in small_gaps.items()))
+    share_max = 0.3 if full else 0.55
+    out = dict(ranks=n_ranks, backend=r0["backend"], grad_accum=A,
+               steps=steps, small_gaps=small_gaps, one_rank=one, stacks={},
+               flops_formula="6 x parameters (the tied embedding once) x "
+               "tokens + 12 x B x H x hd x visible pairs (a local layer's "
+               "within its window) a layer")
+    launches = {}
+    for arch, layers, seq, batch in stacks:
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        n_global = (layers // cfg.unit) * cfg.pattern.count("attn")
+        per_step = {"flash_fwd": 2 * n_global * A, "flash_bwd": n_global * A}
+        n_params = r0["full"][arch]["n_params"]
+        model_flops = _rec_model_flops(cfg, n_params, batch, seq)
+        st = out["stacks"][arch] = dict(layers=layers, seq=seq, batch=batch,
+                                        n_params=n_params,
+                                        model_flops_a_step=model_flops,
+                                        runs={})
+        for run in runs:
+            tag = run["tag"]
+            per = [r["full"][arch]["runs"][tag] for r in res]
+            n_model = run["mesh"][1]
+            for rank, p in enumerate(per):
+                bad = [s for s in p["steps"]
+                       if not (math.isfinite(s["loss"])
+                               and math.isfinite(s["grad_norm"]))]
+                if bad:
+                    problems.append(f"{arch} {tag} rank {rank}: non-finite "
+                                    f"{bad}")
+                if p["resident_share"] > share_max:
+                    problems.append(f"{arch} {tag} rank {rank}: resident "
+                                    f"state {p['resident_share']:.3f} of the "
+                                    f"tree > {share_max}")
+                ln = p["launches"]
+                want = {k: v * steps for k, v in per_step.items()}
+                if {k: ln[k] for k in want} != want or ln["ecf8_decode"] or \
+                        ln["kv_page_decode"] or ln["fused_decode_matmul"]:
+                    problems.append(f"{arch} {tag} rank {rank}: launches "
+                                    f"{ln}, expected {want} and no other "
+                                    f"kernel")
+                q_rank = rank % n_model != 0
+                if (ln["flash_fwd_q_base"], ln["flash_bwd_q_base"]) != (
+                        (want["flash_fwd"], want["flash_bwd"]) if q_rank
+                        else (0, 0)):
+                    problems.append(f"{arch} {tag} rank {rank}: launches "
+                                    f"with q_base {ln}")
+            for i in range(steps):
+                ls = {p["steps"][i]["loss"] for p in per}
+                if len(ls) != 1:
+                    problems.append(f"{arch} {tag} step {i}: the ranks' "
+                                    f"losses differ {ls}")
+            step_s = statistics.median([x for p in per
+                                        for x in p["step_ms"][1:]
+                                        or p["step_ms"]]) / 1e3
+            tok_s = batch * seq / step_s
+            share = model_flops / step_s / (n_ranks * H100_BF16_FLOPS)
+            st["runs"][tag] = dict(
+                mesh=run["mesh"], loss=[s["loss"] for s in per[0]["steps"]],
+                grad_norm=[s["grad_norm"] for s in per[0]["steps"]],
+                step_ms=[p["step_ms"] for p in per],
+                median_step_ms=step_s * 1e3, tokens_per_s=tok_s,
+                flop_share=share,
+                collectives_ms=[p["collectives_ms"] for p in per],
+                collectives=per[0]["collectives"],
+                timed_step_ms=[p["timed_step_ms"] for p in per],
+                mixer_ms=[p["mixer_ms"] for p in per],
+                resident_gib=[p["resident_gib"] for p in per],
+                resident_share=[p["resident_share"] for p in per],
+                whole_gib=per[0]["whole_gib"],
+                peak_gib=[p["peak_gib"] for p in per],
+                build_s=[p["build_s"] for p in per],
+                launches=[p["launches"] for p in per])
+            launches[f"train_rec_{arch}_{tag}"] = [p["launches"]
+                                                   for p in per]
+            mixers = {k: (round(v["issue_ms"], 1), round(v["ms"], 1))
+                      for k, v in per[0]["mixer_ms"].items()}
+            log(f"phase 25 {arch} {tag} (mesh {list(run['mesh'])}, "
+                f"{n_params / 1e9:.3f} B parameters): losses "
+                f"{[round(x, 5) for x in st['runs'][tag]['loss']]} grad_norm "
+                f"{[round(x, 4) for x in st['runs'][tag]['grad_norm']]}; a "
+                f"rank's step "
+                f"{[[round(x, 1) for x in p['step_ms']] for p in per]} ms "
+                f"(median {step_s * 1e3:.1f}), collectives "
+                f"{[round(p['collectives_ms'], 1) for p in per]} ms in "
+                f"{per[0]['collectives']} calls (a synchronised step of "
+                f"{[round(p['timed_step_ms'], 1) for p in per]} ms), the "
+                f"mixers' forward (issue, end) ms {mixers} (rank 0); "
+                f"resident {[round(p['resident_gib'], 3) for p in per]} GiB "
+                f"of {per[0]['whole_gib']:.3f} "
+                f"({max(p['resident_share'] for p in per):.3f}), peak "
+                f"{[round(p['peak_gib'], 2) for p in per]} GiB; build "
+                f"{[round(p['build_s'], 1) for p in per]} s; {tok_s:.0f} "
+                f"tokens/s, model FLOPs {model_flops / 1e12:.1f} T a step = "
+                f"{100 * share:.2f} % of {n_ranks} x 989 TFLOP/s; launches "
+                f"{per[0]['launches']} (rank 0), {per[-1]['launches']} (rank "
+                f"{n_ranks - 1})")
+        # step 0 against one rank unsharded, or (gemma2) the other mesh's
+        if arch in one:
+            against = "one rank"
+            w_loss, w_norm = one[arch]["loss"], one[arch]["grad_norm"]
+            tags = [r["tag"] for r in runs]
+        else:
+            against = runs[1]["tag"]
+            w_loss = st["runs"][against]["loss"][0]
+            w_norm = st["runs"][against]["grad_norm"][0]
+            tags = [runs[0]["tag"]]
+        gaps = {t: dict(loss=abs(st["runs"][t]["loss"][0] - w_loss)
+                        / abs(w_loss),
+                        grad_norm=abs(st["runs"][t]["grad_norm"][0] - w_norm)
+                        / abs(w_norm)) for t in tags}
+        st["step0_gaps"] = dict(against=against, gaps=gaps)
+        log(f"phase 25 {arch} step 0 against {against}: {gaps} (tol loss "
+            f"5e-3, grad_norm 2e-2)")
+        if not all(g["loss"] <= 5e-3 and g["grad_norm"] <= 2e-2
+                   for g in gaps.values()):
+            problems.append(f"{arch} step 0 off {against}'s: {gaps}")
+    if problems:
+        fail("phase 25: " + "; ".join(problems))
+    return out, launches, dict(b5=b5, b4=b4)
+
+
 def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                 flash_bwd, kv_page, ecf8_decode, fp8, tpu_format, only: set,
                 seed: int, t_start: float):
-    """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / any of them
-    together: after the build, the mesh phases named (four NCCL ranks when
-    four cards are visible: phase 21 at ``MESH_LAYERS``, phases 22 and 23
-    at full depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks on
-    one card), then the kernels line of what ran (a kernel no phase of the
-    run timed has null time keys) and the last line."""
+    """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / ``1,25`` / any of
+    them together: after the build, the mesh phases named (four NCCL ranks
+    when four cards are visible: phase 21 at ``MESH_LAYERS``, phases 22, 23
+    and 25 at full depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo
+    ranks on one card), then the kernels line of what ran (a kernel no
+    phase of the run timed has null time keys) and the last line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
-    out = moe_out = t23 = t24 = None
+    out = moe_out = t23 = t24 = t25 = None
     launches = {}
     if "21" in only:
         out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
@@ -4436,6 +4849,15 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
         log(f"phase 24 measurements: {json.dumps(moe_train_out)}")
         log(f"phase 24 done at {time.perf_counter() - t_start:.1f}s")
         launches.update(l24)
+    if "25" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec_train_out, l25, t25 = train_rec_mesh_phase(
+            torch, np, MESH, get, smoke_variant, n_ranks, seed, flash_fwd,
+            flash_bwd, gen, flush)
+        log(f"phase 25 measurements: {json.dumps(rec_train_out)}")
+        log(f"phase 25 done at {time.perf_counter() - t_start:.1f}s")
+        launches.update(l25)
     del flush
 
     def mesh_l(name):
@@ -4457,8 +4879,8 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
     elif moe_out is not None:
         b4 = checks["b4"]
     else:
-        b4 = (t23 or t24)["b4"]
-    b5 = (t23 or t24 or {}).get("b5", untimed)
+        b4 = (t23 or t24 or t25)["b4"]
+    b5 = (t23 or t24 or t25 or {}).get("b5", untimed)
     b3 = out["b3_sharded"] if out is not None else None
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -5415,15 +5837,25 @@ def main(argv=None):
     moe_train_out, moe_train_launches, t24 = train_moe_mesh_phase(
         torch, np, MESH, get, smoke_variant, n_ranks, args.seed, flash_fwd,
         flash_bwd, gen, flush)
-    del flush
     log(f"phase 24 measurements: {json.dumps(moe_train_out)}")
     mark("phase 24")
 
+    # -- 25. training the recurrent and sliding-window stacks on a mesh ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_train_out, rec_train_launches, t25 = train_rec_mesh_phase(
+        torch, np, MESH, get, smoke_variant, n_ranks, args.seed, flash_fwd,
+        flash_bwd, gen, flush)
+    del flush
+    log(f"phase 25 measurements: {json.dumps(rec_train_out)}")
+    mark("phase 25")
+
     def on_train_mesh(name):
-        """Each rank's launches in each phase-23 and phase-24 run."""
+        """Each rank's launches in each phase-23, 24 and 25 run."""
         return {tag: [ln[name] for ln in runs]
                 for tag, runs in {**train_mesh_launches,
-                                  **moe_train_launches}.items()}
+                                  **moe_train_launches,
+                                  **rec_train_launches}.items()}
 
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
@@ -5512,6 +5944,7 @@ def main(argv=None):
              launches_mesh_train_q_base=on_train_mesh("flash_fwd_q_base"),
              with_stats_q_base_at_train_shape=t23["b4"],
              with_stats_q_base_at_moe_train_shape=t24["b4"],
+             with_stats_q_base_at_gemma2_train_shape=t25["b4"],
              with_stats_at_train_shape={
                  k: results["bwd_qwen3"][k]
                  for k in ("fwd_ms", "fwd_stats_ms", "stats_err")},
@@ -5562,6 +5995,7 @@ def main(argv=None):
              launches_mesh_train_q_base=on_train_mesh("flash_bwd_q_base"),
              q_base_at_shard_shape=train_mesh_out["q_base_checks"],
              q_base_at_moe_train_shape=t24["b5"],
+             q_base_at_gemma2_train_shape=t25["b5"],
              library="scaled_dot_product_attention backward, no softcap",
              at_gemma2_shape=results["bwd_gemma2"],
              at_whisper_shape=results["bwd_whisper"],

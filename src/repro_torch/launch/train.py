@@ -30,6 +30,10 @@ Usage:
   # the mixture-of-experts stack, each model rank training E / M experts
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --arch moonshot-v1-16b-a3b --mesh host --model-axis 2 --ranks 2
+  # a recurrent stack (sLSTM + mLSTM; recurrentgemma-2b's RG-LRU + local
+  # window likewise), each mixer reading the sequence gathered over model
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --arch xlstm-350m --mesh host --model-axis 2 --ranks 4
   # every visible card a rank (NCCL), or the ranks torchrun started
   PYTHONPATH=src python -m repro_torch.launch.train --mesh host \\
       --model-axis 2

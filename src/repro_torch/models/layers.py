@@ -150,35 +150,45 @@ def blockwise_attention(q, k, v, *, causal: bool = True, q_offset=0,
 
 
 def local_attention(q, k, v, *, window: int, attn_softcap: float = 0.0,
-                    q_chunk: int = 1024):
+                    q_chunk: int = 1024, q_base=None):
     """Causal sliding-window attention, O(Tq * window): the reference's
     ``local_attention``, computed outside any kernel there as here.
 
-    q: (B, Hq, Tq, D), k/v: (B, Hkv, Tq, D).  Each q chunk ``[i*C,
+    q: (B, Hq, Tq, D), k/v: (B, Hkv, Tk, D).  Each q chunk ``[i*C,
     (i+1)*C)`` attends to the K/V slice ``[i*C - W, (i+1)*C)`` (zero-padded
     in front), masked to ``q_pos - W < kv_pos <= q_pos`` and ``kv_pos >=
     0``; the softcap comes before the mask, q is scaled in its own dtype,
-    and the softmax is f32."""
+    and the softmax is f32.
+
+    ``q_base`` (training's sequence split): q holds positions ``[q_base,
+    q_base + Tq)`` of a sequence whose k / v are whole (``Tk >= q_base +
+    Tq``), and the chunks, their K/V slices and the mask are shifted by it:
+    the reference's whole-sequence call cut to these rows.  None (or 0)
+    with ``Tk == Tq`` is the call above, chunk for chunk."""
     B, Hq, Tq, D = q.shape
+    base = q_base or 0
+    Tk = k.shape[2]
     q = scale_in_dtype(q, D ** -0.5)
     C = min(q_chunk, Tq)
     n_q = -(-Tq // C)
     Tq_p = n_q * C
     if Tq_p != Tq:
         q = F.pad(q, (0, 0, 0, Tq_p - Tq))
-    W = min(window, k.shape[2])
+    W = min(window, Tk)
     ctx = C + W                     # kv context of one q chunk
-    k_pad = F.pad(k, (0, 0, W, Tq_p - Tq))
-    v_pad = F.pad(v, (0, 0, W, Tq_p - Tq))
+    tail = max(base + Tq_p - Tk, 0)
+    k_pad = F.pad(k, (0, 0, W, tail))
+    v_pad = F.pad(v, (0, 0, W, tail))
     dev = q.device
     outs = []
     for qi in range(n_q):
+        lo = base + qi * C          # the chunk's first global position
         q_blk = q[:, :, qi * C:(qi + 1) * C]
-        k_blk = k_pad[:, :, qi * C:qi * C + ctx]
-        v_blk = v_pad[:, :, qi * C:qi * C + ctx]
+        k_blk = k_pad[:, :, lo:lo + ctx]
+        v_blk = v_pad[:, :, lo:lo + ctx]
         s = _softcap(_gqa_scores(q_blk, k_blk).to(F32), attn_softcap)
-        q_pos = qi * C + torch.arange(C, device=dev)
-        kv_pos = qi * C + torch.arange(ctx, device=dev) - W
+        q_pos = lo + torch.arange(C, device=dev)
+        kv_pos = lo + torch.arange(ctx, device=dev) - W
         mask = ((kv_pos[None, :] <= q_pos[:, None])
                 & (kv_pos[None, :] > q_pos[:, None] - W)
                 & (kv_pos[None, :] >= 0))

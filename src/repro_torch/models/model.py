@@ -85,11 +85,14 @@ expert_cut``) and the layer exchanges dispatch rows over ``model``
 step routes each data group's rows (over the whole batch without a model
 axis); the replicated steps route the whole batch as the mesh's data
 groups would.  Training on a mesh (:func:`forward`, :func:`loss_fn` with
-``mesh``; the attention stacks, with or without experts) runs a rank's
-batch shard on its shards of the weights, each gathered whole where a
-layer uses it (an expert leaf over ``data`` only: the rank's ``E / M``
-experts), the sequence split over ``model`` or the attention's query rows;
-its MoE layers route each data group's rows (``rows="shard"``).
+``mesh``; every decoder-only stack: attention, experts, recurrent mixers
+and local windows) runs a rank's batch shard on its shards of the
+weights, each gathered whole where a layer uses it (an expert leaf over
+``data`` only: the rank's ``E / M`` experts), the sequence split over
+``model`` or the attention's query rows; its MoE layers route each data
+group's rows (``rows="shard"``), and under the sequence split its
+recurrent mixers and its local windows read the whole sequence, gathered
+over ``model``.
 """
 from __future__ import annotations
 
@@ -102,6 +105,7 @@ from ..core.store import is_compressed, torch_dtype
 from ..device import resolve
 from ..kernels import ops
 from ..kvcache import paged as paged_kv
+from ..runtime import collectives
 from ..runtime.sharding import axis_size, batch_index, n_batch_shards
 from . import decode_sharded as DS
 from . import recurrent as rec
@@ -339,23 +343,26 @@ def _attn_out(p, o, dtype):
 def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype,
                          mesh=None, q_base=None):
     """Full-sequence causal self attention (prefill): the flash kernel, or
-    for a ``local`` layer whose window is shorter than the prompt,
+    for a ``local`` layer whose window is shorter than the sequence,
     :func:`local_attention` (the reference's condition).  On a mesh the
     flash kernel's query rows split over ``model``; ``q_base`` (training's
     sequence split) says that ``x`` holds positions ``[q_base, q_base +
-    T)`` of a sequence the model ranks split."""
+    T)`` of a sequence of ``T * M`` the ``M`` model ranks split.  The
+    condition is then taken on the whole sequence, as the reference takes
+    it, and a local layer's k / v are gathered whole over ``model`` (their
+    backward sums each rank's partial cotangent and keeps its rows) for
+    the rank's rows of :func:`local_attention`."""
     T = x.shape[1]
     positions = (q_base or 0) + torch.arange(T, device=x.device)
     q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype,
                                             kind != "nope", positions))
-    if q_base is not None and kind == "local" and \
-            cfg.local_window < T * axis_size(mesh, "model"):
-        raise NotImplementedError(
-            f"{cfg.name}: a local layer whose window ({cfg.local_window}) "
-            f"is shorter than the sequence under the sequence split")
-    if kind == "local" and cfg.local_window < T:
+    whole = T if q_base is None else T * axis_size(mesh, "model")
+    if kind == "local" and cfg.local_window < whole:
+        if q_base is not None:
+            k = collectives.RowGather.apply(k, mesh, "model", 2, True)
+            v = collectives.RowGather.apply(v, mesh, "model", 2, True)
         o = local_attention(q, k, v, window=cfg.local_window,
-                            attn_softcap=cfg.attn_softcap)
+                            attn_softcap=cfg.attn_softcap, q_base=q_base)
     elif mesh is not None:
         o = flash_attention_sharded(q, k, v, mesh,
                                     attn_softcap=cfg.attn_softcap,
@@ -560,18 +567,25 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     K/V (:func:`_cross_kv`) in an encoder-decoder's decoder.  On a mesh a
     MoE layer routes the rows as one group (``rows="own"``) unless ``ep``
     (:func:`_ffn`'s) says otherwise.  ``q_base``:
-    :func:`_self_attention_full`'s."""
+    :func:`_self_attention_full`'s; a recurrent mixer then runs on the
+    whole sequence, its normed input gathered over ``model`` (the
+    gather's backward sums each rank's partial cotangent and keeps its
+    rows), and keeps the rank's positions: the reference's scan order and
+    mLSTM chunks, its parameters' gradients partials over the rank's
+    positions that sum over ``model`` (the final state is the whole
+    sequence's)."""
     h = rms_norm(x, p["norm1"])
     if kind in ATTN_KINDS:
         o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype, mesh,
                                      q_base)
-    elif kind == "rglru":
-        o, st = rec.rglru_apply(p["rglru"], h, dtype=dtype)
-    elif kind == "slstm":
-        o, st = rec.slstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype)
     else:
-        o, st = rec.mlstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype,
-                                chunk=min(128, h.shape[1]))
+        t = h.shape[1]
+        if q_base is not None:
+            h = collectives.RowGather.apply(h.contiguous(), mesh, "model", 1,
+                                            True)
+        o, st = _mixer_full(p, h, cfg, kind, dtype)
+        if q_base is not None:
+            o = o.narrow(1, q_base, t)
     cross = None
     if cross_kv is not None:
         def cross(hx):
@@ -579,6 +593,17 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     if ep is None and mesh is not None:
         ep = (mesh, "own")
     return _residual(p, x, o, cfg, dtype, cross, aux, ep), st
+
+
+def _mixer_full(p, h, cfg: ArchConfig, kind: str, dtype):
+    """A recurrent layer's mixer over the whole of ``h`` (B, T, d) ->
+    (output, final state)."""
+    if kind == "rglru":
+        return rec.rglru_apply(p["rglru"], h, dtype=dtype)
+    if kind == "slstm":
+        return rec.slstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype)
+    return rec.mlstm_apply(p["cell"], h, cfg.n_heads, dtype=dtype,
+                           chunk=min(128, h.shape[1]))
 
 
 def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state,
@@ -834,21 +859,14 @@ def _gathered(tree, path, u, gather):
 
 
 def check_mesh_trainable(cfg: ArchConfig) -> None:
-    """Raise for what training on a mesh does not run yet: recurrent
-    mixers and an encoder.  (A ``local`` layer whose window is shorter
-    than the sequence is refused under the sequence split by
-    :func:`_self_attention_full`.)  Experts train on a mesh."""
-    if any(k in REC_KINDS for k in cfg.pattern) or \
-            any(k in REC_KINDS for k in _tail_kinds(cfg)) or \
-            cfg.encoder_decoder:
+    """Raise for what training on a mesh does not run yet: an encoder.
+    Every decoder-only stack trains on a mesh: attention, experts,
+    recurrent mixers and local windows, under the sequence split too."""
+    if cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: training on a mesh runs the attention stacks, "
-            f"with or without experts; a recurrent stack on a mesh is the "
-            f"next training slice's (its scans over the whole sequence "
-            f"under the sequence split), an encoder-decoder's the one "
-            f"after (the encoder and cross attention with mesh=), and "
-            f"gemma2's local layers under the sequence split wait with "
-            f"the recurrent stacks")
+            f"{cfg.name}: training on a mesh runs the decoder-only stacks; "
+            f"an encoder-decoder's (the encoder and cross attention with "
+            f"mesh=) is not ported yet")
 
 
 def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
@@ -864,8 +882,8 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     the tail layers and the encoder are not checkpointed, as there).  An
     encoder-decoder takes ``frames`` (B, F, d).
 
-    On a mesh of ranks (``mesh``; the attention stacks, with or without
-    experts): ``tokens`` are this rank's batch shard's rows and ``params``
+    On a mesh of ranks (``mesh``; the decoder-only stacks): ``tokens``
+    are this rank's batch shard's rows and ``params``
     its shards of the leaves (``runtime.sharding.local_shard``);
     ``gather(path, shard, u)``
     returns a leaf whole where a layer uses it (unit ``u``'s of a stacked
@@ -879,7 +897,9 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     query rows (:func:`flash_attention_sharded`).  A MoE layer routes each
     data group's rows (``rows="shard"``), under the sequence split over
     the group's whole sequence, gathered over ``model`` and cut back to
-    the rank's positions after it (``models.moe``'s ``seq``)."""
+    the rank's positions after it (``models.moe``'s ``seq``); a recurrent
+    mixer and a local window past the whole sequence read it likewise
+    (:func:`_layer_apply_full`, :func:`_self_attention_full`)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     if mesh is not None:

@@ -12,8 +12,8 @@ summed into f32 buffers and divided, as the reference's ``lax.scan`` sums
 them, and ``aux`` is reported as 0, as there.  ``remat`` recomputes each
 unit's activations in the backward.
 
-On a mesh of ranks (``mesh``, ``launch/mesh.py``; the attention stacks,
-with or without experts) the step is GSPMD's placement written out.
+On a mesh of ranks (``mesh``, ``launch/mesh.py``; every decoder-only
+stack) the step is GSPMD's placement written out.
 Each rank holds its shard (``runtime.sharding.local_shard``) of every
 parameter and AdamW moment under the rule table (``param_pspecs`` /
 ``opt_pspecs``, ``rules``) and the rows of its batch shard
@@ -28,9 +28,10 @@ and its gradient summed over the batch axes only.
 ``rules.activation_partitioning`` (``sharding.make_constrainer``) picks
 the work of a model axis: ``"seq"`` (the reference's default) splits the
 sequence, each rank running its positions of every layer and the flash
-attention against k / v gathered over ``model``; ``"none"`` keeps the
-stream whole over ``model``, every rank repeating the layer but the
-attention, whose query rows split (``flash_attention_sharded``).  The
+attention against k / v gathered over ``model`` (a local window and a
+recurrent mixer read the whole sequence, gathered likewise); ``"none"``
+keeps the stream whole over ``model``, every rank repeating the layer but
+the attention, whose query rows split (``flash_attention_sharded``).  The
 loss is the global batch's mean on every rank, AdamW updates the shards,
 and the gradient norm is the whole tree's.  ``grad_accum`` cuts the
 rank's rows into micro-batches.  ``aux`` is the reference's on the same

@@ -67,6 +67,87 @@ def test_local_attention_matches_reference(T, cap):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def _local_attention_whole_only(q, k, v, *, window, attn_softcap=0.0,
+                                q_chunk=1024):
+    """``layers.local_attention`` as it was before it took ``q_base``
+    (whole sequences only), kept to hold the new one's ``q_base=None``
+    bit-identical to it."""
+    B, Hq, Tq, D = q.shape
+    q = fa.scale_in_dtype(q, D ** -0.5)
+    C = min(q_chunk, Tq)
+    n_q = -(-Tq // C)
+    Tq_p = n_q * C
+    if Tq_p != Tq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, Tq_p - Tq))
+    W = min(window, k.shape[2])
+    ctx = C + W
+    k_pad = torch.nn.functional.pad(k, (0, 0, W, Tq_p - Tq))
+    v_pad = torch.nn.functional.pad(v, (0, 0, W, Tq_p - Tq))
+    outs = []
+    for qi in range(n_q):
+        q_blk = q[:, :, qi * C:(qi + 1) * C]
+        k_blk = k_pad[:, :, qi * C:qi * C + ctx]
+        v_blk = v_pad[:, :, qi * C:qi * C + ctx]
+        s = fa._softcap(layers._gqa_scores(q_blk, k_blk).to(torch.float32),
+                        attn_softcap)
+        q_pos = qi * C + torch.arange(C)
+        kv_pos = qi * C + torch.arange(ctx) - W
+        mask = ((kv_pos[None, :] <= q_pos[:, None])
+                & (kv_pos[None, :] > q_pos[:, None] - W)
+                & (kv_pos[None, :] >= 0))
+        s = torch.where(mask[None, None], s, -1e30)
+        outs.append(layers._gqa_combine(torch.softmax(s, dim=-1), v_blk))
+    out = torch.cat(outs, dim=2) if n_q > 1 else outs[0]
+    return out[:, :, :Tq].to(v.dtype)
+
+
+@pytest.mark.parametrize("T,dtype", [(33, torch.float32),
+                                     (1030, torch.float32),
+                                     (100, torch.bfloat16)])
+def test_local_attention_without_q_base_is_bit_identical(T, dtype):
+    """``q_base`` None (and 0) computes what the whole-sequence call
+    computed before it took one: same chunks, padding and rounding
+    points, so every serving path that calls it is unchanged."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(4, 2, T, 16, T))
+    want = _local_attention_whole_only(q, k, v, window=32,
+                                       attn_softcap=50.0)
+    for q_base in (None, 0):
+        got = layers.local_attention(q, k, v, window=32, attn_softcap=50.0,
+                                     q_base=q_base)
+        assert got.dtype == want.dtype and torch.equal(got, want), q_base
+
+
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_local_attention_q_base_shards_match_reference_vjp(cap):
+    """Four 24-row shards of T = 96 (window 32, GQA 4 / 2), each from its
+    ``q_base`` against the whole k / v (training's sequence split, k / v
+    gathered over ``model``): each shard's output and q cotangent, and the
+    k / v cotangents summed over the shards, against the reference's
+    ``local_attention`` and ``jax.vjp`` over the whole sequence, within
+    1e-5 of the largest magnitude (f32)."""
+    T, n, W = 96, 4, 32
+    q, k, v = _qkv(4, 2, T, 16, seed=96)
+    do = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+    out, vjp = jax.vjp(lambda q, k, v: ref_layers.local_attention(
+        q, k, v, window=W, attn_softcap=cap), *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (k, v))
+    outs, dqs, t = [], [], T // n
+    for i in range(n):
+        rows = slice(i * t, (i + 1) * t)
+        qs = torch.from_numpy(q[:, :, rows].copy()).requires_grad_(True)
+        o = layers.local_attention(qs, tk, tv, window=W, attn_softcap=cap,
+                                   q_base=i * t)
+        o.backward(torch.from_numpy(do[:, :, rows].copy()))
+        outs.append(o.detach())
+        dqs.append(qs.grad)
+    for name, got, w in (("o", torch.cat(outs, 2), want[0]),
+                         ("dq", torch.cat(dqs, 2), want[1]),
+                         ("dk", tk.grad, want[2]), ("dv", tv.grad, want[3])):
+        err = float(np.abs(got.numpy() - w).max()) / float(np.abs(w).max())
+        assert err <= ATOL, (name, err)
+
+
 @pytest.mark.parametrize("T,causal,cap", [(37, True, 50.0), (64, True, 0.0),
                                           (45, False, 50.0)])
 def test_plain_flash_head_dim_256_matches_reference(T, causal, cap):

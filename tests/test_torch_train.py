@@ -138,9 +138,10 @@ def test_compressed_tree_is_refused(world):
 def test_mesh_is_refused(world):
     """A mesh is refused where the port runs none yet: the prefill and
     decode step functions (the engine serves on a mesh), and a train step
-    for a recurrent stack (the next training slice).  A dense stack and a
-    mixture-of-experts stack train on one (``tests/test_torch_train_mesh.
-    py``, ``tests/test_torch_train_moe_mesh.py``)."""
+    for an encoder-decoder.  The dense, mixture-of-experts, recurrent and
+    sliding-window stacks train on one (``tests/test_torch_train_mesh.
+    py``, ``tests/test_torch_train_moe_mesh.py``, ``tests/
+    test_torch_train_rec_mesh.py``)."""
     from repro_torch.runtime.sharding import MeshShape
     from repro_torch.runtime.steps import (make_decode_step,
                                            make_prefill_step)
@@ -148,10 +149,11 @@ def test_mesh_is_refused(world):
     for make in (make_prefill_step, make_decode_step):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             make(world[0], mesh=mesh)
-    with pytest.raises(NotImplementedError, match="next training slice"):
-        make_train_step(smoke_variant(get("recurrentgemma-2b")), mesh=mesh)
-    assert callable(make_train_step(
-        smoke_variant(get("moonshot-v1-16b-a3b")), mesh=mesh))
+    with pytest.raises(NotImplementedError, match="training on a mesh"):
+        make_train_step(smoke_variant(get("whisper-base")), mesh=mesh)
+    for arch in ("moonshot-v1-16b-a3b", "recurrentgemma-2b", "xlstm-350m"):
+        assert callable(make_train_step(smoke_variant(get(arch)),
+                                        mesh=mesh))
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])

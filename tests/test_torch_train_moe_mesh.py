@@ -27,8 +27,8 @@ them), while the worlds run.  In f32:
     step with the same options;
   * ``loss_fn`` on a mesh adds ``0.01 * aux`` to the NLL, the aux the
     reference's on that mesh (the mean over the data groups of ``2x2``);
-  * ``check_mesh_trainable`` lets the MoE stack through and refuses the
-    recurrent and encoder-decoder stacks.
+  * ``check_mesh_trainable`` lets the MoE and recurrent stacks through
+    and refuses the encoder-decoder.
 """
 import os
 import subprocess
@@ -313,8 +313,8 @@ def test_mesh_loss_adds_the_aux_loss_once(runs, tag):
 
 
 @pytest.mark.parametrize("arch,ok", [(R.MOON, True),
-                                     ("recurrentgemma-2b", False),
-                                     ("xlstm-350m", False),
+                                     ("recurrentgemma-2b", True),
+                                     ("xlstm-350m", True),
                                      ("whisper-base", False)])
 def test_check_mesh_trainable(arch, ok):
     cfg = smoke_variant(get(arch))

@@ -1,5 +1,6 @@
-"""Rank bodies of ``tests/test_torch_train_mesh.py`` and
-``tests/test_torch_train_moe_mesh.py``.
+"""Rank bodies of ``tests/test_torch_train_mesh.py``,
+``tests/test_torch_train_moe_mesh.py`` and
+``tests/test_torch_train_rec_mesh.py``.
 
 Each function runs in a process of its own, started by
 ``repro_torch.launch.mesh.spawn`` as one gloo rank on the CPU, and returns
@@ -47,21 +48,23 @@ def gathered(tree, specs, mesh) -> dict:
 
 
 def train_step(whole, mesh, rule: str, remat: bool, accum: int,
-               arch: str = ARCH) -> dict:
+               arch: str = ARCH, seq: int = SEQ) -> dict:
     """One step of the sharded train step on ``mesh`` from the whole tree
     ``whole`` -> metrics, the updated parameters and first moments
-    gathered whole, the launch counts of the flash kernels' plain versions
-    with ``q_base != 0`` on this rank, and the rank's resident bytes."""
+    gathered whole, the calls of the flash kernels' plain versions on this
+    rank (``q_base``: those with ``q_base != 0``; ``flash``: all) and of
+    ``local_attention`` (``local``: {"q_base": with a ``q_base``, "whole":
+    without}), and the rank's resident bytes."""
     cfg = smoke(arch)
     rules = SH.ShardingRules(activation_partitioning=rule)
     specs = S.train_pspecs(cfg, mesh, rules)
     params = SH.shard_tree(whole, SH.named(mesh, specs))
     opt = adamw_init(params)
-    data = SyntheticLMData(DataConfig(cfg.vocab_size, SEQ, BATCH))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, seq, BATCH))
     batch = data.sharded_batch(0, mesh, SH.batch_axes(mesh), CPU)
     step = S.make_train_step(cfg, AdamWConfig(lr=LR), mesh=mesh,
                              rules=rules, remat=remat, grad_accum=accum)
-    q_base, undo = _count_q_base()
+    q_base, calls, local, undo = _count_attention_calls()
     try:
         p, o, m = step(params, opt, batch, 0)
     finally:
@@ -72,29 +75,43 @@ def train_step(whole, mesh, rule: str, remat: bool, accum: int,
     return dict(metrics={k: float(v) for k, v in m.items()},
                 params=gathered(p, specs, mesh),
                 mu=gathered(o["mu"], specs, mesh), q_base=q_base,
-                resident=resident, rows=batch["tokens"].numpy())
+                flash=calls, local=local, resident=resident,
+                rows=batch["tokens"].numpy())
 
 
-def _count_q_base():
-    """Count this rank's plain flash forward / backward calls with ``q_base
-    != 0`` (the kernels' own counters count card launches) -> (the counts,
-    a function that puts the plain versions back)."""
+def _count_attention_calls():
+    """Count this rank's plain flash forward / backward calls, with ``q_base
+    != 0`` and in all (the kernels' own counters count card launches), and
+    its ``local_attention`` calls with and without a ``q_base`` -> (the
+    ``q_base`` counts, the totals, the local counts, a function that puts
+    the originals back)."""
+    from repro_torch.models import model as M
     counts = {"fwd": 0, "bwd": 0}
-    fwd, bwd = flash_fwd.plain_stats, flash_bwd.plain
+    calls = {"fwd": 0, "bwd": 0}
+    local = {"q_base": 0, "whole": 0}
+    fwd, bwd, loc = flash_fwd.plain_stats, flash_bwd.plain, M.local_attention
 
     def fwd_counted(*a, q_base=0, **kw):
         counts["fwd"] += bool(q_base)
+        calls["fwd"] += 1
         return fwd(*a, q_base=q_base, **kw)
 
     def bwd_counted(*a, q_base=0, **kw):
         counts["bwd"] += bool(q_base)
+        calls["bwd"] += 1
         return bwd(*a, q_base=q_base, **kw)
+
+    def loc_counted(*a, q_base=None, **kw):
+        local["whole" if q_base is None else "q_base"] += 1
+        return loc(*a, q_base=q_base, **kw)
 
     def undo():
         flash_fwd.plain_stats, flash_bwd.plain = fwd, bwd
+        M.local_attention = loc
 
     flash_fwd.plain_stats, flash_bwd.plain = fwd_counted, bwd_counted
-    return counts, undo
+    M.local_attention = loc_counted
+    return counts, calls, local, undo
 
 
 def world_main(rank, world, dev, spec):
@@ -249,4 +266,32 @@ def moe_world_main(rank, world, dev, spec):
     for tag, (d, m, rule) in spec["loss_meshes"].items():
         out["loss"][tag] = moe_loss(spec["params"], MESH.make_mesh(d, m),
                                     rule)
+    return out
+
+
+# -- the recurrent and sliding-window stacks
+# (tests/test_torch_train_rec_mesh.py) ------------------------------------
+
+def rec_world_main(rank, world, dev, spec):
+    """For each arch of ``spec["params"]`` ({arch: the reference's numpy
+    tree}), every run of ``spec["runs"]`` ({tag: (data, model, rule,
+    remat, grad_accum)}) at ``spec["seq"]``: rank 0 returns the gathered
+    trees, every rank its metrics and counts.  With ``spec["ckpt"]``
+    ({arch: (directory, save mesh, restore mesh)}): the checkpoint drill
+    across meshes of each arch."""
+    out = {"ckpt": {}}
+    wholes = {arch: convert._convert(tree, CPU)
+              for arch, tree in spec["params"].items()}
+    for arch, whole in wholes.items():
+        out[arch] = {}
+        for tag, (d, m, rule, remat, accum) in spec["runs"].items():
+            got = train_step(whole, MESH.make_mesh(d, m), rule, remat, accum,
+                             arch, spec["seq"])
+            if rank:
+                got = {k: got[k] for k in ("metrics", "q_base", "flash",
+                                           "local")}
+            out[arch][tag] = got
+    for arch, (directory, save, load) in spec.get("ckpt", {}).items():
+        out["ckpt"][arch] = ckpt_drill(wholes[arch], directory, rank, arch,
+                                       save, load)
     return out
