@@ -5,16 +5,19 @@ Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
     python3 chip_smoke.py [--layers N] [--seed S]
-                          [--only 1,21[,22][,23][,24][,25]]
+                          [--only 1,21[,22][,23][,24][,25][,26]]
 
 ``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
 22 alone, ``--only 1,23`` phase 23 alone, ``--only 1,24`` phase 24 alone,
-``--only 1,25`` phase 25 alone: on a host with four or more cards,
+``--only 1,25`` phase 25 alone, ``--only 1,26`` phase 26 alone: on a host
+with four or more cards,
 ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full depth on four
 NCCL ranks, ``--only 1,22`` moonshot-v1-16b-a3b and llama4-scout-17b-a16e
 at full depth, ``--only 1,23`` trains qwen3-8b at all 36 layers, ``--only
-1,24`` moonshot-v1-16b-a3b at 24 of its 48 layers and ``--only 1,25``
-recurrentgemma-2b and gemma2-9b at full depth, xlstm-350m at 4 of 24.
+1,24`` moonshot-v1-16b-a3b at 24 of its 48 layers, ``--only 1,25``
+recurrentgemma-2b and gemma2-9b at full depth, xlstm-350m at 4 of 24, and
+``--only 1,26`` trains whisper-base and runs the prefill and decode step
+factories for whisper-base, qwen3-8b and recurrentgemma-2b at full depth.
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. the card's name and power limit; the five CUDA kernels built with
@@ -321,7 +324,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      (the whole batch routed at once, each rank's routing weights
      gathered over ``data``; B3 on each rank's cold slots), and
      recurrentgemma-2b at ``RG_MESH_LAYERS`` layers on ``--mesh 2`` with
-     phase 14's prompts (the monolithic cache, whole on every rank).
+     phase 14's prompts (the monolithic cache split over the data groups:
+     each rank holds ``max_batch / 2`` rows).
      With four cards, four NCCL ranks: moonshot at all 48 layers on
      ``1x4``, ``2x2`` and ``--mesh 4`` (paged-compressed) with 16
      requests at max_batch 8, and llama4-scout at all 48 layers on
@@ -431,6 +435,50 @@ Phases, each failing loudly (non-zero exit, no result line):
      (a further step with each synchronised and timed), resident and peak
      GiB; per mesh: tokens/s and the model-FLOP share of the ranks' 989
      TFLOP/s; the one-rank step's ms, its mixers' and its peak GiB.
+  26. the prefill and decode step factories on a mesh of ranks
+     (``runtime.steps.make_prefill_step(mesh=)`` / ``make_decode_step(
+     mesh=)``: each rank its batch shard's rows; the prefill's
+     self-attention query rows split over ``model``, B4 with ``q_base``;
+     the rank's cache, each self-attention row that the model axis divides
+     cut to the rank's positions and decoded through the owner's write and
+     the stat merge, every other row, the cross K/V and the recurrent
+     states whole) and whisper-base trained on a mesh (the encoder whole on
+     every model rank, its leaves gathered, the cross attention's queries
+     the rank's decoder positions).  Before the ranks start, B5 and B4
+     with statistics against their plain versions at whisper's cross
+     attention on a rank of ``1x4`` (a micro-batch's 4 rows, 112 decoder
+     rows over 1500 frames, non-causal), timed beside SDPA's backward; one
+     rank's unsharded whisper step on the card, the oracle.  On one card
+     two gloo ranks share it: whisper-base at full width and depth trained
+     one step (batch 4 x 448, 1500 frames, grad_accum 2, remat, bf16
+     weights, f32 moments) on ``1x2`` and ``--mesh 2``; the factories'
+     prefill (4 rows of ``STEPS_WHISPER_PROMPT`` tokens, max_len 448) and
+     ``STEPS_NEW`` greedy decode steps on both meshes from the ECF8 and
+     the fp8 tree; qwen3-8b at ``QWEN_LAYERS`` through the factories on
+     ``1x2`` (4 rows of ``STEPS_QWEN_PROMPT``, max_len 2048), both trees.
+     With four cards, four NCCL ranks: whisper trained
+     ``STEPS_TRAIN_STEPS`` steps on ``1x4`` and ``2x2`` (batch 8 x 448)
+     and its factories there (8 rows); qwen3-8b at all 36 layers through
+     the factories on ``1x4`` and ``2x2`` (8 rows of 452 tokens, max_len
+     2048); recurrentgemma-2b at 26 layers on ``2x2`` (4 rows of
+     ``STEPS_RG_PROMPT`` tokens, past its 2048 window, max_len 4096).
+     Gates: whisper's losses finite and equal on every rank, step 0 within
+     5e-3 (loss) and 2e-2 (gradient norm) of one rank's; its B4 (the
+     encoder once, each decoder layer's self and cross attention twice
+     with remat, a micro-batch) and B5 launches a step exact, ``q_base``
+     only on the decoder's self attention of the model ranks past the
+     first, no other kernel; each factory prefill's B4 launches exact (the
+     flash layers' self attention, an encoder's and cross attention's),
+     ``q_base`` on the self attention of the model ranks past the first
+     alone, none in a decode step; B1 on every rank from ECF8 and never
+     from fp8, B2, B3 and B5 never; each rank's cache leaves of the shapes
+     above; every rank's tokens alike within its data group; ECF8 tokens
+     IDENTICAL to the fp8 tree's on every mesh.  Per rank: step ms, the
+     stat merge's ms a step (a few more steps with its gathers
+     synchronised and timed), prefill s, the cache's GiB, peak GiB; per
+     mesh: tokens/s; against card 0 alone on the whole batch from the fp8
+     tree: its step ms and cache GiB, and the rows whose tokens match
+     (bf16 merges round apart: reported, not gated).
 Each phase logs the time since the start when it is done.  Phases 5-13,
 16, 17 and 19 run at a cut depth so that the whole script stays well
 inside its time limit on a slow host (14, 15 and 18 at full depth), 20
@@ -472,7 +520,7 @@ SPEC_K = 4              # phase 10's drafted tokens a round
 SYSTEM_TOKENS = 256     # phase 11's shared system prompts
 B2_ROWS = 600           # phase 3c's M above the kernel's row block (512)
 MOE_ARCH = "moonshot-v1-16b-a3b"    # phase 12's model
-QWEN_LAYERS = 4         # phases 5-11's depth (qwen3-8b has 36)
+QWEN_LAYERS = 2         # phases 5-11's depth (qwen3-8b has 36)
 MOE_LAYERS = 8          # phase 12's depth (moonshot-v1-16b-a3b has 48)
 GEMMA_ARCH = "gemma2-9b"            # phase 13's model
 GEMMA_LAYERS = 8        # phase 13's depth: 4 of its 21 units
@@ -523,23 +571,23 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 # max_batch 8 (two slots a batch shard); on one card two ranks share it at
 # QWEN_LAYERS with phase 5's 8 requests at max_batch 4
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
-MESH_PHASES = ("1", "21", "22", "23", "24", "25")   # what --only may name
-# phase 22 on one card: moonshot at 4 of its 48 layers on two gloo ranks
+MESH_PHASES = ("1", "21", "22", "23", "24", "25", "26")   # --only's names
+# phase 22 on one card: moonshot at 2 of its 48 layers on two gloo ranks
 # (its trees built four times, whole and halved, beside phase 21's
 # leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
 # four cards moonshot and llama4-scout at full depth
-MOE_MESH_LAYERS, RG_MESH_LAYERS, MOE_LAYERS_FULL = 4, 5, 48
+MOE_MESH_LAYERS, RG_MESH_LAYERS, MOE_LAYERS_FULL = 2, 5, 48
 MESH_SHARD_PAGES, MESH_SHARD_COLD = 32, 2   # 21a's pools a batch shard
-# phase 23 on one card: qwen3-8b (untied) at 2 of its 36 layers on two gloo
+# phase 23 on one card: qwen3-8b (untied) at 1 of its 36 layers on two gloo
 # ranks, global batch 4 x 512; on four cards all 36 layers (~12 bytes a
 # parameter, more than one card holds), batch 8 x 2048; grad_accum 2
-MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 2, 512, 4
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 1, 512, 4
 MESH_TRAIN_FULL_SEQ, MESH_TRAIN_FULL_BATCH = 2048, 8
 MESH_TRAIN_ACCUM = 2
 # phase 24: moonshot-v1-16b-a3b at full width, phase 23's batches; on one
-# card 2 of its 48 layers on two gloo ranks, on four cards 24 (the depth
+# card 1 of its 48 layers on two gloo ranks, on four cards 24 (the depth
 # phase 12 serves at: ~14.4 B parameters at ~10 bytes each, ~36 GB a rank)
-MOE_TRAIN_LAYERS, MOE_TRAIN_FULL_LAYERS, MOE_TRAIN_STEPS = 2, 24, 4
+MOE_TRAIN_LAYERS, MOE_TRAIN_FULL_LAYERS, MOE_TRAIN_STEPS = 1, 24, 4
 # phase 25: the recurrent and sliding-window stacks at full width, each
 # sequence past its local window, trained on a mesh: (arch, layers, seq,
 # global batch) on four cards and, two gloo ranks sharing one card, the
@@ -556,6 +604,18 @@ REC_TRAIN_STEPS = 3
 # grad_accum 2): at full width its f32 logits of 256,000 entries a position
 # then sit beside ~46 GB of state
 REC_ONE_ROW = (RG_ARCH,)
+# phase 26: the prefill and decode step factories on a mesh and whisper-base
+# trained there.  The factories take a rectangular batch: qwen3-8b's rows
+# share one prompt length, phase 21's longest (451) rounded up to a
+# multiple of 4 so that the prefill's query rows split over every model
+# axis; recurrentgemma's pass its 2048-position window
+STEPS_NEW = 32                      # greedy decode steps after a prefill
+STEPS_QWEN_PROMPT, STEPS_QWEN_MAX_LEN = 452, 2048
+STEPS_RG_PROMPT, STEPS_RG_MAX_LEN = 2400, RG_MAX_LEN
+STEPS_WHISPER_PROMPT = 224          # phase 18's longer prompt
+STEPS_WHISPER_SEQ = 448             # whisper's n_text_ctx, trained at it
+STEPS_TRAIN_STEPS = 3               # on four cards (one on one card)
+STEPS_TIMED = 4                     # decode steps with the merge timed
 
 
 def fail(msg: str):
@@ -3416,7 +3476,8 @@ def moe_mesh_rank(rank, world, dev, spec):
                     resident=[list(b) for b in eng.resident_bytes],
                     checksum=list(eng.weights_checksum),
                     cold_compressed=(eng.paged.n_compressed
-                                     if eng.paged is not None else 0))
+                                     if eng.paged is not None else 0),
+                    cache_rows=eng.cache["cur_len"].shape[0])
                 if rank == 0:
                     log(f"rank 0: {run['tag']} served in {dt:.1f}s "
                         f"({eng.steps} steps)")
@@ -3609,7 +3670,13 @@ def moe_mesh_phase(torch, np, MESH, serve, get, n_ranks: int, seed: int,
                     (c.n_experts and dims[1] > 1 and not all(a2a),
                      f"a rank made no all_to_all: {a2a}"),
                     (dims[1] == 1 and any(a2a),
-                     "all_to_all without a model axis")):
+                     "all_to_all without a model axis"),
+                    (want_mode == "monolithic" and any(
+                        p["cache_rows"] != g["max_batch"] // dims[0]
+                        for p in pr),
+                     f"the monolithic cache holds "
+                     f"{[p['cache_rows'] for p in pr]} rows a rank, not "
+                     f"max_batch / {dims[0]}")):
                 if bad:
                     problems.append(f"phase 22 {rt}: {what}")
             steps = pr[0]["steps"]
@@ -3628,7 +3695,8 @@ def moe_mesh_phase(torch, np, MESH, serve, get, n_ranks: int, seed: int,
                 launches_a_step={k: [x[k] / max(steps, 1) for x in ln]
                                  for k in ("ecf8_decode", "flash_fwd",
                                            "kv_page_decode")},
-                launches=ln, cold_compressed=pr[0]["cold_compressed"])
+                launches=ln, cold_compressed=pr[0]["cold_compressed"],
+                cache_rows=[p["cache_rows"] for p in pr])
             log(f"phase 22 {rt} (mesh {list(dims)}): "
                 f"{json.dumps(go['runs'][rt])}")
         # experts placed: each rank's share of every expert leaf (the
@@ -3790,7 +3858,7 @@ def _train_rank_setup(torch, mesh_dims):
 
 
 def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
-                exchange=None, mixer=None):
+                exchange=None, mixer=None, frames=None):
     """The full-width runs of phases 23 and 24 on this rank: for each run
     of ``spec["runs"]`` this rank's shards of ``cfg``'s state drawn from
     the seed (``runtime.steps.init_sharded``), ``spec["steps"]`` steps on
@@ -3802,8 +3870,9 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
     counts ``{"calls", "s", "on"}``, timed where ``timer`` is on and
     reported apart; ``mixer`` (phase 25): the recurrent mixers' forward
     timings ``{"on", "by_kind"}`` (:func:`_mixer_probe`), taken where
-    ``timer`` is on -> ({tag: the run's figures}, the tree's
-    parameters)."""
+    ``timer`` is on; ``frames`` (phase 26): ``frames(step, mesh)``, the
+    rank's rows of an encoder-decoder's frames for the step's batch ->
+    ({tag: the run's figures}, the tree's parameters)."""
     import torch.distributed as dist
     from repro_torch.core.store import torch_dtype
     from repro_torch.data import DataConfig, SyntheticLMData
@@ -3850,6 +3919,8 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
         mix.update(on=not nccl, by_kind={})
         for i in range(spec["steps"]):
             batch = data.sharded_batch(i, mesh, SH.batch_axes(mesh), dev)
+            if frames is not None:
+                batch["frames"] = frames(i, mesh)
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3862,6 +3933,8 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
         if nccl:    # one more step, each collective timed (not counted)
             batch = data.sharded_batch(spec["steps"], mesh,
                                        SH.batch_axes(mesh), dev)
+            if frames is not None:
+                batch["frames"] = frames(spec["steps"], mesh)
             dist.barrier()
             timer.update(on=True, s=0.0, n=0)
             a2a.update(calls=0, s=0.0, on=True)
@@ -4800,19 +4873,486 @@ def train_rec_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
     return out, launches, dict(b5=b5, b4=b4)
 
 
+def _steps_frames(torch, cfg, batch: int, step: int, seed: int, dev):
+    """Global batch ``step``'s encoder frames (batch, F, d) in the config's
+    dtype, drawn from the seed on ``dev`` (every rank draws the same)."""
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + step + 1)
+    return torch.randn((batch, cfg.encoder_frames, cfg.d_model), generator=g,
+                       device=dev).to(getattr(torch, cfg.dtype))
+
+
+def _rank_rows(mesh, x):
+    """This rank's rows of a global batch (all of them without a mesh)."""
+    from repro_torch.runtime import sharding as SH
+    if mesh is None:
+        return x
+    per = x.shape[0] // SH.n_batch_shards(mesh)
+    lo = SH.batch_index(mesh) * per
+    return x[lo:lo + per]
+
+
+def _factory_run(torch, dev, cfg, tree, mesh, toks, frames, max_len: int,
+                 zero, counts):
+    """Phase 26's serve run on this rank: ``make_prefill_step(mesh=)`` on
+    its rows of ``toks`` (and ``frames``), ``STEPS_NEW`` greedy
+    ``make_decode_step`` calls, each timed on a synchronised host clock,
+    then ``STEPS_TIMED`` more with every stat-merge gather synchronised and
+    timed (without a mesh: the same on the whole batch) -> a dict of plain
+    values."""
+    import torch.distributed as dist
+    from repro_torch.models import decode_sharded as DS
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import steps as S
+
+    gib = 2 ** 30
+    batch = {"tokens": _rank_rows(mesh, toks)}
+    if frames is not None:
+        batch["frames"] = _rank_rows(mesh, frames)
+    prefill = S.make_prefill_step(cfg, mesh=mesh, max_len=max_len)
+    decode = S.make_decode_step(cfg, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    zero()
+    if mesh is not None:
+        dist.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(tree, batch)
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    l_prefill = counts()
+    zero()
+    leaves = SH.flatten(cache)
+    cache_b = sum(x.numel() * x.element_size() for x in leaves.values()
+                  if x.device.type == "cuda")
+    shapes = {"/".join(k): list(x.shape) for k, x in leaves.items()}
+    out_toks, secs = [], []
+    tok = logits[:, -1].argmax(-1)[:, None]
+    for _ in range(STEPS_NEW):
+        out_toks.append(tok[:, 0])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(tree, {"token": tok}, cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+    l_steps = counts()
+    # the stat merge's gathers, synchronised and timed over a few more steps
+    merge = {"s": 0.0, "n": 0}
+    gather = DS.gather_rows
+
+    def timed_gather(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        got = gather(*a, **kw)
+        torch.cuda.synchronize(dev)
+        merge["s"] += time.perf_counter() - t1
+        merge["n"] += 1
+        return got
+
+    DS.gather_rows = timed_gather
+    try:
+        for _ in range(STEPS_TIMED):
+            logits, cache = decode(tree, {"token": tok}, cache)
+            tok = logits[:, -1].argmax(-1)[:, None]
+    finally:
+        DS.gather_rows = gather
+    torch.cuda.synchronize(dev)
+    out = dict(tokens=torch.stack(out_toks, 1).cpu().tolist(),
+               prefill_s=prefill_s, step_ms=[x * 1e3 for x in secs],
+               launches_prefill=l_prefill, launches_steps=l_steps,
+               cache_gib=cache_b / gib, shapes=shapes,
+               peak_gib=(torch.cuda.max_memory_allocated(dev) - base) / gib,
+               merge_ms=merge["s"] * 1e3 / STEPS_TIMED,
+               merge_gathers=merge["n"] // STEPS_TIMED)
+    del cache, logits
+    return out
+
+
+def steps_mesh_rank(rank, world, dev, spec):
+    """One rank of phase 26 (a process of its own, started by
+    ``launch.mesh.spawn``): whisper-base trained on each mesh of
+    ``spec["train"]["runs"]`` as phase 23's runs (:func:`_train_runs`, the
+    rank's rows of the frames in each batch), then each group of
+    ``spec["groups"]``: the model's ECF8 and fp8 trees built on this rank's
+    card from the seed and run through the step factories on each mesh
+    (:func:`_factory_run`), rank 0 also alone on the whole batch from the
+    fp8 tree -> a dict of plain values."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+
+    dims_all = ([r["mesh"] for r in spec["train"]["runs"]]
+                + [m for g in spec["groups"] for m in g["meshes"]])
+    meshes, timer, zero, counts = _train_rank_setup(torch, dims_all)
+    gib = 2 ** 30
+    out = dict(rank=rank, device=torch.cuda.get_device_name(dev),
+               backend=dist.get_backend(), train={}, groups={})
+    tr = spec["train"]
+    wh = get(WHISPER_ARCH)
+
+    def frames(i, mesh):
+        return _rank_rows(mesh, _steps_frames(torch, wh, tr["batch"], i,
+                                              spec["seed"], dev))
+
+    out["train"], out["train_params"] = _train_runs(
+        torch, dev, wh, dict(spec, runs=tr["runs"], seq=tr["seq"],
+                             batch=tr["batch"], steps=tr["steps"]),
+        meshes, timer, zero, counts, frames=frames)
+    for g in spec["groups"]:
+        cfg = dataclasses.replace(get(g["arch"]), n_layers=g["layers"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        dist.barrier()
+        served, base, report, build_s = serve.build_params(
+            cfg, spec["seed"], "tpu", device=dev, baseline=True)
+        trees = {"ecf8": served, "fp8": base}
+        res = dict(build_s=build_s,
+                   resident_gib=(torch.cuda.memory_allocated(dev) - before)
+                   / gib,
+                   fp8_mb=report["fp8_bytes"] / 1e6,
+                   ecf8_mb=report["compressed_bytes"] / 1e6, runs={})
+        rng = np.random.default_rng(spec["seed"])
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (g["batch"], g["prompt"]))).to(dev)
+        fr = (_steps_frames(torch, cfg, g["batch"], 0, spec["seed"], dev)
+              if cfg.encoder_decoder else None)
+        for dims in g["meshes"]:
+            mesh = meshes[tuple(dims)]
+            for name in ("ecf8", "fp8"):
+                tag = f"{g['tag']}_{dims[0]}x{dims[1]}_{name}"
+                res["runs"][tag] = _factory_run(
+                    torch, dev, cfg, trees[name], mesh, toks, fr,
+                    g["max_len"], zero, counts)
+                if rank == 0:
+                    log(f"rank 0: {tag} done")
+        if rank == 0:       # the fp8 tree on card 0 alone, the whole batch
+            res["alone"] = _factory_run(torch, dev, cfg, base, None, toks,
+                                        fr, g["max_len"], zero, counts)
+        dist.barrier()
+        del trees, served, base, toks, fr
+        out["groups"][g["tag"]] = res
+    return out
+
+
+def steps_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
+                     flash_fwd, flash_bwd, gen, flush):
+    """Phase 26 on ``n_ranks`` ranks (four NCCL ranks, one a card, or two
+    gloo ranks sharing one card) -> (measurements, per-run launches of
+    every rank, B4's and B5's results at whisper's cross-attention shape).
+    Fails on any gate."""
+    from repro_torch.core.store import torch_dtype
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    full = n_ranks >= 4
+    nccl = full and torch.cuda.device_count() >= n_ranks
+    A = MESH_TRAIN_ACCUM
+    wh = get(WHISPER_ARCH)
+    qw = get("qwen3-8b")
+    if full:
+        meshes = [(1, n_ranks), (2, n_ranks // 2)]
+        batch, train_steps, q_layers = 2 * WHISPER_BATCH, STEPS_TRAIN_STEPS, \
+            qw.n_layers
+    else:
+        meshes = [(1, n_ranks), (n_ranks, 1)]
+        batch, train_steps, q_layers = WHISPER_BATCH, 1, QWEN_LAYERS
+    runs = [dict(tag=f"whisper_{d}x{m}", mesh=(d, m)) for d, m in meshes]
+    groups = [dict(tag="whisper", arch=WHISPER_ARCH,
+                   layers=wh.n_layers, meshes=meshes, batch=batch,
+                   prompt=STEPS_WHISPER_PROMPT, max_len=WHISPER_MAX_LEN),
+              dict(tag="qwen3", arch="qwen3-8b", layers=q_layers,
+                   meshes=meshes if full else [(1, n_ranks)], batch=batch,
+                   prompt=STEPS_QWEN_PROMPT, max_len=STEPS_QWEN_MAX_LEN)]
+    if full:
+        groups.append(dict(tag="rg", arch=RG_ARCH, layers=get(RG_ARCH)
+                           .n_layers, meshes=[(2, n_ranks // 2)],
+                           batch=WHISPER_BATCH, prompt=STEPS_RG_PROMPT,
+                           max_len=STEPS_RG_MAX_LEN))
+    log(f"phase 26: the prefill and decode step factories on a mesh and "
+        f"whisper-base trained there; {n_ranks} ranks over "
+        f"{'NCCL, one card each' if nccl else 'gloo on one card'}; "
+        f"whisper trained {train_steps} step(s) a mesh on {meshes} (batch "
+        f"{batch} x {STEPS_WHISPER_SEQ}, {wh.encoder_frames} frames, "
+        f"grad_accum {A}, remat, bf16 weights, f32 moments); factories: "
+        + "; ".join(f"{g['arch']} at {g['layers']} layers on {g['meshes']},"
+                    f" batch {g['batch']} x {g['prompt']}, max_len "
+                    f"{g['max_len']}, {STEPS_NEW} greedy steps, ECF8 and "
+                    f"fp8" for g in groups))
+
+    # B5 and B4 with statistics at whisper's cross attention on a rank of
+    # 1x4: a micro-batch's 4 rows, the rank's 112 decoder rows over 1500
+    # frames, non-causal (no q_base)
+    t_loc = STEPS_WHISPER_SEQ // 4
+    b5 = check_flash_bwd(torch, flash_fwd, flash_bwd, gen, flush, t_loc,
+                         (wh.n_heads, wh.n_kv_heads), wh.hd, causal=False,
+                         B=WHISPER_BATCH, Tk=wh.encoder_frames)
+    b4 = check_flash(torch, flash_fwd, t_loc, gen, flush,
+                     heads=(wh.n_heads, wh.n_kv_heads), D=wh.hd,
+                     causal=False, B=WHISPER_BATCH, Tk=wh.encoder_frames)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one rank's unsharded step 0 on this card, the training gate's oracle
+    torch.cuda.reset_peak_memory_stats()
+    p1 = M.init_params(wh, seed, device="cuda", dtype=torch_dtype(wh.dtype))
+    b0 = SyntheticLMData(DataConfig(wh.vocab_size, STEPS_WHISPER_SEQ, batch,
+                                    seed)).batch(0, "cuda")
+    b0["frames"] = _steps_frames(torch, wh, batch, 0, seed, "cuda")
+    t0 = time.perf_counter()
+    _, _, m1 = make_train_step(wh, AdamWConfig(lr=TRAIN_LR), remat=True,
+                               grad_accum=A, warmup_steps=1,
+                               total_steps=train_steps)(
+        p1, adamw_init(p1), b0, 0)
+    torch.cuda.synchronize()
+    one = dict({k: float(v) for k, v in m1.items()},
+               step_ms=(time.perf_counter() - t0) * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del p1, m1, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 26 whisper one rank unsharded, step 0: loss "
+        f"{one['loss']:.6f} grad_norm {one['grad_norm']:.5f}, "
+        f"{one['step_ms']:.1f} ms with the build, peak "
+        f"{one['peak_gib']:.2f} GiB")
+
+    spec = dict(seed=seed, groups=groups,
+                train=dict(runs=runs, seq=STEPS_WHISPER_SEQ, batch=batch,
+                           steps=train_steps))
+    t0 = time.perf_counter()
+    res = MESH.spawn(steps_mesh_rank, n_ranks, spec, device="cuda",
+                     backend="nccl" if nccl else "gloo", timeout=1500)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    log(f"phase 26 ranks: {n_ranks} x {r0['device']} over {r0['backend']}, "
+        f"spawn + builds + runs {wall:.1f}s")
+    problems = []
+    launches = {}
+    out = dict(ranks=n_ranks, backend=r0["backend"], wall_s=wall,
+               one_rank=one, train={}, groups={})
+    none = ("ecf8_decode", "kv_page_decode", "fused_decode_matmul")
+
+    # -- training: whisper's launches a step a rank, B4 with statistics
+    # (the encoder's layers once, each decoder layer's self and cross
+    # attention twice with remat) and B5, q_base on the decoder's self
+    # attention of the model ranks past the first alone
+    n_enc, n_dec = wh.n_encoder_layers, wh.n_layers
+    per_step = {"flash_fwd": A * (n_enc + 2 * 2 * n_dec),
+                "flash_bwd": A * (n_enc + 2 * n_dec)}
+    q_step = {"flash_fwd_q_base": A * 2 * n_dec, "flash_bwd_q_base": A * n_dec}
+    for run in runs:
+        tag, (d, m) = run["tag"], run["mesh"]
+        per = [r["train"][tag] for r in res]
+        for rank, p in enumerate(per):
+            bad = [s for s in p["steps"] if not (
+                math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+            if bad:
+                problems.append(f"{tag} rank {rank}: non-finite {bad}")
+            ln = p["launches"]
+            want = {k: v * train_steps for k, v in per_step.items()}
+            want.update({k: (v * train_steps if rank % m else 0)
+                         for k, v in q_step.items()})
+            if {k: ln[k] for k in want} != want or any(ln[k] for k in none):
+                problems.append(f"{tag} rank {rank}: launches {ln}, "
+                                f"expected {want} and no other kernel")
+        for i in range(train_steps):
+            if len({p["steps"][i]["loss"] for p in per}) != 1:
+                problems.append(f"{tag} step {i}: the ranks' losses differ")
+        s0 = per[0]["steps"][0]
+        gaps = dict(loss=abs(s0["loss"] - one["loss"]) / abs(one["loss"]),
+                    grad_norm=abs(s0["grad_norm"] - one["grad_norm"])
+                    / abs(one["grad_norm"]))
+        if not (gaps["loss"] <= 5e-3 and gaps["grad_norm"] <= 2e-2):
+            problems.append(f"{tag} step 0 off one rank's: {gaps}")
+        step_s = statistics.median([x for p in per for x in
+                                    p["step_ms"][1:] or p["step_ms"]]) / 1e3
+        launches[f"train_{tag}"] = [p["launches"] for p in per]
+        out["train"][tag] = dict(
+            mesh=[d, m], loss=[s["loss"] for s in per[0]["steps"]],
+            grad_norm=[s["grad_norm"] for s in per[0]["steps"]],
+            step0_gaps=gaps, step_ms=[p["step_ms"] for p in per],
+            median_step_ms=step_s * 1e3,
+            tokens_per_s=batch * STEPS_WHISPER_SEQ / step_s,
+            collectives_ms=[p["collectives_ms"] for p in per],
+            collectives=per[0]["collectives"],
+            timed_step_ms=[p["timed_step_ms"] for p in per],
+            resident_gib=[p["resident_gib"] for p in per],
+            whole_gib=per[0]["whole_gib"],
+            peak_gib=[p["peak_gib"] for p in per],
+            launches=[p["launches"] for p in per])
+        log(f"phase 26 whisper trained on {tag}: losses "
+            f"{[round(x, 5) for x in out['train'][tag]['loss']]}, step 0 "
+            f"against one rank {gaps} (tol 5e-3 / 2e-2); a rank's step "
+            f"{[[round(x, 1) for x in p['step_ms']] for p in per]} ms "
+            f"(median {step_s * 1e3:.1f}), collectives "
+            f"{[round(p['collectives_ms'], 1) for p in per]} ms in "
+            f"{per[0]['collectives']} calls, resident "
+            f"{[round(p['resident_gib'], 3) for p in per]} of "
+            f"{per[0]['whole_gib']:.3f} GiB, peak "
+            f"{[round(p['peak_gib'], 2) for p in per]} GiB; "
+            f"{batch * STEPS_WHISPER_SEQ / step_s:.0f} tokens/s; launches "
+            f"{per[0]['launches']} (rank 0), {per[-1]['launches']} (rank "
+            f"{n_ranks - 1})")
+
+    # -- the factories
+    for g in groups:
+        cfg = dataclasses.replace(get(g["arch"]), n_layers=g["layers"])
+        per_g = [r["groups"][g["tag"]] for r in res]
+        go = dict(arch=g["arch"], layers=g["layers"], batch=g["batch"],
+                  prompt=g["prompt"], max_len=g["max_len"],
+                  build_s=[p["build_s"] for p in per_g],
+                  resident_gib=[p["resident_gib"] for p in per_g],
+                  fp8_mb=per_g[0]["fp8_mb"], ecf8_mb=per_g[0]["ecf8_mb"],
+                  runs={})
+        kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+        # B4 a prefill: every layer whose self attention runs the flash
+        # kernel (a global one, a local one whose window covers the
+        # prompt), an encoder-decoder's encoder and cross attention
+        n_self = sum(k in ("attn", "nope") or (
+            k == "local" and cfg.local_window >= g["prompt"]) for k in kinds)
+        n_other = (cfg.n_encoder_layers + cfg.n_layers
+                   if cfg.encoder_decoder else 0)
+        whole_b = None
+        for dims in g["meshes"]:
+            d, m = dims
+            b_loc = g["batch"] // d
+            for name in ("ecf8", "fp8"):
+                tag = f"{g['tag']}_{d}x{m}_{name}"
+                pr = [p["runs"][tag] for p in per_g]
+                launches[tag] = [dict(p["launches_prefill"], **{
+                    f"{k}_steps": v for k, v in p["launches_steps"].items()})
+                    for p in pr]
+                for rank, p in enumerate(pr):
+                    lp, ls = p["launches_prefill"], p["launches_steps"]
+                    split_q = m > 1 and g["prompt"] % m == 0
+                    want_q = n_self if split_q and rank % m else 0
+                    if (lp["flash_fwd"], lp["flash_fwd_q_base"]) != (
+                            n_self + n_other, want_q):
+                        problems.append(f"{tag} rank {rank}: B4 {lp}, "
+                                        f"expected {n_self + n_other} with "
+                                        f"{want_q} q_base")
+                    if ls["flash_fwd"] or any(x[k] for x in (lp, ls)
+                                              for k in ("kv_page_decode",
+                                                        "fused_decode_matmul",
+                                                        "flash_bwd")):
+                        problems.append(f"{tag} rank {rank}: launches "
+                                        f"{lp} / {ls}")
+                    b1 = lp["ecf8_decode"] and ls["ecf8_decode"]
+                    if (name == "ecf8") != bool(b1) or (
+                            name == "fp8" and (lp["ecf8_decode"]
+                                               or ls["ecf8_decode"])):
+                        problems.append(f"{tag} rank {rank}: B1 {lp} / {ls}")
+                    # the rank cache: its rows, each self-attention row cut
+                    # where the model axis divides its length, the rest whole
+                    sh = p["shapes"]
+                    for key, kind in (("pos0", cfg.pattern[0]),
+                                      ("pos2", "local")):
+                        if f"units/{key}/k" not in sh or kind not in (
+                                "attn", "local"):
+                            continue
+                        S = (min(cfg.local_window, g["max_len"])
+                             if kind == "local" else g["max_len"])
+                        want_s = [cfg.n_layers // cfg.unit, b_loc,
+                                  cfg.n_kv_heads, S // m if S % m == 0
+                                  else S, cfg.hd]
+                        if sh[f"units/{key}/k"] != want_s:
+                            problems.append(f"{tag} rank {rank}: units/{key}"
+                                            f"/k {sh[f'units/{key}/k']}, not "
+                                            f"{want_s}")
+                    if cfg.encoder_decoder and sh["units/cross/k"] != [
+                            cfg.n_layers, b_loc, cfg.n_kv_heads,
+                            cfg.encoder_frames, cfg.hd]:
+                        problems.append(f"{tag}: cross K/V "
+                                        f"{sh['units/cross/k']}, not whole")
+                    for key, x in sh.items():
+                        if key.endswith("/h") and x[-1] != cfg.d_model:
+                            problems.append(f"{tag}: state {key} {x}, not "
+                                            f"whole over model")
+                toks = [p["tokens"] for p in pr]
+                for rank in range(n_ranks):
+                    if toks[rank] != toks[rank - rank % m]:
+                        problems.append(f"{tag}: rank {rank}'s tokens differ "
+                                        f"from its data group's")
+                steps_s = [statistics.median(p["step_ms"]) / 1e3 for p in pr]
+                go["runs"][tag] = dict(
+                    mesh=[d, m], prefill_s=[p["prefill_s"] for p in pr],
+                    step_ms=[statistics.median(p["step_ms"]) for p in pr],
+                    tokens_per_s=g["batch"] / max(steps_s),
+                    cache_gib=[p["cache_gib"] for p in pr],
+                    peak_gib=[p["peak_gib"] for p in pr],
+                    merge_ms=[p["merge_ms"] for p in pr],
+                    merge_gathers=pr[0]["merge_gathers"],
+                    cache_k=pr[0]["shapes"].get("units/pos0/k"),
+                    launches_prefill=[p["launches_prefill"] for p in pr],
+                    launches_a_step={k: [p["launches_steps"][k] / STEPS_NEW
+                                         for p in pr]
+                                     for k in ("ecf8_decode", "flash_fwd")})
+                log(f"phase 26 {tag} (mesh {[d, m]}): "
+                    f"{json.dumps(go['runs'][tag])}")
+            # the lossless gate: ECF8 tokens identical to fp8's, every rank
+            t8 = f"{g['tag']}_{d}x{m}"
+            same = [per_g[r]["runs"][f"{t8}_ecf8"]["tokens"]
+                    == per_g[r]["runs"][f"{t8}_fp8"]["tokens"]
+                    for r in range(n_ranks)]
+            go["runs"][f"{t8}_fp8"]["lossless"] = all(same)
+            if not all(same):
+                problems.append(f"{t8}: ECF8 tokens differ from the fp8 "
+                                f"tree's on ranks "
+                                f"{[r for r, x in enumerate(same) if not x]}")
+            else:
+                log(f"lossless on mesh {[d, m]}: {g['arch']} ECF8 greedy "
+                    f"tokens IDENTICAL to the fp8 tree's through the step "
+                    f"factories (every rank)")
+            # against card 0 alone (bf16 merges round apart: reported)
+            alone = per_g[0]["alone"]
+            rows = [alone["tokens"][i] for i in range(g["batch"])]
+            got = []
+            for r in range(0, n_ranks, m):
+                got += per_g[r]["runs"][f"{t8}_fp8"]["tokens"]
+            go["runs"][f"{t8}_fp8"]["same_rows_as_one_card"] = sum(
+                a == b for a, b in zip(got, rows))
+            whole_b = alone["cache_gib"]
+        go["alone"] = dict(step_ms=statistics.median(
+            per_g[0]["alone"]["step_ms"]), cache_gib=whole_b,
+            prefill_s=per_g[0]["alone"]["prefill_s"])
+        out["groups"][g["tag"]] = go
+        log(f"phase 26 {g['tag']}: trees built in "
+            f"{[round(x, 1) for x in go['build_s']]} s, resident "
+            f"{[round(x, 2) for x in go['resident_gib']]} GiB (fp8 "
+            f"{go['fp8_mb']:.0f} MB, ECF8 {go['ecf8_mb']:.0f} MB); card 0 "
+            f"alone: step {go['alone']['step_ms']:.1f} ms, cache "
+            f"{whole_b:.3f} GiB; rows identical to card 0 alone (bf16, "
+            f"reported): "
+            + ", ".join(f"{t}: {r['same_rows_as_one_card']} of "
+                        f"{g['batch']}" for t, r in go["runs"].items()
+                        if "same_rows_as_one_card" in r))
+    if problems:
+        log(f"phase 26 measurements: {json.dumps(out)}")
+        fail("phase 26: " + "; ".join(problems))
+    return out, launches, dict(b5=b5, b4=b4)
+
+
 def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                 flash_bwd, kv_page, ecf8_decode, fp8, tpu_format, only: set,
                 seed: int, t_start: float):
-    """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / ``1,25`` / any of
-    them together: after the build, the mesh phases named (four NCCL ranks
-    when four cards are visible: phase 21 at ``MESH_LAYERS``, phases 22, 23
-    and 25 at full depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo
-    ranks on one card), then the kernels line of what ran (a kernel no
-    phase of the run timed has null time keys) and the last line."""
+    """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / ``1,25`` /
+    ``1,26`` / any of them together: after the build, the mesh phases
+    named (four NCCL ranks when four cards are visible: phase 21 at
+    ``MESH_LAYERS``, phases 22, 23, 25 and 26 at full depth, 24 at
+    ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks on one card), then the
+    kernels line of what ran (a kernel no phase of the run timed has null
+    time keys) and the last line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
-    out = moe_out = t23 = t24 = t25 = None
+    out = moe_out = t23 = t24 = t25 = t26 = None
     launches = {}
     if "21" in only:
         out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
@@ -4858,11 +5398,21 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
         log(f"phase 25 measurements: {json.dumps(rec_train_out)}")
         log(f"phase 25 done at {time.perf_counter() - t_start:.1f}s")
         launches.update(l25)
+    if "26" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps_out, l26, t26 = steps_mesh_phase(
+            torch, np, MESH, get, n_ranks, seed, flash_fwd, flash_bwd, gen,
+            flush)
+        log(f"phase 26 measurements: {json.dumps(steps_out)}")
+        log(f"phase 26 done at {time.perf_counter() - t_start:.1f}s")
+        launches.update(l26)
     del flush
 
     def mesh_l(name):
-        return {tag: [ln.get(name, 0) for ln in runs] for tag, runs in
-                launches.items()}
+        # phase 26 keeps a factory run's decode steps under <name>_steps
+        return {tag: [ln.get(name, 0) + ln.get(f"{name}_steps", 0)
+                      for ln in runs] for tag, runs in launches.items()}
 
     def main_path(name):
         """The kernel's launches on every rank over the phases' runs."""
@@ -4879,8 +5429,8 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
     elif moe_out is not None:
         b4 = checks["b4"]
     else:
-        b4 = (t23 or t24 or t25)["b4"]
-    b5 = (t23 or t24 or t25 or {}).get("b5", untimed)
+        b4 = (t23 or t24 or t25 or t26)["b4"]
+    b5 = (t23 or t24 or t25 or t26 or {}).get("b5", untimed)
     b3 = out["b3_sharded"] if out is not None else None
     kernels = [
         dict(name="ecf8_decode", route="cuda",
@@ -5846,9 +6396,19 @@ def main(argv=None):
     rec_train_out, rec_train_launches, t25 = train_rec_mesh_phase(
         torch, np, MESH, get, smoke_variant, n_ranks, args.seed, flash_fwd,
         flash_bwd, gen, flush)
-    del flush
     log(f"phase 25 measurements: {json.dumps(rec_train_out)}")
     mark("phase 25")
+
+    # -- 26. the prefill and decode step factories on a mesh, whisper-base
+    # trained there
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps_out, steps_launches, t26 = steps_mesh_phase(
+        torch, np, MESH, get, n_ranks, args.seed, flash_fwd, flash_bwd, gen,
+        flush)
+    del flush
+    log(f"phase 26 measurements: {json.dumps(steps_out)}")
+    mark("phase 26")
 
     def on_train_mesh(name):
         """Each rank's launches in each phase-23, 24 and 25 run."""
@@ -5856,6 +6416,14 @@ def main(argv=None):
                 for tag, runs in {**train_mesh_launches,
                                   **moe_train_launches,
                                   **rec_train_launches}.items()}
+
+    def on_steps_mesh(name):
+        """Each rank's launches in each phase-26 run (a factory run's
+        prefill under the kernel's name, its decode steps under
+        ``<name>_steps``)."""
+        return {tag: [ln.get(name, 0) + ln.get(f"{name}_steps", 0)
+                      for ln in runs]
+                for tag, runs in steps_launches.items()}
 
     def on_frontend_and_whisper(name):
         return dict(launches_whisper={t: wh_launches[t][name]
@@ -5915,6 +6483,7 @@ def main(argv=None):
              launches_ckpt_restore=ckpt_b1,
              launches_mesh=on_mesh("ecf8_decode"),
              launches_mesh_moe=on_moe_mesh("ecf8_decode"),
+             launches_mesh_steps=on_steps_mesh("ecf8_decode"),
              at_expert_shape_a_rank={
                  k: v for k, v in moe_mesh_out["checks"].items()
                  if k.startswith("b1_")},
@@ -5945,6 +6514,9 @@ def main(argv=None):
              with_stats_q_base_at_train_shape=t23["b4"],
              with_stats_q_base_at_moe_train_shape=t24["b4"],
              with_stats_q_base_at_gemma2_train_shape=t25["b4"],
+             launches_mesh_steps=on_steps_mesh("flash_fwd"),
+             launches_mesh_steps_q_base=on_steps_mesh("flash_fwd_q_base"),
+             at_whisper_cross_train_shape=t26["b4"],
              with_stats_at_train_shape={
                  k: results["bwd_qwen3"][k]
                  for k in ("fwd_ms", "fwd_stats_ms", "stats_err")},
@@ -5963,6 +6535,7 @@ def main(argv=None):
              launches_train=train_launches["kv_page_decode"],
              launches_mesh=on_mesh("kv_page_decode"),
              launches_mesh_moe=on_moe_mesh("kv_page_decode"),
+             launches_mesh_steps=on_steps_mesh("kv_page_decode"),
              launches_mesh_sharded={
                  tag: [ln["kv_page_decode_by_path"].get("sharded", 0)
                        for ln in run["launches"]]
@@ -5996,6 +6569,9 @@ def main(argv=None):
              q_base_at_shard_shape=train_mesh_out["q_base_checks"],
              q_base_at_moe_train_shape=t24["b5"],
              q_base_at_gemma2_train_shape=t25["b5"],
+             launches_mesh_steps=on_steps_mesh("flash_bwd"),
+             launches_mesh_steps_q_base=on_steps_mesh("flash_bwd_q_base"),
+             at_whisper_cross_train_shape=t26["b5"],
              library="scaled_dot_product_attention backward, no softcap",
              at_gemma2_shape=results["bwd_gemma2"],
              at_whisper_shape=results["bwd_whisper"],

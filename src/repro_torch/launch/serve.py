@@ -203,8 +203,11 @@ def cache_report(eng) -> list:
                 x.numel() * x.element_size()
                 for x in eng.cache[section][key].values())
     if any(held.values()):
+        # the slots this rank holds: a monolithic cache split over the data
+        # groups holds its group's rows alone
+        n_slots = eng.cache["cur_len"].shape[0]
         lines.append(
-            f"per-slot state ({eng.max_batch} slots, {eng.cache_mode} "
+            f"per-slot state ({n_slots} slots, {eng.cache_mode} "
             f"cache): recurrent states {held['recurrent'] / 1e6:.3f} MB, "
             f"local rings {held['local'] / 1e6:.3f} MB")
     if pc is None:

@@ -57,13 +57,14 @@ Entry points:
   loss_fn(params, cfg, tokens, labels[, frames, mesh, remat, aux_weight,
           constrain, gather])             -> (loss, {"nll", "aux"})
   encode_frames(params, cfg, frames, dtype) -> encoder output (B, F, d)
-  prefill(params, cfg, tokens, max_len[, frames])
+  prefill(params, cfg, tokens, max_len[, frames, mesh, rows])
                                           -> (last-pos logits, cache)
   prefill_chunk(params, cfg, tokens, cache, slot, n_valid)
                                           -> (logits, cache)   [paged cache]
   verify_chunk(params, cfg, tokens, cache, slot, n_valid)
                                           -> (all logits, cache) [paged]
-  decode_step(params, cfg, token, cache)  -> (logits, cache)
+  decode_step(params, cfg, token, cache[, mesh, rows])
+                                          -> (logits, cache)
                                           [paged or contiguous cache]
 
 On a mesh of ranks (``mesh=``, a ``("data", "model")`` DeviceMesh,
@@ -74,9 +75,13 @@ this rank's batch shard's slots on its local pools
 (``decode_sharded.paged_decode_attention_sharded``) and returns their
 logits alone, rows ``[d * B / n_data, (d + 1) * B / n_data)``; a prefill
 chunk runs on the ranks of its slot's batch shard and returns None logits
-elsewhere (``decode_sharded.paged_prefill_chunk_sharded``); a contiguous
-cache with one shared timeline, each model rank holding its sequence
-slice, decodes through ``decode_sharded.decode_attention_update_sharded``.
+elsewhere (``decode_sharded.paged_prefill_chunk_sharded``).  A rank's
+contiguous cache (``prefill(..., rows="shard")``, the step factories') holds
+its batch shard's rows; each self-attention row whose whole length the
+model axis divides (:func:`seq_split`, the reference's condition) holds
+the model rank's sequence slice and decodes through
+``decode_sharded.decode_attention_update_sharded``, every other row, the
+cross K/V and the recurrent states whole.
 Weights are replicated, except a mixture-of-experts layer's experts on a
 model axis: each rank holds its ``E / M`` (``runtime.sharding.
 expert_cut``) and the layer exchanges dispatch rows over ``model``
@@ -92,7 +97,8 @@ weights, each gathered whole where a layer uses it (an expert leaf over
 ``model`` or the attention's query rows; its MoE layers route each data
 group's rows (``rows="shard"``), and under the sequence split its
 recurrent mixers and its local windows read the whole sequence, gathered
-over ``model``.
+over ``model``; an encoder runs whole on every model rank, on its
+group's frames.
 """
 from __future__ import annotations
 
@@ -405,7 +411,8 @@ def _self_attention_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
 
 
 def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, kind: str,
-                                      dtype, kc, vc, cur_len, mesh=None):
+                                      dtype, kc, vc, cur_len, mesh=None,
+                                      whole: int | None = None):
     """One-token decode through a contiguous cache row, ``kc`` / ``vc``
     (B, n_kv, S, hd), written in place.
 
@@ -418,12 +425,13 @@ def _self_attention_decode_contiguous(p, x, cfg: ArchConfig, kind: str,
     ``cur_len % W`` and the token attends over ``min(cur_len + 1, W)``
     slots, every one of them once the ring has wrapped.
 
-    ``mesh`` (a model axis, one shared timeline, a 0-d ``cur_len``): the
-    rank's ``kc`` / ``vc`` are its sequence slice of ``S / n_model``
-    positions, decoded by
+    ``mesh`` (a model axis, one shared timeline, a 0-d ``cur_len``; the
+    row's whole length ``whole`` divides by the axis, :func:`seq_split`):
+    the rank's ``kc`` / ``vc`` are its sequence slice of ``whole /
+    n_model`` positions, decoded by
     :func:`decode_sharded.decode_attention_update_sharded`."""
     if mesh is not None:
-        S = kc.shape[2] * axis_size(mesh, "model")
+        S = whole
         q, k, v = _qkv(p, x, cfg, dtype, kind != "nope", cur_len[None])
         ring = kind == "local"
         o = DS.decode_attention_update_sharded(
@@ -626,18 +634,19 @@ def _layer_apply_step(p, x, cfg: ArchConfig, kind: str, dtype, state,
 
 def _layer_apply_decode(p, x, cfg: ArchConfig, kind: str, dtype, pools,
                         cur_len, page_table, cross_kv=None, mesh=None,
-                        shared: bool = False, ep=None):
+                        whole: int | None = None, ep=None):
     """Decode layer; ``page_table`` None means ``pools`` is this layer's
     contiguous (k, v): the monolithic cache's row, or a ``local`` layer's
     ring.  ``cross_kv``: the layer's cached cross-attention K/V in an
     encoder-decoder's decoder.  ``mesh``: the paged step's mesh, or with
-    ``shared`` (one timeline, a 0-d ``cur_len``) the sequence-sharded
-    contiguous step's.  ``ep``: :func:`_ffn`'s."""
+    ``whole`` (one timeline, a 0-d ``cur_len``) the sequence-sharded
+    contiguous step's, ``whole`` the row's length before the cut.
+    ``ep``: :func:`_ffn`'s."""
     h = rms_norm(x, p["norm1"])
     if page_table is None:
         o = _self_attention_decode_contiguous(
             p["attn"], h, cfg, kind, dtype, *pools, cur_len,
-            mesh if shared else None)
+            None if whole is None else mesh, whole)
     else:
         o = _self_attention_decode(p["attn"], h, cfg, kind, dtype, pools,
                                    cur_len, page_table, mesh)
@@ -669,34 +678,50 @@ def _layer_apply_chunk(p, x, cfg: ArchConfig, kind: str, dtype, pools, row,
 # encoder (whisper)
 # --------------------------------------------------------------------------
 
-def encode_frames(params, cfg: ArchConfig, frames, dtype):
+def encode_frames(params, cfg: ArchConfig, frames, dtype, gather=None):
     """frames: (B, F, d) precomputed frontend embeddings (the reference's
     stub frontend) -> the encoder output (B, F, d): ``frames +
     pos_embed``, then each encoder layer's non-causal self attention (no
     RoPE; the flash kernel, where the reference runs its jnp twin) and
-    MLP, then the final RMS norm."""
+    MLP, then the final RMS norm.  ``gather``: :func:`forward`'s on a
+    training mesh, each leaf gathered whole where its layer runs (the
+    encoder is not checkpointed, as the reference's is not, so the
+    gathered leaves live until the backward)."""
     enc = params["encoder"]
-    x = frames.to(dtype) + mat(enc["pos_embed"], dtype)[None]
+    if gather is None:
+        def leaf(name):
+            return enc[name]
+
+        def layer(u):
+            return _layer(enc["layers"], u)
+    else:
+        def leaf(name):
+            return gather(("encoder", name), enc[name], None)
+
+        def layer(u):
+            return _gathered(enc["layers"], ("encoder", "layers"), u, gather)
+
+    x = frames.to(dtype) + mat(leaf("pos_embed"), dtype)[None]
     for u in range(cfg.n_encoder_layers):
-        p = _layer(enc["layers"], u)
+        p = layer(u)
         q, k, v = (t.contiguous() for t in _qkv(
             p["attn"], rms_norm(x, p["norm1"]), cfg, dtype, False, None))
         x = x + _attn_out(p["attn"], ops.flash_attention(q, k, v, False,
                                                          0.0), dtype)
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"]), cfg.mlp_type,
                           dtype)
-    return rms_norm(x, enc["final_norm"])
+    return rms_norm(x, leaf("final_norm"))
 
 
-def _context(params, cfg: ArchConfig, frames, dtype):
+def _context(params, cfg: ArchConfig, frames, dtype, gather=None):
     """The encoder output an encoder-decoder's decoder attends to (None for
-    a decoder-only model)."""
+    a decoder-only model); ``gather``: :func:`encode_frames`'."""
     if not cfg.encoder_decoder:
         return None
     if frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass frames "
                          f"(B, {cfg.encoder_frames}, {cfg.d_model})")
-    return encode_frames(params, cfg, frames, dtype)
+    return encode_frames(params, cfg, frames, dtype, gather)
 
 
 # --------------------------------------------------------------------------
@@ -751,15 +776,37 @@ def _at(tree: dict, section: str, key: str, u):
     return sub if u is None else _layer(sub, u)
 
 
+def row_len(cfg: ArchConfig, kind: str, max_len: int) -> int:
+    """The positions of a contiguous self-attention cache row of a layer of
+    ``kind``: ``max_len`` for a global layer, the ring's for a ``local``
+    one."""
+    return paged_kv.ring_len(cfg, max_len) if kind == "local" else max_len
+
+
+def seq_split(cfg: ArchConfig, kind: str, max_len: int, mesh) -> bool:
+    """Whether a contiguous self-attention row of a layer of ``kind`` is cut
+    over ``model`` (each model rank holding ``S / M`` of its ``S``
+    positions), where the reference's decode takes its sequence-sharded
+    route (``src/repro/models/model.py:243-244``): an attention layer, a
+    model axis of ``M > 1`` and ``M`` dividing the row's whole length
+    (:func:`row_len`), which the rank's leaf cannot tell by its shape."""
+    n = axis_size(mesh, "model")
+    return (kind in ATTN_KINDS and n > 1
+            and row_len(cfg, kind, max_len) % n == 0)
+
+
 def group_cache(cfg: ArchConfig, kind: str, lead: tuple, batch: int,
-                max_len: int, dtype, device) -> dict:
+                max_len: int, dtype, device, mesh=None) -> dict:
     """The contiguous cache leaves of one group, ``lead`` dims first
     (``(n_units,)`` for a pattern position, ``()`` for a tail layer):
     ``{k, v}`` of ``(batch, n_kv, S, hd)`` with ``S = max_len`` for a
-    global layer and the ring length for a ``local`` one, or a recurrent
-    layer's zero state (``models.recurrent``)."""
+    global layer and the ring length for a ``local`` one (``S / M`` on a
+    model axis that cuts it, :func:`seq_split`), or a recurrent layer's
+    zero state (``models.recurrent``)."""
     if kind in ATTN_KINDS:
-        S = paged_kv.ring_len(cfg, max_len) if kind == "local" else max_len
+        S = row_len(cfg, kind, max_len)
+        if seq_split(cfg, kind, max_len, mesh):
+            S //= axis_size(mesh, "model")
         s = lead + (batch, cfg.n_kv_heads, S, cfg.hd)
         return {"k": torch.zeros(s, dtype=dtype, device=device),
                 "v": torch.zeros(s, dtype=dtype, device=device)}
@@ -773,21 +820,24 @@ def group_cache(cfg: ArchConfig, kind: str, lead: tuple, batch: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-               device="cuda", per_slot: bool = False):
+               device="cuda", per_slot: bool = False, mesh=None):
     """The contiguous cache (:func:`group_cache` for every group):
     ``units/pos<j>/...`` with a leading unit axis, ``tail/layer<t>/...``
     without, and an encoder-decoder's ``units/cross/{k, v}`` of ``(n_units,
     batch, n_kv, encoder_frames, hd)``.  ``per_slot=True`` makes
     ``cur_len`` a (batch,) vector, every slot on its own timeline (the
     engine's monolithic cache); else it is one shared 0-d length (a
-    prefill's)."""
+    prefill's).  ``mesh``: a rank's cache on it (:func:`prefill`'s
+    ``rows="shard"``): each row :func:`seq_split` cuts holds the rank's
+    positions, and ``max_len``, a host 0-d tensor, records the length
+    before the cut for the decode step."""
     dev = resolve(device)
     n_units = cfg.n_layers // cfg.unit
     cache = {"units": {}, "tail": {}}
     for section, key, kind in cache_groups(cfg):
         lead = (n_units,) if section == "units" else ()
         cache[section][key] = group_cache(cfg, kind, lead, batch, max_len,
-                                          dtype, dev)
+                                          dtype, dev, mesh)
     if cfg.encoder_decoder:
         s = (n_units, batch, cfg.n_kv_heads, cfg.encoder_frames, cfg.hd)
         cache["units"]["cross"] = {
@@ -796,50 +846,73 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
     cache["cur_len"] = (torch.zeros((batch,), dtype=torch.int32, device=dev)
                         if per_slot
                         else torch.zeros((), dtype=torch.int32, device=dev))
+    if mesh is not None:
+        cache["max_len"] = torch.tensor(max_len)
     return cache
 
 
-def _fill(dst, got, kind: str):
+def _fill(dst, got, kind: str, W: int, lo: int = 0):
     """Write a prefill's K (or V), (B, n_kv, T, hd), into its cache row
-    ``dst`` (B, n_kv, S, hd), in place: from position 0, or for a ``local``
+    ``dst`` (B, n_kv, s, hd), in place: the row's positions ``[lo, lo +
+    s)`` of its whole ``W`` (``lo`` past 0 on a model rank that holds a
+    slice).  A global row holds the prompt from position 0; a ``local``
     ring that the prompt fills (``T >= W``) its last ``W`` positions,
     rolled by ``T % W`` so position ``t`` sits at ring slot ``t % W``."""
-    T, W = got.shape[2], dst.shape[2]
+    T = got.shape[2]
     if kind == "local" and T >= W:
-        dst.copy_(torch.roll(got[:, :, T - W:], T % W, dims=2))
-    else:
-        dst[:, :, :T] = got
+        got = torch.roll(got[:, :, T - W:], T % W, dims=2)
+    elif T > W:
+        raise ValueError(f"a prompt of {T} positions does not fit a cache "
+                         f"row of {W}")
+    n = max(0, min(got.shape[2], lo + dst.shape[2]) - lo)
+    dst[:, :, :n] = got[:, :, lo:lo + n]
 
 
 def _prefill(params, cfg: ArchConfig, tokens, max_len: int | None = None,
-             frames=None, mesh=None):
+             frames=None, mesh=None, rows: str = "own"):
     """Process a prompt, build its cache -> (last-pos logits (B, 1, V),
     cache with global K/V zero-padded to ``max_len``, every ``local``
     layer's ring of ``min(local_window, max_len)`` positions filled and
     every recurrent layer's final state).  An encoder-decoder takes
     ``frames`` (B, F, d): it encodes them, and each decoder layer's cross
     K/V, computed once, serves its cross attention here and is kept in
-    the cache's ``units/cross`` leaves for the decode steps.  ``mesh``: the
-    flash attention's query rows split over its ``model`` axis (every rank
-    of the calling group gets the whole output)."""
+    the cache's ``units/cross`` leaves for the decode steps.
+
+    ``mesh``: the flash attention's query rows split over its ``model``
+    axis (every rank of the calling group gets the whole output; the
+    encoder and the cross attention run whole on each).  ``rows`` says
+    what ``tokens`` hold: ``"own"`` a batch the calling data group alone
+    computes (the engine's fragment: its MoE layers route its rows as one
+    group, its cache is whole); ``"shard"`` this rank's data group's rows
+    of a batch split over the batch axes (``runtime.steps.
+    make_prefill_step``: the MoE layers route as the split decode step
+    does, and the cache is the rank's, :func:`init_cache`'s ``mesh``:
+    each row :func:`seq_split` cuts holds the model rank's ``S / M``
+    positions)."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     max_len = max_len or T
-    cache = init_cache(cfg, B, max_len, dtype, tokens.device)
+    cut = mesh if rows == "shard" else None
+    cache = init_cache(cfg, B, max_len, dtype, tokens.device, mesh=cut)
     x = _embed(params, cfg, tokens, dtype)
     ctx = _context(params, cfg, frames, dtype)
+    ep = None if mesh is None else (mesh, rows)
     for section, key, u, kind in _stack_layers(cfg):
         p = _at(params, section, key, u)
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
-        x, st = _layer_apply_full(p, x, cfg, kind, dtype, kv, mesh=mesh)
+        x, st = _layer_apply_full(p, x, cfg, kind, dtype, kv, mesh=mesh,
+                                  ep=ep)
         if kv is not None:
             cache["units"]["cross"]["k"][u] = kv[0]
             cache["units"]["cross"]["v"][u] = kv[1]
         c = _at(cache, section, key, u)
         if kind in ATTN_KINDS:
-            _fill(c["k"], st[0], kind)
-            _fill(c["v"], st[1], kind)
+            W = row_len(cfg, kind, max_len)
+            lo = (mesh.get_local_rank("model") * c["k"].shape[2]
+                  if seq_split(cfg, kind, max_len, cut) else 0)
+            _fill(c["k"], st[0], kind, W, lo)
+            _fill(c["v"], st[1], kind, W, lo)
         else:
             for name, leaf in c.items():
                 leaf.copy_(st[name])
@@ -858,17 +931,6 @@ def _gathered(tree, path, u, gather):
     return gather(path, tree, u)
 
 
-def check_mesh_trainable(cfg: ArchConfig) -> None:
-    """Raise for what training on a mesh does not run yet: an encoder.
-    Every decoder-only stack trains on a mesh: attention, experts,
-    recurrent mixers and local windows, under the sequence split too."""
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh runs the decoder-only stacks; "
-            f"an encoder-decoder's (the encoder and cross attention with "
-            f"mesh=) is not ported yet")
-
-
 def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
             remat: bool = False, constrain=None, gather=None):
     """The full-sequence forward (the reference's training forward) ->
@@ -882,9 +944,9 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     the tail layers and the encoder are not checkpointed, as there).  An
     encoder-decoder takes ``frames`` (B, F, d).
 
-    On a mesh of ranks (``mesh``; the decoder-only stacks): ``tokens``
-    are this rank's batch shard's rows and ``params``
-    its shards of the leaves (``runtime.sharding.local_shard``);
+    On a mesh of ranks (``mesh``; every stack): ``tokens`` (and
+    ``frames``) are this rank's batch shard's rows and ``params`` its
+    shards of the leaves (``runtime.sharding.local_shard``);
     ``gather(path, shard, u)``
     returns a leaf whole where a layer uses it (unit ``u``'s of a stacked
     leaf; ``runtime.collectives.LeafGather``), inside the unit, so that
@@ -899,11 +961,14 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     the group's whole sequence, gathered over ``model`` and cut back to
     the rank's positions after it (``models.moe``'s ``seq``); a recurrent
     mixer and a local window past the whole sequence read it likewise
-    (:func:`_layer_apply_full`, :func:`_self_attention_full`)."""
+    (:func:`_layer_apply_full`, :func:`_self_attention_full`).  An
+    encoder runs whole on every model rank, on its group's frames, its
+    leaves gathered (:func:`encode_frames`): under the sequence split each
+    rank's cross attention takes its decoder positions as queries over
+    all the frames, and the encoder's gradients are partials that sum
+    over ``model`` as the decoder's do."""
     check_supported(cfg)
     dtype = torch_dtype(cfg.dtype)
-    if mesh is not None:
-        check_mesh_trainable(cfg)
     if gather is None:
         def top(name):
             return params[name]
@@ -925,7 +990,7 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
         x = constrain(x)
     q_base = None if cut is None else cut[0]
     ep = None if mesh is None else (mesh, "shard", cut)
-    ctx = _context(params, cfg, frames, dtype)
+    ctx = _context(params, cfg, frames, dtype, gather)
 
     def layer(p, x, kind, aux):
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
@@ -1036,7 +1101,8 @@ def _layer_pools(leaves: dict, u):
     return leaves["k"][u], leaves["v"][u]
 
 
-def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
+def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None,
+                 rows: str = "shard"):
     """token: (B, 1) int -> (logits (B, 1, V), cache).  ``cache`` is a
     paged cache (``kvcache.paged.PagedKVCache.init_cache``) or a contiguous
     one (:func:`init_cache`, ``per_slot`` or a prefill's shared length,
@@ -1051,49 +1117,69 @@ def _decode_step(params, cfg: ArchConfig, token, cache, mesh=None):
     ``PagedKVCache(n_shards=..., shard=...)``: full page table, timelines
     and rings, local pools), only this rank's batch shard's rows are run
     and their logits returned, (B / n_data, 1, V); every timeline still
-    advances.  On a contiguous cache with one shared timeline and a model
-    axis each rank holds its sequence slice (see the module docstring).
-    Elsewhere every rank runs every row."""
+    advances.  A contiguous cache's rows are all run: ``rows`` says
+    whether they are this rank's data group's rows of a batch split over
+    the batch axes (``"shard"``: a rank's cache of ``prefill(...,
+    rows="shard")``, the engine's monolithic cache split over the data
+    groups) or the whole batch on every rank (``"all"``), which its MoE
+    layers route accordingly (``models.moe``).  A rank's cache with one
+    shared timeline on a model axis holds, in each row that
+    :func:`seq_split` cuts, its sequence slice, decoded by
+    ``decode_sharded.decode_attention_update_sharded`` (the cut is read
+    off the cache's ``max_len``, not off the leaf's shape); every other
+    row, the cross K/V and the recurrent states are whole on each rank."""
     dtype = torch_dtype(cfg.dtype)
     B = token.shape[0]
     cur_len = cache["cur_len"]
     page_table = cache.get("page_table")
-    rows = slice(None)
+    sel = slice(None)
     paged_mesh = DS.paged_shardable(page_table, cur_len, mesh)
     if paged_mesh:
         b_loc = B // n_batch_shards(mesh)
         lo = batch_index(mesh) * b_loc
-        rows = slice(lo, lo + b_loc)
-    shared = (mesh is not None and cur_len.ndim == 0
+        sel = slice(lo, lo + b_loc)
+    shared = (mesh is not None and page_table is None and cur_len.ndim == 0
               and axis_size(mesh, "model") > 1)
+    if shared and "max_len" not in cache:
+        raise ValueError(
+            "a contiguous cache with one timeline on a model axis must "
+            "carry its max_len (prefill(..., rows='shard') writes it): a "
+            "rank's row cannot tell by its shape whether it was cut")
+    max_len = int(cache["max_len"]) if shared else None
     lens = cur_len.expand(B) if cur_len.ndim == 0 else cur_len
-    lens = cur_len if shared else lens[rows]
+    lens = lens[sel]
     if page_table is not None:
-        page_table = page_table[rows].clamp(min=paged_kv.GARBAGE_PAGE)
+        page_table = page_table[sel].clamp(min=paged_kv.GARBAGE_PAGE)
     cross = cache["units"].get("cross")
-    # the MoE layers' rows: this data group's on a split paged step, the
-    # whole batch, the same on every rank, elsewhere
-    ep = None if mesh is None else (mesh, "shard" if paged_mesh else "all")
-    x = _embed(params, cfg, token[rows], dtype)
+    # the MoE layers' rows: a data group's (a split paged step, a rank's
+    # contiguous cache) or the whole batch, the same on every rank
+    ep = None if mesh is None else (
+        mesh, "shard" if paged_mesh or page_table is None and rows ==
+        "shard" else "all")
+    x = _embed(params, cfg, token[sel], dtype)
     for section, key, u, kind in _stack_layers(cfg):
         p = _at(params, section, key, u)
         leaves = cache[section][key]
         if kind in REC_KINDS:
             state = _at(cache, section, key, u)
             x = _layer_apply_step(p, x, cfg, kind, dtype,
-                                  {n: v[rows] for n, v in state.items()},
+                                  {n: v[sel] for n, v in state.items()},
                                   ep)
-        else:
-            pools = _layer_pools(leaves, u)
-            if "k_pool" not in leaves:
-                pools = tuple(t[rows] for t in pools)
-            x = _layer_apply_decode(
-                p, x, cfg, kind, dtype, pools, lens,
-                page_table if "k_pool" in leaves else None,
-                None if cross is None else (cross["k"][u][rows],
-                                            cross["v"][u][rows]),
-                mesh=mesh if paged_mesh or shared else None, shared=shared,
-                ep=ep)
+            continue
+        pools = _layer_pools(leaves, u)
+        whole = None
+        if "k_pool" not in leaves:
+            pools = tuple(t[sel] for t in pools)
+            if shared and seq_split(cfg, kind, max_len, mesh):
+                whole = row_len(cfg, kind, max_len)
+        x = _layer_apply_decode(
+            p, x, cfg, kind, dtype, pools,
+            cur_len if whole is not None else lens,
+            page_table if "k_pool" in leaves else None,
+            None if cross is None else (cross["k"][u][sel],
+                                        cross["v"][u][sel]),
+            mesh=mesh if paged_mesh or whole is not None else None,
+            whole=whole, ep=ep)
     logits = _unembed(params, cfg, x, dtype)
     cache["cur_len"] = cur_len + 1
     return logits, cache

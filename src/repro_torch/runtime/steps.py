@@ -12,8 +12,9 @@ summed into f32 buffers and divided, as the reference's ``lax.scan`` sums
 them, and ``aux`` is reported as 0, as there.  ``remat`` recomputes each
 unit's activations in the backward.
 
-On a mesh of ranks (``mesh``, ``launch/mesh.py``; every decoder-only
-stack) the step is GSPMD's placement written out.
+On a mesh of ranks (``mesh``, ``launch/mesh.py``; every stack, whisper's
+encoder-decoder with its ``frames`` too) the step is GSPMD's placement
+written out.
 Each rank holds its shard (``runtime.sharding.local_shard``) of every
 parameter and AdamW moment under the rule table (``param_pspecs`` /
 ``opt_pspecs``, ``rules``) and the rows of its batch shard
@@ -31,15 +32,21 @@ sequence, each rank running its positions of every layer and the flash
 attention against k / v gathered over ``model`` (a local window and a
 recurrent mixer read the whole sequence, gathered likewise); ``"none"``
 keeps the stream whole over ``model``, every rank repeating the layer but
-the attention, whose query rows split (``flash_attention_sharded``).  The
-loss is the global batch's mean on every rank, AdamW updates the shards,
-and the gradient norm is the whole tree's.  ``grad_accum`` cuts the
-rank's rows into micro-batches.  ``aux`` is the reference's on the same
-mesh with one micro-batch (and 0 with more, as there).
+the attention, whose query rows split (``flash_attention_sharded``).  An
+encoder runs whole on every model rank, on its group's frames, and its
+gradients sum over ``model`` under the sequence split as the decoder's
+do.  The loss is the global batch's mean on every rank, AdamW updates the
+shards, and the gradient norm is the whole tree's.  ``grad_accum`` cuts
+the rank's rows (and frames) into micro-batches.  ``aux`` is the
+reference's on the same mesh with one micro-batch (and 0 with more, as
+there).
+
+``make_prefill_step`` / ``make_decode_step`` on a mesh run a rank's batch
+shard, ``B / n_batch_shards(mesh)`` rows of ``tokens`` (and ``frames``),
+against a rank's cache; their docstrings give its layout.
 
 The dry-run specs (``input_specs``, ``param_specs``,
-``compressed_param_specs``) are not ported yet, nor a mesh for the prefill
-and decode steps (the engine runs those on a mesh).
+``compressed_param_specs``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -55,13 +62,6 @@ from .sharding import (DEFAULT_RULES, P, ShardingRules, grad_axes,
                        is_expert_leaf, make_constrainer, named, param_pspecs)
 
 F32 = torch.float32
-_NOT_YET_PORTED = ("mesh={!r}: not yet ported (the engine serves on a "
-                   "mesh; this step runs on one card)")
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_NOT_YET_PORTED.format(mesh))
 
 
 def _unflatten(paths, values) -> dict:
@@ -170,7 +170,6 @@ def _make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None,
 def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
                         warmup_steps, total_steps):
     """:func:`make_train_step` on a mesh (the module docstring)."""
-    M.check_mesh_trainable(cfg)
     if rules.activation_partitioning not in ("seq", "none"):
         raise NotImplementedError(
             f"activation_partitioning={rules.activation_partitioning!r}: "
@@ -191,6 +190,7 @@ def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
         paths, leaves = zip(*iter_leaves(params))
         dev = leaves[0].device
         tokens, labels = batch["tokens"], batch["labels"]
+        frames = batch.get("frames")
         B, T = tokens.shape
         if B % grad_accum:
             raise ValueError(f"{B} rows a rank do not split into "
@@ -216,8 +216,9 @@ def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
         for i in range(grad_accum):
             rows = slice(i * mb, (i + 1) * mb)
             l, met = M.loss_fn(params, cfg, tokens[rows], labels[rows],
-                               mesh=mesh, remat=remat, constrain=constrain,
-                               gather=gather)
+                               frames=None if frames is None
+                               else frames[rows], mesh=mesh, remat=remat,
+                               constrain=constrain, gather=gather)
             torch.autograd.grad(l, [token])
             loss = loss + l.detach()
         if grad_accum > 1:
@@ -239,23 +240,57 @@ def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
 
 
 def _make_prefill_step(cfg: ArchConfig, mesh=None,
+                       rules: ShardingRules = DEFAULT_RULES,
                        max_len: int | None = None):
-    """(params, batch) -> (last-pos logits, cache)."""
-    _refuse_mesh(mesh)
+    """(params, batch) -> (last-pos logits, cache).
+
+    On a mesh: ``batch`` holds this rank's rows of the global batch,
+    ``B / n_batch_shards(mesh)`` of ``tokens`` (and ``frames``), as the
+    train step takes them, and the step returns their logits and the
+    rank's cache (``models.model.prefill(..., rows="shard")``).  Each model
+    rank runs the whole of its rows, the flash attention splitting the
+    query rows of every decoder self-attention over ``model`` (B4 with
+    ``q_base`` on the ranks past the first); an encoder and the cross
+    attention run whole on each rank; a MoE layer routes as the decode
+    step does.  The rank's cache holds the rows over the batch axes, as
+    ``runtime.sharding.cache_pspecs`` cuts them, and each self-attention
+    K/V that the reference's decode sequence-shards (``models.model.
+    seq_split``: ``M > 1`` dividing the row's whole length) holds the model
+    rank's positions ``[m S / M, (m + 1) S / M)``, as ``cache_pspecs``
+    cuts it.  Three kinds of leaf depart from ``cache_pspecs`` and stay
+    whole over ``model``, because the decode step reads them whole: the
+    cross K/V (``cache_pspecs`` splits their heads: 1500 frames rarely
+    divide), the recurrent states (it splits a feature dim of 1024 or
+    more) and a row whose length ``M`` does not divide (it splits heads
+    or ``head_dim``).  ``cache["max_len"]`` records ``max_len``: a rank's
+    row cannot tell by its shape whether it was cut.
+
+    ``params``: a dense or ECF8 tree replicated on every rank, but a MoE
+    layer's experts on a model axis (each rank its ``E / M``,
+    ``runtime.sharding.expert_cut``), as the engine takes them.  ``rules``
+    is the reference's argument: the weights are not placed by it."""
 
     def run_prefill(params, batch):
         return M.prefill(params, cfg, batch["tokens"], max_len=max_len,
-                         frames=batch.get("frames"))
+                         frames=batch.get("frames"), mesh=mesh,
+                         rows="shard")
 
     return run_prefill
 
 
-def _make_decode_step(cfg: ArchConfig, mesh=None):
-    """(params, batch, cache) -> (logits, new cache): one new token."""
-    _refuse_mesh(mesh)
+def _make_decode_step(cfg: ArchConfig, mesh=None,
+                      rules: ShardingRules = DEFAULT_RULES):
+    """(params, batch, cache) -> (logits, new cache): one new token.  On a
+    mesh ``batch["token"]`` holds this rank's rows and ``cache`` is the
+    rank's (:func:`make_prefill_step`'s): each cut row decodes through the
+    owner's write and the stat merge over ``model``
+    (``decode_sharded.decode_attention_update_sharded``), every other row,
+    the cross K/V and the recurrent states whole on each rank; a MoE layer
+    routes each data group's rows.  ``params`` and ``rules`` as in
+    :func:`make_prefill_step`."""
 
     def run_decode(params, batch, cache):
-        return M.decode_step(params, cfg, batch["token"], cache)
+        return M.decode_step(params, cfg, batch["token"], cache, mesh=mesh)
 
     return run_decode
 

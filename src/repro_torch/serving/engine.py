@@ -82,8 +82,15 @@ on its shard's ranks, the model ranks splitting a prefill's query rows,
 and the first token is broadcast from the shard's first rank; so are an
 encoded page's byte count and fit (``PagedKVCache.share``), which the
 cold pool's and the swap tier's bookkeeping read.  The monolithic cache
-(the recurrent stacks') and a speculative draft's cache are whole on
-every rank, their work replicated.
+(the recurrent stacks') is split over the data groups likewise when they
+divide ``max_batch``: a rank holds its group's ``max_batch / n_shards``
+rows, a slot's whole-prompt prefill runs on its group's ranks and is
+spliced into its local row, the decode step runs the local rows and its
+tokens are gathered as the split paged step's are; a model axis repeats
+the monolithic work on every rank of a group (the reference does not
+sequence-split a per-slot cache either).  A speculative draft's cache,
+and the rings and recurrent states beside a split paged cache, are whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -193,13 +200,18 @@ class GenerationEngine:
             self.resident_bytes = list(zip(got["expert_bytes"],
                                            got["other_bytes"]))
         # the rows of this rank's decode step and whether the step's tokens
-        # are gathered from the data groups (a paged cache split over them)
+        # are gathered from the data groups (a cache split over them: the
+        # paged one's slots, or a monolithic cache's rows where the groups
+        # divide max_batch)
         paged_mesh = (mesh is not None and self.cache_mode == "paged"
                       and (n_shards > 1 or self.n_model > 1))
-        b_loc = max_batch // n_shards if paged_mesh else max_batch
-        lo = self.d_rank * b_loc if paged_mesh else 0
+        mono_split = (mesh is not None and self.cache_mode != "paged"
+                      and n_shards > 1 and max_batch % n_shards == 0)
+        local = paged_mesh or mono_split
+        b_loc = max_batch // n_shards if local else max_batch
+        lo = self.d_rank * b_loc if local else 0
         self._rows = (lo, lo + b_loc)
-        self._split = paged_mesh and n_shards > 1
+        self._split = local and n_shards > 1
         self.gather_seconds = 0.0               # host s in token gathers
         if self.cache_mode == "paged":
             self.paged = PagedKVCache(
@@ -216,7 +228,7 @@ class GenerationEngine:
             self.cache = self.paged.init_cache()
         else:
             self.paged = None
-            self.cache = M.init_cache(cfg, max_batch, config.max_len,
+            self.cache = M.init_cache(cfg, b_loc, config.max_len,
                                       torch_dtype(cfg.dtype), self.device,
                                       per_slot=True)
         self.spec_on = config.draft_cfg is not None
@@ -374,16 +386,22 @@ class GenerationEngine:
         (``PagedKVCache.share``)."""
         return collectives.broadcast_object(obj, self._src(shard))
 
+    def _shard_of(self, slot: int) -> int:
+        """The data group that holds ``slot``."""
+        if self.paged is not None:
+            return self.paged.shard_of_slot(slot)
+        return slot // (self._rows[1] - self._rows[0])
+
     def _owns(self, slot: int) -> bool:
         """Whether this rank computes ``slot``'s prefill."""
-        return not self._split or self.paged.holds(slot)
+        return not self._split or self._shard_of(slot) == self.d_rank
 
     def _first_token(self, slot: int, logits, req) -> int:
         """The token sampled from a prefill's last logits, as the slot's
         shard samples it, on every rank."""
         tok = self._sample_one(logits, req) if logits is not None else 0
         if self._split:
-            tok = self._share([tok], self.paged.shard_of_slot(slot))[0]
+            tok = self._share([tok], self._shard_of(slot))[0]
         return tok
 
     def _gather_tokens(self, local: list) -> list:
@@ -442,8 +460,9 @@ class GenerationEngine:
         if self.paged is not None:
             self.cache = self.paged.admit(self.cache, slot, frag,
                                           len(req.prompt))
-        else:
-            self.cache = splice_fragment(self.cache, frag, slot)
+        elif frag is not None:      # the slot's local row
+            self.cache = splice_fragment(self.cache, frag,
+                                         slot - self._rows[0])
         del frag
         if self.spec_on:
             # the draft consumes the prompt too (its logits are unused: the
@@ -1065,8 +1084,12 @@ class GenerationEngine:
         t0 = time.perf_counter()
         last = torch.tensor(self._last_tok, dtype=torch.int64,
                             device=self.device)[:, None]
-        logits, out = M.decode_step(self.params, self.cfg, last,
-                                    self._step_cache(), mesh=self.mesh)
+        lo, hi = self._rows
+        if self.paged is None:      # the monolithic cache's rows here
+            last = last[lo:hi]
+        logits, out = M.decode_step(
+            self.params, self.cfg, last, self._step_cache(), mesh=self.mesh,
+            rows="shard" if self._split else "all")
         self.cache["cur_len"] = out["cur_len"]
         self.steps += 1
         if self._prefill_pos:
@@ -1078,9 +1101,8 @@ class GenerationEngine:
             self.cache["cur_len"][idx] -= 1
         if prefill_spent:
             self.n_interleaved_steps += 1
-        # this rank's rows (every row off a split paged mesh); sampled rows
-        # draw on the host's read of their logits
-        lo, hi = self._rows
+        # this rank's rows (every row off a split mesh); sampled rows draw
+        # on the host's read of their logits
         toks = greedy(logits)[:, 0].tolist()
         for s in active:
             if lo <= s < hi and self.slots[s].temperature > 0:

@@ -20,7 +20,8 @@ single-device engine runs here.  In f32:
   * engine tokens of moonshot's and llama4-scout's smoke stacks on
     ``--mesh 2``, ``1x2`` and ``2x2`` (paged, and paged-compressed from
     ECF8) and of recurrentgemma-2b's and xlstm-350m's on ``--mesh 2``
-    (monolithic): the reference's single-device run's;
+    (monolithic, each rank holding half the rows): the reference's
+    single-device run's;
   * a prefill on ``2x2`` (which the reference's ``shard_map`` refuses for a
     batch of one): one device's logits;
   * ``EngineConfig`` on a mesh refuses a model axis that does not divide
@@ -319,7 +320,7 @@ def test_moe_engine_tokens_on_the_mesh(ref, world2, world4, mesh, run):
     want = ref["tokens"]["moonshot/fp8" if run == "moonshot_ecf8" else
                          {"moonshot": MOON, "llama4": LLAMA}[run]]
     for r in world:
-        toks, mode, _, _ = r["engine"][dims][run]
+        toks, mode, _, _, _ = r["engine"][dims][run]
         assert mode == "paged"
         assert toks == want
 
@@ -327,11 +328,13 @@ def test_moe_engine_tokens_on_the_mesh(ref, world2, world4, mesh, run):
 @pytest.mark.parametrize("run,arch", [("recurrentgemma", RG),
                                       ("xlstm", XL)])
 def test_recurrent_engine_tokens_on_the_mesh(ref, world2, run, arch):
-    """The recurrent stacks on ``--mesh 2``: the monolithic cache, whole on
-    every rank; the reference's single-device tokens."""
+    """The recurrent stacks on ``--mesh 2``: the monolithic cache split
+    over the data groups, each rank holding ``max_batch / 2`` of its rows;
+    the reference's single-device tokens."""
     for r in world2:
-        toks, mode, _, _ = r["engine"][(2, 1)][run]
+        toks, mode, _, _, rows = r["engine"][(2, 1)][run]
         assert mode == "monolithic"
+        assert rows == [R.MOE_ENGINE_KW["max_batch"] // 2]
         assert toks == ref["tokens"][arch]
 
 

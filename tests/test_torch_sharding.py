@@ -160,3 +160,24 @@ def test_local_shard_cuts_as_the_spec_says():
     got = SH.local_shard(x, SH.P(("pod", "data"), "model"), mesh)
     assert torch.equal(got, x[4:6, 9:12])
     assert torch.equal(SH.local_shard(x, SH.P(None, None), mesh), x)
+
+
+def test_runtime_package_reexports_the_reference_names():
+    """Every public name of ``repro.runtime`` imports from
+    ``repro_torch.runtime``: the sharding rules' and the step factories'
+    re-exports, and any submodule the reference's package holds."""
+    import importlib
+    import types
+
+    import repro.runtime as ref_runtime
+    import repro_torch.runtime as port_runtime
+    names = [n for n in vars(ref_runtime) if not n.startswith("_")]
+    assert {"ShardingRules", "batch_axes", "cache_pspecs", "opt_pspecs",
+            "param_pspecs", "make_train_step", "make_prefill_step",
+            "make_decode_step"} <= set(names)
+    for name in names:
+        if isinstance(getattr(ref_runtime, name), types.ModuleType):
+            importlib.import_module(f"repro_torch.runtime.{name}")
+            continue
+        got = getattr(port_runtime, name)
+        assert got.__name__.lstrip("_") == name.lstrip("_"), name

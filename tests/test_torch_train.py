@@ -136,22 +136,30 @@ def test_compressed_tree_is_refused(world):
 
 
 def test_mesh_is_refused(world):
-    """A mesh is refused where the port runs none yet: the prefill and
-    decode step functions (the engine serves on a mesh), and a train step
-    for an encoder-decoder.  The dense, mixture-of-experts, recurrent and
-    sliding-window stacks train on one (``tests/test_torch_train_mesh.
-    py``, ``tests/test_torch_train_moe_mesh.py``, ``tests/
-    test_torch_train_rec_mesh.py``)."""
-    from repro_torch.runtime.sharding import MeshShape
+    """What the port still refuses on a mesh: a train step that would cut
+    ``d_model`` over ``model`` (``activation_partitioning="dmodel"``), and
+    the engine serving an encoder-decoder (a request carries no frames),
+    on a mesh as off one.  The prefill and decode step functions build on
+    a mesh for every stack, and a train step for every stack, whisper's
+    encoder-decoder included (``tests/test_torch_steps_mesh.py``)."""
+    from repro_torch.runtime.sharding import MeshShape, ShardingRules
     from repro_torch.runtime.steps import (make_decode_step,
                                            make_prefill_step)
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.config import EngineConfigError
     mesh = MeshShape(("data", "model"), (2, 1))
-    for make in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make(world[0], mesh=mesh)
-    with pytest.raises(NotImplementedError, match="training on a mesh"):
-        make_train_step(smoke_variant(get("whisper-base")), mesh=mesh)
-    for arch in ("moonshot-v1-16b-a3b", "recurrentgemma-2b", "xlstm-350m"):
+    dmodel = ShardingRules(activation_partitioning="dmodel")
+    with pytest.raises(NotImplementedError, match="'seq' or 'none'"):
+        make_train_step(world[0], mesh=mesh, rules=dmodel)
+    whisper = smoke_variant(get("whisper-base"))
+    for m in (None, mesh):
+        with pytest.raises(EngineConfigError, match="encoder-decoder"):
+            EngineConfig(mesh=m).validate(whisper)
+    for cfg in (world[0], whisper):
+        for make in (make_prefill_step, make_decode_step):
+            assert callable(make(cfg, mesh=mesh))
+    for arch in ("moonshot-v1-16b-a3b", "recurrentgemma-2b", "xlstm-350m",
+                 "whisper-base"):
         assert callable(make_train_step(smoke_variant(get(arch)),
                                         mesh=mesh))
 

@@ -27,8 +27,9 @@ them), while the worlds run.  In f32:
     step with the same options;
   * ``loss_fn`` on a mesh adds ``0.01 * aux`` to the NLL, the aux the
     reference's on that mesh (the mean over the data groups of ``2x2``);
-  * ``check_mesh_trainable`` lets the MoE and recurrent stacks through
-    and refuses the encoder-decoder.
+  * ``make_train_step(mesh=)`` builds for the MoE, recurrent and
+    encoder-decoder stacks alike; the encoder-decoder's loss needs its
+    frames.
 """
 import os
 import subprocess
@@ -317,9 +318,16 @@ def test_mesh_loss_adds_the_aux_loss_once(runs, tag):
                                      ("xlstm-350m", True),
                                      ("whisper-base", False)])
 def test_check_mesh_trainable(arch, ok):
+    """Every stack trains on a mesh (``ok``: from tokens alone; whisper's
+    loss needs its frames there as on one card)."""
+    from repro_torch.runtime.sharding import MeshShape
+    from repro_torch.runtime.steps import make_train_step
     cfg = smoke_variant(get(arch))
+    assert callable(make_train_step(cfg, mesh=MeshShape(("data", "model"),
+                                                        (1, 2))))
     if ok:
-        M.check_mesh_trainable(cfg)
         return
-    with pytest.raises(NotImplementedError, match="training on a mesh"):
-        M.check_mesh_trainable(cfg)
+    params = M.init_params(cfg, 0, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="pass frames"):
+        M.loss_fn(params, cfg, toks, toks)

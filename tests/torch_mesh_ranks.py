@@ -18,6 +18,7 @@ from repro_torch.kvcache import paged as paged_kv
 from repro_torch.launch import mesh as MESH
 from repro_torch.models import model as M
 from repro_torch.runtime import collectives
+from repro_torch.runtime import sharding as SH
 from repro_torch.serving import EngineConfig, GenerationEngine, Request
 from repro_torch.serving.engine import splice_fragment
 
@@ -189,6 +190,8 @@ def shared_timeline_decode(mesh, params, cfg, steps: int = 6):
         _, cache = M.prefill(params, cfg, toks, max_len=16)
         if use_mesh:
             cache = shard(cache, SH.cache_pspecs(cfg, cache, mesh))
+            # a rank's row cannot tell by its shape that it was cut
+            cache["max_len"] = torch.tensor(16)
         tok = torch.tensor([[5], [9]])
         got = []
         for _ in range(steps):
@@ -326,7 +329,8 @@ def moe_engine_runs(mesh, runs, cfgs, params) -> dict:
     cache kwargs, ECF8 or not)), the weights converted from the
     reference's (``params``: arch -> numpy tree) and placed -> {name:
     (tokens, cache mode, every rank's resident bytes (experts, the rest),
-    this rank's weights checksum)}."""
+    this rank's weights checksum, the slot rows this rank's cache leaves
+    hold: one count a distinct batch dim)}."""
     stream = [(p, n, 0) for p, n in zip(PROMPTS, MOE_NEWS)]
     out = {}
     for name, (arch, kw, ecf8) in runs.items():
@@ -337,8 +341,12 @@ def moe_engine_runs(mesh, runs, cfgs, params) -> dict:
                                           out_dtype="float32")
         toks, eng = serve_tokens(tree, cfg, EngineConfig(
             **MOE_ENGINE_KW, **kw, mesh=mesh), stream)
+        rows = sorted({leaf.shape[1 if names[0] == "units" else 0]
+                       for names, leaf in SH.flatten(eng.cache).items()
+                       if leaf.ndim and names[0] in ("units", "tail",
+                                                     "cur_len")})
         out[name] = (toks, eng.cache_mode, eng.resident_bytes,
-                     list(eng.weights_checksum))
+                     list(eng.weights_checksum), rows)
     return out
 
 

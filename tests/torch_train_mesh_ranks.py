@@ -48,9 +48,11 @@ def gathered(tree, specs, mesh) -> dict:
 
 
 def train_step(whole, mesh, rule: str, remat: bool, accum: int,
-               arch: str = ARCH, seq: int = SEQ) -> dict:
+               arch: str = ARCH, seq: int = SEQ, frames=None) -> dict:
     """One step of the sharded train step on ``mesh`` from the whole tree
-    ``whole`` -> metrics, the updated parameters and first moments
+    ``whole`` (an encoder-decoder's batch with the rank's rows of
+    ``frames``, the global batch's numpy array) -> metrics, the updated
+    parameters and first moments
     gathered whole, the calls of the flash kernels' plain versions on this
     rank (``q_base``: those with ``q_base != 0``; ``flash``: all) and of
     ``local_attention`` (``local``: {"q_base": with a ``q_base``, "whole":
@@ -62,6 +64,10 @@ def train_step(whole, mesh, rule: str, remat: bool, accum: int,
     opt = adamw_init(params)
     data = SyntheticLMData(DataConfig(cfg.vocab_size, seq, BATCH))
     batch = data.sharded_batch(0, mesh, SH.batch_axes(mesh), CPU)
+    if frames is not None:
+        per = BATCH // SH.n_batch_shards(mesh)
+        lo = SH.batch_index(mesh) * per
+        batch["frames"] = torch.from_numpy(frames[lo:lo + per])
     step = S.make_train_step(cfg, AdamWConfig(lr=LR), mesh=mesh,
                              rules=rules, remat=remat, grad_accum=accum)
     q_base, calls, local, undo = _count_attention_calls()
