@@ -5,11 +5,12 @@ Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
     python3 chip_smoke.py [--layers N] [--seed S]
-                          [--only 1,21[,22][,23][,24][,25][,26]]
+                          [--only 1,21[,22][,23][,24][,25][,26][,27]]
 
 ``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
 22 alone, ``--only 1,23`` phase 23 alone, ``--only 1,24`` phase 24 alone,
-``--only 1,25`` phase 25 alone, ``--only 1,26`` phase 26 alone: on a host
+``--only 1,25`` phase 25 alone, ``--only 1,26`` phase 26 alone, ``--only
+1,27`` phase 20 with phase 27 on its state (on card 0): on a host
 with four or more cards,
 ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full depth on four
 NCCL ranks, ``--only 1,22`` moonshot-v1-16b-a3b and llama4-scout-17b-a16e
@@ -479,6 +480,24 @@ Phases, each failing loudly (non-zero exit, no result line):
      mesh: tokens/s; against card 0 alone on the whole batch from the fp8
      tree: its step ms and cache GiB, and the rows whose tokens match
      (bf16 merges round apart: reported, not gated).
+  27. the dry run against the card (``launch/dryrun.py``'s building
+     blocks, ``analysis/op_cost.py``, ``analysis/roofline.py``), on phase
+     20's trained state (no second build): the train step of phase 20's
+     configuration traced on fake ``cuda`` tensors of the state's shapes
+     and dtypes (``dryrun.fake_like``, ``dryrun.trace``: shape-only, the
+     kernels counted from their shapes), then the same step run on the
+     card under the same ``op_cost`` counter, then once without it.
+     Gates: the traced FLOPs equal the card step's within 0.1 %; the
+     predicted parameter and AdamW bytes equal the rise in
+     ``torch.cuda.memory_allocated()`` they caused within 1 %; the card
+     step's B4 (with statistics) and B5 launches exact (2 x layers x
+     grad_accum and layers x grad_accum), no other kernel, and the same
+     two kernels counted by the trace.  Reported, not gated: the predicted
+     peak above the arguments against ``max_memory_allocated``, the
+     traced-FLOP and model-FLOP (``roofline.model_flops``, 6ND) shares of
+     989 TFLOP/s at phase 20's median step, the useful share, the dry
+     run's bounding term against the measured step, the counter's host
+     cost, the card's name and power limit.
 Each phase logs the time since the start when it is done.  Phases 5-13,
 16, 17 and 19 run at a cut depth so that the whole script stays well
 inside its time limit on a slow host (14, 15 and 18 at full depth), 20
@@ -571,7 +590,9 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 # max_batch 8 (two slots a batch shard); on one card two ranks share it at
 # QWEN_LAYERS with phase 5's 8 requests at max_batch 4
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
-MESH_PHASES = ("1", "21", "22", "23", "24", "25", "26")   # --only's names
+# --only's names: the build, the mesh phases and phase 27 (with phase 20,
+# whose trained state it reads)
+MESH_PHASES = ("1", "21", "22", "23", "24", "25", "26", "27")
 # phase 22 on one card: moonshot at 2 of its 48 layers on two gloo ranks
 # (its trees built four times, whole and halved, beside phase 21's
 # leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
@@ -1051,11 +1072,14 @@ def _profile_step(torch, run_step, wall_s):
                 top_kernels_ms={k: v / 1e3 for k, v in top})
 
 
-def train_phase(torch, M, kernels, cfg, seed):
+def train_phase(torch, M, kernels, cfg, seed, probe=None):
     """Phase 20 (module docstring) on ``cfg`` -> (measurements, launches).
     ``kernels`` maps name -> wrapper (``run``) whose launch counts the
     phase reads; the flash wrappers are patched to their plain versions,
-    and put back, for the reference step."""
+    and put back, for the reference step.  ``probe(params, opt, step_fn,
+    data, state_bytes, step_s)`` (phase 27) runs on the trained state after
+    the traced step: ``state_bytes`` is what the parameters and the AdamW
+    state raised ``torch.cuda.memory_allocated()`` by."""
     from repro_torch.core.store import torch_dtype
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import flash_bwd, flash_fwd
@@ -1077,9 +1101,12 @@ def train_phase(torch, M, kernels, cfg, seed):
     base_mem = torch.cuda.memory_allocated()
     params = M.init_params(cfg, seed, device="cuda",
                            dtype=torch_dtype(cfg.dtype))
+    state_bytes = torch.cuda.memory_allocated() - base_mem
     n_params = sum(p.numel() for _, p in iter_leaves(params))
     p0 = map_tree(torch.clone, params)       # step 0's weights, kept
+    before_opt = torch.cuda.memory_allocated()
     opt = adamw_init(params)
+    state_bytes += torch.cuda.memory_allocated() - before_opt
     data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ,
                                       TRAIN_BATCH, seed))
     step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
@@ -1132,6 +1159,8 @@ def train_phase(torch, M, kernels, cfg, seed):
     if not (trace["b4_ms"] > 0 and trace["b5_ms"] > 0):
         fail(f"phase 20 traced step: no B4 / B5 time among the traced "
              f"kernels ({trace['b4_ms']} / {trace['b5_ms']} ms)")
+    if probe is not None:
+        params, opt = probe(params, opt, step_fn, data, state_bytes, step_s)
     del params, opt, batch
     # the reference: the attention patched to the plain versions, for unit
     # 0's attention gradients on micro-batch 0 and for step 0 from the same
@@ -1204,6 +1233,132 @@ def train_phase(torch, M, kernels, cfg, seed):
         f"{100 * share:.1f} % of 989 TFLOP/s; peak device memory {peak:.2f} "
         f"GiB; launches {launches}")
     return out, launches
+
+
+def dryrun_phase(torch, cfg, kernels, params, opt, step_fn, data,
+                 state_bytes: int, step_s: float) -> tuple:
+    """Phase 27 (module docstring) on phase 20's state -> (measurements,
+    the updated params, opt).  ``kernels`` as :func:`train_phase` takes
+    them; ``step_s`` is phase 20's median step."""
+    from repro_torch.analysis import op_cost, roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import iter_leaves
+    L, A = cfg.n_layers, TRAIN_ACCUM
+    want = {"ecf8_decode": 0, "fused_decode_matmul": 0, "kv_page_decode": 0,
+            "flash_fwd": 2 * L * A, "flash_bwd": L * A}
+    i = TRAIN_STEPS + 1
+    batch = data.batch(i, "cuda")
+    t0 = time.perf_counter()
+    with dryrun.fake_mode():
+        fake = dryrun.fake_like((params, opt, batch))
+        cost, mem, _ = dryrun.trace(step_fn, (*fake, i))
+    trace_s = time.perf_counter() - t0
+    pred_state = sum(x.numel() * x.element_size() for tree in fake[:2]
+                     for _, x in iter_leaves(tree))
+    del fake
+    # the same step on the card under the same counter, then once without
+    before = {name: run.launches for name, run in kernels.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with op_cost.OpCost() as counter:
+        params, opt, _ = step_fn(params, opt, batch, i)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - alloc0
+    launched = {name: run.launches - before[name]
+                for name, run in kernels.items()}
+    card = counter.result()
+    batch = data.batch(i + 1, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, _ = step_fn(params, opt, batch, i + 1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del batch
+    shape = ShapeConfig("phase20", "train", TRAIN_SEQ, TRAIN_BATCH)
+    cost_d = {"flops": cost["flops"], "bytes accessed": cost["bytes"]}
+    roof = roofline.roofline_terms(cost_d, cost["coll"], 1, cfg, shape)
+    flop_gap = abs(card["flops"] - cost["flops"]) / cost["flops"]
+    state_gap = abs(pred_state - state_bytes) / state_bytes
+    out = dict(
+        gpu=gpu_line(), trace_s=trace_s, traced_flops=cost["flops"],
+        card_flops=card["flops"], flop_gap=flop_gap,
+        traced_bytes=cost["bytes"], card_bytes=card["bytes"],
+        kernels_traced=cost["kernels"], launches=launched,
+        predicted_state_bytes=pred_state, state_bytes=state_bytes,
+        state_gap=state_gap,
+        predicted_peak_bytes=mem["peak_bytes"] - mem[
+            "argument_size_in_bytes"], card_peak_bytes=peak,
+        argument_bytes=mem["argument_size_in_bytes"],
+        step_ms=step_s * 1e3, counted_step_ms=counted_s * 1e3,
+        uncounted_step_ms=plain_s * 1e3,
+        counter_cost=(counted_s - plain_s) / plain_s,
+        traced_flop_share=cost["flops"] / step_s / H100_BF16_FLOPS,
+        model_flops=roof["model_flops"],
+        model_flop_share=roof["model_flops"] / step_s / H100_BF16_FLOPS,
+        useful_flops_ratio=roof["useful_flops_ratio"],
+        bound_ms=roof["step_time_bound"] * 1e3, bound_by=roof["dominant"],
+        bound_over_step=roof["step_time_bound"] / step_s)
+    log(f"phase 27 ({out['gpu']}): the dry run's trace of phase 20's step "
+        f"({trace_s:.1f} s on fake tensors) against the step on the card "
+        f"under the same counter: FLOPs {cost['flops']:.6e} vs "
+        f"{card['flops']:.6e} (gap {flop_gap:.2e}, tol 1e-3); parameters + "
+        f"AdamW state predicted {pred_state} B vs the rise in "
+        f"memory_allocated {state_bytes} B (gap {state_gap:.2e}, tol "
+        f"1e-2); the step's peak above its arguments predicted "
+        f"{out['predicted_peak_bytes'] / 2 ** 30:.2f} GiB vs "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; launches "
+        f"{launched} (expected {want})")
+    log(f"phase 27: step {step_s * 1e3:.1f} ms (phase 20's median), "
+        f"{counted_s * 1e3:.1f} ms under the counter vs {plain_s * 1e3:.1f}"
+        f" ms without (host cost {100 * out['counter_cost']:.1f} %); traced"
+        f" FLOPs {100 * out['traced_flop_share']:.1f} % and model FLOPs "
+        f"(6ND, roofline.model_flops) {100 * out['model_flop_share']:.1f} %"
+        f" of 989 TFLOP/s, useful share {roof['useful_flops_ratio']:.3f}; "
+        f"the dry run's bound {roof['step_time_bound'] * 1e3:.1f} ms "
+        f"({roof['dominant']}) = {100 * out['bound_over_step']:.1f} % of "
+        f"the measured step")
+    problems = []
+    if flop_gap > 1e-3:
+        problems.append(f"traced FLOPs off the card step's by {flop_gap:.2e}")
+    if state_gap > 1e-2:
+        problems.append(f"predicted state bytes off by {state_gap:.2e}")
+    if launched != want:
+        problems.append(f"launches {launched}, expected {want}")
+    if cost["kernels"] != {"flash_fwd": want["flash_fwd"],
+                           "flash_bwd": want["flash_bwd"]}:
+        problems.append(f"the trace counted kernels {cost['kernels']}")
+    if problems:
+        fail("phase 27: " + "; ".join(problems))
+    return out, params, opt
+
+
+def cfg_train(cfg_full, layers: int):
+    """qwen3-8b at ``layers`` layers as phases 20 and 20b train it: the
+    published Qwen3-8B unembeds with its own matrix (tie_word_embeddings
+    false); the registry's serving config ties."""
+    return dataclasses.replace(cfg_full, n_layers=layers,
+                               tie_embeddings=False)
+
+
+def train_and_dryrun(torch, M, runs, cfg, seed) -> tuple:
+    """Phase 20 on ``cfg`` with phase 27 on its trained state -> (phase 20's
+    measurements, its launches, phase 27's measurements)."""
+    dry = {}
+
+    def probe(params, opt, step_fn, data, state_bytes, step_s):
+        t0 = time.perf_counter()
+        out, params, opt = dryrun_phase(torch, cfg, runs, params, opt,
+                                        step_fn, data, state_bytes, step_s)
+        dry.update(out, seconds=time.perf_counter() - t0)
+        log(f"phase 27 took {dry['seconds']:.1f} s")
+        return params, opt
+
+    out, launches = train_phase(torch, M, runs, cfg, seed, probe=probe)
+    return out, launches, dry
 
 
 def ckpt_phase(torch, M, serve, kernels, cfg, seed):
@@ -5343,17 +5498,33 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                 flash_bwd, kv_page, ecf8_decode, fp8, tpu_format, only: set,
                 seed: int, t_start: float):
     """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / ``1,25`` /
-    ``1,26`` / any of them together: after the build, the mesh phases
-    named (four NCCL ranks when four cards are visible: phase 21 at
-    ``MESH_LAYERS``, phases 22, 23, 25 and 26 at full depth, 24 at
-    ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks on one card), then the
-    kernels line of what ran (a kernel no phase of the run timed has null
-    time keys) and the last line."""
+    ``1,26`` / ``1,27`` / any of them together: after the build, the
+    phases named (the mesh phases on four NCCL ranks when four cards are
+    visible: phase 21 at ``MESH_LAYERS``, phases 22, 23, 25 and 26 at full
+    depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks on one
+    card; 27 with phase 20 on card 0), then the kernels line of what ran
+    (a kernel no phase of the run timed has null time keys) and the last
+    line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
     out = moe_out = t23 = t24 = t25 = t26 = None
-    launches = {}
+    launches, launches27 = {}, {}
+    if "27" in only:
+        from repro_torch.configs import get as get_cfg
+        from repro_torch.kernels import fused_decode_matmul as fused
+        from repro_torch.models import model as M
+        runs = {"ecf8_decode": ecf8_decode.run, "flash_fwd": flash_fwd.run,
+                "kv_page_decode": kv_page.run,
+                "fused_decode_matmul": fused.run, "flash_bwd": flash_bwd.run}
+        train_out, launches27, dry_out = train_and_dryrun(
+            torch, M, runs, cfg_train(get_cfg("qwen3-8b"), TRAIN_LAYERS),
+            seed)
+        log(f"phase 20 measurements: {json.dumps(train_out)}")
+        log(f"phase 27 measurements: {json.dumps(dry_out)}")
+        log(f"phases 20 and 27 done at {time.perf_counter() - t_start:.1f}s")
+        gc.collect()
+        torch.cuda.empty_cache()
     if "21" in only:
         out = mesh_phase(torch, np, MESH, serve, get, n_ranks,
                          MESH_LAYERS if n_ranks == 4 else QWEN_LAYERS, seed,
@@ -5415,8 +5586,10 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                       for ln in runs] for tag, runs in launches.items()}
 
     def main_path(name):
-        """The kernel's launches on every rank over the phases' runs."""
-        return sum(sum(v) for v in mesh_l(name).values())
+        """The kernel's launches on every rank over the phases' runs (and
+        phase 20's, under ``--only 1,27``)."""
+        return sum(sum(v) for v in mesh_l(name).values()) + \
+            launches27.get(name, 0)
 
     untimed = dict(max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
                    bound_by=None, library_ms=None)
@@ -5429,7 +5602,7 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
     elif moe_out is not None:
         b4 = checks["b4"]
     else:
-        b4 = (t23 or t24 or t25 or t26)["b4"]
+        b4 = (t23 or t24 or t25 or t26 or {}).get("b4", untimed)
     b5 = (t23 or t24 or t25 or t26 or {}).get("b5", untimed)
     b3 = out["b3_sharded"] if out is not None else None
     kernels = [
@@ -6328,25 +6501,19 @@ def main(argv=None):
     mark("phase 18")
 
     # -- 20. training qwen3-8b at full width ------------------------------
-    def cfg_train(layers):
-        # the published Qwen3-8B unembeds with its own matrix
-        # (tie_word_embeddings false); the registry's serving config ties
-        return dataclasses.replace(cfg_full, n_layers=layers,
-                                   tie_embeddings=False)
-
     if flash_bwd.run.launches:
         fail(f"a serve phase launched B5 {flash_bwd.run.launches} times")
     train_runs = {**kernel_runs, "flash_bwd": flash_bwd.run}
-    train_out, train_launches = train_phase(
-        torch, M, train_runs,
-        cfg_train(TRAIN_LAYERS), args.seed)
+    train_out, train_launches, dry_out = train_and_dryrun(
+        torch, M, train_runs, cfg_train(cfg_full, TRAIN_LAYERS), args.seed)
     log(f"phase 20 measurements: {json.dumps(train_out)}")
-    mark("phase 20")
+    log(f"phase 27 measurements: {json.dumps(dry_out)}")
+    mark("phases 20 and 27")
 
     # -- 20b. the checkpoint drill -----------------------------------------
     ckpt_out, ckpt_b1 = ckpt_phase(
         torch, M, serve, train_runs,
-        cfg_train(CKPT_LAYERS), args.seed)
+        cfg_train(cfg_full, CKPT_LAYERS), args.seed)
     log(f"phase 20b measurements: {json.dumps(ckpt_out)}")
     mark("phase 20b")
 

@@ -1,9 +1,11 @@
-"""Architecture configuration (a copy of the reference's ``ArchConfig``).
+"""Architecture and shape configuration (copies of the reference's
+``ArchConfig`` and ``ShapeConfig``).
 
-Every architecture is a frozen ``ArchConfig``; ``registry.get(name)``
-resolves ``--arch`` ids.  The port serves every decoder-only pattern of
-the registry (``models.model.check_supported``); the encoder-decoder
-(whisper-base) is refused.
+Every architecture is a frozen ``ArchConfig``; the four workload shapes of
+the dry run (``launch/dryrun.py``) are ``ShapeConfig``s; ``registry.
+get(name)`` resolves ``--arch`` ids. The port serves every decoder-only
+pattern of the registry (``models.model.check_supported``); the
+encoder-decoder (whisper-base) is refused.
 """
 from __future__ import annotations
 
@@ -102,6 +104,30 @@ class ArchConfig:
         per_layer_act = self.top_k * 3 * self.d_model * self.moe_d_ff
         return full - self.n_layers * (per_layer_all - per_layer_act)
 
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped) — the long_500k sub-quadratic rule."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full/global attention is quadratic at 524288 and the "
+                       "KV cache would exceed HBM; see DESIGN.md §4")
+    return True, ""
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """A reduced same-family config for CPU smoke tests."""

@@ -14,6 +14,10 @@ from __future__ import annotations
 import torch
 
 FP8_DTYPE = torch.float8_e4m3fn
+EXP_BITS = 4
+MANT_BITS = 3
+EXP_BIAS = 7
+N_EXP_SYMBOLS = 1 << EXP_BITS  # 16
 
 _F32_MIN_NORMAL_FP8 = 0x3C800000  # bits of 2**-6, the smallest fp8 normal
 _F32_LAST_ROUNDS_TO_MAX = 0x43E80000  # bits of 464.0: above it -> NaN

@@ -21,6 +21,7 @@ import torch
 from . import fixedrate, fp8, tpu_format
 from ..kernels import ops
 
+FORMAT_NONE = "none"
 FORMAT_TPU = "tpu"          # ECF8-TPU interleaved Huffman (uniform layout)
 FORMAT_FIXEDRATE = "fixedrate"  # ECF8-FR 2-bit codes + escapes
 

@@ -39,12 +39,14 @@ import ctypes
 
 import torch
 
+from ..models.flash_attention import NEG  # noqa: F401  (the mask's fill)
 from ..models.flash_attention import flash_attention as plain
 from ..models.flash_attention import flash_attention_fwd_stats as plain_stats
 from . import build
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+F32 = torch.float32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128, 256)
 

@@ -3,14 +3,20 @@
 ``fused_decode_matmul_ref`` is the reference's own oracle
 (``src/repro/kernels/ref.py``): ``x @ upcast(fp8(W))`` in one product with
 f32 accumulation, for the tolerance the reference's fused-GEMM test uses.
-``decode_fixedrate_ref`` is the host oracle of the ECF8-FR decode.
+``decode_fixedrate_ref`` and ``decode_tpu_ref`` are the host oracles of
+the ECF8-FR and ECF8-TPU decodes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core import fixedrate, fp8
+from ..core import fixedrate, fp8, tpu_format
+
+
+def decode_tpu_ref(container: tpu_format.TpuECF8) -> torch.Tensor:
+    """Oracle for ``ecf8_decode`` (readable per-lane loop, on the host)."""
+    return tpu_format.decode_ref(container)
 
 
 def decode_fixedrate_ref(container: fixedrate.FixedRateECF8) -> torch.Tensor:

@@ -13,5 +13,6 @@
 ``swap``    — host-side swap tier: entropy-coded pages leave the device
               entirely (hot -> cold -> swapped) and restore bit-exactly.
 """
-from .paged import GARBAGE_PAGE, OutOfPages, PagedKVCache  # noqa: F401
+from . import codec, kernels, paged, swap  # noqa: F401
+from .paged import GARBAGE_PAGE, OutOfPages, PagedKVCache, PrefixIndex  # noqa: F401
 from .swap import SwapExhausted, SwapStore  # noqa: F401

@@ -254,6 +254,45 @@ def _encode_lanes(syms: np.ndarray, cb: Codebook) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# decode (host oracle)
+# --------------------------------------------------------------------------
+
+def decode_page(cp: CompressedPage) -> torch.Tensor:
+    """Readable per-lane oracle -> original values (bit-exact), a CPU
+    tensor of the page's dtype and shape (the reference's numpy decoder:
+    each lane stream walked a ``max_len``-bit peek at a time)."""
+    _, max_len, _ = plane_spec(cp.dtype_name)
+    S = sym_per_lane(cp.n_elem)
+    cb = Codebook(lengths=np.zeros(len(cp.perm), np.int32), codes=None,
+                  max_len=max_len)  # type: ignore[arg-type]
+    cb.sorted_syms = np.asarray(cp.perm)
+    cb.lj_limit = np.asarray(cp.lj_limit, dtype=np.int64)
+    cb.first_lj = np.asarray(cp.first_lj, dtype=np.int64)
+    cb.offset = np.asarray(cp.offset, dtype=np.int64)
+
+    stride = cp.stride
+    syms = np.zeros((S, LANES), dtype=np.int64)
+    for lane in range(LANES):
+        stream = cp.payload[:, lane]
+        bitpos = 0
+        for s in range(S):
+            peek = 0
+            for b in range(max_len):
+                p = bitpos + b
+                bit = ((int(stream[p // 8]) >> (7 - p % 8)) & 1
+                       if p // 8 < stride else 0)
+                peek = (peek << 1) | bit
+            sym, ln = cb.decode_peek(peek)
+            syms[s, lane] = sym
+            bitpos += ln
+    exp = syms.reshape(-1)[: cp.n_elem]
+    bits = assemble_planes(exp, cp.signmant, cp.dtype_name, cp.n_elem)
+    t = torch.from_numpy(np.ascontiguousarray(bits).view(
+        np.dtype(str(TORCH_BITS[cp.dtype_name]).removeprefix("torch."))))
+    return t.view(TORCH_DTYPES[cp.dtype_name]).reshape(cp.shape)
+
+
+# --------------------------------------------------------------------------
 # decode: the plain PyTorch version of the page-decode kernel
 # --------------------------------------------------------------------------
 

@@ -58,10 +58,14 @@ def make_host_mesh(model: int = 1, device_type: str = "cpu") -> DeviceMesh:
     return make_mesh(world // model, model, device_type)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
     """The reference's production mesh: (data 16, model 16), or (pod 2,
     data 16, model 16) with ``multi_pod``.  Refused unless the process group
-    has that many ranks: no host of this project has 256 cards."""
+    has that many ranks: no host of this project has 256 cards.  The dry
+    run (``launch/dryrun.py``) builds it over a ``fake`` process group of
+    that size with ``device_type="cpu"``: a ``"cuda"`` mesh sets up the
+    card, and the fake group moves nothing on any device."""
     shape, names = _PRODUCTION[multi_pod]
     need = 1
     for n in shape:
@@ -72,7 +76,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
             f"the production mesh {dict(zip(names, shape))} needs {need} "
             f"ranks (one a card), the process group has {have}: start it "
             f"under a launcher that spans that many cards")
-    return DeviceMesh("cuda", torch.arange(need).reshape(shape),
+    return DeviceMesh(device_type, torch.arange(need).reshape(shape),
                       mesh_dim_names=names)
 
 

@@ -117,10 +117,13 @@ def _decode_attention_update_sharded(q, k_cache, v_cache, new_k, new_v,
     slot = torch.as_tensor(slot, device=q.device)
     slot_l = (slot - lo).clamp(0, s_loc - 1).long()
     owned = (slot >= lo) & (slot < lo + s_loc)
+    # the write position stays on the device: indexing with the 0-d
+    # tensor would read it back to the host (and cannot on a fake one)
+    idx = slot_l.reshape(1)
     for cache, new in ((k_cache, new_k), (v_cache, new_v)):
-        cur = cache[:, :, slot_l]
-        cache[:, :, slot_l] = torch.where(owned, new[:, :, 0].to(cache.dtype),
-                                          cur)
+        cur = cache.index_select(2, idx)
+        cache.index_copy_(2, idx, torch.where(owned, new.to(cache.dtype),
+                                              cur))
     kv_len_local = (torch.as_tensor(vlen, device=q.device) - lo).clamp(
         0, s_loc)
     acc, m, l = _local_attend_stats(q, k_cache, v_cache, kv_len_local,

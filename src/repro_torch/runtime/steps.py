@@ -45,23 +45,129 @@ there).
 shard, ``B / n_batch_shards(mesh)`` rows of ``tokens`` (and ``frames``),
 against a rank's cache; their docstrings give its layout.
 
-The dry-run specs (``input_specs``, ``param_specs``,
-``compressed_param_specs``) are not ported yet.
+The dry run's specs (``launch/dryrun.py``): :func:`input_specs`,
+:func:`param_specs`, :func:`cache_specs`, :func:`compressed_param_specs`
+and :func:`opt_specs` give the reference's trees of ``ShapeDtypeStruct``
+as tensors on the ``meta`` device (under a ``FakeTensorMode``, fake ones):
+shapes and dtypes alone, nothing drawn or allocated.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
-from ..core.store import torch_dtype
+from ..configs.base import ArchConfig, ShapeConfig
+from ..core.store import CompressedMeta, CompressedTensor, torch_dtype
+from ..core.tpu_format import DEFAULT_SYM_PER_LANE, LANES
 from ..models import model as M
-from ..optim.adamw import AdamWConfig, adamw, iter_leaves
+from ..optim.adamw import AdamWConfig, adamw, adamw_init, iter_leaves
 from ..optim.schedules import cosine_schedule
 from .collectives import LeafGather
 from .sharding import (DEFAULT_RULES, P, ShardingRules, grad_axes,
                        is_expert_leaf, make_constrainer, named, param_pspecs)
 
 F32 = torch.float32
+
+
+# --------------------------------------------------------------------------
+# the dry run's specs: shape-only trees (meta tensors), nothing allocated
+# --------------------------------------------------------------------------
+
+def _input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Shape-only tensors for every model input of this (arch, shape) cell.
+
+    train:   {tokens (B, T) i32, labels (B, T) i32 [, frames (B, F, d)]}
+    prefill: {tokens (B, T) i32 [, frames]}
+    decode:  {token (B, 1) i32}  (the cache is built via cache_specs)
+    """
+    B, T = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def sds(s, dtype):
+        return torch.empty(s, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": sds((B, T), i32), "labels": sds((B, T), i32)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": sds((B, T), i32)}
+    else:  # decode
+        specs = {"token": sds((B, 1), i32)}
+    if cfg.encoder_decoder and shape.kind != "decode":
+        specs["frames"] = sds((B, cfg.encoder_frames, cfg.d_model),
+                              torch_dtype(cfg.dtype))
+    return specs
+
+
+def _param_specs(cfg: ArchConfig, dtype=None) -> dict:
+    """Shape-only tree of the parameters (``init_params`` on ``meta``)."""
+    return M.init_params(cfg, device="meta",
+                         dtype=torch_dtype(dtype or cfg.dtype))
+
+
+def _cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16) -> dict:
+    """Shape-only tree of the decode cache (``init_cache`` on ``meta``)."""
+    return M.init_cache(cfg, batch, max_len, torch_dtype(dtype),
+                        device="meta")
+
+
+def _compressed_param_specs(cfg: ArchConfig, bits_per_exp: float = 3.43,
+                            min_elems: int = 65536,
+                            out_dtype: str = "bfloat16") -> dict:
+    """Shape-only stand-in for an ECF8-TPU-compressed param tree.
+
+    The payload stride is data-dependent at encode time; for lowering we
+    size it from the expected exponent code length (``bits_per_exp``, ~3.4
+    bits at the trained-weight alpha~1.9 — table1_memory measures 3.2-3.5)
+    plus lane-padding slack, as the reference does.  Dry-run only: real
+    serving compresses real weights (launch/serve.py) and gets exact
+    strides."""
+    return compressed_specs_of(_param_specs(cfg), bits_per_exp, min_elems,
+                               out_dtype)
+
+
+def compressed_specs_of(base: dict, bits_per_exp: float = 3.43,
+                        min_elems: int = 65536,
+                        out_dtype: str = "bfloat16", names=()) -> dict:
+    """:func:`compressed_param_specs` of the shape-only tree ``base`` (a
+    rank's experts alone, say): each leaf of at least ``min_elems``
+    elements a layer and two or more dims a layer becomes a
+    ``CompressedTensor`` of shape-only arrays on ``base``'s device."""
+    if isinstance(base, dict):
+        return {k: compressed_specs_of(v, bits_per_exp, min_elems,
+                                       out_dtype, names + (str(k),))
+                for k, v in base.items()}
+    leaf = base
+    S = DEFAULT_SYM_PER_LANE
+    stride = int(np.ceil(S * (bits_per_exp * 1.06) / 8)) + 1
+    stacked = int("units" in names or "layers" in names)
+    n = int(np.prod(leaf.shape))
+    per_layer = n // leaf.shape[0] if stacked else n
+    if per_layer < min_elems or len(leaf.shape) < 2 + stacked:
+        return leaf
+    C = -(-per_layer // (LANES * S))
+    lead = (leaf.shape[0],) if stacked else ()
+
+    def sds(s, dtype):
+        return torch.empty(lead + s, dtype=dtype, device=leaf.device)
+
+    arrays = {
+        "payload": sds((C, stride, LANES), torch.uint8),
+        "signmant": sds((-(-per_layer // 2),), torch.uint8),
+        "lj_limit": sds((8,), torch.int32),
+        "first_lj": sds((8,), torch.int32),
+        "offset": sds((8,), torch.int32),
+        "perm": sds((16,), torch.int32),
+    }
+    meta = CompressedMeta(
+        fmt="tpu", shape=tuple(leaf.shape[stacked:]),
+        n_elem=per_layer, sym_per_lane=S, out_dtype=out_dtype)
+    return CompressedTensor(arrays=arrays, meta=meta)
+
+
+def _opt_specs(cfg: ArchConfig, dtype=None) -> dict:
+    """Shape-only AdamW state of the parameters (f32 moments)."""
+    return adamw_init(_param_specs(cfg, dtype))
 
 
 def _unflatten(paths, values) -> dict:
@@ -298,7 +404,12 @@ def _make_decode_step(cfg: ArchConfig, mesh=None,
 # Defined under private names and bound to the public ones: tools/lint's
 # jit-discipline pass resolves a called name across files only when a
 # single file under src/ defines it, and the reference's launchers reach
-# their steps through these names.
+# their steps and the dry run its specs through these names.
 make_train_step = _make_train_step
 make_prefill_step = _make_prefill_step
 make_decode_step = _make_decode_step
+input_specs = _input_specs
+param_specs = _param_specs
+cache_specs = _cache_specs
+compressed_param_specs = _compressed_param_specs
+opt_specs = _opt_specs
