@@ -5,12 +5,13 @@ Run from the repository root on a machine with the card and the CUDA
 toolkit:
 
     python3 chip_smoke.py [--layers N] [--seed S]
-                          [--only 1,21[,22][,23][,24][,25][,26][,27]]
+                          [--only 1,21[,22][,23][,24][,25][,26][,27][,28]]
 
 ``--only 1,21`` runs the build and phase 21 alone, ``--only 1,22`` phase
 22 alone, ``--only 1,23`` phase 23 alone, ``--only 1,24`` phase 24 alone,
 ``--only 1,25`` phase 25 alone, ``--only 1,26`` phase 26 alone, ``--only
-1,27`` phase 20 with phase 27 on its state (on card 0): on a host
+1,27`` phase 20 with phase 27 on its state (on card 0), ``--only 1,28``
+the port's examples (on card 0): on a host
 with four or more cards,
 ``python3 chip_smoke.py --only 1,21`` serves qwen3-8b at full depth on four
 NCCL ranks, ``--only 1,22`` moonshot-v1-16b-a3b and llama4-scout-17b-a16e
@@ -357,13 +358,20 @@ Phases, each failing loudly (non-zero exit, no result line):
      within 2e-2 of the unsharded.  On one card two gloo ranks share it:
      qwen3-8b untied at full width and ``MESH_TRAIN_LAYERS`` layers, global
      batch 4 x seq 512, grad_accum 2, remat, bf16 weights and f32 moments,
-     one step on ``--mesh 2`` and on ``1x2``; with four cards four NCCL
+     one step on ``--mesh 2`` and on ``1x2`` under the sequence split, and
+     on ``1x2`` with the residual stream whole over ``model`` (``"none"``)
+     and cut over ``d_model`` (``"dmodel"``); with four cards four NCCL
      ranks at all 36 layers (more than one card holds), batch 8 x 2048,
-     ``TRAIN_STEPS`` steps on ``--mesh 4`` and ``2x2``.  Gates: every loss
+     ``MESH_TRAIN_STEPS`` steps on each of ``MESH_TRAIN_RUNS_FULL``: the
+     sequence split on ``--mesh 4``, ``2x2`` and ``1x4``, ``"none"`` and
+     ``"dmodel"`` on ``2x2``, ``"dmodel"`` on ``1x4``.  Gates: every loss
      and gradient norm finite and the ranks' losses equal; step 0 within
      5e-3 (loss) and 2e-2 (gradient norm) of one rank's unsharded step on
-     the card from the same seed (one card), of the other mesh's (four
-     cards); phase 4's small f32 model on ``(D/2)x2`` within 2e-4 of one
+     the card from the same seed (one card), every run's loss within 5e-3
+     of the first run's; ``"dmodel"``'s step-0 loss bit for bit
+     ``"none"``'s on the same mesh, and on ``1x4`` within 5e-3 (loss) and
+     2e-2 (gradient norm) of the sequence split's; phase 4's small f32
+     model on ``(D/2)x2`` within 2e-4 of one
      rank's updated parameters; B4 with statistics (twice a layer a
      micro-batch, remat) and B5 launched on every rank, with ``q_base``
      exactly on the model ranks past the first, no other kernel; each
@@ -371,7 +379,8 @@ Phases, each failing loudly (non-zero exit, no result line):
      card) or 0.3 (four) of the whole tree's bytes.  Per rank: step ms,
      the collectives' ms a step (a further step with each collective
      synchronised and timed), resident and peak GiB, build s; per mesh:
-     aggregate tokens/s and the model-FLOP share of the ranks' 989 TFLOP/s.
+     aggregate tokens/s and the model-FLOP share of the ranks' 989 TFLOP/s;
+     ``"dmodel"``'s step ms and peak GiB against its pair's.
   24. training the mixture-of-experts stack on a mesh of ranks (the MoE
      layers route each data group's rows; on a model axis their two
      ``all_to_all`` over ``model`` and the backward of each, under the
@@ -383,9 +392,10 @@ Phases, each failing loudly (non-zero exit, no result line):
      f32, one step (remat, grad_accum 2) on ``1xN`` against one rank's step
      on the card (parameters and first moments within 2e-4, the moments
      of their largest magnitude), and on the model axis with the
-     sequence split against the stream whole over ``model`` (the same
-     routing: first moments within 2e-4; an ``M``-fold expert gradient
-     shows there).  On one card two gloo ranks share it: moonshot at full
+     sequence split and with the stream cut over ``d_model`` against the
+     stream whole over ``model`` (the same routing: first moments within
+     2e-4; an ``M``-fold expert gradient shows there; ``"dmodel"``'s loss
+     bit for bit ``"none"``'s).  On one card two gloo ranks share it: moonshot at full
      width and ``MOE_TRAIN_LAYERS`` layers, global batch 4 x 512, one
      step on ``1x2`` and ``--mesh 2``; with four cards four NCCL ranks at
      ``MOE_TRAIN_FULL_LAYERS`` layers (more than one card holds), batch 8
@@ -413,8 +423,9 @@ Phases, each failing loudly (non-zero exit, no result line):
      last model rank's micro-batch of seq 8192.  The smoke stacks of
      recurrentgemma-2b, xlstm-350m and gemma2-9b (heads of 64) in f32, seq
      64 (past their window of 32), one step (remat, grad_accum 2) on
-     ``1x2`` (one card) or ``2x2`` (four) against one rank's step on the
-     card: loss and updated parameters within 2e-4.  At full width, bf16
+     ``1x2`` (one card) or ``2x2`` (four) under the sequence split, and
+     recurrentgemma's with the stream cut over ``d_model``, against one
+     rank's step on the card: loss and updated parameters within 2e-4.  At full width, bf16
      weights and f32 moments, grad_accum 2, remat (``REC_TRAIN_FULL``): on
      four NCCL ranks recurrentgemma-2b at 26 layers, batch 4 x 4096 (past
      its window of 2048), xlstm-350m at 4, batch 8 x 1024, gemma2-9b at
@@ -498,6 +509,18 @@ Phases, each failing loudly (non-zero exit, no result line):
      989 TFLOP/s at phase 20's median step, the useful share, the dry
      run's bounding term against the measured step, the counter's host
      cost, the card's name and power limit.
+  28. the port's examples on the card (``examples/torch_quickstart.py``,
+     ``torch_compress_checkpoint.py``, ``torch_serve_lm.py``,
+     ``torch_train_lm.py``), each ``main`` run in this process at its
+     default size with ``--device cuda`` (its printed lines on the log):
+     the quickstart's three containers round trip bit-exact (ECF8-TPU
+     through B1), the ECF8 checkpoint restores bit-identical (B1 a fp8
+     leaf), the served stream's paged + compressed tokens IDENTICAL to the
+     monolithic run's (B1, B3 on the cold pages), the ~100M LM's loss
+     falls by more than 0.5 in its default 300 steps (B4, B5).
+     Gates: each example returns (its own checks pass); B1 launched in the
+     quickstart, the restore and the serve example, B3 in the serve
+     example, B4 and B5 in training.  Per example: seconds and launches.
 Each phase logs the time since the start when it is done.  Phases 5-13,
 16, 17 and 19 run at a cut depth so that the whole script stays well
 inside its time limit on a slow host (14, 15 and 18 at full depth), 20
@@ -592,7 +615,7 @@ FLASH_STATS_TOL = 1e-5  # m and l, relative to their largest magnitude
 MESH_LAYERS, MESH_REQUESTS, MESH_BATCH = 36, 16, 8
 # --only's names: the build, the mesh phases and phase 27 (with phase 20,
 # whose trained state it reads)
-MESH_PHASES = ("1", "21", "22", "23", "24", "25", "26", "27")
+MESH_PHASES = ("1", "21", "22", "23", "24", "25", "26", "27", "28")
 # phase 22 on one card: moonshot at 2 of its 48 layers on two gloo ranks
 # (its trees built four times, whole and halved, beside phase 21's
 # leftovers) and recurrentgemma-2b at one unit and its two tail layers; on
@@ -605,6 +628,27 @@ MESH_SHARD_PAGES, MESH_SHARD_COLD = 32, 2   # 21a's pools a batch shard
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 1, 512, 4
 MESH_TRAIN_FULL_SEQ, MESH_TRAIN_FULL_BATCH = 2048, 8
 MESH_TRAIN_ACCUM = 2
+# phase 23's steps a run on four cards (one on one card); its runs, each
+# (tag, (data, model), activation_partitioning): the sequence split on
+# every shape, and the residual stream whole over model ("none") and cut
+# over d_model ("dmodel") on 2x2, "dmodel" beside "seq" on 1x4
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_RUNS_FULL = (("4", (4, 1), "seq"), ("2x2", (2, 2), "seq"),
+                        ("2x2/none", (2, 2), "none"),
+                        ("2x2/dmodel", (2, 2), "dmodel"),
+                        ("1x4", (1, 4), "seq"),
+                        ("1x4/dmodel", (1, 4), "dmodel"))
+MESH_TRAIN_RUNS_ONE_CARD = (("2", (2, 1), "seq"), ("1x2", (1, 2), "seq"),
+                            ("1x2/none", (1, 2), "none"),
+                            ("1x2/dmodel", (1, 2), "dmodel"))
+# {"dmodel" run: the run its step-0 loss equals bit for bit, its gradient
+# norm within DMODEL_NORM_TOL relative ("none" on the same mesh: the same
+# sums, some in another order; the card gave a gap of 0 on 2x2 and 1x2),
+# or is held within 5e-3 / 2e-2 (loss / gradient norm) of}
+MESH_TRAIN_PAIRS = {"2x2/dmodel": ("2x2/none", "equal"),
+                    "1x4/dmodel": ("1x4", "close"),
+                    "1x2/dmodel": ("1x2/none", "equal")}
+DMODEL_NORM_TOL = 1e-3
 # phase 24: moonshot-v1-16b-a3b at full width, phase 23's batches; on one
 # card 1 of its 48 layers on two gloo ranks, on four cards 24 (the depth
 # phase 12 serves at: ~14.4 B parameters at ~10 bytes each, ~36 GB a rank)
@@ -637,6 +681,9 @@ STEPS_WHISPER_PROMPT = 224          # phase 18's longer prompt
 STEPS_WHISPER_SEQ = 448             # whisper's n_text_ctx, trained at it
 STEPS_TRAIN_STEPS = 3               # on four cards (one on one card)
 STEPS_TIMED = 4                     # decode steps with the merge timed
+# phase 28: the port's examples, each main(argv) in this process
+EXAMPLES = ("torch_quickstart", "torch_compress_checkpoint",
+            "torch_serve_lm", "torch_train_lm")
 
 
 def fail(msg: str):
@@ -4015,7 +4062,9 @@ def _train_rank_setup(torch, mesh_dims):
 def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
                 exchange=None, mixer=None, frames=None):
     """The full-width runs of phases 23 and 24 on this rank: for each run
-    of ``spec["runs"]`` this rank's shards of ``cfg``'s state drawn from
+    of ``spec["runs"]`` (its ``mesh`` and its ``rule``, the
+    ``activation_partitioning``, ``"seq"`` unless it names another) this
+    rank's shards of ``cfg``'s state drawn from
     the seed (``runtime.steps.init_sharded``), ``spec["steps"]`` steps on
     its rows with the kernels' launches counted (``zero`` / ``counts``),
     then under NCCL one more step with every collective synchronised and
@@ -4053,19 +4102,22 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
     out = {}
     for run in spec["runs"]:
         mesh = meshes[tuple(run["mesh"])]
+        rules = SH.ShardingRules(
+            activation_partitioning=run.get("rule", "seq"))
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        params, _ = S.init_sharded(cfg, spec["seed"], mesh, device=dev)
+        params, _ = S.init_sharded(cfg, spec["seed"], mesh, rules,
+                                   device=dev)
         opt = adamw_init(params)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         resident = nbytes(params, opt["mu"], opt["nu"])
         step_fn = S.make_train_step(
-            cfg, AdamWConfig(lr=TRAIN_LR), mesh=mesh, remat=True,
-            grad_accum=MESH_TRAIN_ACCUM, warmup_steps=1,
+            cfg, AdamWConfig(lr=TRAIN_LR), mesh=mesh, rules=rules,
+            remat=True, grad_accum=MESH_TRAIN_ACCUM, warmup_steps=1,
             total_steps=spec["steps"])
         steps, secs = [], []
         zero()
@@ -4103,7 +4155,8 @@ def _train_runs(torch, dev, cfg, spec, meshes, timer, zero, counts,
             timed_s, n_timed = sum(secs), len(secs)
         timer["on"] = a2a["on"] = mix["on"] = False
         out[run["tag"]] = dict(
-            mesh=list(run["mesh"]), steps=steps,
+            mesh=list(run["mesh"]), rule=rules.activation_partitioning,
+            steps=steps,
             step_ms=[x * 1e3 for x in secs], launches=launches,
             collectives_ms=timer["s"] * 1e3 / n_timed,
             collectives=timer["n"] // n_timed,
@@ -4140,16 +4193,17 @@ def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
     layers, seq, batch = ((36, MESH_TRAIN_FULL_SEQ, MESH_TRAIN_FULL_BATCH)
                           if full else (MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ,
                                         MESH_TRAIN_BATCH))
-    steps = TRAIN_STEPS if full else 1
-    runs = [dict(tag=f"{n_ranks}", mesh=(n_ranks, 1)),
-            dict(tag=f"{n_ranks // 2}x2", mesh=(n_ranks // 2, 2))]
+    steps = MESH_TRAIN_STEPS if full else 1
+    runs = [dict(tag=tag, mesh=dims, rule=rule) for tag, dims, rule in (
+        MESH_TRAIN_RUNS_FULL if full else MESH_TRAIN_RUNS_ONE_CARD)]
     A = MESH_TRAIN_ACCUM
     log(f"phase 23: training on {n_ranks} ranks over "
         f"{'NCCL, one card each' if nccl else 'gloo on one card'}; "
         f"qwen3-8b untied at full width, {layers} layers, global batch "
         f"{batch} x seq {seq}, grad_accum {A}, remat, bf16 weights and f32 "
-        f"moments, {steps} step(s) a mesh; meshes "
-        f"{[r['mesh'] for r in runs]} (the sequence split over model)")
+        f"moments, {steps} step(s) a mesh; runs "
+        f"{[(r['tag'], r['rule']) for r in runs]} (the sequence split over "
+        f"model, the stream whole over it, or cut over d_model)")
 
     # B5 (and B4 with statistics) with q_base against the plain versions:
     # a model rank's rows at qwen3's and gemma2's heads, and at the shape
@@ -4314,7 +4368,8 @@ def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
         tok_s = batch * seq / step_s
         share = model_flops / step_s / (n_ranks * H100_BF16_FLOPS)
         out["runs"][tag] = dict(
-            mesh=run["mesh"], loss=[s["loss"] for s in per[0]["steps"]],
+            mesh=run["mesh"], rule=run["rule"],
+            loss=[s["loss"] for s in per[0]["steps"]],
             grad_norm=[s["grad_norm"] for s in per[0]["steps"]],
             step_ms=[p["step_ms"] for p in per], median_step_ms=step_s * 1e3,
             tokens_per_s=tok_s, flop_share=share,
@@ -4328,7 +4383,8 @@ def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
             build_s=[p["build_s"] for p in per],
             launches=[p["launches"] for p in per])
         launches[f"train_{tag}"] = [p["launches"] for p in per]
-        log(f"phase 23 {tag} (mesh {list(run['mesh'])}): losses "
+        log(f"phase 23 {tag} (mesh {list(run['mesh'])}, "
+            f"{run['rule']!r}): losses "
             f"{[round(x, 5) for x in out['runs'][tag]['loss']]} grad_norm "
             f"{[round(x, 4) for x in out['runs'][tag]['grad_norm']]}; a rank"
             f"'s step {[[round(x, 1) for x in p['step_ms']] for p in per]} "
@@ -4358,13 +4414,50 @@ def train_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
                    for d in out["gaps_to_one_rank"]):
             problems.append(f"step 0 off one rank's: "
                             f"{out['gaps_to_one_rank']}")
-    gap = abs(first[0] - first[1]) / abs(first[0])
+    gap = max(abs(x - first[0]) / abs(first[0]) for x in first)
     out["loss_gap_between_meshes"] = gap
-    log(f"phase 23 step 0 loss {first[0]:.6f} on {runs[0]['tag']} vs "
-        f"{first[1]:.6f} on {runs[1]['tag']} (gap {gap:.2e}, tol 5e-3)")
+    log(f"phase 23 step 0 losses "
+        f"{dict(zip([r['tag'] for r in runs], first))} (largest gap to "
+        f"{runs[0]['tag']}'s {gap:.2e}, tol 5e-3)")
     if gap > 5e-3:
         problems.append(f"step 0 losses of the meshes {first} differ by "
                         f"{gap}")
+    # the stream cut over d_model: step 0's loss bit for bit "none"'s on
+    # the same mesh (no value of the forward changes), and close to the
+    # sequence split's
+    out["dmodel"] = {}
+    for tag, (other, how) in MESH_TRAIN_PAIRS.items():
+        if tag not in out["runs"]:
+            continue
+        a, b = out["runs"][tag], out["runs"][other]
+        d = dict(against=other, loss=abs(a["loss"][0] - b["loss"][0])
+                 / abs(b["loss"][0]),
+                 grad_norm=abs(a["grad_norm"][0] - b["grad_norm"][0])
+                 / abs(b["grad_norm"][0]),
+                 step_ms=a["median_step_ms"] / b["median_step_ms"],
+                 peak_gib=[x - y for x, y in zip(a["peak_gib"],
+                                                 b["peak_gib"])])
+        out["dmodel"][tag] = d
+        log(f"phase 23 {tag} against {other}: step 0 loss "
+            f"{a['loss'][0]!r} vs {b['loss'][0]!r} (gap {d['loss']:.2e}), "
+            f"grad_norm gap {d['grad_norm']:.2e}; step "
+            f"{a['median_step_ms']:.1f} vs {b['median_step_ms']:.1f} ms; "
+            f"peak GiB a rank {[round(x, 2) for x in a['peak_gib']]} vs "
+            f"{[round(x, 2) for x in b['peak_gib']]} ("
+            + (f"bit-identical loss, grad_norm {DMODEL_NORM_TOL}"
+               if how == "equal" else "tol loss 5e-3, grad_norm 2e-2")
+            + ")")
+        if how == "equal" and a["loss"][0] != b["loss"][0]:
+            problems.append(f"{tag}: step 0 loss {a['loss'][0]!r} is not "
+                            f"{other}'s {b['loss'][0]!r}")
+        if how == "equal" and d["grad_norm"] > DMODEL_NORM_TOL:
+            # the forward is "none"'s under the cut: only the gradient
+            # shows a backward that drops the other ranks' columns
+            problems.append(f"{tag}: step 0 grad_norm off {other}'s by "
+                            f"{d['grad_norm']:.2e}")
+        if how == "close" and not (d["loss"] <= 5e-3
+                                   and d["grad_norm"] <= 2e-2):
+            problems.append(f"{tag} off {other}: {d}")
     if problems:
         fail("phase 23: " + "; ".join(problems))
     return out, launches, dict(b5=qb[train_shape], b4=b4)
@@ -4489,7 +4582,8 @@ def train_moe_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
     pair = (2, 2) if full else (1, n)
     pair_tag = f"{pair[0]}x{pair[1]}"
     smoke_runs = {f"1x{n}": ((1, n), "seq"), f"{pair_tag}/seq": (pair, "seq"),
-                  f"{pair_tag}/none": (pair, "none")}
+                  f"{pair_tag}/none": (pair, "none"),
+                  f"{pair_tag}/dmodel": (pair, "dmodel")}
     if not full:
         del smoke_runs[f"1x{n}"]
     one_tag = f"1x{n}" if full else f"{pair_tag}/seq"
@@ -4547,15 +4641,22 @@ def train_moe_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
         params=_trees_close(np, sm[one_tag]["params"], one["params"], False),
         mu=_trees_close(np, sm[one_tag]["mu"], one["mu"], True),
         seq_none_mu=_trees_close(np, sm[f"{pair_tag}/seq"]["mu"],
-                                 sm[f"{pair_tag}/none"]["mu"], True))
+                                 sm[f"{pair_tag}/none"]["mu"], True),
+        dmodel_none_mu=_trees_close(np, sm[f"{pair_tag}/dmodel"]["mu"],
+                                    sm[f"{pair_tag}/none"]["mu"], True))
     log(f"phase 24 smoke stack (f32): {one_tag} against one rank: "
         f"parameters within {gaps['params']:.2e}, first moments within "
-        f"{gaps['mu']:.2e} of their largest; {pair_tag} 'seq' against "
-        f"'none' first moments within {gaps['seq_none_mu']:.2e} (tol 2e-4 "
-        f"each); losses "
-        f"{[round(v['metrics']['loss'], 6) for v in sm.values()]}")
+        f"{gaps['mu']:.2e} of their largest; {pair_tag} 'seq' and "
+        f"'dmodel' against 'none' first moments within "
+        f"{gaps['seq_none_mu']:.2e} / {gaps['dmodel_none_mu']:.2e} (tol "
+        f"2e-4 each; 'dmodel''s loss bit for bit 'none''s); losses "
+        f"{ {k: v['metrics']['loss'] for k, v in sm.items()} }")
     if not max(gaps.values()) <= 2e-4:
         problems.append(f"smoke stack off: {gaps}")
+    if sm[f"{pair_tag}/dmodel"]["metrics"]["loss"] != \
+            sm[f"{pair_tag}/none"]["metrics"]["loss"]:
+        problems.append(f"smoke {pair_tag}: 'dmodel''s loss is not "
+                        f"'none''s")
     for tag in smoke_runs:
         ls = {r["smoke"][tag]["metrics"]["loss"] for r in res}
         if len(ls) != 1:
@@ -4715,10 +4816,11 @@ def _mixer_ms(probe, n: int) -> dict:
 
 def train_rec_mesh_rank(rank, world, dev, spec):
     """One rank of phase 25 (a process of its own, started by
-    ``launch.mesh.spawn``): each small f32 stack of ``spec["small"]``
-    ({arch: config overrides of its smoke variant}) trained one step on
-    ``spec["small_mesh"]`` under the sequence split, its parameters
-    gathered whole on rank 0; then each full-width stack of
+    ``launch.mesh.spawn``): each run of ``spec["small_runs"]`` ({tag:
+    (arch, activation_partitioning)}), a small f32 stack (``spec["small"]
+    [arch]`` the config overrides of its smoke variant) trained one step
+    on ``spec["small_mesh"]``, its parameters gathered whole on rank 0;
+    then each full-width stack of
     ``spec["stacks"]`` on each mesh of ``spec["runs"]`` as phase 23's runs
     (:func:`_train_runs`), the recurrent mixers' forward timed where the
     collectives are -> a dict of plain values."""
@@ -4738,21 +4840,24 @@ def train_rec_mesh_rank(rank, world, dev, spec):
     probe = _mixer_probe(torch, M)
     mesh_s = meshes[tuple(spec["small_mesh"])]
     small = {}
-    for arch, over in spec["small"].items():
-        cfg_s = dataclasses.replace(smoke_variant(get(arch)), **over)
-        p, specs = S.init_sharded(cfg_s, spec["seed"], mesh_s, device=dev)
+    for tag, (arch, rule) in spec["small_runs"].items():
+        cfg_s = dataclasses.replace(smoke_variant(get(arch)),
+                                    **spec["small"][arch])
+        rules = SH.ShardingRules(activation_partitioning=rule)
+        p, specs = S.init_sharded(cfg_s, spec["seed"], mesh_s, rules,
+                                  device=dev)
         data_s = SyntheticLMData(DataConfig(cfg_s.vocab_size, 64, 4,
                                             spec["seed"]))
         p, _, m = S.make_train_step(
-            cfg_s, AdamWConfig(lr=1e-3), mesh=mesh_s, remat=True,
-            grad_accum=2)(p, adamw_init(p), data_s.sharded_batch(
+            cfg_s, AdamWConfig(lr=1e-3), mesh=mesh_s, rules=rules,
+            remat=True, grad_accum=2)(p, adamw_init(p), data_s.sharded_batch(
                 0, mesh_s, SH.batch_axes(mesh_s), dev), 0)
         flat = dict(iter_leaves(specs))
         params = {"/".join(k): collectives.gather_leaf(v, flat[k], mesh_s)
                   .cpu().numpy() for k, v in iter_leaves(p)}
-        small[arch] = dict(loss=float(m["loss"]),
-                           grad_norm=float(m["grad_norm"]),
-                           params=params if rank == 0 else None)
+        small[tag] = dict(loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          params=params if rank == 0 else None)
         del p
     full = {}
     for arch, layers, seq, batch in spec["stacks"]:
@@ -4884,8 +4989,12 @@ def train_rec_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
     gc.collect()
     torch.cuda.empty_cache()
 
+    # each small stack under the sequence split, and recurrentgemma's
+    # (RG-LRU and a local window) with the stream cut over d_model
+    small_runs = {arch: (arch, "seq") for arch in small}
+    small_runs[f"{RG_ARCH}/dmodel"] = (RG_ARCH, "dmodel")
     spec = dict(seed=seed, steps=steps, runs=runs, stacks=stacks,
-                small=small, small_mesh=small_mesh)
+                small=small, small_runs=small_runs, small_mesh=small_mesh)
     t0 = time.perf_counter()
     res = MESH.spawn(train_rec_mesh_rank, n_ranks, spec, device="cuda",
                      backend="nccl" if nccl else "gloo", timeout=1500)
@@ -4895,14 +5004,15 @@ def train_rec_mesh_phase(torch, np, MESH, get, smoke_variant, n_ranks: int,
         f"spawn + builds + steps {wall:.1f}s")
     problems = []
     small_gaps = {}
-    for arch, want in small_want.items():
-        errs = [abs(r["small"][arch]["loss"] - want["loss"])
+    for tag, (arch, _) in small_runs.items():
+        want = small_want[arch]
+        errs = [abs(r["small"][tag]["loss"] - want["loss"])
                 / abs(want["loss"]) for r in res]
-        p_err = _trees_close(np, r0["small"][arch]["params"],
+        p_err = _trees_close(np, r0["small"][tag]["params"],
                              want["params"], False)
-        small_gaps[arch] = dict(loss=max(errs), params=p_err)
+        small_gaps[tag] = dict(loss=max(errs), params=p_err)
         if not (max(errs) <= 2e-4 and p_err <= 2e-4):
-            problems.append(f"small {arch} off one rank's: loss {errs}, "
+            problems.append(f"small {tag} off one rank's: loss {errs}, "
                             f"parameters {p_err}")
     log(f"phase 25 small f32 stacks on {list(small_mesh)} against one rank "
         f"(loss gap, largest parameter gap; tol 2e-4): "
@@ -5494,22 +5604,79 @@ def steps_mesh_phase(torch, np, MESH, get, n_ranks: int, seed: int,
     return out, launches, dict(b5=b5, b4=b4)
 
 
+def examples_phase(torch, runs: dict) -> tuple:
+    """Phase 28: each of the port's examples (``EXAMPLES``) loaded from
+    ``examples/`` and its ``main`` run in this process with ``--device
+    cuda`` (the training example's checkpoints into a temporary
+    directory), its printed lines sent to the log; ``runs``
+    {kernel: its launching wrapper} counted from 0 around each -> (their
+    seconds and launches, {example: launches}).  Fails when an example's
+    own checks fail (an assertion, a non-zero exit) or a kernel its path
+    runs was not launched."""
+    import contextlib
+    import importlib.util
+    import tempfile
+    want = {"torch_quickstart": ("ecf8_decode",),
+            "torch_compress_checkpoint": ("ecf8_decode",),
+            "torch_serve_lm": ("ecf8_decode", "kv_page_decode"),
+            "torch_train_lm": ("flash_fwd", "flash_bwd")}
+    out, launches = {}, {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ["--device", "cuda"]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            if name == "torch_train_lm":
+                argv += ["--ckpt-dir", work]
+            for r in runs.values():
+                r.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    got = mod.main(argv)
+                torch.cuda.synchronize()
+            except (AssertionError, SystemExit) as e:
+                fail(f"phase 28: examples/{name}.py failed its own check: "
+                     f"{type(e).__name__} {e}")
+            secs = time.perf_counter() - t0
+        ln = {k: r.launches for k, r in runs.items()}
+        missing = [k for k in want[name] if not ln[k]]
+        if missing:
+            fail(f"phase 28: examples/{name}.py launched no {missing} "
+                 f"({ln})")
+        out[name] = dict(seconds=secs, launches=ln)
+        if name == "torch_train_lm":
+            out[name].update(first_loss=got[0], last_loss=got[-1],
+                             steps=len(got))
+        launches[name] = ln
+        log(f"phase 28 examples/{name}.py: passed its checks in "
+            f"{secs:.1f} s; launches {ln}")
+        del mod, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                 flash_bwd, kv_page, ecf8_decode, fp8, tpu_format, only: set,
                 seed: int, t_start: float):
     """``--only 1,21`` / ``1,22`` / ``1,23`` / ``1,24`` / ``1,25`` /
-    ``1,26`` / ``1,27`` / any of them together: after the build, the
-    phases named (the mesh phases on four NCCL ranks when four cards are
-    visible: phase 21 at ``MESH_LAYERS``, phases 22, 23, 25 and 26 at full
-    depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks on one
-    card; 27 with phase 20 on card 0), then the kernels line of what ran
+    ``1,26`` / ``1,27`` / ``1,28`` / any of them together: after the
+    build, the phases named (the mesh phases on four NCCL ranks when four
+    cards are visible: phase 21 at ``MESH_LAYERS``, phases 22, 23, 25 and
+    26 at full depth, 24 at ``MOE_TRAIN_FULL_LAYERS``; else two gloo ranks
+    on one card; 27 with phase 20 on card 0; 28 on card 0; each phase's
+    launches under its number), then the kernels line of what ran
     (a kernel no phase of the run timed has null time keys) and the last
     line."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     n_ranks = 4 if torch.cuda.device_count() >= 4 else 2
     out = moe_out = t23 = t24 = t25 = t26 = None
-    launches, launches27 = {}, {}
+    launches, launches27, launches28 = {}, {}, {}
     if "27" in only:
         from repro_torch.configs import get as get_cfg
         from repro_torch.kernels import fused_decode_matmul as fused
@@ -5531,7 +5698,7 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                          flash_fwd, gen, flush)
         log(f"phase 21 measurements: {json.dumps(out)}")
         log(f"phase 21 done at {time.perf_counter() - t_start:.1f}s")
-        launches.update({tag: run["launches"]
+        launches.update({f"21/{tag}": run["launches"]
                          for tag, run in out["runs"].items()})
     if "22" in only:
         gc.collect()
@@ -5541,7 +5708,7 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
                                       flash_fwd, gen, flush)
         log(f"phase 22 measurements: {json.dumps(moe_out)}")
         log(f"phase 22 done at {time.perf_counter() - t_start:.1f}s")
-        launches.update(l22)
+        launches.update({f"22/{k}": v for k, v in l22.items()})
     if "23" in only:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5550,7 +5717,7 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
             flush)
         log(f"phase 23 measurements: {json.dumps(train_out)}")
         log(f"phase 23 done at {time.perf_counter() - t_start:.1f}s")
-        launches.update(l23)
+        launches.update({f"23/{k}": v for k, v in l23.items()})
     if "24" in only:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5559,7 +5726,7 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
             flash_bwd, gen, flush)
         log(f"phase 24 measurements: {json.dumps(moe_train_out)}")
         log(f"phase 24 done at {time.perf_counter() - t_start:.1f}s")
-        launches.update(l24)
+        launches.update({f"24/{k}": v for k, v in l24.items()})
     if "25" in only:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5568,7 +5735,7 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
             flash_bwd, gen, flush)
         log(f"phase 25 measurements: {json.dumps(rec_train_out)}")
         log(f"phase 25 done at {time.perf_counter() - t_start:.1f}s")
-        launches.update(l25)
+        launches.update({f"25/{k}": v for k, v in l25.items()})
     if "26" in only:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5577,7 +5744,20 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
             flush)
         log(f"phase 26 measurements: {json.dumps(steps_out)}")
         log(f"phase 26 done at {time.perf_counter() - t_start:.1f}s")
-        launches.update(l26)
+        launches.update({f"26/{k}": v for k, v in l26.items()})
+    if "28" in only:
+        gc.collect()
+        torch.cuda.empty_cache()
+        from repro_torch.kernels import fused_decode_matmul as fused
+        examples_out, by_example = examples_phase(torch, {
+            "ecf8_decode": ecf8_decode.run, "flash_fwd": flash_fwd.run,
+            "kv_page_decode": kv_page.run, "fused_decode_matmul": fused.run,
+            "flash_bwd": flash_bwd.run})
+        log(f"phase 28 measurements: {json.dumps(examples_out)}")
+        log(f"phase 28 done at {time.perf_counter() - t_start:.1f}s")
+        for ln in by_example.values():
+            for k, v in ln.items():
+                launches28[k] = launches28.get(k, 0) + v
     del flush
 
     def mesh_l(name):
@@ -5587,9 +5767,10 @@ def only_phases(torch, np, MESH, serve, get, smoke_variant, flash_fwd,
 
     def main_path(name):
         """The kernel's launches on every rank over the phases' runs (and
-        phase 20's, under ``--only 1,27``)."""
+        phase 20's, under ``--only 1,27``; the examples', under ``--only
+        1,28``)."""
         return sum(sum(v) for v in mesh_l(name).values()) + \
-            launches27.get(name, 0)
+            launches27.get(name, 0) + launches28.get(name, 0)
 
     untimed = dict(max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
                    bound_by=None, library_ms=None)
@@ -6577,6 +6758,17 @@ def main(argv=None):
     log(f"phase 26 measurements: {json.dumps(steps_out)}")
     mark("phase 26")
 
+    # -- 28. the port's examples on the card ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_out, example_launches = examples_phase(torch, train_runs)
+    log(f"phase 28 measurements: {json.dumps(examples_out)}")
+    mark("phase 28")
+
+    def on_examples(name):
+        """The kernel's launches in each example of phase 28."""
+        return {ex: ln[name] for ex, ln in example_launches.items()}
+
     def on_train_mesh(name):
         """Each rank's launches in each phase-23, 24 and 25 run."""
         return {tag: [ln[name] for ln in runs]
@@ -6648,6 +6840,7 @@ def main(argv=None):
              at_whisper_shape=results["whisper_unembed"],
              launches_train=train_launches["ecf8_decode"],
              launches_ckpt_restore=ckpt_b1,
+             launches_examples=on_examples("ecf8_decode"),
              launches_mesh=on_mesh("ecf8_decode"),
              launches_mesh_moe=on_moe_mesh("ecf8_decode"),
              launches_mesh_steps=on_steps_mesh("ecf8_decode"),
@@ -6672,6 +6865,7 @@ def main(argv=None):
              at_whisper_shape=results["flash_whisper_enc"],
              at_whisper_cross_shape=results["flash_whisper_cross"],
              launches_train=train_launches["flash_fwd"],
+             launches_examples=on_examples("flash_fwd"),
              launches_mesh=on_mesh("flash_fwd"),
              launches_mesh_q_base=on_mesh("flash_fwd_q_base"),
              launches_mesh_moe=on_moe_mesh("flash_fwd"),
@@ -6700,6 +6894,7 @@ def main(argv=None):
              **on_frontend_and_whisper("kv_page_decode"),
              at_whisper_shape=None,
              launches_train=train_launches["kv_page_decode"],
+             launches_examples=on_examples("kv_page_decode"),
              launches_mesh=on_mesh("kv_page_decode"),
              launches_mesh_moe=on_moe_mesh("kv_page_decode"),
              launches_mesh_steps=on_steps_mesh("kv_page_decode"),
@@ -6722,6 +6917,7 @@ def main(argv=None):
              **on_frontend_and_whisper("fused_decode_matmul"),
              at_whisper_shape=None,
              launches_train=train_launches["fused_decode_matmul"],
+             launches_examples=on_examples("fused_decode_matmul"),
              **results["b2_wi_gate_M4"]),
         dict(name="flash_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
@@ -6731,6 +6927,7 @@ def main(argv=None):
              launches=train_launches["flash_bwd"],
              launches_per_train_step=train_out["launches_per_step"][
                  "flash_bwd"],
+             launches_examples=on_examples("flash_bwd"),
              launches_mesh_train=on_train_mesh("flash_bwd"),
              launches_mesh_train_q_base=on_train_mesh("flash_bwd_q_base"),
              q_base_at_shard_shape=train_mesh_out["q_base_checks"],

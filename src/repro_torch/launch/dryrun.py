@@ -239,10 +239,6 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str,
     if not runs:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                 "skipped": True, "reason": why}
-    if rules.activation_partitioning not in ("seq", "none"):
-        raise NotImplementedError(
-            f"activation_partitioning={rules.activation_partitioning!r}: "
-            f"the port trains with 'seq' or 'none'")
     n_chips = _WORLD[mesh_kind]
     dtype = (getattr(torch, param_dtype) if param_dtype
              else torch_dtype(cfg.dtype))

@@ -556,29 +556,56 @@ def _ffn(p, x, cfg: ArchConfig, dtype, aux=None, ep=None):
     return mlp_apply(p["mlp"], x, cfg.mlp_type, dtype)
 
 
+def _whole(x, mesh, cols):
+    """The residual stream whole over ``model`` where a norm reads it: under
+    the ``d_model`` cut (``cols``, the rank's columns from
+    ``constrain.cols``) the ranks' columns gathered (``collectives.
+    RowGather``, whose backward keeps the rank's columns of a cotangent
+    every model rank holds whole and alike), else ``x`` itself."""
+    if cols is None:
+        return x
+    return collectives.RowGather.apply(x.contiguous(), mesh, "model", 2,
+                                       False)
+
+
+def _own(o, mesh, cols):
+    """The rank's columns of a block's output ``o`` (whole and alike on
+    every model rank) under the ``d_model`` cut (``collectives.SplitRows``,
+    whose backward gathers the cotangent whole), else ``o`` itself."""
+    if cols is None:
+        return o
+    return collectives.SplitRows.apply(o, mesh, "model", 2)
+
+
 def _residual(p, x, o, cfg: ArchConfig, dtype, cross=None, aux=None,
-              ep=None):
+              ep=None, mesh=None, cols=None):
     """The layer's residual adds around the mixer output ``o``: ``x +
     post_norm1(o)``, then, in an encoder-decoder's decoder, ``+
     cross(norm_x(x))`` (``cross`` the layer's cross attention), then ``+
     post_norm2(ffn(norm2(x)))`` where the layer has an FFN, the post norms
-    where the config has them (gemma2)."""
+    where the config has them (gemma2).  ``cols``: under the ``d_model``
+    cut ``x`` holds the rank's columns, each norm reads it gathered whole
+    (:func:`_whole`) and each block's output is added as the rank's
+    columns (:func:`_own`): the reference's constraint after the mixer's
+    and the FFN's adds, and the same cut after the cross attention's."""
     if cfg.post_norms:
         o = rms_norm(o, p["post_norm1"])
-    x = x + o
+    x = x + _own(o, mesh, cols)
     if cross is not None:
-        x = x + cross(rms_norm(x, p["norm_x"]))
+        x = x + _own(cross(rms_norm(_whole(x, mesh, cols), p["norm_x"])),
+                     mesh, cols)
     if "mlp" not in p and "moe" not in p:
         return x
-    o2 = _ffn(p, rms_norm(x, p["norm2"]), cfg, dtype, aux, ep)
+    o2 = _ffn(p, rms_norm(_whole(x, mesh, cols), p["norm2"]), cfg, dtype,
+              aux, ep)
     if cfg.post_norms:
         o2 = rms_norm(o2, p["post_norm2"])
-    return x + o2
+    return x + _own(o2, mesh, cols)
 
 
 def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
                       cross_kv=None, aux=None, mesh=None, q_base=None,
-                      ep=None):
+                      ep=None, cols=None):
     """Full-sequence layer (prefill, forward).  Returns (x, (k, v)) for an
     attention layer, (x, final state) for a recurrent one; an mLSTM runs
     at the reference's ``chunk = min(128, T)``, so ``T`` must be at most
@@ -592,8 +619,10 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
     rows), and keeps the rank's positions: the reference's scan order and
     mLSTM chunks, its parameters' gradients partials over the rank's
     positions that sum over ``model`` (the final state is the whole
-    sequence's)."""
-    h = rms_norm(x, p["norm1"])
+    sequence's).  ``cols``: :func:`_residual`'s ``d_model`` cut of ``x``,
+    gathered whole for ``norm1``; the layer's work is then the whole
+    stream's, as with the stream whole over ``model``."""
+    h = rms_norm(_whole(x, mesh, cols), p["norm1"])
     if kind in ATTN_KINDS:
         o, st = _self_attention_full(p["attn"], h, cfg, kind, dtype, mesh,
                                      q_base)
@@ -611,7 +640,7 @@ def _layer_apply_full(p, x, cfg: ArchConfig, kind: str, dtype,
             return _cross_attention(p["cross"], hx, cross_kv, cfg, dtype)
     if ep is None and mesh is not None:
         ep = (mesh, "own")
-    return _residual(p, x, o, cfg, dtype, cross, aux, ep), st
+    return _residual(p, x, o, cfg, dtype, cross, aux, ep, mesh, cols), st
 
 
 def _mixer_full(p, h, cfg: ArchConfig, kind: str, dtype):
@@ -972,7 +1001,12 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     the group's whole sequence, gathered over ``model`` and cut back to
     the rank's positions after it (``models.moe``'s ``seq``); a recurrent
     mixer and a local window past the whole sequence read it likewise
-    (:func:`_layer_apply_full`, :func:`_self_attention_full`).  An
+    (:func:`_layer_apply_full`, :func:`_self_attention_full`).  Under the
+    ``d_model`` cut (``constrain.cols``) the stream between blocks, and so
+    each remat unit's saved input, holds the rank's ``d / M`` columns;
+    every norm reads it gathered whole and each block's output is added as
+    the rank's columns (:func:`_residual`), so the blocks run as with the
+    stream whole and the logits are the whole stream's.  An
     encoder runs whole on every model rank, on its group's frames, its
     leaves gathered (:func:`encode_frames`): under the sequence split each
     rank's cross attention takes its decoder positions as queries over
@@ -995,10 +1029,11 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
 
     embed = top("embed")
     x = _embed({"embed": embed}, cfg, tokens, dtype)
-    cut = None
+    cut = cols = None
     if constrain is not None:
         cut = constrain.rows(x.shape[1])
-        x = constrain(x)
+        cols = constrain.cols(x.shape[2])
+        x = _own(constrain(x), mesh, cols)
     q_base = None if cut is None else cut[0]
     ep = None if mesh is None else (mesh, "shard", cut)
     ctx = _context(params, cfg, frames, dtype, gather)
@@ -1006,7 +1041,7 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     def layer(p, x, kind, aux):
         kv = None if ctx is None else _cross_kv(p["cross"], ctx, cfg, dtype)
         return _layer_apply_full(p, x, cfg, kind, dtype, kv, aux, mesh,
-                                 q_base, ep)[0]
+                                 q_base, ep, cols)[0]
 
     def unit_body(x, u):
         aux = []
@@ -1032,7 +1067,7 @@ def forward(params, cfg: ArchConfig, tokens, frames=None, mesh=None,
     head = {"final_norm": top("final_norm"), "embed": embed}
     if not cfg.tie_embeddings:
         head["unembed"] = top("unembed")
-    return _unembed(head, cfg, x, dtype), total
+    return _unembed(head, cfg, _whole(x, mesh, cols), dtype), total
 
 
 def _total(aux: list, device):

@@ -43,7 +43,13 @@ buffer.  The attention's query-row split (``models.flash_attention.
 flash_attention_sharded``) uses :class:`RowGather` (o gathered over
 ``model``, or k / v whose dk / dv sum over it), :class:`SplitRows` (q's
 rows, dq gathered back) and :class:`SumGrad` (k / v whole, dk / dv
-summed); :class:`SumForward` sums the loss's parts.  The MoE layer
+summed); :class:`SumForward` sums the loss's parts.  Under
+``activation_partitioning="dmodel"`` the same two carry the residual
+stream in and out of its cut over ``d_model``: :class:`RowGather` gathers
+its columns where a norm reads it (the backward keeps the rank's columns
+of a cotangent every model rank holds whole), :class:`SplitRows` keeps
+the rank's columns of a block's output (the backward gathers the
+cotangent whole).  The MoE layer
 (``models/moe.py``) exchanges its dispatch rows through
 :class:`ExpertExchange` (an :func:`all_to_all` whose backward is the same
 exchange), gathers a data group's routing weights or positions through

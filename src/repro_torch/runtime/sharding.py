@@ -24,7 +24,8 @@ Training on a mesh places every parameter and AdamW moment by the table:
 each rank keeps ``local_shard`` of each leaf (:func:`named` /
 :class:`NamedSharding`, :func:`shard_tree`), gathers it whole where a unit
 uses it and sums its gradient over :func:`grad_axes`;
-:func:`make_constrainer` says whether a model axis splits the sequence.
+:func:`make_constrainer` says whether a model axis splits the sequence
+or the stream's ``d_model``.
 The batch splits over :func:`batch_axes`, ``pod`` folded into ``data``
 (:func:`n_batch_shards`, :func:`batch_index`), for the engine's batch
 shards as for training's.
@@ -449,16 +450,27 @@ def _make_constrainer(mesh, rules: ShardingRules):
 
       * ``"seq"``: the sequence (``P(ba, "model", None)``), when the model
         axis divides ``T > 1``;
+      * ``"dmodel"``: the stream's ``d_model`` columns (``P(ba, None,
+        "model")``), when the model axis divides ``d``;
       * otherwise the stream is whole over ``model`` (``P(ba, None,
-        None)``), as the reference falls back; ``"dmodel"``'s cut of
-        ``d_model`` is not ported (the training step refuses it).
+        None)``), as the reference falls back.
+
+    The reference also leaves the stream unconstrained when the batch axes
+    do not divide its rows; here a rank's rows are its batch shard's
+    (``data.pipeline.sharded_batch`` refuses a batch they do not divide),
+    so that case cannot arise.
 
     ``constrain(x)`` takes a rank's (B_loc, T, d) stream and returns its
-    part under the rule (a view); ``constrain.rows(T)`` is ``(start,
-    length)`` of the rank's positions, or None when the sequence stays
-    whole; ``constrain.spec(x)`` the stream's :class:`P`.  With one process
-    a rank the cut, once made after the embedding, holds between units: no
-    GSPMD re-lays the stream out there."""
+    positions under the sequence split (a view), else ``x``;
+    ``constrain.rows(T)`` is ``(start, length)`` of the rank's positions,
+    or None when the sequence stays whole; ``constrain.cols(d)`` is
+    ``(start, width)`` of the rank's columns, or None when ``d`` stays
+    whole; ``constrain.spec(x)`` the stream's :class:`P`.  With one
+    process a rank the cut, once made after the embedding, holds between
+    units: no GSPMD re-lays the stream out there.  The columns are cut by
+    the model (``models.model.forward``), which also gathers them where a
+    norm reads the stream, so the block's work and its gradients are
+    ``"none"``'s."""
     ba = batch_axes(mesh)
     mode = rules.activation_partitioning
     n_model = axis_size(mesh, "model")
@@ -469,16 +481,24 @@ def _make_constrainer(mesh, rules: ShardingRules):
         t = T // n_model
         return mesh.get_local_rank("model") * t, t
 
+    def cols(d: int):
+        if mode != "dmodel" or n_model == 1 or d % n_model:
+            return None
+        w = d // n_model
+        return mesh.get_local_rank("model") * w, w
+
     def spec(x) -> P:
         if x.ndim == 3 and rows(x.shape[1]) is not None:
             return P(ba, "model", None)
+        if x.ndim == 3 and cols(x.shape[2]) is not None:
+            return P(ba, None, "model")
         return P(ba, *(None,) * (x.ndim - 1))
 
     def constrain(x):
         cut = rows(x.shape[1]) if x.ndim == 3 else None
         return x if cut is None else x.narrow(1, cut[0], cut[1])
 
-    constrain.rows, constrain.spec = rows, spec
+    constrain.rows, constrain.cols, constrain.spec = rows, cols, spec
     return constrain
 
 

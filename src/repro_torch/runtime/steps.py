@@ -32,7 +32,13 @@ sequence, each rank running its positions of every layer and the flash
 attention against k / v gathered over ``model`` (a local window and a
 recurrent mixer read the whole sequence, gathered likewise); ``"none"``
 keeps the stream whole over ``model``, every rank repeating the layer but
-the attention, whose query rows split (``flash_attention_sharded``).  An
+the attention, whose query rows split (``flash_attention_sharded``);
+``"dmodel"`` runs each block as ``"none"`` does, but holds the stream
+between blocks (and each remat unit's saved input) cut to the rank's
+``d_model / M`` columns, gathered whole where a norm reads it and each
+block's output added as the rank's columns (``models.model._residual``),
+so its gradients sum over the batch axes alone, as ``"none"``'s do; where
+``M`` does not divide ``d_model`` it is ``"none"``.  An
 encoder runs whole on every model rank, on its group's frames, and its
 gradients sum over ``model`` under the sequence split as the decoder's
 do.  The loss is the global batch's mean on every rank, AdamW updates the
@@ -276,10 +282,6 @@ def _make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None,
 def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
                         warmup_steps, total_steps):
     """:func:`make_train_step` on a mesh (the module docstring)."""
-    if rules.activation_partitioning not in ("seq", "none"):
-        raise NotImplementedError(
-            f"activation_partitioning={rules.activation_partitioning!r}: "
-            f"the port trains with 'seq' or 'none'")
     constrain = make_constrainer(mesh, rules)
     specs = train_pspecs(cfg, mesh, rules)
     flat_spec = dict(iter_leaves(specs))
@@ -301,6 +303,8 @@ def _sharded_train_step(cfg, opt_cfg, mesh, rules, remat, grad_accum,
         if B % grad_accum:
             raise ValueError(f"{B} rows a rank do not split into "
                              f"grad_accum={grad_accum} micro-batches")
+        # under "dmodel" (no row cut) every model rank's block work and
+        # gradients are "none"'s: summed over the batch axes alone
         axes = grad_axes(mesh, constrain.rows(T) is not None)
         # the rank's f32 gradient shards, summed into by the gathers'
         # backward over every micro-batch

@@ -5,7 +5,7 @@ mesh (the reference's own slow-test cell) and qwen3-8b's training step on
 the single-pod one -- collectives, FLOPs, a useful share at most 1, the
 flash kernels counted a layer, no real allocation, and a rank's argument
 bytes equal to what the reference's rule table gives that mesh; ``--rules
-dmodel`` recorded as a failed cell; the attention switch
+dmodel``'s cells traced beside the ``none`` cell; the attention switch
 (``layers.set_attention_impl``) honoured by the model."""
 import json
 import math
@@ -37,10 +37,12 @@ CELLS = (("whisper-base", "decode_32k", "multi"),
 _RUN = r"""
 import json, resource, sys
 from repro_torch.launch.dryrun import lower_cell
+from repro_torch.runtime.sharding import DEFAULT_RULES, ShardingRules
 out = {}
-for arch, shape, mesh in json.loads(sys.argv[1]):
+for arch, shape, mesh, *rule in json.loads(sys.argv[1]):
     before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    art = lower_cell(arch, shape, mesh)
+    art = lower_cell(arch, shape, mesh, rules=ShardingRules(
+        activation_partitioning=rule[0]) if rule else DEFAULT_RULES)
     art["rss_growth"] = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
                          - before) * 1024
     out[f"{arch}/{shape}/{mesh}"] = art
@@ -145,22 +147,53 @@ def test_rank_bytes_equal_reference_rule_table(cells, cell):
 
 
 def test_dmodel_rules_recorded_as_a_failed_cell(tmp_path):
-    """``--rules dmodel`` (not ported) fails each cell with the port's
-    refusal and the run exits 1, never counting it a success; two cells
-    in two worker processes (``--jobs``)."""
-    p = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen3-8b", "--shape", "train_4k", "--mesh", "both", "--rules",
-         "dmodel", "--jobs", "2", "--out", str(tmp_path)], env=_env(),
-        capture_output=True, text=True, timeout=300)
-    assert p.returncode == 1, p.stderr[-3000:]
+    """``--rules dmodel``: both qwen3-8b / train_4k cells trace, in two
+    worker processes (``--jobs``), and the run exits 0; each artifact
+    records the rule.  Against the ``none`` cell of the single-pod mesh,
+    traced beside them: the same FLOPs (``op_cost`` counts the products,
+    and each block runs as under ``none``); all-gather bytes more by the
+    stream's gathers, the rank's (B / 16, T, d) bf16 stream whole 6 times
+    a layer (for ``norm1`` and ``norm2``, again in the remat recompute,
+    and the cotangents of the two blocks' outputs) and twice more (the
+    final norm's input, the embedding's cotangent); the peak lower by
+    ``(M - 1) / M`` of the units' saved inputs."""
+    cell = ("qwen3-8b", "train_4k", "single", "none")
+    none = subprocess.Popen([sys.executable, "-c", _RUN, json.dumps([cell])],
+                            env=_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-8b", "--shape", "train_4k", "--mesh", "both", "--rules",
+             "dmodel", "--jobs", "2", "--out", str(tmp_path)], env=_env(),
+            capture_output=True, text=True, timeout=300)
+        out, err = none.communicate(timeout=300)
+    finally:
+        none.kill()
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert none.returncode == 0, err[-3000:]
     assert p.stdout.strip().splitlines()[-1] == \
-        "dry-run done: 0 ok, 2 failed, 0 skipped"
-    for mesh in ("single", "multi"):
-        art = json.loads((tmp_path / f"qwen3-8b__train_4k__{mesh}.json")
-                         .read_text())
-        assert art["error"].startswith("NotImplementedError") and \
-            "dmodel" in art["error"]
+        "dry-run done: 2 ok, 0 failed, 0 skipped"
+    arts = {mesh: json.loads((tmp_path / f"qwen3-8b__train_4k__{mesh}.json")
+                             .read_text()) for mesh in ("single", "multi")}
+    for art in arts.values():
+        assert "error" not in art and art["skipped"] is False
+        assert art["rules"]["activation_partitioning"] == "dmodel"
+    base = json.loads(out.strip().splitlines()[-1])["/".join(cell[:3])]
+    dm = arts["single"]
+    cfg, shape = get("qwen3-8b"), REF_SHAPES["train_4k"]
+    L, M_ = cfg.n_layers, 16
+    stream = shape.global_batch // 16 * shape.seq_len * cfg.d_model * 2
+    assert dm["cost_analysis"]["flops"] == base["cost_analysis"]["flops"]
+    assert dm["kernels"] == base["kernels"]
+    gathers = (dm["collectives"]["all-gather"]
+               - base["collectives"]["all-gather"])
+    assert gathers == (6 * L + 2) * stream
+    assert dm["collectives"]["all-reduce"] == \
+        base["collectives"]["all-reduce"]
+    saved = (base["memory_analysis"]["peak_bytes"]
+             - dm["memory_analysis"]["peak_bytes"])
+    assert saved == L * stream * (M_ - 1) // M_
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "gemma2-9b"])

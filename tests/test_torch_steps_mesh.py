@@ -25,12 +25,15 @@ reference's own mesh run, in a fresh process with four virtual devices
     (``q_base`` past the first model rank), never the encoder's or the
     cross attention's;
   * whisper-base's train step on ``2x2``, ``1x4`` and ``4`` under the
-    sequence split and on ``1x2`` with the stream whole, against the
+    sequence split, on ``1x2`` with the stream whole, and on ``1x4`` and
+    ``1x2`` with the decoder's stream cut over ``d_model``, against the
     reference's ``jax.jit(make_train_step(cfg, AdamWConfig(lr=1e-3),
     remat=False))`` on the same weights, tokens and frames: loss within
     rtol 2e-4, every updated parameter within atol 2e-4, the first moments
     within 2e-4 of the reference moment's largest magnitude; ``grad_accum
-    =2`` with remat on ``2x2`` against the port's one-rank step.
+    =2`` with remat on ``2x2`` (``"seq"`` and ``"dmodel"``) against the
+    port's one-rank step, each decoder unit's saved input under
+    ``"dmodel"`` ``d_model / M`` columns wide.
 """
 import dataclasses
 import os
@@ -89,9 +92,12 @@ MOON_MESHES = {"1x2": (1, 2), "2": (2, 1)}
 MOON_CASE = (MOON, 32, 24)
 # whisper trained at seq 16, the global batch 4, lr 1e-3
 TRAIN4 = {"2x2": (2, 2, "seq", False, 1), "1x4": (1, 4, "seq", False, 1),
-          "4": (4, 1, "seq", False, 1)}
-ACCUM4 = {"2x2/accum2": (2, 2, "seq", True, 2)}
-TRAIN2 = {"1x2/none": (1, 2, "none", False, 1)}
+          "4": (4, 1, "seq", False, 1),
+          "1x4/dmodel": (1, 4, "dmodel", False, 1)}
+ACCUM4 = {"2x2/accum2": (2, 2, "seq", True, 2),
+          "2x2/dmodel/accum2": (2, 2, "dmodel", True, 2)}
+TRAIN2 = {"1x2/none": (1, 2, "none", False, 1),
+          "1x2/dmodel": (1, 2, "dmodel", False, 1)}
 TRAIN_SEQ = 16
 RTOL = ATOL = MOMENT_TOL = 2e-4
 # recurrentgemma's smoke stack widened past cache_pspecs' 1024-feature rule
@@ -424,6 +430,28 @@ def test_whisper_grad_accum_and_remat_match_one_rank(worlds, ref):
                                    want["metrics"]["loss"], rtol=RTOL)
         np.testing.assert_allclose(r["train"][tag]["metrics"]["grad_norm"],
                                    want["metrics"]["grad_norm"], rtol=RTOL)
+    got = worlds[4][0]["train"][tag]
+    _close_trees(got["params"], want["params"], tag, ATOL)
+    scale = max(float(np.abs(m).max()) for m in want["mu"].values())
+    _close_trees(got["mu"], want["mu"], tag, MOMENT_TOL * scale)
+
+
+def test_whisper_dmodel_grad_accum_and_remat_match_one_rank(worlds, ref):
+    """The decoder's stream cut over ``d_model`` with remat and two
+    micro-batches: the port's one-rank step within the same bounds, and
+    every rank's remat unit input (the decoder's units; the encoder is not
+    checkpointed) the micro-batch's rows at ``d_model / M`` columns."""
+    tag, want = "2x2/dmodel/accum2", ref["train"]["accum"]
+    d, m, _, _, accum = ACCUM4[tag]
+    cfg = R.smoke(WHISPER)
+    unit = (B // d // accum, TRAIN_SEQ, cfg.d_model // m)
+    for r in worlds[4]:
+        got = r["train"][tag]
+        np.testing.assert_allclose(got["metrics"]["loss"],
+                                   want["metrics"]["loss"], rtol=RTOL)
+        np.testing.assert_allclose(got["metrics"]["grad_norm"],
+                                   want["metrics"]["grad_norm"], rtol=RTOL)
+        assert got["units"] == [unit] * (cfg.n_layers * accum), got["units"]
     got = worlds[4][0]["train"][tag]
     _close_trees(got["params"], want["params"], tag, ATOL)
     scale = max(float(np.abs(m).max()) for m in want["mu"].values())

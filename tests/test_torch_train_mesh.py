@@ -10,17 +10,25 @@ step the oracle.  f32, phi3-medium-14b's smoke stack, seq 16, global batch
 4, AdamW lr 1e-3 (that test's cell):
 
   * one sharded step on ``2x2`` and ``4`` (the sequence split, the
-    reference's default ``activation_partitioning``), and on ``2x2`` and
+    reference's default ``activation_partitioning``), on ``2x2`` and
     ``1x2`` with the stream whole over ``model`` (the query-row split of
-    ``flash_attention_sharded``), against the reference's
+    ``flash_attention_sharded``), and on ``1x4``, ``2x2`` and ``1x2`` with
+    the stream cut over ``d_model`` (``"dmodel"``), against the reference's
     ``jax.jit(make_train_step(cfg, AdamWConfig(lr=1e-3), remat=False))``
     on the same converted weights and ``SyntheticLMData``'s batch: loss
     within rtol 2e-4 and every updated parameter, gathered whole, within
     atol 2e-4 (that test's bounds); the first moments (0.1 x the clipped
     gradient: what the parameters' first Adam step hides) within 2e-4 of
     the reference moment's largest magnitude;
-  * ``grad_accum=2`` with remat on ``2x2`` and ``1x2`` against the port's
-    one-rank step with the same options, to the same bounds;
+  * ``grad_accum=2`` with remat on ``2x2`` (``"seq"`` and ``"dmodel"``)
+    and ``1x2`` against the port's one-rank step with the same options, to
+    the same bounds;
+  * ``"dmodel"`` against ``"none"`` on the same mesh: step 0's loss
+    bit-identical, the gradient norm and first moments within 1e-6
+    relative (autograd sums a stream's cotangents in another order);
+    where the model axis does not divide ``d_model`` (70 on ``1x4``) the
+    step is ``"none"``'s bit for bit; each remat unit's saved input holds
+    ``d_model / M`` columns;
   * every rank's gradient norm equal to the one-rank step's (rtol 2e-4);
   * B5's plain version with ``q_base``: four 16-row shards' dq and the sum
     of their dk / dv against ``jax.grad`` of the reference's
@@ -78,9 +86,20 @@ FLASH_TOL = 2e-5            # f32 gradients, relative to the largest
 
 # {tag: (data, model, activation_partitioning, remat, grad_accum)}
 REF_RUNS4 = {"2x2": (2, 2, "seq", False, 1), "4": (4, 1, "seq", False, 1),
-             "2x2/none": (2, 2, "none", False, 1)}
-ACCUM_RUNS4 = {"2x2/accum2": (2, 2, "seq", True, 2)}
-REF_RUNS2 = {"1x2/none": (1, 2, "none", False, 1)}
+             "2x2/none": (2, 2, "none", False, 1),
+             "2x2/dmodel": (2, 2, "dmodel", False, 1),
+             "1x4/dmodel": (1, 4, "dmodel", False, 1)}
+ACCUM_RUNS4 = {"2x2/accum2": (2, 2, "seq", True, 2),
+               "2x2/dmodel/accum2": (2, 2, "dmodel", True, 2)}
+REF_RUNS2 = {"1x2/none": (1, 2, "none", False, 1),
+             "1x2/dmodel": (1, 2, "dmodel", False, 1)}
+# a width the model axis does not divide: {tag: (data, model, rule,
+# remat, grad_accum, the smoke stack's fields replaced)}
+WIDTHS4 = {f"1x4/d70/{rule}": (1, 4, rule, False, 1, {"d_model": 70})
+           for rule in ("none", "dmodel")}
+# {"dmodel" run: the "none" run on the same mesh}
+DMODEL_PAIRS = {"2x2/dmodel": "2x2/none", "1x2/dmodel": "1x2/none"}
+SAME_ORDER_TOL = 1e-6       # relative: the same sums in another order
 ACCUM_RUNS2 = {"1x2/accum2": (1, 2, "seq", True, 2)}
 # {arch: (the mesh a step is saved from, the mesh it is restored onto)}
 CKPT_MESHES = {R.ARCH: ((2, 1), (1, 2)), R.MOON: ((1, 2), (2, 1))}
@@ -139,8 +158,8 @@ def worlds(ref):
     """The 4- and 2-rank worlds, spawned side by side."""
     with ThreadPoolExecutor(2) as pool:
         w4 = pool.submit(MESH.spawn, R.world_main, 4, dict(
-            params=ref["params"], runs={**REF_RUNS4, **ACCUM_RUNS4}),
-            device="cpu", timeout=600)
+            params=ref["params"], runs={**REF_RUNS4, **ACCUM_RUNS4},
+            widths=WIDTHS4), device="cpu", timeout=600)
         w2 = pool.submit(MESH.spawn, R.world_main, 2, dict(
             params=ref["params"], runs={**REF_RUNS2, **ACCUM_RUNS2},
             ckpt={arch: (ref["ckpt"][arch], *CKPT_MESHES[arch])
@@ -150,7 +169,8 @@ def worlds(ref):
 
 
 def _run(worlds, tag):
-    return worlds[4 if tag in {**REF_RUNS4, **ACCUM_RUNS4} else 2], tag
+    return worlds[4 if tag in {**REF_RUNS4, **ACCUM_RUNS4, **WIDTHS4}
+                  else 2], tag
 
 
 def _close_trees(got, want, what, tol):
@@ -202,22 +222,100 @@ def test_global_gradient_norm_equals_one_rank(worlds, ref, tag):
 
 def test_model_ranks_split_the_rows_and_launch_with_q_base(worlds):
     """A model axis runs the flash forward and backward with ``q_base != 0``
-    on model rank 1 alone (one layer each a layer); each rank holds about
-    ``1 / n`` of the state; the ranks of a batch shard draw its rows."""
+    on the model ranks past the first alone (one layer each a layer); each
+    rank holds about ``1 / n`` of the state; the ranks of a batch shard
+    draw its rows."""
     cfg = R.smoke()
-    for n, tag in ((4, "2x2"), (4, "2x2/none"), (2, "1x2/none")):
-        ranks = worlds[n]
+    for n, tag in ((4, "2x2"), (4, "2x2/none"), (2, "1x2/none"),
+                   (4, "2x2/dmodel"), (4, "1x4/dmodel"), (2, "1x2/dmodel")):
+        ranks, m = worlds[n], {**REF_RUNS4, **REF_RUNS2}[tag][1]
         for rank, r in enumerate(ranks):
-            want = cfg.n_layers if rank % 2 else 0
+            want = cfg.n_layers if rank % m else 0
             assert r[tag]["q_base"] == {"fwd": want, "bwd": want}, (
                 tag, rank)
-        for a, b in zip(ranks[::2], ranks[1::2]):
-            assert np.array_equal(a[tag]["rows"], b[tag]["rows"])
+        for group in (ranks[i:i + m] for i in range(0, n, m)):
+            for r in group[1:]:
+                assert np.array_equal(group[0][tag]["rows"], r[tag]["rows"])
     for n, tag, share in ((4, "4", 0.3), (2, "1x2/none", 0.55),
-                          (4, "2x2", 0.3)):
+                          (4, "2x2", 0.3), (4, "1x4/dmodel", 0.3),
+                          (2, "1x2/dmodel", 0.55)):
         whole = sum(v.nbytes for v in worlds[n][0][tag]["params"].values())
         for r in worlds[n]:
             assert r[tag]["resident"] <= share * 3 * whole, (tag, r)
+
+
+@pytest.mark.parametrize("tag", list(DMODEL_PAIRS))
+def test_dmodel_step_matches_none_on_the_mesh(worlds, tag):
+    """The stream cut over ``d_model`` changes no value of the forward:
+    step 0's loss bit-identical to ``"none"``'s on the same mesh, on every
+    rank.  The backward gathers and cuts each block's cotangent where
+    ``"none"`` adds it whole, so autograd sums a stream's three
+    cotangents (the norm's two, the residual's) in another order: the
+    gradient norm and the first moments within 1e-6 relative (step 0's
+    warmup lr is 0, so the moments carry the gradient)."""
+    ranks, _ = _run(worlds, tag)
+    none = DMODEL_PAIRS[tag]
+    for r in ranks:
+        got, want = r[tag]["metrics"], r[none]["metrics"]
+        assert got["loss"] == want["loss"] and got["nll"] == want["nll"]
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=SAME_ORDER_TOL)
+    got, want = ranks[0][tag], ranks[0][none]
+    for path, x in got["params"].items():
+        assert np.array_equal(x, want["params"][path]), path
+    scale = max(float(np.abs(m).max()) for m in want["mu"].values())
+    _close_trees(got["mu"], want["mu"], tag, SAME_ORDER_TOL * scale)
+
+
+def test_dmodel_falls_back_to_none_where_the_axis_does_not_divide(worlds):
+    """d_model 70 on a model axis of 4: ``constrain.cols`` is None, and the
+    step is ``"none"``'s bit for bit on every rank (loss, gradient norm,
+    parameters and moments)."""
+    ranks = worlds[4]
+    for r in ranks:
+        assert r["1x4/d70/dmodel"]["metrics"] == \
+            r["1x4/d70/none"]["metrics"]
+    got, want = ranks[0]["1x4/d70/dmodel"], ranks[0]["1x4/d70/none"]
+    for key in ("params", "mu"):
+        for path, x in got[key].items():
+            assert np.array_equal(x, want[key][path]), (key, path)
+
+
+def test_constrainer_cuts_d_model_where_the_axis_divides():
+    """``make_constrainer``'s ``"dmodel"`` rule: the rank's columns where
+    the model axis divides ``d``, None where it does not, under another
+    rule or without a model axis; ``P(ba, None, "model")`` the stream's
+    spec.  Rows stay whole (``rows`` is None)."""
+    from repro_torch.runtime.sharding import (ShardingRules,
+                                              make_constrainer)
+    rules = {r: ShardingRules(activation_partitioning=r)
+             for r in ("seq", "none", "dmodel")}
+    x = torch.zeros(2, 16, 64)
+    for m in range(4):
+        mesh = MeshShape(("data", "model"), (1, 4), coords=(0, m))
+        c = make_constrainer(mesh, rules["dmodel"])
+        assert c.cols(64) == (16 * m, 16) and c.cols(70) is None
+        assert c.rows(16) is None
+        assert c.spec(x) == P("data", None, "model")
+        for other in ("seq", "none"):
+            assert make_constrainer(mesh, rules[other]).cols(64) is None
+    one = MeshShape(("data", "model"), (4, 1), coords=(1, 0))
+    assert make_constrainer(one, rules["dmodel"]).cols(64) is None
+
+
+@pytest.mark.parametrize("tag", list(ACCUM_RUNS4))
+def test_remat_unit_inputs_hold_the_rank_cut(worlds, tag):
+    """What remat saves a unit on each rank: ``"dmodel"`` the micro-batch's
+    rows with ``d_model / M`` columns, the sequence split ``T / M``
+    positions of the whole width; one a unit a micro-batch."""
+    d, m, rule, _, accum = ACCUM_RUNS4[tag]
+    cfg = R.smoke()
+    rows = R.BATCH // d // accum
+    want = ((rows, R.SEQ, cfg.d_model // m) if rule == "dmodel"
+            else (rows, R.SEQ // m, cfg.d_model))
+    for r in worlds[4]:
+        assert r[tag]["units"] == \
+            [want] * (cfg.n_layers // cfg.unit * accum), r[tag]["units"]
 
 
 def test_flash_backward_with_q_base_matches_reference_grad():

@@ -66,7 +66,8 @@ LAYER_MESHES = {"2": (2, 1), "1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
 # {tag: (data, model, activation_partitioning, remat, grad_accum)}
 REF_RUNS = {"2x2": (2, 2, "seq", False, 1), "1x4": (1, 4, "seq", False, 1),
             "4": (4, 1, "seq", False, 1),
-            "2x2/none": (2, 2, "none", False, 1)}
+            "2x2/none": (2, 2, "none", False, 1),
+            "1x4/dmodel": (1, 4, "dmodel", False, 1)}
 ACCUM_RUNS = {"1x2/accum2": (1, 2, "seq", True, 2)}
 LOSS_MESHES = {"2x2": (2, 2, "seq"), "4": (4, 1, "seq")}
 

@@ -71,9 +71,11 @@ MOMENT_TOL = 2e-4           # relative to the reference moment's largest
 # {tag: (data, model, activation_partitioning, remat, grad_accum)}
 REF_RUNS4 = {"2x2": (2, 2, "seq", False, 1), "1x4": (1, 4, "seq", False, 1),
              "4": (4, 1, "seq", False, 1),
-             "2x2/none": (2, 2, "none", False, 1)}
+             "2x2/none": (2, 2, "none", False, 1),
+             "1x4/dmodel": (1, 4, "dmodel", False, 1)}
 ACCUM_RUNS4 = {"2x2/accum2": (2, 2, "seq", True, 2)}
-REF_RUNS2 = {"1x2/none": (1, 2, "none", False, 1)}
+REF_RUNS2 = {"1x2/none": (1, 2, "none", False, 1),
+             "1x2/dmodel": (1, 2, "dmodel", False, 1)}
 # {arch: (the mesh a step is saved from, the mesh it is restored onto,
 # the leaf the restore mesh splits over model, the dim it splits)}
 CKPT = {"recurrentgemma-2b": ((2, 1), (1, 2), ("rglru", "conv_w"), -1),

@@ -114,6 +114,7 @@ def world_main(rank, world, dev, spec):
                             "whisper-base", spec["train_seq"],
                             frames=spec["train_frames"])
         if rank:
-            got = {k: got[k] for k in ("metrics", "q_base", "flash")}
+            got = {k: got[k] for k in ("metrics", "q_base", "flash",
+                                       "units")}
         out["train"][tag] = got
     return out

@@ -32,8 +32,10 @@ MOON = "moonshot-v1-16b-a3b"
 CPU = torch.device("cpu")
 
 
-def smoke(arch: str = ARCH):
-    return smoke_variant(get(arch))
+def smoke(arch: str = ARCH, **over):
+    """``arch``'s smoke stack, with ``over`` replacing its fields."""
+    import dataclasses
+    return dataclasses.replace(smoke_variant(get(arch)), **over)
 
 
 def state_specs(specs):
@@ -48,16 +50,18 @@ def gathered(tree, specs, mesh) -> dict:
 
 
 def train_step(whole, mesh, rule: str, remat: bool, accum: int,
-               arch: str = ARCH, seq: int = SEQ, frames=None) -> dict:
+               arch: str = ARCH, seq: int = SEQ, frames=None,
+               over=None) -> dict:
     """One step of the sharded train step on ``mesh`` from the whole tree
     ``whole`` (an encoder-decoder's batch with the rank's rows of
-    ``frames``, the global batch's numpy array) -> metrics, the updated
-    parameters and first moments
-    gathered whole, the calls of the flash kernels' plain versions on this
-    rank (``q_base``: those with ``q_base != 0``; ``flash``: all) and of
-    ``local_attention`` (``local``: {"q_base": with a ``q_base``, "whole":
-    without}), and the rank's resident bytes."""
-    cfg = smoke(arch)
+    ``frames``, the global batch's numpy array; ``over``: fields of the
+    smoke stack replaced) -> metrics, the updated parameters and first
+    moments gathered whole, the calls of the flash kernels' plain versions
+    on this rank (``q_base``: those with ``q_base != 0``; ``flash``: all)
+    and of ``local_attention`` (``local``: {"q_base": with a ``q_base``,
+    "whole": without}), the shape of each remat unit's saved input
+    (``units``), and the rank's resident bytes."""
+    cfg = smoke(arch, **(over or {}))
     rules = SH.ShardingRules(activation_partitioning=rule)
     specs = S.train_pspecs(cfg, mesh, rules)
     params = SH.shard_tree(whole, SH.named(mesh, specs))
@@ -70,7 +74,7 @@ def train_step(whole, mesh, rule: str, remat: bool, accum: int,
         batch["frames"] = torch.from_numpy(frames[lo:lo + per])
     step = S.make_train_step(cfg, AdamWConfig(lr=LR), mesh=mesh,
                              rules=rules, remat=remat, grad_accum=accum)
-    q_base, calls, local, undo = _count_attention_calls()
+    q_base, calls, local, units, undo = _count_attention_calls()
     try:
         p, o, m = step(params, opt, batch, 0)
     finally:
@@ -81,21 +85,28 @@ def train_step(whole, mesh, rule: str, remat: bool, accum: int,
     return dict(metrics={k: float(v) for k, v in m.items()},
                 params=gathered(p, specs, mesh),
                 mu=gathered(o["mu"], specs, mesh), q_base=q_base,
-                flash=calls, local=local, resident=resident,
+                flash=calls, local=local, units=units, resident=resident,
                 rows=batch["tokens"].numpy())
 
 
 def _count_attention_calls():
     """Count this rank's plain flash forward / backward calls, with ``q_base
     != 0`` and in all (the kernels' own counters count card launches), and
-    its ``local_attention`` calls with and without a ``q_base`` -> (the
-    ``q_base`` counts, the totals, the local counts, a function that puts
-    the originals back)."""
+    its ``local_attention`` calls with and without a ``q_base``, and record
+    the shape of each remat unit's input (what ``checkpoint`` saves) ->
+    (the ``q_base`` counts, the totals, the local counts, the unit input
+    shapes, a function that puts the originals back)."""
     from repro_torch.models import model as M
     counts = {"fwd": 0, "bwd": 0}
     calls = {"fwd": 0, "bwd": 0}
     local = {"q_base": 0, "whole": 0}
+    units = []
     fwd, bwd, loc = flash_fwd.plain_stats, flash_bwd.plain, M.local_attention
+    ckpt = M.checkpoint
+
+    def ckpt_recorded(fn, x, *a, **kw):
+        units.append(tuple(x.shape))
+        return ckpt(fn, x, *a, **kw)
 
     def fwd_counted(*a, q_base=0, **kw):
         counts["fwd"] += bool(q_base)
@@ -113,29 +124,38 @@ def _count_attention_calls():
 
     def undo():
         flash_fwd.plain_stats, flash_bwd.plain = fwd, bwd
-        M.local_attention = loc
+        M.local_attention, M.checkpoint = loc, ckpt
 
     flash_fwd.plain_stats, flash_bwd.plain = fwd_counted, bwd_counted
-    M.local_attention = loc_counted
-    return counts, calls, local, undo
+    M.local_attention, M.checkpoint = loc_counted, ckpt_recorded
+    return counts, calls, local, units, undo
 
 
 def world_main(rank, world, dev, spec):
     """Every run of ``spec["runs"]`` ({tag: (data, model, rule, remat,
     grad_accum)}) of ``spec["arch"]`` (phi3's smoke stack by default) from
     the reference's converted weights; rank 0 returns the gathered trees,
-    every rank its metrics and counts.  With ``spec["ckpt"]`` ({arch:
-    (directory, save mesh, restore mesh)}): the checkpoint drill across
-    meshes, an arch's weights from ``spec["ckpt_params"]``."""
+    every rank its metrics and counts.  ``spec["widths"]`` ({tag: (data,
+    model, rule, remat, grad_accum, over)}): runs of the smoke stack with
+    the fields ``over`` replaced, from the port's own ``init_params`` (seed
+    0).  With ``spec["ckpt"]`` ({arch: (directory, save mesh, restore
+    mesh)}): the checkpoint drill across meshes, an arch's weights from
+    ``spec["ckpt_params"]``."""
+    from repro_torch.models import model as M
     arch = spec.get("arch", ARCH)
     whole = convert._convert(spec["params"], CPU)
+    runs = {tag: (whole, run + (None,))
+            for tag, run in spec["runs"].items()}
+    for tag, run in spec.get("widths", {}).items():
+        runs[tag] = (M.init_params(smoke(arch, **run[-1]), 0, device=CPU,
+                                   dtype=torch.float32), run)
     out = {}
-    for tag, (d, m, rule, remat, accum) in spec["runs"].items():
+    for tag, (tree, (d, m, rule, remat, accum, over)) in runs.items():
         mesh = MESH.make_mesh(d, m)
-        got = train_step(whole, mesh, rule, remat, accum, arch)
+        got = train_step(tree, mesh, rule, remat, accum, arch, over=over)
         if rank:
             got = {k: got[k] for k in ("metrics", "q_base", "resident",
-                                       "rows")}
+                                       "rows", "units")}
         out[tag] = got
     out["ckpt"] = {}
     for name, (directory, save, load) in spec.get("ckpt", {}).items():
